@@ -1,0 +1,73 @@
+"""State carried between the JAX package and the port, as numpy arrays.
+
+The repo has no model weights: what crosses is PKO's constant tables and
+the map / odometry state. The map keeps the JAX layout field for field
+(bucket rows of [slot x8 | hi x8 | lo x8 | pad], key halves as int32 bit
+patterns), so conversion is a copy; the port's tables only add one
+trailing sink row each (ops/voxel_map.py), which these functions add and
+strip. Callers pass {name: np.asarray(value)} of the JAX objects, so this
+module never touches JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.fast_pipeline import OdomCarry
+from .ops import pko
+from .ops.voxel_map import VoxelMapState
+
+__all__ = ["pko_constants_from_numpy", "map_state_from_numpy",
+           "map_state_to_numpy", "carry_from_numpy", "MAP_FIELDS"]
+
+MAP_FIELDS = VoxelMapState._fields
+_TABLES = ("l0_data", "l1_index", "l1_meta", "l1_last", "l1_surfel", "l1_free")
+
+
+def pko_constants_from_numpy(arrays: dict, kernel_type: str = "huber",
+                             gmm_components: int = 3, gmm_sample_size: int = 100,
+                             device="cuda") -> pko.PKOConstants:
+    """alphas, Z, r_grid, Q of a JAX PKOConstants."""
+    if (gmm_sample_size, gmm_components) != (pko.GMM_SAMPLES, pko.GMM_COMPONENTS):
+        raise ValueError("the port carries the draws for 100 samples and 3 "
+                         "components only")
+    return pko.from_arrays(arrays, kernel_type, device)
+
+
+def _sink_row(name: str, table: np.ndarray) -> np.ndarray:
+    if name == "l1_index" or name == "l1_meta":
+        return np.full((1,) + table.shape[1:], -1, table.dtype)
+    if name == "l1_free":
+        return np.asarray([table.shape[0]], table.dtype)
+    return np.zeros((1,) + table.shape[1:], table.dtype)
+
+
+def map_state_from_numpy(arrays: dict, device="cuda") -> VoxelMapState:
+    """The ten VoxelMapState fields of a JAX map -> the port's state."""
+    out = {}
+    for name in MAP_FIELDS:
+        a = np.asarray(arrays[name])
+        if name in _TABLES:
+            a = np.concatenate([a, _sink_row(name, a)])
+        out[name] = torch.tensor(a, device=device)
+    return VoxelMapState(**out)
+
+
+def map_state_to_numpy(state: VoxelMapState) -> dict:
+    """The port's state -> the ten fields in the JAX shapes."""
+    out = {}
+    for name in MAP_FIELDS:
+        a = getattr(state, name).detach().cpu().numpy()
+        out[name] = a[:-1] if name in _TABLES else a
+    return out
+
+
+def carry_from_numpy(arrays: dict, device="cuda") -> OdomCarry:
+    """An OdomCarry's fields; `map_state` is itself a dict of map fields."""
+    t = lambda k: torch.tensor(np.asarray(arrays[k]), device=device)
+    return OdomCarry(
+        map_state=map_state_from_numpy(arrays["map_state"], device=device),
+        T_prev=t("T_prev").to(torch.float32), velocity=t("velocity").to(torch.float32),
+        last_kf_pose=t("last_kf_pose").to(torch.float32),
+        initialized=t("initialized").to(torch.bool),
+        kf_count=t("kf_count").to(torch.int32))

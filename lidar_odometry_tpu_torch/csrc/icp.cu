@@ -1,0 +1,267 @@
+// K2 icp_iteration: one Gauss-Newton iteration of surfel-mode ICP, as two
+// launches (PKO's alpha, kernel K3, sits between them: it needs every
+// normalised residual before any weight exists).
+//
+// Replaces: the JAX package's ops/icp.py:196 icp_optimize's loop body —
+// _surfel_correspondences (:121, with ops/voxel_map.py:815 lookup_surfels,
+// _bucket_find :169 and _hash_bucket :119), _robust_weights (:71) and
+// _gn_step (:91): the normal equations, the 6x6 solve and the retract.
+//
+// Bounds on the H100 at N = 14336 features, c1 = 65536:
+//  * icp_correspond touches N x (12 + 1 + 128 + 32) B of input (points,
+//    mask, one 128-B bucket row, one 32-B surfel row) and writes N x 17 B:
+//    ~2.7 MB, ~0.8 us at 3.35 TB/s. The two dependent random reads per point
+//    make it latency-bound at this size; in practice launch-bound. Design:
+//    one thread per point, T from the device (no host read), the bucket
+//    probe and the surfel read of common.cuh, no shared memory; 56 blocks
+//    of 256 threads keep every probe in flight at once.
+//  * icp_normal_eq reads N x 33 B (~0.5 MB, ~0.14 us) and does ~90 flops
+//    per point (~1.3 MFLOP, ~0.02 us at 67 TFLOP/s fp32): launch-bound.
+//    Design: a grid-stride loop accumulates the 27 sums per thread, warp
+//    shuffles and shared memory reduce them per block, and the last block
+//    to finish (a threadfence + a ticket counter the wrapper zeroes) adds
+//    the block partials in block order, so the result is deterministic;
+//    its thread 0 then solves
+//    the 6x6 system by Gaussian elimination with partial pivoting, retracts
+//    T <- T * (Exp(dw), dt) and updates done / failed / n_corr. The whole
+//    iteration tail stays in one launch with no host read.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NSUM = 27;   // 21 upper-triangle entries of H, then g
+
+__device__ __forceinline__ void load_T(const float* T, float R[3][3], float t[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) R[i][j] = T[4 * i + j];
+    t[i] = T[4 * i + 3];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, int n,
+                  const float* __restrict__ T, const int* __restrict__ flags,
+                  const int* __restrict__ index, int n_buckets, const float* __restrict__ surfel,
+                  int c1, float inv, float max_dist, float* __restrict__ nrm,
+                  float* __restrict__ resid, bool* __restrict__ valid) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || flags[0]) return;  // a done solve reads nothing more
+  float R[3][3], t[3];
+  load_T(T, R, t);
+  const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
+  float w[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) w[r] = R[r][0] * px + R[r][1] * py + R[r][2] * pz + t[r];
+  uint32_t hi, lo;
+  lo::pack_key((int)floorf(w[0] * inv), (int)floorf(w[1] * inv), (int)floorf(w[2] * inv), hi, lo);
+  const int slot = lo::probe(index, (uint32_t)(n_buckets - 1), hi, lo);
+  const float* row = surfel + 8 * (size_t)min(max(slot, 0), c1 - 1);
+  const float4 a = *reinterpret_cast<const float4*>(row);
+  const float4 b = *reinterpret_cast<const float4*>(row + 4);
+  // row = [n(3) | centroid(3) | planarity | has]
+  const float r = a.x * (w[0] - a.w) + a.y * (w[1] - b.x) + a.z * (w[2] - b.y);
+  nrm[3 * i] = a.x;
+  nrm[3 * i + 1] = a.y;
+  nrm[3 * i + 2] = a.z;
+  resid[i] = r;
+  valid[i] = slot >= 0 && b.w > 0.5f && mask[i] && fabsf(r) <= max_dist;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ bool finite3(const float* x) {
+  return isfinite(x[0]) && isfinite(x[1]) && isfinite(x[2]);
+}
+
+// Solve (H + 1e-8 I) x = -g, Gaussian elimination with partial pivoting.
+__device__ void solve6(const float* hg, float x[6]) {
+  float A[6][7];
+  int k = 0;
+  for (int a = 0; a < 6; ++a)
+    for (int b = a; b < 6; ++b) {
+      A[a][b] = hg[k];
+      A[b][a] = hg[k];
+      ++k;
+    }
+  for (int a = 0; a < 6; ++a) {
+    A[a][a] += 1e-8f;
+    A[a][6] = -hg[21 + a];
+  }
+  for (int c = 0; c < 6; ++c) {
+    int piv = c;
+    float best = fabsf(A[c][c]);
+    for (int r = c + 1; r < 6; ++r)
+      if (fabsf(A[r][c]) > best) { best = fabsf(A[r][c]); piv = r; }
+    if (piv != c)
+      for (int j = 0; j < 7; ++j) { const float tmp = A[c][j]; A[c][j] = A[piv][j]; A[piv][j] = tmp; }
+    for (int r = c + 1; r < 6; ++r) {
+      const float f = A[r][c] / A[c][c];
+      for (int j = c; j < 7; ++j) A[r][j] -= f * A[c][j];
+    }
+  }
+  for (int r = 5; r >= 0; --r) {
+    float s = A[r][6];
+    for (int j = r + 1; j < 6; ++j) s -= A[r][j] * x[j];
+    x[r] = s / A[r][r];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
+                 const float* __restrict__ resid, const bool* __restrict__ valid, int n,
+                 const float* __restrict__ T, const float* __restrict__ scale,
+                 const int* __restrict__ flags, const int* __restrict__ aux,
+                 const float* __restrict__ alphas, int use_pko, float fixed_delta, int robust,
+                 int cauchy, int min_corr, float tol_t, float tol_r,
+                 float* __restrict__ partials, unsigned int* __restrict__ counter,
+                 float* __restrict__ T_out, int* __restrict__ flags_out, float* __restrict__ hg) {
+  __shared__ float red[NSUM][THREADS / 32];
+  __shared__ float sums[NSUM];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  if (flags[0]) {  // done: pass the state through
+    if (blockIdx.x == 0 && tid < 16) T_out[tid] = T[tid];
+    if (blockIdx.x == 0 && tid < 3) flags_out[tid] = flags[tid];
+    return;
+  }
+  float R[3][3], t[3];
+  load_T(T, R, t);
+  const float delta = use_pko ? alphas[aux[1]] : fixed_delta;
+  const float denom = fmaxf(scale[0], 1e-6f);
+
+  float acc[NSUM];
+#pragma unroll
+  for (int k = 0; k < NSUM; ++k) acc[k] = 0.f;
+  for (int i = blockIdx.x * blockDim.x + tid; i < n; i += gridDim.x * blockDim.x) {
+    if (!valid[i]) continue;
+    const float r = resid[i];
+    const float rn = fabsf(r) / denom;
+    float w = 1.0f;
+    if (robust) {
+      if (cauchy) {
+        const float q = rn / delta;
+        w = 1.0f / (1.0f + q * q);
+      } else {
+        w = rn > delta ? delta / fmaxf(rn, 1e-30f) : 1.0f;
+      }
+    }
+    const float n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
+    const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
+    float J[6];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) J[j] = n0 * R[0][j] + n1 * R[1][j] + n2 * R[2][j];
+    J[3] = p1 * J[2] - p2 * J[1];
+    J[4] = p2 * J[0] - p0 * J[2];
+    J[5] = p0 * J[1] - p1 * J[0];
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int b = a; b < 6; ++b) acc[k++] += J[a] * (J[b] * w);
+    const float wr = w * r;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) acc[21 + a] += J[a] * wr;
+  }
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int k = 0; k < NSUM; ++k) {
+    const float v = warp_sum(acc[k]);
+    if (lane == 0) red[k][warp] = v;
+  }
+  __syncthreads();
+  if (tid < NSUM) {
+    float s = 0.f;
+    for (int wi = 0; wi < THREADS / 32; ++wi) s += red[tid][wi];
+    partials[blockIdx.x * NSUM + tid] = s;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+
+  // ---- last block: sum the partials in block order, solve, retract ----
+  if (tid < NSUM) {
+    float s = 0.f;
+    for (int b = 0; b < gridDim.x; ++b) s += __ldcg(partials + b * NSUM + tid);
+    sums[tid] = s;
+    hg[tid] = s;
+  }
+  __syncthreads();
+  if (tid != 0) return;
+  float x[6];
+  solve6(sums, x);
+  const bool ok = finite3(x) && finite3(x + 3);
+  const float dt[3] = {ok ? x[0] : 0.f, ok ? x[1] : 0.f, ok ? x[2] : 0.f};
+  const float dw[3] = {ok ? x[3] : 0.f, ok ? x[4] : 0.f, ok ? x[5] : 0.f};
+  // Exp(dw), Rodrigues with the small-angle branch
+  const float theta = sqrtf(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2]);
+  float E[3][3];
+  if (theta < 1e-6f) {
+    const float H[3][3] = {{1.f, -dw[2], dw[1]}, {dw[2], 1.f, -dw[0]}, {-dw[1], dw[0], 1.f}};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) E[i][j] = H[i][j];
+  } else {
+    const float ax = dw[0] / theta, ay = dw[1] / theta, az = dw[2] / theta;
+    const float Kh[3][3] = {{0.f, -az, ay}, {az, 0.f, -ax}, {-ay, ax, 0.f}};
+    const float s = sinf(theta), c1m = 1.0f - cosf(theta);
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        float kk = 0.f;
+        for (int m = 0; m < 3; ++m) kk += Kh[i][m] * Kh[m][j];
+        E[i][j] = (i == j ? 1.f : 0.f) + s * Kh[i][j] + c1m * kk;
+      }
+  }
+  const float D[4][4] = {{E[0][0], E[0][1], E[0][2], dt[0]},
+                         {E[1][0], E[1][1], E[1][2], dt[1]},
+                         {E[2][0], E[2][1], E[2][2], dt[2]},
+                         {0.f, 0.f, 0.f, 1.f}};
+  const int count = aux[0];
+  const bool insufficient = count < min_corr;
+  const bool step = !insufficient;   // not done here
+  const float dt_n = sqrtf(dt[0] * dt[0] + dt[1] * dt[1] + dt[2] * dt[2]);
+  const bool conv = dt_n < tol_t && theta < tol_r;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      float v = 0.f;
+      for (int m = 0; m < 4; ++m) v += T[4 * i + m] * D[m][j];
+      T_out[4 * i + j] = step ? v : T[4 * i + j];
+    }
+  flags_out[0] = insufficient || (step && conv);
+  flags_out[1] = flags[1] || insufficient;
+  flags_out[2] = step ? count : flags[2];
+}
+
+inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+}  // namespace
+
+LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, const float* T,
+                                const int* flags, const int* index, int n_buckets,
+                                const float* surfel, int c1, float inv, float max_dist,
+                                float* nrm, float* resid, bool* valid, void* stream) {
+  correspond_kernel<<<max(1, blocks(n)), THREADS, 0, (cudaStream_t)stream>>>(
+      pts, mask, n, T, flags, index, n_buckets, surfel, c1, inv, max_dist, nrm, resid, valid);
+  return (int)cudaGetLastError();
+}
+
+LO_EXPORT int lo_icp_normal_eq(const float* pts, const float* nrm, const float* resid,
+                               const bool* valid, int n, const float* T, const float* scale,
+                               const int* flags, const int* aux, const float* alphas,
+                               int use_pko, float fixed_delta, int robust, int cauchy,
+                               int min_corr, float tol_t, float tol_r, float* partials,
+                               unsigned int* counter, float* T_out, int* flags_out, float* hg,
+                               void* stream) {
+  const int grid = max(1, min(128, blocks(n)));
+  normal_eq_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      pts, nrm, resid, valid, n, T, scale, flags, aux, alphas, use_pko, fixed_delta, robust,
+      cauchy, min_corr, tol_t, tol_r, partials, counter, T_out, flags_out, hg);
+  return (int)cudaGetLastError();
+}

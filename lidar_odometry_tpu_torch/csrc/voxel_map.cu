@@ -1,0 +1,174 @@
+// K4 map update: the compute-bearing bodies of the keyframe map update.
+//
+// Replaces: the JAX package's ops/voxel_map.py:349 update_map — its
+// radius-eviction scan (evict_stage, :407-415), its per-voxel accumulate
+// (segment_sum + the unique row scatter-add, :498-548) and its surfel
+// recompute (_block_stats :330 + utils/eigh3.py eigh3 + the planarity
+// verdict, :609-621). The set bookkeeping around them (sorts, cumsums,
+// claims, unique index writes) stays in torch, as the JAX side used the
+// same kind of XLA primitive for it.
+//
+// Bounds on the H100 (c1 = 65536 parents, p = 14336 points):
+//  * map_evict_scan reads all of l0_data, 65536 x 27 x 16 B = 28.3 MB, and
+//    writes 64 KB: ~8.5 us at 3.35 TB/s; ~20 flops per row is far below
+//    the flop bound. Bytes bound it. Design: one thread per parent walks
+//    its 27 contiguous 16-byte rows (float4 loads; neighbouring threads'
+//    rows share cache lines through L1), does the divide-free test
+//    |sum - cnt*s|^2 > d^2 * cnt^2, and any-reduces in a register, so the
+//    per-row verdicts never reach memory. A device flag gates the stage
+//    without a host read.
+//  * map_scatter_add moves p x (12 + 8 + 2 + 8) B in and touches at most p
+//    rows of 16 B: ~0.6 MB, ~0.2 us, so launch latency bounds it. Design:
+//    one thread per run leader walks its run of equal keys in the sorted
+//    order, sums [count | xyz] in the order the JAX segment_sum does, and
+//    adds the total to its unique target row: no atomics, no second pass.
+//  * map_surfel_recompute reads 27 x 16 B per recomputed parent (at most
+//    p of them, ~6 MB at the bulk tier) and does ~300 flops each plus one
+//    eigh3: bytes bound it, random 432 B blocks at that. Design: one thread
+//    per parent reads its contiguous block twice (mean, then covariance;
+//    the second read hits L1), runs the closed-form eigh3 of common.cuh
+//    in registers and writes the 8-float surfel row, the verdict and a
+//    27-bit live-child mask that the deletion step uses.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float d2cnt(float4 v, const float* s) {
+  // |sum - cnt * s|^2, rounded as the JAX program rounds it
+  const float rx = __fsub_rn(v.y, __fmul_rn(v.x, s[0]));
+  const float ry = __fsub_rn(v.z, __fmul_rn(v.x, s[1]));
+  const float rz = __fsub_rn(v.w, __fmul_rn(v.x, s[2]));
+  return __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), __fmul_rn(rz, rz));
+}
+
+__global__ void __launch_bounds__(THREADS)
+evict_scan_kernel(const float4* __restrict__ l0, int c1, const float* __restrict__ sensors,
+                  int n_sensors, float maxd2, const bool* __restrict__ enabled,
+                  bool* __restrict__ cand) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= c1) return;
+  if (!*enabled) {
+    cand[p] = false;
+    return;
+  }
+  bool any = false;
+  const float4* rows = l0 + (size_t)p * lo::NCH;
+  for (int k = 0; k < lo::NCH; ++k) {
+    const float4 v = rows[k];
+    if (!(v.x > 0.f)) continue;
+    float d2 = d2cnt(v, sensors);
+    for (int s = 1; s < n_sensors; ++s) d2 = fminf(d2, d2cnt(v, sensors + 3 * s));
+    any |= d2 > __fmul_rn(__fmul_rn(maxd2, v.x), v.x);
+  }
+  cand[p] = any;
+}
+
+__global__ void __launch_bounds__(THREADS)
+scatter_add_kernel(const float* __restrict__ pts, const long long* __restrict__ s_idx,
+                   const bool* __restrict__ firstk, const bool* __restrict__ valid_s,
+                   const long long* __restrict__ tgt, int p, long long nrows,
+                   float4* __restrict__ l0) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p || !firstk[i]) return;
+  const long long t = tgt[i];
+  if (t < 0 || t >= nrows) return;
+  float c = 0.f, x = 0.f, y = 0.f, z = 0.f;
+  int j = i;
+  do {
+    if (valid_s[j]) {
+      const float* q = pts + 3 * s_idx[j];
+      c = __fadd_rn(c, 1.0f);
+      x = __fadd_rn(x, q[0]);
+      y = __fadd_rn(y, q[1]);
+      z = __fadd_rn(z, q[2]);
+    }
+    ++j;
+  } while (j < p && !firstk[j]);
+  float4 r = l0[t];
+  r.x = __fadd_rn(r.x, c);
+  r.y = __fadd_rn(r.y, x);
+  r.z = __fadd_rn(r.z, y);
+  r.w = __fadd_rn(r.w, z);
+  l0[t] = r;
+}
+
+__global__ void __launch_bounds__(THREADS)
+surfel_recompute_kernel(const float4* __restrict__ l0, const long long* __restrict__ r_slot,
+                        int r_n, int c1, float thr, float* __restrict__ srow,
+                        bool* __restrict__ non_planar, int* __restrict__ kidmask) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r_n) return;
+  const long long s = r_slot[i];
+  const bool ok = s >= 0;
+  const float4* rows = l0 + (size_t)min(max(s, 0LL), (long long)(c1 - 1)) * lo::NCH;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // count, mean of the live children's centroids
+  int cnt = 0, mask = 0;
+  float mx = 0.f, my = 0.f, mz = 0.f;
+  for (int k = 0; k < lo::NCH; ++k) {
+    const float4 v = ok ? rows[k] : zero;
+    if (v.x > 0.f) {
+      const float d = fmaxf(v.x, 1.0f);
+      mx += v.y / d; my += v.z / d; mz += v.w / d;
+      ++cnt;
+      mask |= 1 << k;
+    }
+  }
+  const float denom = (float)max(cnt, 1);
+  mx /= denom; my /= denom; mz /= denom;
+  float A[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  for (int k = 0; k < lo::NCH; ++k) {
+    const float4 v = ok ? rows[k] : zero;
+    if (!(v.x > 0.f)) continue;
+    const float d = fmaxf(v.x, 1.0f);
+    const float e[3] = {v.y / d - mx, v.z / d - my, v.w / d - mz};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) A[a][b] += e[a] * e[b];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) A[a][b] /= denom;
+  float lam[3], nrm[3];
+  lo::eigvals3(A, lam);
+  lo::eigvec_for(A, lam[0], nrm);
+  const float plan = lam[0] / (lam[2] + 1e-6f);
+  float* o = srow + 8 * (size_t)i;
+  o[0] = nrm[0]; o[1] = nrm[1]; o[2] = nrm[2];
+  o[3] = mx; o[4] = my; o[5] = mz;
+  o[6] = plan;
+  o[7] = 1.0f;
+  non_planar[i] = ok && plan > thr;
+  kidmask[i] = mask;
+}
+
+inline int blocks(long long n) { return (int)((n + THREADS - 1) / THREADS); }
+
+}  // namespace
+
+LO_EXPORT int lo_map_evict_scan(const float* l0, int c1, const float* sensors, int n_sensors,
+                                float maxd2, const bool* enabled, bool* cand, void* stream) {
+  evict_scan_kernel<<<max(1, blocks(c1)), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)l0, c1, sensors, n_sensors, maxd2, enabled, cand);
+  return (int)cudaGetLastError();
+}
+
+LO_EXPORT int lo_map_scatter_add(const float* pts, const long long* s_idx, const bool* firstk,
+                                 const bool* valid_s, const long long* tgt, int p,
+                                 long long nrows, float* l0, void* stream) {
+  scatter_add_kernel<<<max(1, blocks(p)), THREADS, 0, (cudaStream_t)stream>>>(
+      pts, s_idx, firstk, valid_s, tgt, p, nrows, (float4*)l0);
+  return (int)cudaGetLastError();
+}
+
+LO_EXPORT int lo_map_surfel_recompute(const float* l0, const long long* r_slot, int r_n, int c1,
+                                      float thr, float* srow, bool* non_planar, int* kidmask,
+                                      void* stream) {
+  surfel_recompute_kernel<<<max(1, blocks(r_n)), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)l0, r_slot, r_n, c1, thr, srow, non_planar, kidmask);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,424 @@
+"""Synthetic LiDAR world + scan generator.
+
+The reference has no test data in-tree; this module provides a structured
+planar world (ground + building facades — the geometry the surfel map is
+designed for) and simulated scans along a trajectory, used by the
+integration tests and by bench.py when no KITTI data is available.
+Scans are sensor-frame point sets sampled from world surfaces within
+range, with configurable noise — enough to exercise voxel filtering,
+surfel extraction, ICP convergence, loop closure, and PGO end-to-end.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+
+@dataclass
+class Rect:
+    origin: np.ndarray  # (3,)
+    u: np.ndarray       # (3,) edge vector
+    v: np.ndarray       # (3,) edge vector
+
+    @property
+    def area(self) -> float:
+        return float(np.linalg.norm(np.cross(self.u, self.v)))
+
+
+def make_world(seed: int = 0, extent: float = 120.0, n_buildings: int = 24) -> List[Rect]:
+    """Ground plane + random axis-aligned building walls in [-extent, extent]^2.
+
+    The ground is tiled (20 m tiles) so that distance-weighted scan
+    sampling balances it fairly against nearby walls — one giant rect
+    would swallow the sampling budget and leave x/y/yaw unobservable.
+    """
+    rng = np.random.default_rng(seed)
+    rects: List[Rect] = []
+    tile = 20.0
+    n_tiles = max(int(np.ceil(2 * extent / tile)), 1)
+    for i in range(n_tiles):
+        for j in range(n_tiles):
+            rects.append(Rect(
+                np.array([-extent + i * tile, -extent + j * tile, 0.0]),
+                np.array([tile, 0.0, 0.0]),
+                np.array([0.0, tile, 0.0])))
+    for _ in range(n_buildings):
+        cx, cy = rng.uniform(-extent * 0.9, extent * 0.9, 2)
+        w, d, h = rng.uniform(5, 15), rng.uniform(5, 15), rng.uniform(4, 10)
+        # keep a clear corridor along the x axis for the trajectory
+        if abs(cy) < 6.0:
+            cy = np.sign(cy or 1.0) * (6.0 + abs(cy))
+        x0, y0 = cx - w / 2, cy - d / 2
+        rects += [
+            Rect(np.array([x0, y0, 0.0]), np.array([w, 0, 0]), np.array([0, 0, h])),
+            Rect(np.array([x0, y0 + d, 0.0]), np.array([w, 0, 0]), np.array([0, 0, h])),
+            Rect(np.array([x0, y0, 0.0]), np.array([0, d, 0]), np.array([0, 0, h])),
+            Rect(np.array([x0 + w, y0, 0.0]), np.array([0, d, 0]), np.array([0, 0, h])),
+        ]
+    return rects
+
+
+def straight_trajectory(n_frames: int, step: float = 0.5, height: float = 1.8) -> np.ndarray:
+    """(F, 4, 4) poses moving along +x."""
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    poses[:, 0, 3] = np.arange(n_frames) * step
+    poses[:, 2, 3] = height
+    return poses
+
+
+def loop_trajectory(n_frames: int, radius: float = 40.0, height: float = 1.8,
+                    revolutions: float = 1.05) -> np.ndarray:
+    """(F, 4, 4) circular trajectory that closes a loop (for loop-closure
+    and PGO tests)."""
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    theta = np.linspace(0, 2 * np.pi * revolutions, n_frames)
+    for i, th in enumerate(theta):
+        c, s = np.cos(th), np.sin(th)
+        # heading tangent to the circle
+        poses[i, :3, :3] = np.array([[-s, -c, 0], [c, -s, 0], [0, 0, 1]], np.float32)
+        poses[i, 0, 3] = radius * c
+        poses[i, 1, 3] = radius * s
+        poses[i, 2, 3] = height
+    return poses
+
+
+def circuit_trajectory(n_frames: int, length: float = 120.0,
+                       radius: float = 25.0, step: float = 0.65,
+                       height: float = 1.8) -> np.ndarray:
+    """(F, 4, 4) stadium-circuit poses (two straights + two semicircular
+    ends), driven for as many laps as n_frames*step covers. KITTI-07-shaped
+    workload: rotation-rich corners and full-trajectory revisits on every
+    lap after the first (the hard accuracy benchmark of the round-1
+    verdict). Heading is tangent to the path."""
+    half = length / 2.0
+    per = 2.0 * length + 2.0 * np.pi * radius
+    poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    for i in range(n_frames):
+        s = (i * step) % per
+        if s < length:                      # bottom straight, heading +x
+            x, y, phi = -half + s, -radius, 0.0
+        elif s < length + np.pi * radius:   # right semicircle
+            a = (s - length) / radius
+            x = half + radius * np.sin(a)
+            y = -radius * np.cos(a)
+            phi = a
+        elif s < 2 * length + np.pi * radius:  # top straight, heading -x
+            x, y, phi = half - (s - length - np.pi * radius), radius, np.pi
+        else:                               # left semicircle
+            a = (s - 2 * length - np.pi * radius) / radius
+            x = -half - radius * np.sin(a)
+            y = radius * np.cos(a)
+            phi = np.pi + a
+        c, sn = np.cos(phi), np.sin(phi)
+        poses[i, :3, :3] = np.array([[c, -sn, 0], [sn, c, 0], [0, 0, 1]],
+                                    np.float32)
+        poses[i, 0, 3] = x
+        poses[i, 1, 3] = y
+        poses[i, 2, 3] = height
+    return poses
+
+
+@dataclass
+class MovingBox:
+    """A dynamic object: an axis-aligned box sliding along a velocity
+    vector (cars/pedestrians for the hardened accuracy workloads — the
+    reference is evaluated on real KITTI which is full of them)."""
+    center: np.ndarray    # (3,) at t=0 (z = half height)
+    size: np.ndarray      # (3,) full extents
+    velocity: np.ndarray  # (3,) m/frame
+
+
+def make_dynamic_objects(seed: int, n: int, extent: float,
+                         speed: float = 0.3,
+                         near_path: np.ndarray = None,
+                         path_offset: float = 8.0) -> List[MovingBox]:
+    """With `near_path` ((K, 2) xy centerline), boxes spawn within
+    `path_offset` of the trajectory — where real traffic is, and where
+    they actually occupy scan returns (uniform placement over a 100 m
+    scene leaves them a negligible point fraction)."""
+    rng = np.random.default_rng(seed + 77)
+    objs = []
+    for _ in range(n):
+        size = np.array([rng.uniform(1.5, 4.5), rng.uniform(1.5, 2.2),
+                         rng.uniform(1.4, 2.0)])
+        if near_path is not None:
+            p = near_path[rng.integers(len(near_path))]
+            # 4 m standoff keeps a clear lane; beyond ~path_offset the
+            # box stops occupying a meaningful solid angle
+            radius = rng.uniform(4.0, max(path_offset, 6.0))
+            ang_off = rng.uniform(0, 2 * np.pi)
+            center = np.array([p[0] + radius * np.cos(ang_off),
+                               p[1] + radius * np.sin(ang_off),
+                               size[2] / 2.0])
+        else:
+            center = np.array([rng.uniform(-extent, extent),
+                               rng.uniform(-extent, extent), size[2] / 2.0])
+        ang = rng.uniform(0, 2 * np.pi)
+        vel = np.array([np.cos(ang), np.sin(ang), 0.0]) * \
+            rng.uniform(0.3, 1.0) * speed
+        objs.append(MovingBox(center, size, vel))
+    return objs
+
+
+def _box_rects(b: MovingBox, t: float) -> List[Rect]:
+    c = b.center + b.velocity * t
+    w, d, h = b.size
+    x0, y0 = c[0] - w / 2, c[1] - d / 2
+    return [
+        Rect(np.array([x0, y0, 0.0]), np.array([w, 0, 0]), np.array([0, 0, h])),
+        Rect(np.array([x0, y0 + d, 0.0]), np.array([w, 0, 0]), np.array([0, 0, h])),
+        Rect(np.array([x0, y0, 0.0]), np.array([0, d, 0]), np.array([0, 0, h])),
+        Rect(np.array([x0 + w, y0, 0.0]), np.array([0, d, 0]), np.array([0, 0, h])),
+    ]
+
+
+def make_clutter(seed: int, n_blobs: int, extent: float) -> np.ndarray:
+    """(K, 4) non-planar clutter blobs [x, y, z, radius] — vegetation-like
+    scatterers that must NOT become surfels (they stress the planarity
+    rejection, reference VoxelMap.cpp:244-253)."""
+    rng = np.random.default_rng(seed + 131)
+    c = np.stack([rng.uniform(-extent, extent, n_blobs),
+                  rng.uniform(-extent, extent, n_blobs),
+                  rng.uniform(0.5, 2.5, n_blobs),
+                  rng.uniform(0.8, 2.0, n_blobs)], axis=1)
+    return c.astype(np.float32)
+
+
+def sample_scan_rings(world: List[Rect], pose: np.ndarray,
+                      rng: np.random.Generator, *, n_rings: int = 64,
+                      azimuth_steps: int = 900, max_range: float = 80.0,
+                      noise: float = 0.01,
+                      elevation_range=(-24.8, 2.0),
+                      dynamic_objects: List[MovingBox] = (),
+                      t: float = 0.0,
+                      clutter: np.ndarray = None,
+                      clutter_fraction: float = 0.05,
+                      return_dynamic_mask: bool = False):
+    """Spinning multi-beam scan by RAY CASTING (the KITTI HDL-64E beam
+    model: n_rings elevation angles x azimuth_steps yaw steps, so returns
+    carry the ring/arc structure real scans have — dense near-sensor
+    ground rings, range-dependent sparsity, vertical stripes on walls —
+    unlike the area-weighted sampler above). Rays hit the nearest of the
+    static world, the dynamic boxes at time t, and spherical clutter
+    blobs (non-planar scatter). Returns (M, 3) sensor-frame points (and,
+    with return_dynamic_mask, an (M,) bool marking dynamic-object hits).
+    """
+    sensor = pose[:3, 3]
+    R = pose[:3, :3]
+    elev = np.deg2rad(np.linspace(elevation_range[0], elevation_range[1],
+                                  n_rings))
+    azim = np.linspace(-np.pi, np.pi, azimuth_steps, endpoint=False)
+    azim = azim + rng.uniform(0, 2 * np.pi / azimuth_steps)
+    ce, se = np.cos(elev), np.sin(elev)
+    ca, sa = np.cos(azim), np.sin(azim)
+    # (n_rings, azimuth_steps, 3) world-frame directions
+    d = np.stack([ce[:, None] * ca[None, :], ce[:, None] * sa[None, :],
+                  np.broadcast_to(se[:, None], (n_rings, azimuth_steps))],
+                 axis=-1)
+    d = (d.reshape(-1, 3) @ R.T).astype(np.float64)
+    o = sensor.astype(np.float64)
+
+    t_static = _raycast_rects(o, d, list(world), max_range)
+    dyn_rects = []
+    for b in dynamic_objects:
+        dyn_rects += _box_rects(b, t)
+    t_dyn = _raycast_rects(o, d, dyn_rects, max_range)
+    t_hit = np.minimum(t_static, t_dyn)
+
+    # spherical clutter blobs: ray-sphere intersection, fuzzy surface
+    if clutter is not None and len(clutter):
+        oc = clutter[:, :3].astype(np.float64) - o[None, :]   # (K, 3)
+        r2 = (clutter[:, 3].astype(np.float64)) ** 2
+        proj = d @ oc.T                                        # (N, K)
+        perp2 = np.sum(oc * oc, axis=1)[None, :] - proj ** 2
+        disc = r2[None, :] - perp2
+        hit = (disc > 0) & (proj > 0.5)
+        tc = np.where(hit, proj - np.sqrt(np.maximum(disc, 0.0)), np.inf)
+        # only a fraction of rays return from the porous scatterer
+        porous = rng.random(tc.shape) < max(clutter_fraction * 6, 0.1)
+        tc = np.where(porous, tc, np.inf)
+        t_hit = np.minimum(t_hit, tc.min(axis=1))
+
+    got = np.isfinite(t_hit) & (t_hit < max_range)
+    pts = o[None, :] + d[got] * t_hit[got][:, None]
+    if noise > 0:
+        # range noise along the ray (how real LiDAR noise behaves)
+        pts = pts + d[got] * rng.standard_normal(
+            (got.sum(), 1)) * noise
+    out = ((pts - sensor[None, :]) @ R).astype(np.float32)
+    if return_dynamic_mask:
+        return out, (t_dyn <= t_hit)[got]
+    return out
+
+
+def _raycast_rects(o: np.ndarray, d: np.ndarray, rects: List[Rect],
+                   max_range: float) -> np.ndarray:
+    """Min hit distance per ray against planar rects, grouped by plane
+    axis for vectorized ray-plane intersection. Rects must be axis-plane
+    aligned in their NORMAL (u, v may be arbitrary in-plane); general
+    rects fall back to the dominant-normal-axis plane test, which is
+    exact for the vertical corridor walls make_corridor_world builds."""
+    n_rays = d.shape[0]
+    t_hit = np.full(n_rays, np.inf)
+    by_axis = {0: [], 1: [], 2: []}
+    for r in rects:
+        nrm = np.cross(r.u, r.v)
+        axis = int(np.argmax(np.abs(nrm)))
+        by_axis[axis].append(r)
+    for axis, rs in by_axis.items():
+        if not rs:
+            continue
+        axis_aligned = all(
+            abs(np.cross(r.u, r.v)[axis]) > 0.999 * np.linalg.norm(
+                np.cross(r.u, r.v)) for r in rs)
+        if axis_aligned:
+            t_hit = np.minimum(t_hit, _raycast_axis_rects(
+                o, d, rs, axis, max_range))
+        else:
+            t_hit = np.minimum(t_hit, _raycast_general_rects(
+                o, d, rs, max_range))
+    return t_hit
+
+
+def _raycast_axis_rects(o, d, rs, axis, max_range):
+    a1, a2 = [i for i in range(3) if i != axis]
+    c = np.array([r.origin[axis] for r in rs])
+    lo1 = np.array([min(r.origin[a1], r.origin[a1] + r.u[a1] + r.v[a1])
+                    for r in rs])
+    hi1 = np.array([max(r.origin[a1], r.origin[a1] + r.u[a1] + r.v[a1])
+                    for r in rs])
+    lo2 = np.array([min(r.origin[a2], r.origin[a2] + r.u[a2] + r.v[a2])
+                    for r in rs])
+    hi2 = np.array([max(r.origin[a2], r.origin[a2] + r.u[a2] + r.v[a2])
+                    for r in rs])
+    n_rays = d.shape[0]
+    t_hit = np.full(n_rays, np.inf)
+    # chunk rays to bound the (rays x rects) temporary
+    chunk = max(1, 8_000_000 // max(len(rs), 1))
+    for s0 in range(0, n_rays, chunk):
+        dd = d[s0:s0 + chunk]
+        da = dd[:, axis]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tt = (c[None, :] - o[axis]) / da[:, None]
+        p1 = o[a1] + tt * dd[:, a1][:, None]
+        p2 = o[a2] + tt * dd[:, a2][:, None]
+        ok = ((tt > 0.5) & (tt < max_range)
+              & (p1 >= lo1[None, :]) & (p1 <= hi1[None, :])
+              & (p2 >= lo2[None, :]) & (p2 <= hi2[None, :]))
+        tt = np.where(ok, tt, np.inf)
+        t_hit[s0:s0 + chunk] = np.minimum(t_hit[s0:s0 + chunk],
+                                          tt.min(axis=1))
+    return t_hit
+
+
+def _raycast_general_rects(o, d, rs, max_range):
+    """Exact ray/parallelogram intersection for arbitrarily-oriented
+    rects (corridor wall segments along diagonal path legs)."""
+    org = np.stack([r.origin for r in rs]).astype(np.float64)   # (K, 3)
+    u = np.stack([r.u for r in rs]).astype(np.float64)
+    v = np.stack([r.v for r in rs]).astype(np.float64)
+    nrm = np.cross(u, v)
+    n_rays = d.shape[0]
+    t_hit = np.full(n_rays, np.inf)
+    chunk = max(1, 4_000_000 // max(len(rs), 1))
+    uu = np.sum(u * u, axis=1)
+    vv = np.sum(v * v, axis=1)
+    uv = np.sum(u * v, axis=1)
+    det = np.maximum(uu * vv - uv * uv, 1e-12)
+    for s0 in range(0, n_rays, chunk):
+        dd = d[s0:s0 + chunk]
+        denom = dd @ nrm.T                                       # (C, K)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tt = ((org - o[None, :]) * nrm).sum(axis=1)[None, :] / denom
+        p = o[None, None, :] + tt[..., None] * dd[:, None, :]    # (C, K, 3)
+        w = p - org[None, :, :]
+        wu = np.sum(w * u[None, :, :], axis=-1)
+        wv = np.sum(w * v[None, :, :], axis=-1)
+        a = (wu * vv[None, :] - wv * uv[None, :]) / det[None, :]
+        b = (wv * uu[None, :] - wu * uv[None, :]) / det[None, :]
+        ok = ((tt > 0.5) & (tt < max_range) & (a >= 0) & (a <= 1)
+              & (b >= 0) & (b <= 1))
+        tt = np.where(ok, tt, np.inf)
+        t_hit[s0:s0 + chunk] = np.minimum(t_hit[s0:s0 + chunk],
+                                          tt.min(axis=1))
+    return t_hit
+
+
+def make_corridor_world(path_xy: np.ndarray, *, width: float = 4.0,
+                        height: float = 3.0, tile: float = 5.0,
+                        extent: float = 45.0) -> List[Rect]:
+    """Indoor world: vertical walls offset left/right of a closed
+    centerline polyline (MID360-style corridor loop), plus floor and
+    ceiling tiles. `path_xy` is (K, 2), closed implicitly."""
+    rects: List[Rect] = []
+    n_tiles = max(int(np.ceil(2 * extent / tile)), 1)
+    for i in range(n_tiles):
+        for j in range(n_tiles):
+            org = np.array([-extent + i * tile, -extent + j * tile, 0.0])
+            rects.append(Rect(org, np.array([tile, 0.0, 0.0]),
+                              np.array([0.0, tile, 0.0])))
+            rects.append(Rect(org + np.array([0.0, 0.0, height]),
+                              np.array([tile, 0.0, 0.0]),
+                              np.array([0.0, tile, 0.0])))
+    k = len(path_xy)
+    for i in range(k):
+        p0 = path_xy[i]
+        p1 = path_xy[(i + 1) % k]
+        seg = p1 - p0
+        ln = np.linalg.norm(seg)
+        if ln < 1e-6:
+            continue
+        nrm = np.array([-seg[1], seg[0]]) / ln
+        for side in (+1.0, -1.0):
+            off = nrm * (width / 2.0) * side
+            org = np.array([p0[0] + off[0], p0[1] + off[1], 0.0])
+            rects.append(Rect(org, np.array([seg[0], seg[1], 0.0]),
+                              np.array([0.0, 0.0, height])))
+    return rects
+
+
+def sample_scan(world: List[Rect], pose: np.ndarray, n_points: int,
+                rng: np.random.Generator, max_range: float = 60.0,
+                noise: float = 0.01, wall_boost: float = 4.0) -> np.ndarray:
+    """Sample a sensor-frame scan: world-surface points within max_range of
+    the sensor, area-weighted across surfaces, with Gaussian noise.
+
+    `wall_boost` over-weights vertical surfaces: a spinning LiDAR
+    concentrates beams near the horizon, so walls are sampled far more
+    densely than the ground per unit area — without it, surfel maps lack
+    the vertical constraints that make x/y/yaw observable.
+    """
+    sensor = pose[:3, 3]
+    areas = np.array([r.area for r in world])
+    # bias sampling toward surfaces near the sensor
+    centers = np.stack([r.origin + 0.5 * (r.u + r.v) for r in world])
+    d = np.linalg.norm(centers - sensor[None, :], axis=-1)
+    normals_z = np.array([abs(np.cross(r.u, r.v)[2]) / max(r.area, 1e-9)
+                          for r in world])
+    vertical = normals_z < 0.5
+    weights = areas / np.maximum(d, 5.0) ** 2
+    weights = np.where(vertical, weights * wall_boost, weights)
+    weights /= weights.sum()
+
+    pts = np.zeros((0, 3), np.float32)
+    for _ in range(8):
+        need = n_points - len(pts)
+        if need <= 0:
+            break
+        k = max(need * 2, 1024)
+        ridx = rng.choice(len(world), size=k, p=weights)
+        a = rng.random(k)[:, None]
+        b = rng.random(k)[:, None]
+        cand = np.stack([world[i].origin for i in ridx]) \
+            + a * np.stack([world[i].u for i in ridx]) \
+            + b * np.stack([world[i].v for i in ridx])
+        keep = np.linalg.norm(cand - sensor[None, :], axis=-1) < max_range
+        pts = np.concatenate([pts, cand[keep].astype(np.float32)])
+    pts = pts[:n_points]
+    if noise > 0:
+        pts = pts + rng.standard_normal(pts.shape).astype(np.float32) * noise
+    # world -> sensor frame
+    R, t = pose[:3, :3], pose[:3, 3]
+    return ((pts - t) @ R).astype(np.float32)

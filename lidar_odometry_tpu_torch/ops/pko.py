@@ -1,0 +1,270 @@
+"""PKO adaptive M-estimator scale (counterpart of
+the JAX package's ops/pko.py, the parts the odometry path uses).
+
+Per ICP iteration: normalise the valid residual magnitudes (at iteration
+0 the scale std/6 is taken here too), draw 100 stratified samples by rank
+in feature order, fit a 3-component 1-D GMM (k-means with component 0
+pinned at 0, then EM), evaluate it on the residual grid, and return the
+index of the alpha whose kernel distribution Q is nearest in
+Jensen-Shannon divergence (index 0 skipped).
+
+Kernel K3 (csrc/pko.cu) does all of that in one single-block launch and
+leaves the alpha index on the device for the ICP normal-equation kernel.
+
+The JAX program draws its randomness from a fixed PRNGKey(42): 100
+uniforms for the strata and 3 sample indices for the k-means start. With
+100 samples and 3 components both are constants, committed below as
+float32 bit patterns and held equal to JAX's draws by a test. Other sample
+sizes or component counts are refused.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+__all__ = ["PKOConstants", "make_pko_constants", "pko_alpha_index",
+           "pko_alpha_index_plain", "stratified_sample", "fit_gmm",
+           "alpha_index_from_samples", "norm_scale_from", "STRATA_U",
+           "KMEANS_PICK"]
+
+GMM_SAMPLES = 100
+GMM_COMPONENTS = 3
+_EM_TOL = float(np.float32(1e-6))   # JAX compares in float32
+
+# jax.random.uniform(jax.random.PRNGKey(42), (100,)), float32 bit patterns
+_U_BITS = [
+    0x3efa3824, 0x3f2e0730, 0x3f1dc3f8, 0x3f0f9ec0, 0x3ee6bae4, 0x3f15fb4e,
+    0x3d9935b0, 0x3f466f24, 0x3f32eefe, 0x3f5191fa, 0x3eb35b34, 0x3f5f7122,
+    0x3f6d0690, 0x3f5c3186, 0x3ef481f8, 0x3f518806, 0x3f361b54, 0x3f1631ca,
+    0x3d9703a0, 0x3f471240, 0x3ecf2338, 0x3df3f6e0, 0x3cd71600, 0x3f23a138,
+    0x3ecf38ec, 0x3f634990, 0x3da6dc10, 0x3e97c260, 0x3f1b4f5c, 0x3f70302a,
+    0x3f4189bc, 0x3eead204, 0x3e9d8e3c, 0x3f40380c, 0x3f0b4c42, 0x3eba6010,
+    0x3f2ce7b2, 0x3f1711b6, 0x3e93d6d0, 0x3e412450, 0x3ed4b840, 0x3f1ef770,
+    0x3ed9fb2c, 0x3f098c88, 0x3f25501c, 0x3e14b138, 0x3f2c2544, 0x3f631348,
+    0x3f2af5d6, 0x3e769140, 0x3f11ec00, 0x3ed7adb8, 0x3ed3ccf4, 0x3f6690da,
+    0x3f2573f2, 0x3edbd14c, 0x3ecf7c6c, 0x3eae93b8, 0x3f24ab02, 0x3f61efa4,
+    0x3e191be0, 0x3e5aa1f0, 0x3f5ae7cc, 0x3eb79d1c, 0x3ef4bf54, 0x3ca44d40,
+    0x3f6eee52, 0x3d930c30, 0x3f083a32, 0x3e5172b8, 0x3ee7f05c, 0x3e3bd528,
+    0x3f36ac6c, 0x3e17ac48, 0x3db9e640, 0x3f72fca6, 0x3f045652, 0x3ddc70f0,
+    0x3eda1734, 0x3f3ac584, 0x3ecc8034, 0x3f689186, 0x3f5a9860, 0x3f56f052,
+    0x3cc87780, 0x3e992688, 0x3c26f380, 0x3f5d0506, 0x3f7dee16, 0x3f44c462,
+    0x3f44681a, 0x3e3bd500, 0x3e94b2d4, 0x3f2b92a6, 0x3ea90620, 0x3f6451a6,
+    0x3edc8288, 0x3f1182aa, 0x3f1c7526, 0x3e223360,
+]
+STRATA_U = np.asarray(_U_BITS, np.uint32).view(np.float32)
+# jax.random.randint(jax.random.PRNGKey(42), (3,), 0, 100)
+KMEANS_PICK = np.asarray([44, 14, 71], np.int32)
+
+
+def _kernel_weight_np(r, delta, kernel_type):
+    r = np.abs(r)
+    if kernel_type == "huber":
+        return np.where(r <= delta, 1.0, delta / np.maximum(r, 1e-30))
+    if kernel_type == "cauchy":
+        return delta**2 / (delta**2 + r**2)
+    if kernel_type == "tukey":
+        x = r / delta
+        return np.where(x < 1.0, (1 - x**2) ** 2, 0.0)
+    if kernel_type == "welsch":
+        return np.exp(-(r**2) / (delta**2) / 2.0)
+    if kernel_type == "gemanMcClure":
+        return r * delta**2 / (delta**2 + r**2) ** 2
+    if kernel_type == "pseudoHuber":
+        return delta**2 / (delta**2 + r**2) ** 1.5
+    return delta**2 / (delta**2 + r**2)  # default: cauchy
+
+
+@dataclass(frozen=True)
+class PKOConstants:
+    alphas: torch.Tensor     # (A,) candidate scales (index 0 = min, skipped)
+    Z: torch.Tensor          # (A,) partition functions
+    r_grid: torch.Tensor     # (G,) residual grid
+    Q: torch.Tensor          # (A, G) normalised kernel distribution + eps
+    u: torch.Tensor          # (100,) the strata uniforms
+    pick: torch.Tensor       # (3,) int32 k-means start indices
+    kernel_type: str = "huber"
+    gmm_components: int = GMM_COMPONENTS
+    gmm_sample_size: int = GMM_SAMPLES
+
+
+def make_pko_constants(min_scale: float, max_scale: float, num_segments: int,
+                       truncated_threshold: float, kernel_type: str,
+                       gmm_components: int, gmm_sample_size: int,
+                       device="cuda") -> PKOConstants:
+    """Alpha grid, Z(alpha) and Q(r|alpha), computed in float64 numpy as
+    the JAX package does, stored as float32 on `device`."""
+    if (gmm_sample_size, gmm_components) != (GMM_SAMPLES, GMM_COMPONENTS):
+        raise ValueError(
+            "the port carries the JAX PRNGKey(42) draws for 100 samples and "
+            f"3 components only, not ({gmm_sample_size}, {gmm_components})")
+    alphas = np.empty(num_segments + 1)
+    alphas[0] = min_scale
+    t = np.arange(1, num_segments + 1) / num_segments
+    alphas[1:] = min_scale + (max_scale - min_scale) * (np.power(100.0, t) - 1.0) / 99.0
+    xs = np.arange(0.0, truncated_threshold + 1e-9, 0.01)
+    kv = _kernel_weight_np(xs[None, :], alphas[:, None], kernel_type)
+    Z = np.maximum(kv.sum(axis=1) * 0.01, 1e-10)
+    g = 100
+    dr = truncated_threshold / g
+    r_grid = dr * (1.0 + np.arange(g))
+    q = _kernel_weight_np(r_grid[None, :], alphas[:, None], kernel_type)
+    Q = q / (Z[:, None] + 1e-10) + 1e-10
+    return from_arrays(dict(alphas=alphas, Z=Z, r_grid=r_grid, Q=Q),
+                       kernel_type, device)
+
+
+def from_arrays(arrays: dict, kernel_type: str, device) -> PKOConstants:
+    f = lambda k: torch.tensor(np.asarray(arrays[k], np.float32), device=device)
+    return PKOConstants(
+        alphas=f("alphas"), Z=f("Z"), r_grid=f("r_grid"), Q=f("Q").contiguous(),
+        u=torch.as_tensor(STRATA_U.copy(), device=device),
+        pick=torch.as_tensor(KMEANS_PICK.copy(), device=device),
+        kernel_type=kernel_type)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def norm_scale_from(abs_resid: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Iteration-0 normalisation scale: population std / 6 of the valid
+    residual magnitudes."""
+    w = valid.to(abs_resid.dtype)
+    n = torch.clamp(torch.sum(w), min=1.0)
+    mean = torch.sum(torch.where(valid, abs_resid, 0.0)) / n
+    var = torch.sum(torch.where(valid, (abs_resid - mean) ** 2, 0.0)) / n
+    return torch.sqrt(var) / 6.0
+
+
+def stratified_sample(residuals: torch.Tensor, valid: torch.Tensor,
+                      u: torch.Tensor, m: int = GMM_SAMPLES) -> torch.Tensor:
+    """One residual per stratum of the valid entries' ranks (feature order)."""
+    n = residuals.shape[0]
+    n_valid = torch.sum(valid.to(torch.int32))
+    rank = torch.cumsum(valid.to(torch.int32), 0) - 1
+    idx_of_rank = torch.zeros((n + 1,), dtype=torch.int64, device=residuals.device)
+    idx_of_rank[torch.where(valid, rank, n).to(torch.int64)] = torch.arange(
+        n, device=residuals.device)
+    j = torch.arange(m, dtype=torch.float32, device=residuals.device)
+    k = torch.floor((j + u) * n_valid.to(torch.float32) / float(m)).to(torch.int64)
+    k = torch.minimum(torch.clamp(k, min=0), torch.clamp(n_valid - 1, min=0))
+    samples = residuals[idx_of_rank[k]]
+    ok = torch.arange(m, device=residuals.device) < n_valid
+    return torch.where(ok, samples, residuals[idx_of_rank[0]])
+
+
+def _gaussian_pdf(x, mean, var):
+    var = torch.clamp(var, min=1e-12)
+    d = x - mean
+    return torch.exp(-0.5 * d * d / var) / torch.sqrt(2.0 * math.pi * var)
+
+
+def fit_gmm(samples: torch.Tensor, pick: torch.Tensor, kk: int = GMM_COMPONENTS):
+    """k-means start (component 0 pinned at 0), then EM. Python loops with
+    the JAX stop rules: k-means while changed and it < 100, EM while
+    change >= 1e-6 and it < 100."""
+    n = samples.shape[0]
+    means = samples[pick.to(torch.int64)].clone()
+    means[0] = 0.0
+    changed, it = True, 0
+    while changed and it < 100:
+        assign = torch.argmin(torch.abs(samples[:, None] - means[None, :]), dim=1)
+        one_hot = torch.nn.functional.one_hot(assign, kk).to(samples.dtype)
+        cnt = one_hot.sum(0)
+        new = (one_hot * samples[:, None]).sum(0) / torch.clamp(cnt, min=1.0)
+        new = torch.where(cnt > 0, new, means)
+        new[0] = 0.0
+        changed = bool(torch.any(new != means))
+        means, it = new, it + 1
+    data_mean = samples.mean()
+    variances = torch.full((kk,), float(torch.mean((samples - data_mean) ** 2)),
+                           dtype=samples.dtype, device=samples.device)
+    assign = torch.argmin(torch.abs(samples[:, None] - means[None, :]), dim=1)
+    weights = torch.nn.functional.one_hot(assign, kk).to(samples.dtype).sum(0) / n
+    change, it = math.inf, 0
+    while change >= _EM_TOL and it < 100:
+        resp = weights[None, :] * _gaussian_pdf(samples[:, None], means[None, :],
+                                                variances[None, :])
+        # JAX's max(., 1e-300) is max(., 0) in float32
+        resp = resp / torch.clamp(resp.sum(1, keepdim=True), min=0.0)
+        Nk = torch.clamp(resp.sum(0), min=1e-12)
+        new_w = Nk / n
+        new_mu = (resp * samples[:, None]).sum(0) / Nk
+        new_mu[0] = 0.0
+        diff = samples[:, None] - new_mu[None, :]
+        new_var = torch.clamp((resp * diff * diff).sum(0) / Nk, min=1e-6)
+        change = float(torch.sum(torch.abs(new_mu[1:] - means[1:])))
+        weights, means, variances, it = new_w, new_mu, new_var, it + 1
+    return weights, means, variances
+
+
+def _first_argmin(cost: torch.Tensor) -> torch.Tensor:
+    """jnp.argmin: the first NaN if there is one, else the first minimum."""
+    nan = torch.isnan(cost)
+    idx = torch.arange(cost.shape[0], device=cost.device)
+    first_nan = torch.min(torch.where(nan, idx, cost.shape[0]))
+    m = torch.min(torch.where(nan, math.inf, cost))
+    first_min = torch.min(torch.where(cost == m, idx, cost.shape[0]))
+    return torch.where(torch.any(nan), first_nan, first_min).to(torch.int32)
+
+
+def alpha_index_from_samples(samples: torch.Tensor, consts: PKOConstants) -> torch.Tensor:
+    w, mu, var = fit_gmm(samples, consts.pick, consts.gmm_components)
+    r = consts.r_grid
+    P = (w[None, :] * _gaussian_pdf(r[:, None], mu[None, :], var[None, :])).sum(1) + 1e-10
+    Q = consts.Q
+    M = 0.5 * (P[None, :] + Q)
+    jsd = 0.5 * (P[None, :] * torch.log(P[None, :] / M) + Q * torch.log(Q / M))
+    cost = torch.mean(jsd, dim=1)
+    cost[0] = math.inf
+    return _first_argmin(cost)
+
+
+def pko_alpha_index_plain(resid, valid, scale, compute_scale: bool,
+                          consts: PKOConstants):
+    """Plain twin of K3, on the signed residuals. Returns (alpha_index ()
+    int32, count () int32, scale () float32)."""
+    r_abs = torch.abs(resid)
+    if compute_scale:
+        scale = norm_scale_from(r_abs, valid)
+    norm = r_abs / torch.clamp(scale, min=1e-6)
+    samples = stratified_sample(norm, valid, consts.u)
+    count = torch.sum(valid.to(torch.int32))
+    return alpha_index_from_samples(samples, consts), count, scale.reshape(())
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def pko_alpha_index(resid, valid, flags, scale, compute_scale: bool,
+                    consts: PKOConstants):
+    """K3's wrapper. resid (N,) f32 signed residuals, valid (N,) bool, flags (3,) int32
+    [done, failed, n_corr] (a done solve skips the work), scale (1,) f32.
+    Returns (aux (2,) int32 [count, alpha_index], scale_out (1,) f32).
+    CPU tensors take the plain version."""
+    if not resid.is_cuda:
+        if bool(flags[0]):    # done: the kernel returns at once too
+            return torch.zeros((2,), dtype=torch.int32), scale
+        a, c, s = pko_alpha_index_plain(resid, valid, scale.reshape(()),
+                                        compute_scale, consts)
+        return torch.stack([c, a]).to(torch.int32), s.reshape(1)
+    n = resid.shape[0]
+    kernels.check(resid, "resid", torch.float32, (n,))
+    kernels.check(valid, "valid", torch.bool, (n,))
+    kernels.check(flags, "flags", torch.int32, (3,))
+    kernels.check(scale, "scale", torch.float32, (1,))
+    n_alpha, n_grid = consts.Q.shape
+    aux = torch.empty((2,), dtype=torch.int32, device=resid.device)
+    scale_out = torch.empty((1,), dtype=torch.float32, device=resid.device)
+    kernels.KERNELS["pko_alpha"].launch(
+        resid.data_ptr(), valid.data_ptr(), n, flags.data_ptr(), scale.data_ptr(),
+        int(compute_scale), consts.u.data_ptr(), consts.pick.data_ptr(),
+        consts.alphas.data_ptr(), consts.r_grid.data_ptr(), consts.Q.data_ptr(),
+        n_alpha, n_grid, scale_out.data_ptr(), aux.data_ptr())
+    return aux, scale_out

@@ -1,10 +1,23 @@
-"""Trajectory accuracy (copy of the JAX package's eval.ate_rmse, which
-the port cannot import without importing jax)."""
+"""Trajectory accuracy and frames (copies of the JAX package's
+eval.ate_rmse, T_LIDAR_TO_CAM and lidar_pose_to_cam, which the port
+cannot import without importing jax)."""
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ate_rmse"]
+__all__ = ["ate_rmse", "T_LIDAR_TO_CAM", "lidar_pose_to_cam"]
+
+# KITTI's LiDAR -> camera axis permutation
+T_LIDAR_TO_CAM = np.array([
+    [0.0, -1.0, 0.0, 0.0],
+    [0.0, 0.0, -1.0, 0.0],
+    [1.0, 0.0, 0.0, 0.0],
+    [0.0, 0.0, 0.0, 1.0]], dtype=np.float64)
+
+
+def lidar_pose_to_cam(pose: np.ndarray) -> np.ndarray:
+    """T_cam = T_l2c * T * T_l2c^-1."""
+    return T_LIDAR_TO_CAM @ pose @ np.linalg.inv(T_LIDAR_TO_CAM)
 
 
 def ate_rmse(est_poses: np.ndarray, gt_poses: np.ndarray) -> float:

@@ -30,7 +30,7 @@ __all__ = ["Kernel", "KERNELS", "build", "reset_counts", "counts", "check",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("voxel_filter", "icp", "pko", "voxel_map")
+SOURCES = ("voxel_filter", "icp", "pko", "voxel_map", "grid_knn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -154,6 +154,12 @@ KERNELS = {k.name: k for k in [
     Kernel("map_surfel_recompute", "voxel_map",
            [_P, _P, _I, _I, _F, _P, _P, _P],
            REF + "/ops/voxel_map.py:330"),
+    Kernel("grid_knn", "grid_knn",
+           [_P, _I, _P, _P, _I, _P, _I, _F, _I, _P, _P],
+           REF + "/ops/voxel_map.py:831"),
+    Kernel("plane_fit_5nn", "grid_knn",
+           [_P, _P, _P, _P, _I, _I, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
+           REF + "/ops/icp.py:142"),
 ]}
 
 

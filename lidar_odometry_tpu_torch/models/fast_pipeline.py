@@ -2,10 +2,10 @@
 the JAX package's models/fast_pipeline.py: OdomCarry, init_carry,
 make_chunk_runner and its frame step).
 
-Per frame: voxel filter (K1), surfel ICP with PKO (K2a, K3, K2b per
-iteration), re-orthonormalisation, the constant-velocity model and the
+Per frame: voxel filter (K1), ICP with PKO (surfel mode: K2a, K3, K2b per
+iteration; KD-tree mode: K5a, K5b, K3, K2b), re-orthonormalisation, the constant-velocity model and the
 keyframe decision (small torch ops on the device), and on keyframes the
-map update (K4a-c). The JAX runner is one lax.scan with the keyframe
+map update (K4a-c; K4a-b without surfels). The JAX runner is one lax.scan with the keyframe
 branch as a lax.cond; here the chunk is a Python loop over frames that
 reads the keyframe flag to the host once per frame to take the branch.
 That read is the slice's one host sync per frame; everything else stays
@@ -49,12 +49,15 @@ def make_chunk_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConstan
                       *, scan_voxel_size: float, point_stride: int,
                       scan_capacity: int, keyframe_distance: float,
                       keyframe_rotation: float, max_distance: float,
-                      planarity_threshold: float, return_features: bool = False):
+                      planarity_threshold: float, compute_surfels: bool = True,
+                      return_features: bool = False):
     """Build chunk(carry, scans (F, N, 3)) -> (carry, (poses (F, 4, 4),
     is_kf (F,), n_corr (F,))) — plus (feats (F, cap, 3), masks (F, cap))
     with return_features=True. Scans are raw padded clouds whose pad rows
-    are non-finite. The carry's buffers are updated in place: treat the
-    carry passed in as consumed."""
+    are non-finite. compute_surfels=False keeps no surfels in the map, as
+    KD-tree-mode ICP (icp_cfg.use_surfel_correspondence=False) needs none.
+    The carry's buffers are updated in place: treat the carry passed in
+    as consumed."""
     # the compact filter key whenever its +-512-voxel envelope covers a
     # 200 m return, as the JAX runner decides
     compact = vf.compact_keys_ok(scan_voxel_size, 200.0)
@@ -91,6 +94,7 @@ def make_chunk_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConstan
                 voxel_size=icp_cfg.voxel_size,
                 planarity_threshold=planarity_threshold,
                 hierarchy_factor=icp_cfg.hierarchy_factor,
+                compute_surfels=compute_surfels,
                 evict_enabled=(carry.kf_count % 4 == 0))
         new_carry = OdomCarry(
             map_state=map_state, T_prev=T, velocity=velocity,

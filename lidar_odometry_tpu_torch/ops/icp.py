@@ -1,9 +1,10 @@
-"""Scan-to-map point-to-plane ICP, surfel mode (counterpart of
-the JAX package's ops/icp.py: ICPConfig, _surfel_correspondences,
-_norm_scale_from, _robust_weights, _gn_step, icp_optimize).
+"""Scan-to-map point-to-plane ICP (counterpart of the JAX package's
+ops/icp.py: ICPConfig, _surfel_correspondences, _is_collinear,
+_plane_fit_5nn, _grid_plane_correspondences, _norm_scale_from,
+_robust_weights, _gn_step, icp_optimize).
 
-One Gauss-Newton iteration is three launches, with every intermediate on
-the device and no host read:
+One Gauss-Newton iteration of surfel mode is three launches, with every
+intermediate on the device and no host read:
   K2a icp_correspond (csrc/icp.cu): transform each point by T, probe the
       parent's bucket row, read the surfel row, write the signed residual,
       the normal and the gated validity;
@@ -17,21 +18,35 @@ ICP launches and not one. The loop always runs max_iterations launches;
 once the solve is done (converged or failed) the kernels return at once
 and leave the state as it is, which gives the result of the JAX
 while_loop with early exit.
+
+KD-tree mode (use_surfel_correspondence=False) finds its correspondences
+in the L0 voxels instead of the surfels, in two launches in place of K2a:
+  K5a grid_knn (ops/voxel_map.py): the (2r+1)^3 neighbourhood's centroids;
+  K5b plane_fit_5nn (csrc/grid_knn.cu): the 5 nearest of them, the
+      collinearity test on the nearest 3, a plane fit with eigh3, the
+      distance and planarity gates.
+then K3 and K2b as in surfel mode. The residual target is the plane's
+centroid; the magnitude that sets the iteration-0 scale and PKO's alpha
+is K5b's point-to-plane distance.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
+from ..utils import eigh3 as E
 from ..utils import keys as K
 from ..utils import lie
 from . import pko
 from . import voxel_map as vm
 
 __all__ = ["ICPConfig", "icp_optimize", "icp_correspond", "icp_correspond_plain",
-           "icp_normal_eq", "icp_normal_eq_plain", "robust_weights"]
+           "icp_normal_eq", "icp_normal_eq_plain", "robust_weights", "PlaneFit",
+           "plane_fit_5nn", "plane_fit_5nn_plain"]
 
 NE_THREADS = 256
 NE_MAX_BLOCKS = 128
@@ -51,6 +66,10 @@ class ICPConfig:
     use_adaptive_m_estimator: bool = True
     voxel_size: float = 0.5
     hierarchy_factor: int = 3
+    # KD-tree mode: the candidate neighbourhood's radius in L0 voxels
+    # (2: the 5x5x5 cube, 125 candidates) and the plane fit's planarity gate
+    grid_knn_radius: int = 2
+    plane_fit_planarity: float = 0.1
 
 
 def robust_weights(abs_norm_resid, delta, loss_type: str):
@@ -179,6 +198,97 @@ def icp_normal_eq_plain(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg):
 
 
 # ---------------------------------------------------------------------------
+# K5b: the 5-NN plane fit of KD-tree mode
+# ---------------------------------------------------------------------------
+
+class PlaneFit(NamedTuple):
+    normal: torch.Tensor    # (N, 3)
+    centroid: torch.Tensor  # (N, 3) of the fitted points
+    nearest: torch.Tensor   # (N, 3) the nearest candidate
+    valid: torch.Tensor     # (N,) bool
+    dist: torch.Tensor      # (N,) |n.p - n.c|
+    resid: torch.Tensor     # (N,) n.(p - c), the residual the normal equations take
+    sel: torch.Tensor       # (N, 5) int32 the chosen candidates, nearest first
+
+
+def plane_fit_5nn(p_world, cand, cand_ok, mask, cfg: ICPConfig, gate: bool, flags=None):
+    """K5b's wrapper. p_world (N, 3) f32 query points, cand (N, K, 3) f32
+    candidates with cand_ok (N, K) bool, K >= 5, mask (N,) bool. Takes the
+    5 nearest candidates (ties to the lower index, as jax.lax.top_k),
+    tests the nearest 3 for collinearity, fits a plane to the 5 over their
+    mask and gates the fit: valid = mask & all 5 ok & not collinear, and
+    with `gate` also dist <= max_correspondence_distance and planarity <=
+    plane_fit_planarity. `flags` as in vm.grid_knn_neighbors. Returns a
+    PlaneFit."""
+    if not p_world.is_cuda:
+        return plane_fit_5nn_plain(p_world, cand, cand_ok, mask, cfg, gate)
+    n, k = cand.shape[0], cand.shape[1]
+    if k < 5:
+        raise ValueError(f"plane_fit_5nn: needs at least 5 candidates, got {k}")
+    kernels.check(p_world, "p_world", torch.float32, (n, 3))
+    kernels.check(cand, "cand", torch.float32, (n, k, 3))
+    kernels.check(cand_ok, "cand_ok", torch.bool, (n, k))
+    kernels.check(mask, "mask", torch.bool, (n,))
+    if flags is not None:
+        kernels.check(flags, "flags", torch.int32, (3,))
+    f = dict(dtype=torch.float32, device=p_world.device)
+    out = PlaneFit(normal=torch.empty((n, 3), **f), centroid=torch.empty((n, 3), **f),
+                   nearest=torch.empty((n, 3), **f),
+                   valid=torch.empty((n,), dtype=torch.bool, device=p_world.device),
+                   dist=torch.empty((n,), **f), resid=torch.empty((n,), **f),
+                   sel=torch.empty((n, 5), dtype=torch.int32, device=p_world.device))
+    kernels.KERNELS["plane_fit_5nn"].launch(
+        p_world.data_ptr(), cand.data_ptr(), cand_ok.data_ptr(), mask.data_ptr(), n, k,
+        None if flags is None else flags.data_ptr(), int(gate),
+        K.f32(cfg.max_correspondence_distance), K.f32(cfg.plane_fit_planarity),
+        *(t.data_ptr() for t in out))
+    return out
+
+
+def _top5(p_world, cand, cand_ok):
+    """Indices (N, 5) of the 5 nearest ok candidates, ties to the lower
+    index; not-ok candidates count as infinitely far."""
+    d = cand - p_world[:, None, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    d2 = torch.where(cand_ok, d2, math.inf)
+    return torch.sort(d2, dim=1, stable=True).indices[:, :5]
+
+
+def _unit(v):
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
+
+
+def _is_collinear(p0, p1, p2, threshold: float):
+    c = torch.linalg.cross(_unit(p1 - p0), _unit(p2 - p0))
+    return torch.linalg.norm(c, dim=-1) < threshold
+
+
+def plane_fit_5nn_plain(p_world, cand, cand_ok, mask, cfg: ICPConfig, gate: bool):
+    sel = _top5(p_world, cand, cand_ok)
+    nb = torch.gather(cand, 1, sel[..., None].expand(-1, -1, 3))
+    nb_ok = torch.gather(cand_ok, 1, sel)
+    collinear = _is_collinear(nb[:, 0], nb[:, 1], nb[:, 2], 0.5)
+    normal, centroid, plan = E.plane_from_points(nb, nb_ok)
+    dist = torch.abs(torch.sum(normal * p_world, -1) - torch.sum(normal * centroid, -1))
+    valid = mask & torch.all(nb_ok, 1) & ~collinear
+    if gate:
+        valid = (valid & (dist <= K.f32(cfg.max_correspondence_distance))
+                 & (plan <= K.f32(cfg.plane_fit_planarity)))
+    return PlaneFit(normal=normal, centroid=centroid, nearest=nb[:, 0], valid=valid, dist=dist,
+                    resid=torch.sum(normal * (p_world - centroid), -1),
+                    sel=sel.to(torch.int32))
+
+
+def _grid_plane_correspondences(map_state, pts, mask, T, flags, cfg: ICPConfig) -> PlaneFit:
+    """KD-tree-mode correspondences: K5a's candidates, K5b's plane fit."""
+    p_world = lie.transform_points(T.view(4, 4), pts)
+    cand, cand_ok = vm.grid_knn_neighbors(map_state, p_world, voxel_size=cfg.voxel_size,
+                                          radius=cfg.grid_knn_radius, flags=flags)
+    return plane_fit_5nn(p_world, cand, cand_ok & mask[:, None], mask, cfg, gate=True,
+                         flags=flags)
+
+
+# ---------------------------------------------------------------------------
 # the solve
 # ---------------------------------------------------------------------------
 
@@ -187,20 +297,23 @@ def icp_optimize(map_state: vm.VoxelMapState, pts, mask, T_init,
     """Scan-to-map ICP. pts (N, 3) local features with mask (N,); T_init
     (4, 4) world pose guess. Returns (T_opt (4, 4), success () bool,
     n_correspondences () int32); on failure T_opt is T_init."""
-    if not cfg.use_surfel_correspondence:
-        raise NotImplementedError("the port has surfel-mode ICP only so far")
     dev = pts.device
     T = T_init.reshape(16).contiguous()
     flags = torch.zeros((3,), dtype=torch.int32, device=dev)
     scale = torch.ones((1,), dtype=torch.float32, device=dev)
     for i in range(cfg.max_iterations):
-        nrm, r, valid = icp_correspond(pts, mask, T, flags, map_state, cfg)
+        if cfg.use_surfel_correspondence:
+            nrm, r, valid = icp_correspond(pts, mask, T, flags, map_state, cfg)
+            r_abs = r   # K3 takes |r|
+        else:
+            fit = _grid_plane_correspondences(map_state, pts, mask, T, flags, cfg)
+            nrm, r, valid, r_abs = fit.normal, fit.resid, fit.valid, fit.dist
         if cfg.use_adaptive_m_estimator:
-            aux, scale = pko.pko_alpha_index(r, valid, flags, scale, i == 0,
+            aux, scale = pko.pko_alpha_index(r_abs, valid, flags, scale, i == 0,
                                              pko_consts)
         else:
             if i == 0:
-                scale = pko.norm_scale_from(torch.abs(r), valid).reshape(1)
+                scale = pko.norm_scale_from(torch.abs(r_abs), valid).reshape(1)
             aux = torch.stack([valid.sum(), torch.zeros_like(valid.sum())]).to(torch.int32)
         T, flags, _ = icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux,
                                     pko_consts, cfg)

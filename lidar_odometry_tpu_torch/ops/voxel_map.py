@@ -27,6 +27,13 @@ Kernels (csrc/voxel_map.cu), each with its plain twin below:
       key-sorted points, added at each voxel's leader row;
   K4c map_surfel_recompute — per recomputed parent: its 27-row block,
       count, mean, covariance, eigh3, planarity and the non-planar verdict.
+  K5a grid_knn (csrc/grid_knn.cu) — the KD-tree mode's candidates: the L0
+      centroids of each query's (2r+1)^3 voxel neighbourhood, found by
+      probing the (2r//3 + 2)^3 distinct parents once each.
+
+With compute_surfels=False (KD-tree mode) update_map keeps no surfels: it
+skips K4c and the non-planar deletion, still frees the cells that
+eviction emptied, and writes has = 0 on every affected cell.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ __all__ = ["VoxelMapState", "empty_map", "update_map", "lookup_surfels", "parent
            "l0_records", "l1_surfels", "hash_bucket", "bucket_find",
            "map_evict_scan", "map_evict_scan_plain", "map_scatter_add",
            "map_scatter_add_plain", "map_surfel_recompute",
-           "map_surfel_recompute_plain", "MIN_OCCUPIED_CHILDREN"]
+           "map_surfel_recompute_plain", "grid_knn_neighbors",
+           "grid_knn_neighbors_plain", "l0_points", "MIN_OCCUPIED_CHILDREN"]
 
 MIN_OCCUPIED_CHILDREN = 5
 BUCKET = 8
@@ -54,8 +62,13 @@ CH_CAP = 8192
 SMALL_CAP = 4096
 INVALID_I32 = -1
 
-_CHILD_OFFS = np.stack(np.meshgrid(*([np.arange(3)] * 3), indexing="ij"),
-                       axis=-1).reshape(NCH, 3).astype(np.int32)
+def _cube(lo: int, hi: int) -> np.ndarray:
+    """Every integer offset of [lo, hi]^3 in meshgrid "ij" order."""
+    r = np.arange(lo, hi + 1)
+    return np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1).reshape(-1, 3).astype(np.int32)
+
+
+_CHILD_OFFS = _cube(0, 2)
 
 
 def _scaled_caps(c1: int, p: int):
@@ -375,14 +388,14 @@ def map_surfel_recompute_plain(l0_data, r_slot, c1: int, planarity_threshold: fl
 def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
                max_distance: float, *, voxel_size: float,
                planarity_threshold: float, hierarchy_factor: int = 3,
-               evict_enabled=None) -> VoxelMapState:
+               compute_surfels: bool = True, evict_enabled=None) -> VoxelMapState:
     """Per-keyframe map update: radius eviction, insertion, surfel
-    recompute. new_pts (P, 3) world points with new_mask (P,); sensor_pos
-    (3,) or (S, 3); evict_enabled a 0-d bool tensor (None = on). Updates
-    the state's buffers in place and returns the new state."""
+    recompute (with compute_surfels; without it, no surfels are kept).
+    new_pts (P, 3) world points with new_mask (P,); sensor_pos (3,) or
+    (S, 3); evict_enabled a 0-d bool tensor (None = on). Updates the
+    state's buffers in place and returns the new state."""
     c1 = state.c1
     nrows = c1 * NCH
-    nb = state.n_buckets
     p = new_pts.shape[0]
     dev = new_pts.device
     evict_list, ch_cap, small_cap = _scaled_caps(c1, p)
@@ -503,6 +516,14 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     # ---- Step 7: surfel decisions from the incremental child counter ----
     aff_c = torch.clamp(aff_slot, 0, c1 - 1)
     cnt = torch.where(aff_ok, l1_meta[aff_c, 2], 0)
+    wslot = torch.where(aff_ok, aff_slot, c1)
+    if not compute_surfels:
+        # no surfels: free the cells that eviction emptied, clear has
+        l1_top = _free_cells(l1_index, l1_meta, l1_free, l1_top, aff_ok & (cnt == 0),
+                             aff_slot)
+        l1_surfel[wslot, torch.full_like(wslot, 7)] = 0.0
+        return _finish(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free, l1_top,
+                       n_l0, n_dropped)
     prev_has = aff_ok & (l1_surfel[aff_c, 7] > 0.5)
     prev_last = l1_last[aff_c]
     enough = cnt >= MIN_OCCUPIED_CHILDREN
@@ -541,6 +562,23 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     l1_meta[:, 2].index_fill_(0, dtgt, 0)
 
     # free emptied cells (deletion or eviction)
+    l1_top = _free_cells(l1_index, l1_meta, l1_free, l1_top, freed, aff_slot)
+    cnt = cnt_post
+    has_out = has_out & ~non_planar
+
+    # ---- write back surfels, has flags and last counts ----
+    l1_surfel[torch.where(r_use, torch.clamp(r_slot, 0, c1 - 1), c1)] = srows
+    l1_surfel[wslot, torch.full_like(wslot, 7)] = has_out.to(torch.float32)
+    l1_last[torch.where(use_new, wslot, c1)] = cnt.to(torch.int32)
+    return _finish(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free, l1_top,
+                   n_l0, n_dropped)
+
+
+def _free_cells(l1_index, l1_meta, l1_free, l1_top, freed, aff_slot):
+    """Erase the freed cells from the index and meta rows and push their
+    slots on the free stack. Returns the new stack top."""
+    c1 = l1_meta.shape[0] - 1
+    nb = l1_index.shape[0] - 1
     fslot = torch.where(freed, aff_slot, c1)
     cellpos = l1_meta[torch.clamp(fslot, 0, c1 - 1), 3].to(torch.int64)
     l1_index.view(-1).index_fill_(
@@ -550,20 +588,16 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     frank = torch.cumsum(freed.to(torch.int64), 0) - 1
     l1_free[torch.where(freed, l1_top + frank, c1)] = torch.where(
         freed, aff_slot, -1).to(torch.int32)
-    l1_top = l1_top + freed.sum().to(torch.int32)
-    cnt = cnt_post
-    has_out = has_out & ~non_planar
+    return l1_top + freed.sum().to(torch.int32)
 
-    # ---- write back surfels, has flags and last counts ----
-    l1_surfel[torch.where(r_use, torch.clamp(r_slot, 0, c1 - 1), c1)] = srows
-    wslot = torch.where(aff_ok, aff_slot, c1)
-    l1_surfel[wslot, torch.full_like(wslot, 7)] = has_out.to(torch.float32)
-    l1_last[torch.where(use_new, wslot, c1)] = cnt.to(torch.int32)
+
+def _finish(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free, l1_top, n_l0,
+            n_dropped) -> VoxelMapState:
     _clear_sinks(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free)
     return VoxelMapState(
         l0_data=l0_data, l1_index=l1_index, l1_meta=l1_meta, l1_last=l1_last,
         l1_surfel=l1_surfel, l1_free=l1_free, l1_free_top=l1_top, n_l0=n_l0,
-        n_l1=(c1 - l1_top).to(torch.int32), n_dropped=n_dropped)
+        n_l1=(l1_meta.shape[0] - 1 - l1_top).to(torch.int32), n_dropped=n_dropped)
 
 
 def _clear_sinks(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free):
@@ -597,6 +631,76 @@ def lookup_surfels(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float
     slot, hit, _, _ = bucket_find(state.l1_index, qhi, qlo)
     row = state.l1_surfel[torch.clamp(slot, 0, state.c1 - 1)]
     return row[:, 0:3], row[:, 3:6], hit & (row[:, 7] > 0.5)
+
+
+def grid_knn_neighbors(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float,
+                       hierarchy_factor: int = 3, radius: int = 1, flags=None):
+    """K5a's wrapper: the L0 centroids of each query's (2r+1)^3 voxel
+    neighbourhood, in meshgrid "ij" offset order. pts (N, 3) f32. Returns
+    (centroids (N, M, 3), ok (N, M) bool), M = (2r+1)^3; a neighbour that
+    is not live has ok False and the centroid of the row it was read from.
+    `flags` (3,) int32 [done, failed, n_corr] of an ICP solve, or None:
+    once done, the kernel returns at once and leaves the outputs
+    unwritten, as the JAX while_loop stops. The kernel takes radius 1 or
+    2 with hierarchy factor 3."""
+    if not pts.is_cuda:
+        return grid_knn_neighbors_plain(state, pts, voxel_size=voxel_size,
+                                        hierarchy_factor=hierarchy_factor, radius=radius)
+    if hierarchy_factor != 3 or radius not in (1, 2):
+        raise ValueError("grid_knn: the kernel takes radius 1 or 2 with hierarchy factor 3")
+    n = pts.shape[0]
+    m = (2 * radius + 1) ** 3
+    kernels.check(pts, "pts", torch.float32, (n, 3))
+    kernels.check(state.l1_index, "l1_index", torch.int32)
+    kernels.check(state.l0_data, "l0_data", torch.float32)
+    if flags is not None:
+        kernels.check(flags, "flags", torch.int32, (3,))
+    cen = torch.empty((n, m, 3), dtype=torch.float32, device=pts.device)
+    ok = torch.empty((n, m), dtype=torch.bool, device=pts.device)
+    kernels.KERNELS["grid_knn"].launch(
+        pts.data_ptr(), n, None if flags is None else flags.data_ptr(),
+        state.l1_index.data_ptr(), state.n_buckets, state.l0_data.data_ptr(), state.c1,
+        K.f32(1.0 / K.f32(voxel_size)), radius, cen.data_ptr(), ok.data_ptr())
+    return cen, ok
+
+
+def grid_knn_neighbors_plain(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float,
+                             hierarchy_factor: int = 3, radius: int = 1):
+    """Plain twin of K5a. The (2r+1)^3 neighbours share at most span^3
+    parents, span = 2r//h + 2, each probed once; a neighbour's parent and
+    child offset come from comparisons on (qc mod h) + offset, and its
+    parent's probe is read by index."""
+    h = hierarchy_factor
+    dev = pts.device
+    qc = K.voxel_coords(pts, K.f32(1.0 / K.f32(voxel_size)))
+    n = qc.shape[0]
+    offs = torch.as_tensor(_cube(-radius, radius), device=dev)
+    m = offs.shape[0]
+    span = (2 * radius) // h + 2
+    pq = torch.div(qc, h, rounding_mode="floor")
+    lo_par = torch.div(qc - radius, h, rounding_mode="floor")
+    poffs = torch.as_tensor(_cube(0, span - 1), device=dev)
+    phi, plo = K.pack_key(lo_par[:, None, :] + poffs[None, :, :])
+    pslot = bucket_find(state.l1_index, phi.reshape(-1), plo.reshape(-1))[0].view(n, -1)
+
+    v = (qc - pq * h)[:, None, :] + offs[None, :, :]
+    d = torch.where(v < 0, -1, torch.where(v >= h, 1, 0))
+    cloc = v - d * h
+    rel = (pq - lo_par)[:, None, :] + d
+    pidx = (rel[..., 0] * span + rel[..., 1]) * span + rel[..., 2]
+    slot = torch.gather(pslot, 1, pidx.to(torch.int64))
+    off_c = (cloc[..., 0] * h + cloc[..., 1]) * h + cloc[..., 2]
+    addr = torch.clamp(slot, 0, state.c1 - 1) * NCH + off_c
+    data = state.l0_data[addr.reshape(-1)]
+    ok = (slot >= 0) & (data[:, 0].view(n, m) > 0.0)
+    cen = (data[:, 1:4] / torch.clamp(data[:, 0:1], min=1.0)).view(n, m, 3)
+    return cen, ok
+
+
+def l0_points(state: VoxelMapState):
+    """Every L0 centroid and its validity: ((C1*27, 3), (C1*27,) bool)."""
+    data = state.l0_data[:-1]
+    return data[:, 1:4] / torch.clamp(data[:, 0], min=1.0)[:, None], data[:, 0] > 0.0
 
 
 def l0_records(state: VoxelMapState):

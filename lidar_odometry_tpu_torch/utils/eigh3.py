@@ -1,15 +1,16 @@
 """Closed-form eigendecomposition of symmetric 3x3 matrices (counterpart
 of the JAX package's utils/eigh3.py): trigonometric eigenvalues and the
 largest cross product of the rows of (A - lambda I) as the eigenvector.
-The CUDA map-update kernel carries a __device__ copy of the same
-arithmetic (csrc/common.cuh, eigh3_smallest)."""
+The CUDA kernels carry a __device__ copy of the same arithmetic
+(csrc/common.cuh, eigvals3 and eigvec_for): the map update's surfel
+recompute and the KD-tree mode's 5-NN plane fit."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-__all__ = ["eigh3"]
+__all__ = ["eigh3", "plane_from_points"]
 
 _TWO_PI_3 = 2.0 * math.pi / 3.0
 
@@ -61,3 +62,16 @@ def eigh3(A: torch.Tensor):
     """(eigenvalues ascending (..., 3), smallest-eigenvalue eigenvector (..., 3))."""
     lam = _eigvals3(A)
     return lam, _eigvec_for(A, lam[..., 0])
+
+
+def plane_from_points(pts: torch.Tensor, mask: torch.Tensor):
+    """Masked plane fit of (..., K, 3) points: (normal, centroid,
+    planarity = lambda_min / (lambda_max + 1e-6)). The covariance is the
+    mean outer product of the centred valid points."""
+    m = mask[..., None].to(pts.dtype)
+    cnt = torch.clamp(torch.sum(m, dim=-2), min=1.0)
+    centroid = torch.sum(pts * m, dim=-2) / cnt
+    d = (pts - centroid[..., None, :]) * m
+    cov = torch.einsum("...ki,...kj->...ij", d, d) / cnt[..., None]
+    lam, normal = eigh3(cov)
+    return normal, centroid, lam[..., 0] / (lam[..., 2] + 1e-6)

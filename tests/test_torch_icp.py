@@ -87,6 +87,50 @@ def test_icp_matches_jax_on_the_same_map(scene, dt, dyaw, adaptive):
     assert np.linalg.norm(tT[:3, 3] - pose[:3, 3]) < 0.05
 
 
+@pytest.fixture(scope="module")
+def kd_scene():
+    """A JAX map without surfels (KD-tree mode's) of three keyframes."""
+    world = synthetic.make_world(seed=13, extent=60.0, n_buildings=14)
+    poses = synthetic.straight_trajectory(5, step=0.4)
+    rng = np.random.default_rng(14)
+    state = jvm.empty_map(0, C1)
+    for i in range(3):
+        c, m = _features(world, poses[i], rng)
+        world_pts = c @ poses[i][:3, :3].T + poses[i][:3, 3]
+        state = jvm.update_map(state, jnp.asarray(world_pts), jnp.asarray(m),
+                               jnp.asarray(poses[i][:3, 3]), 120.0, voxel_size=0.5,
+                               planarity_threshold=0.1, compute_surfels=False)
+    feat, mask = _features(world, poses[4], rng)
+    return state, feat, mask, poses[4]
+
+
+@pytest.mark.parametrize("dt,dyaw,adaptive", [
+    ((0.15, -0.1, 0.05), 0.01, True),
+    ((0.1, 0.1, 0.0), -0.005, False),
+])
+def test_kd_tree_icp_matches_jax(kd_scene, dt, dyaw, adaptive):
+    """KD-tree mode (K5a, K5b, K3, K2b through their plain path)."""
+    state, feat, mask, pose = kd_scene
+    T0 = _perturbed(pose, dt, dyaw)
+    kw = dict(max_iterations=4, voxel_size=0.5, use_adaptive_m_estimator=adaptive,
+              use_surfel_correspondence=False)
+    jT, jok, jn = jicp.icp_optimize(state, jnp.asarray(feat), jnp.asarray(mask),
+                                    jnp.asarray(T0), jpko.make_pko_constants(*ARGS),
+                                    jicp.ICPConfig(**kw))
+    ts = convert.map_state_from_numpy({k: np.asarray(v) for k, v in state._asdict().items()},
+                                      device="cpu")
+    tT, tok, tn = ticp.icp_optimize(ts, torch.tensor(feat), torch.tensor(mask),
+                                    torch.tensor(T0),
+                                    tpko.make_pko_constants(*ARGS, device="cpu"),
+                                    ticp.ICPConfig(**kw))
+    jT, tT = np.asarray(jT), tT.numpy()
+    assert bool(tok) == bool(jok) is True
+    assert abs(int(tn) - int(jn)) <= max(2, int(jn) // 200)
+    np.testing.assert_allclose(tT[:3, 3], jT[:3, 3], atol=1e-3)
+    assert _rot_err(tT, jT) < 1e-3
+    assert np.linalg.norm(tT[:3, 3] - pose[:3, 3]) < 0.05
+
+
 def test_icp_fails_without_correspondences(scene):
     """An empty map: fewer than 50 correspondences, so the solve fails and
     returns the initial guess, as the JAX solve does."""

@@ -1,9 +1,10 @@
 """Each CUDA kernel of the port against its plain PyTorch twin, on the card.
 
 These need an NVIDIA GPU and nvcc; they are marked `cuda` and skip where
-there is no card (a CUDA kernel has no CPU mode). On the card:
+there is no card (a CUDA kernel has no CPU mode). On the card (these
+tests need no jax, so tests/conftest.py, which imports it, is left out):
 
-    python -m pytest tests/test_torch_kernels.py -q -n 0
+    python -m pytest tests/test_torch_kernels.py -q --noconftest -o addopts=""
 """
 import numpy as np
 import pytest
@@ -120,6 +121,63 @@ def test_map_kernels(scene):
     assert float((sk[:, 3:] - sp[:, 3:]).abs().max()) <= 1e-4
     dots = (sk[:, :3] * sp[:, :3]).sum(1).abs()
     assert float((dots > 1 - 1e-4).float().mean()) > 0.99
+
+
+def _well_conditioned(cand, cand_ok, sel):
+    """Rows whose 5-point covariance keeps its two smallest eigenvalues
+    more than 1e-2 of the largest apart: there the float32 normal is
+    fixed to ~1e-5 (float64 reference)."""
+    nb = torch.gather(cand, 1, sel.long()[..., None].expand(-1, -1, 3)).double()
+    m = torch.gather(cand_ok, 1, sel.long())[..., None].double()
+    cnt = m.sum(1).clamp(min=1.0)
+    d = (nb - ((nb * m).sum(1) / cnt)[:, None]) * m
+    lam = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", d, d) / cnt[..., None])
+    return (lam[:, 1] - lam[:, 0]) > 1e-2 * (lam[:, 2] + 1e-6)
+
+
+def test_kd_tree_kernels(scene):
+    st, T, feat, mask = scene["carry"].map_state, scene["T"], scene["feat"], scene["mask"]
+    p_world = lie.transform_points(T.view(4, 4), feat).contiguous()
+    cfg = icp.ICPConfig(use_surfel_correspondence=False)
+    for radius in (1, 2):
+        n0 = kernels.KERNELS["grid_knn"].launches
+        ck, okk = vm.grid_knn_neighbors(st, p_world, voxel_size=0.5, radius=radius)
+        cp, okp = vm.grid_knn_neighbors_plain(st, p_world, voxel_size=0.5, radius=radius)
+        torch.cuda.synchronize()
+        assert kernels.KERNELS["grid_knn"].launches == n0 + 1
+        assert torch.equal(okk, okp) and torch.equal(ck, cp)
+    cand_ok = okk & mask[:, None]
+    for gate in (True, False):
+        fk = icp.plane_fit_5nn(p_world, ck, cand_ok, mask, cfg, gate)
+        fp_ = icp.plane_fit_5nn_plain(p_world, ck, cand_ok, mask, cfg, gate)
+        assert torch.equal(fk.sel, fp_.sel) and torch.equal(fk.nearest, fp_.nearest)
+        assert float((fk.centroid - fp_.centroid).abs().max()) <= 1e-5
+        well = _well_conditioned(ck, cand_ok, fp_.sel)
+        assert float(well.float().mean()) > 0.5
+        assert int((fk.valid != fp_.valid)[well].sum()) == 0
+        # the kernel's eigh3 contracts into FMAs where torch does not
+        assert float((fk.dist - fp_.dist)[well].abs().max()) <= 1e-4
+        assert float((fk.resid.abs() - fp_.resid.abs())[well].abs().max()) <= 1e-4
+        assert float((fk.normal * fp_.normal).sum(1).abs()[well].min()) > 1 - 1e-5
+
+
+def test_kd_tree_icp_on_the_card(scene):
+    """KD-tree ICP through its kernels lands where its plain path does."""
+    st, T, feat, mask = scene["carry"].map_state, scene["T"], scene["feat"], scene["mask"]
+    cfg, consts = icp.ICPConfig(use_surfel_correspondence=False), scene["consts"]
+    counts = kernels.counts()
+    Tk, okk, nk = icp.icp_optimize(st, feat, mask, T.view(4, 4), consts, cfg)
+    after = kernels.counts()
+    assert all(after[k] > counts[k] for k in ("grid_knn", "plane_fit_5nn", "pko_alpha",
+                                              "icp_normal_eq"))
+    assert after["icp_correspond"] == counts["icp_correspond"]
+    cpu = lambda x: x.cpu()
+    st_cpu = vm.VoxelMapState(*map(cpu, st))
+    consts_cpu = pko.make_pko_constants(*ARGS, device="cpu")
+    Tp, okp, n_p = icp.icp_optimize(st_cpu, feat.cpu(), mask.cpu(), T.view(4, 4).cpu(),
+                                    consts_cpu, cfg)
+    assert bool(okk) == bool(okp) is True
+    assert float((Tk.cpu() - Tp)[:3, 3].abs().max()) <= 1e-3
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(scene):

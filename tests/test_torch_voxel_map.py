@@ -137,6 +137,40 @@ def test_update_on_a_converted_jax_map(frames):
     _assert_same(js, ts, where="after one more keyframe")
 
 
+def _live_cells(meta):
+    return {tuple(r) for r in meta[meta[:, 0] != -1][:, :2]}
+
+
+def test_update_without_surfels_matches_jax(frames):
+    """compute_surfels=False, KD-tree mode's map: no surfel recompute and no
+    non-planar deletion, over a bulk keyframe, a repeat, an evicting
+    update and two more; the integer state stays identical to JAX's, no
+    cell has a surfel, and every cell that eviction emptied is freed."""
+    js = jvm.empty_map(0, C1)
+    ts = tvm.empty_map(0, C1, device="cpu")
+    for i, (f, max_d) in enumerate([(0, 120.0), (1, 120.0), (2, 30.0), (3, 120.0),
+                                    (4, 120.0)]):
+        pts, mask, sensor = frames[f]
+        cells_before = _live_cells(np.asarray(js.l1_meta))
+        js = jvm.update_map(js, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(sensor),
+                            max_d, voxel_size=VOX, planarity_threshold=THR,
+                            compute_surfels=False, evict_enabled=jnp.bool_(True))
+        ts = tvm.update_map(ts, torch.as_tensor(pts), torch.as_tensor(mask),
+                            torch.as_tensor(sensor), max_d, voxel_size=VOX,
+                            planarity_threshold=THR, compute_surfels=False,
+                            evict_enabled=torch.tensor(True))
+        a = {k: np.asarray(v) for k, v in js._asdict().items()}
+        b = convert.map_state_to_numpy(ts)
+        for k in INT_FIELDS:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"{k} after update {i}")
+        np.testing.assert_allclose(b["l0_data"], a["l0_data"], atol=1e-4)
+        assert not b["l1_surfel"].any() and not a["l1_surfel"].any()
+        live = b["l1_meta"][:, 0] != -1
+        assert (b["l1_meta"][live, 2] > 0).all()
+        if max_d < 100:   # eviction emptied and freed whole cells
+            assert len(cells_before - _live_cells(a["l1_meta"])) > 100
+
+
 def test_eviction_gate_off(frames):
     """evict_enabled=False skips the radius stage entirely."""
     js = jvm.empty_map(0, C1)

@@ -23,6 +23,16 @@ Phases, each of which exits nonzero on failure:
        - the KD-tree kernels (K5a grid_knn, K5b plane_fit_5nn) at the mid360
          shapes (scan capacity 16384, 0.4 m voxels, radius 2, a map of 65536
          parents built without surfels by the mid360 path's first keyframes);
+       - the loop-closure kernels at kitti.yaml's shapes (keyframes of the
+         loops path's circuit scanned densely enough to fill the scan
+         capacity of 16384 features, so a loop query of 8192 valid rows
+         against a 16384-row keyframe; a 16-keyframe Iris batch, 32
+         candidates, the rehash of a 65536-parent map): K6a point_grid, K6b
+         point_knn (k = 5) and point_nn1 (k = 1), K7 bev_raster, K7c
+         cross_power (the Iris query's 64 spectra, and the prealign's),
+         K8a iris_image, K8g gabor_product, K8b iris_encode, K8c
+         iris_hamming, K9a map_bulk_index, K9b map_bulk_merge, and K2b with
+         the loop's weight residual;
   4. the surfel path: make_chunk_runner over chunks of 20 frames; scans/s
      after the first chunk, ATE against the synthetic ground truth (must
      stay below 0.5 m), keyframes, map size;
@@ -30,10 +40,17 @@ Phases, each of which exits nonzero on failure:
      through the PLY player over indoor-corridor ring scans written as PLY
      files: process_chunk with its sampled per-frame first frame, then the
      per-frame tail; player scans/s, ATE (below 0.5 m), keyframes, map size;
-  6. one JSON line of kernels, then the card line, then the result line.
+  6. the loops path: config/kitti.yaml (loop closure and PGO on, the
+     "manual" backend, prealign on, keyframe capacity 4096) through
+     Estimator(sync_loop=True).process_chunk in chunks of 20 and
+     finalize_loops, over a synthetic circuit that revisits its start; it
+     must accept a loop, rehash the map, log no loop error and end with ATE
+     below 0.5 m; then the same scans with loops off, for scans/s and ATE;
+  7. one JSON line of kernels, then the card line, then the result line.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
-mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c.
+mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
+loops path the surfel path's kernels, K5b and every loop-closure kernel.
 
 It imports nothing of JAX. It needs torch with CUDA and a CUDA toolkit.
 """
@@ -67,6 +84,25 @@ SURFEL_KERNELS = ("voxel_filter", "icp_correspond", "icp_normal_eq", "pko_alpha"
 MID_KERNELS = ("voxel_filter", "pko_alpha", "icp_normal_eq", "map_evict_scan",
                "map_scatter_add", "grid_knn", "plane_fit_5nn")
 MID_NEVER = ("icp_correspond", "map_surfel_recompute")
+# the loops path: config/kitti.yaml over a circuit that revisits its start,
+# the JAX loop test's circuit (tests/test_loop_closure.py) with denser
+# scans: 10000 returns at 45 m range. With 16384 returns both the JAX
+# estimator and the port lose track at the circuit's first corner (frame
+# 52; per-frame ATE 1.26 m and 5.29 m on the CPU, where 10000 returns give
+# 0.023 m on both: tools/loop_scan_density.py), so the path's scans stop
+# short of the scan capacity; every table keeps the kitti.yaml width, and
+# phase 3 holds the loop kernels at that width on densely scanned frames.
+LOOP_FRAMES = 220
+LOOP_CHUNK = 20
+LOOP_POINTS = 10000
+LOOP_RANGE = 45.0
+LOOP_REVISIT = 205        # the frame one lap after frame 0
+DENSE_POINTS = 65536      # returns whose 0.5 m features fill a scan capacity of 16384
+DENSE_FRAMES = tuple(range(0, 32, 2)) + (LOOP_REVISIT,)
+LOOP_KERNELS = ("point_grid", "point_knn", "point_nn1", "bev_raster", "cross_power",
+                "iris_image", "gabor_product", "iris_encode", "iris_hamming", "map_bulk_index",
+                "map_bulk_merge")
+LOOPS_PATH_KERNELS = SURFEL_KERNELS + ("plane_fit_5nn",) + LOOP_KERNELS
 
 
 def fail(msg: str) -> None:
@@ -98,18 +134,42 @@ def time_ms(fn, reps: int = 30) -> float:
     return start.elapsed_time(end) / reps
 
 
-def record(rows, name, err, tol, ms, plain_ms, nbytes, ops, library_ms=None, note=""):
-    """Print one kernel's comparison with its plain version, fail if it is
-    out of tolerance, and keep its numbers in rows[name]."""
+def device_ms(fn, reps: int = 30):
+    """A kernel's device time per call, with the host's launch cost taken
+    out: the card first spins (~25 ms) while the host enqueues all the
+    calls, so they run back to back. None when the host did not get ahead
+    (a wrapper that synchronises)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps if ahead else None
+
+
+def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms=None, note=""):
+    """Time one kernel (`kernel` is a call of its wrapper: CUDA events over
+    30 calls as launched, and device_ms), print its comparison with its
+    plain version, fail if it is out of tolerance, and keep its numbers in
+    rows[name]."""
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
     b, by = bound_ms(nbytes, ops)
     ok = err <= tol
     print(f"  {name:22s} max_abs_err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}"
-          f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})"
+          f" | kernel {ms:.4f} ms"
+          + (f" (device {dev_ms:.4f} ms)" if dev_ms is not None else "")
+          + f", plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})"
           + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
           + (f" | {note}" if note else ""), flush=True)
     if not ok:
         fail(f"kernel {name} disagrees with its plain version: {err} > {tol}")
-    rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+    rows[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
                       bound_by=by, library_ms=library_ms)
 
 
@@ -145,6 +205,50 @@ def make_indoor_scans(n_frames: int):
                                          max_range=25.0, noise=0.008,
                                          elevation_range=(-7.0, 52.0)) for p in poses]
     return scans, poses
+
+
+def make_loop_scans():
+    """The JAX loop test's circuit (seed 9: a 60 m world of 18 buildings, a
+    30 m x 10 m stadium at 0.6 m a frame, 220 frames = 1.07 laps) with
+    scans of LOOP_POINTS returns at LOOP_RANGE, NaN-padded. Returns
+    ((F, LOOP_POINTS, 3) scans, poses)."""
+    import numpy as np
+    from lidar_odometry_tpu_torch.io import synthetic
+    world = synthetic.make_world(seed=9, extent=60.0, n_buildings=18)
+    poses = synthetic.circuit_trajectory(LOOP_FRAMES, length=30.0, radius=10.0, step=0.6)
+    rng = np.random.default_rng(9)
+    out = np.full((LOOP_FRAMES, LOOP_POINTS, 3), np.nan, np.float32)
+    for i in range(LOOP_FRAMES):
+        s = synthetic.sample_scan(world, poses[i], LOOP_POINTS, rng, max_range=LOOP_RANGE,
+                                  noise=0.02)
+        out[i, :len(s)] = s
+    return out, poses
+
+
+def make_dense_loop_frames():
+    """Frames DENSE_FRAMES of the loops path's circuit scanned with
+    DENSE_POINTS returns at LOOP_RANGE, NaN-padded: their features fill
+    kitti.yaml's scan capacity. Returns {frame: (DENSE_POINTS, 3) scan}."""
+    import numpy as np
+    from lidar_odometry_tpu_torch.io import synthetic
+    world = synthetic.make_world(seed=9, extent=60.0, n_buildings=18)
+    poses = synthetic.circuit_trajectory(LOOP_FRAMES, length=30.0, radius=10.0, step=0.6)
+    rng = np.random.default_rng(19)
+    out = {}
+    for i in DENSE_FRAMES:
+        out[i] = np.full((DENSE_POINTS, 3), np.nan, np.float32)
+        s = synthetic.sample_scan(world, poses[i], DENSE_POINTS, rng, max_range=LOOP_RANGE,
+                                  noise=0.02)
+        out[i][:len(s)] = s
+    return out
+
+
+def kitti_config():
+    """config/kitti.yaml through the port's loader. The scans are made at
+    the density the estimator keeps, so point_stride 8 becomes 1."""
+    from lidar_odometry_tpu_torch.config import load_config
+    return load_config(str(ROOT / "config" / "kitti.yaml")).replace(
+        point_stride=1, enable_console_statistics=False, chunk_frames=LOOP_CHUNK)
 
 
 def mid360_config():
@@ -220,7 +324,7 @@ def check_kernels(scans_np, cfg, consts, kw):
     seg_c = torch.clamp(seg, 0, SCAN_CAP)
     nv = int(n_k)
     row("voxel_filter", err, 1e-5,
-        time_ms(lambda: vf.voxel_segments(key_s, perm, raw, SCAN_CAP, inv, vox)),
+        lambda: vf.voxel_segments(key_s, perm, raw, SCAN_CAP, inv, vox),
         time_ms(lambda: vf.voxel_segments_plain(key_s, perm, raw, SCAN_CAP, inv, vox)),
         n * (8 + 8 + 12) + SCAN_CAP * 13 + 4, n * 10,
         library_ms=time_ms(lambda: lib_out.index_add_(0, seg_c, p_rel)),
@@ -244,7 +348,7 @@ def check_kernels(scans_np, cfg, consts, kw):
     n_rows_b = int(torch.unique(vm.hash_bucket(qhi, qlo, state.n_buckets - 1)).numel())
     n_rows_s = int(torch.unique(vm.bucket_find(state.l1_index, qhi, qlo)[0]).numel())
     row("icp_correspond", err, 1e-4,
-        time_ms(lambda: icp.icp_correspond(feat, mask, T, flags, state, cfg)),
+        lambda: icp.icp_correspond(feat, mask, T, flags, state, cfg),
         time_ms(lambda: icp.icp_correspond_plain(feat, mask, T, state, cfg)),
         N * (12 + 1) + 64 + 12 + n_rows_b * 128 + n_rows_s * 32 + N * 17, N * 40,
         note=f"{int(v_k.sum())} correspondences, {mism} flag mismatches")
@@ -258,7 +362,7 @@ def check_kernels(scans_np, cfg, consts, kw):
     err = float((s_k.reshape(()) - s_p).abs()) / max(float(s_p), 1e-12)
     n_a, n_g = consts.Q.shape
     row("pko_alpha", err, 1e-5,
-        time_ms(lambda: pko.pko_alpha_index(r_k, v_k, flags, scale, True, consts)),
+        lambda: pko.pko_alpha_index(r_k, v_k, flags, scale, True, consts),
         time_ms(lambda: pko.pko_alpha_index_plain(r_k, v_k, scale.reshape(()), True, consts)),
         N * 5 + n_a * n_g * 4 + (n_a + n_g + 100) * 4 + 12, N * 4 + n_a * n_g * 12,
         note=f"alpha index {int(aux_k[1])}; err is relative, of the scale")
@@ -272,8 +376,8 @@ def check_kernels(scans_np, cfg, consts, kw):
     err = float((Tk - Tp).abs().max())
     nvld = int(v_k.sum())
     row("icp_normal_eq", err, 1e-5,
-        time_ms(lambda: icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k,
-                                          consts, cfg)),
+        lambda: icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k,
+                                          consts, cfg),
         time_ms(lambda: icp.icp_normal_eq_plain(feat, nrm_k, r_k, v_k, T, s_k, flags,
                                                 aux_k, consts, cfg)),
         N * (12 + 12 + 4 + 1) + 64 + 28 + 64 + 12 + 108, nvld * 90,
@@ -289,7 +393,7 @@ def check_kernels(scans_np, cfg, consts, kw):
     err = float((ck != cp).sum())
     live = int((l0[:C1 * 27, 0] > 0).sum())
     row("map_evict_scan", err, 0,
-        time_ms(lambda: vm.map_evict_scan(l0, C1, sensors, maxd2, on)),
+        lambda: vm.map_evict_scan(l0, C1, sensors, maxd2, on),
         time_ms(lambda: vm.map_evict_scan_plain(l0, C1, sensors, maxd2, on)),
         C1 * 27 * 16 + 12 + 1 + C1, live * 20,
         note=f"{int(ck.sum())} evicting parents of {int(state.n_l1)}; err = differing flags")
@@ -317,7 +421,7 @@ def check_kernels(scans_np, cfg, consts, kw):
     data4 = torch.cat([mask.float()[:, None], torch.where(mask[:, None], world, 0.0)], 1)
     l0_lib = l0.clone()
     row("map_scatter_add", err, 1e-6,
-        time_ms(lambda: vm.map_scatter_add(l0k, world, s_idx, firstk, valid_s, tgt)),
+        lambda: vm.map_scatter_add(l0k, world, s_idx, firstk, valid_s, tgt),
         time_ms(lambda: vm.map_scatter_add_plain(l0p, world, s_idx, firstk, valid_s, tgt)),
         N * (12 + 8 + 1 + 1 + 8) + int(lead.sum()) * 32, N * 4,
         library_ms=time_ms(lambda: l0_lib.index_add_(0, tgt_pt, data4)),
@@ -347,12 +451,12 @@ def check_kernels(scans_np, cfg, consts, kw):
         fail(f"map_surfel_recompute: {flips} non-planar verdicts differ")
     n_live = int(live_par.numel())
     row("map_surfel_recompute", err, 1e-4,
-        time_ms(lambda: vm.map_surfel_recompute(l0, r_slot, C1, K.f32(0.1))),
+        lambda: vm.map_surfel_recompute(l0, r_slot, C1, K.f32(0.1)),
         time_ms(lambda: vm.map_surfel_recompute_plain(l0, r_slot, C1, K.f32(0.1))),
         r_n * 8 + n_live * 27 * 16 + r_n * (32 + 1 + 4), n_live * (27 * 30 + 200),
         note=f"{n_live} parents, {int((~well[:n_live]).sum())} with an ill-conditioned "
              f"normal left out of the normal comparison")
-    return rows
+    return rows, state
 
 
 def check_kd_kernels(scans, sysc):
@@ -401,7 +505,7 @@ def check_kd_kernels(scans, sysc):
     nbr = qc[:, None, :] + torch.as_tensor(vm._cube(-r, r), device=dev)[None]
     n_r = int(torch.unique(K.sort_key(*K.pack_key(nbr.reshape(-1, 3)))).numel())
     row("grid_knn", float((ck - cp).abs().max()), 0.0,
-        time_ms(lambda: vm.grid_knn_neighbors(state, p, voxel_size=vox, radius=r)),
+        lambda: vm.grid_knn_neighbors(state, p, voxel_size=vox, radius=r),
         time_ms(lambda: vm.grid_knn_neighbors_plain(state, p, voxel_size=vox, radius=r)),
         n * 12 + n_b * 128 + n_r * 16 + n * m * 13, n * m * 20,
         note=f"{n} rows x {m} candidates, {int(okk.sum())} live; {n_b} bucket rows, "
@@ -428,12 +532,269 @@ def check_kd_kernels(scans, sysc):
     err = max(float((fk.dist - fp_.dist)[well].abs().max()),
               float((fk.resid - fp_.resid)[well].abs().max()))
     row("plane_fit_5nn", err, 1e-4,
-        time_ms(lambda: icp.plane_fit_5nn(p, ck, cand_ok, mask, cfg, True)),
+        lambda: icp.plane_fit_5nn(p, ck, cand_ok, mask, cfg, True),
         time_ms(lambda: icp.plane_fit_5nn_plain(p, ck, cand_ok, mask, cfg, True)),
         n * m * 13 + n * 13 + n * (3 * 12 + 1 + 4 + 4 + 20), n * m * 9 + n * 400,
         note=f"{int(fk.valid.sum())} valid of {int(mask.sum())} points; "
              f"{int((~well & mask).sum())} masked-in rows with an ill-conditioned normal "
              f"left out of the comparison")
+    return rows
+
+
+def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
+    """The loop-closure kernels against their plain twins at kitti.yaml's
+    shapes: a revisit query (frame LOOP_REVISIT, every second of its 16384
+    features, with a drifted pose) against frame 0's keyframe, the Iris
+    batch of 16 keyframe clouds, 32 candidates, and the rehash of the
+    surfel path's 65536-parent map. `scans` holds the densely scanned
+    frames of make_dense_loop_frames."""
+    import math
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch.models.estimator import Estimator
+    from lidar_odometry_tpu_torch.ops import bev_align, icp, iris, knn
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf, voxel_map as vm
+    from lidar_odometry_tpu_torch.utils import keys as K, lie
+
+    dev = DEVICE
+    rows = {}
+    row = functools.partial(record, rows)
+    est = Estimator(cfg.replace(enable_loop_detection=False), device=dev)
+    icfg, consts = est.icp_cfg, est.pko_consts
+
+    def feats(i):
+        raw = torch.as_tensor(scans[i], device=dev)
+        f, m, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=cfg.voxel_size, stride=1,
+                                  out_capacity=cfg.scan_capacity, compact_keys=True)
+        return f, m
+
+    m_pts, m_mask = feats(0)
+    q_full, q_mask_full = feats(LOOP_REVISIT)
+    q_pts, q_mask = q_full[::2].contiguous(), q_mask_full[::2].contiguous()
+    m_pose = torch.as_tensor(gt[0], device=dev)
+    drift = np.eye(4, dtype=np.float32)
+    a = math.radians(2.0)
+    drift[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+    drift[:3, 3] = (0.8, -0.5, 0.0)
+    q_pose = torch.as_tensor(drift @ gt[LOOP_REVISIT], device=dev)
+    m_world = lie.transform_points(m_pose, m_pts).contiguous()
+    n_q, n_m = q_pts.shape[0], m_pts.shape[0]
+    print(f"  loop query: {n_q} rows ({int(q_mask.sum())} valid) against a keyframe of {n_m} "
+          f"rows ({int(m_mask.sum())} valid), scans of {DENSE_POINTS} returns", flush=True)
+
+    # ---- K7 bev_raster (the prealign's query transform and two images) ----
+    T_a = bev_align._yaw_corrected(q_pose, m_pose, torch.tensor(0.0, device=dev))
+    T_a16 = T_a.reshape(16).contiguous()
+    center = m_pose[:3, 3].contiguous()
+    ik = bev_align.bev_raster(q_pts, q_mask, T_a16, m_world, m_mask, center)
+    ip = bev_align.bev_raster_plain(q_pts, q_mask, T_a16, m_world, m_mask, center)
+    occ = int(ip.sum())
+    row("bev_raster", float((ik != ip).sum()), max(2, occ // 1000),
+        lambda: bev_align.bev_raster(q_pts, q_mask, T_a16, m_world, m_mask, center),
+        time_ms(lambda: bev_align.bev_raster_plain(q_pts, q_mask, T_a16, m_world, m_mask,
+                                                   center)),
+        n_q * 13 + n_m * 13 + 64 + 12 + 2 * 128 * 128 * 4, n_q * 20 + n_m * 6,
+        note=f"{occ} occupied cells of 2 x 128 x 128; err = differing cells (points on a "
+             f"cell edge)")
+    T_init = icp.loop_prealign(q_pose, m_pose, torch.tensor(0.0, device=dev), q_pts, q_mask,
+                               m_pts, m_mask)
+
+    # ---- K6a point_grid (the coarse 2 m table of the matched keyframe) ----
+    inv = K.f32(1.0 / K.f32(cfg.map_voxel_size * 4.0))
+    key = torch.where(m_mask, K.sort_key(*K.pack_key(K.voxel_coords(m_world, inv))),
+                      K.INVALID_SORT_KEY)
+    key_s, idx = torch.sort(key, stable=True)
+    pts_s = m_world[idx].contiguous()
+    gk, mk = knn.point_grid(key_s, pts_s, inv)
+    gp, mp = knn.point_grid_plain(key_s, pts_s, inv)
+    n_bins = int((gp != n_m).sum())
+    row("point_grid", float((gk != gp).sum() + (mk != mp).sum()), 0,
+        lambda: knn.point_grid(key_s, pts_s, inv),
+        time_ms(lambda: knn.point_grid_plain(key_s, pts_s, inv)),
+        n_m * 20 + n_bins * 4 + 20, n_m * 12,
+        note=f"{n_bins} occupied 2 m bins, fits={int(mk[3])}; err = differing grid entries")
+    table = knn.PointTable(key=key_s, pts=pts_s, grid=gk, meta=mk, inv=inv)
+
+    # ---- K6b point_knn (k = 5, coarse r = 1, W = 8) and point_nn1 ----
+    qw = lie.transform_points(T_init, q_pts).contiguous()
+    for name, k in (("point_knn", 5), ("point_nn1", 1)):
+        nk, ok_k, dk = knn.knn_query(table, qw, k=k, radius=1, bucket_width=8)
+        np_, ok_p, dp = knn.knn_query_plain(table, qw, k=k, radius=1, bucket_width=8)
+        if not (torch.equal(ok_k, ok_p) and torch.equal(nk[ok_k], np_[ok_p])):
+            fail(f"{name}: other neighbours than the plain version")
+        fin = torch.isfinite(dp)
+        err = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
+        # bytes: the queries, the grid entries and table rows this run probes,
+        # and the k winners written
+        qc = K.voxel_coords(qw, inv)
+        offs = torch.as_tensor(knn._neighbor_offsets(1), device=dev)
+        lin = K.sort_key(*K.pack_key((qc[:, None, :] + offs[None]).reshape(-1, 3)))
+        n_probe = int(torch.unique(lin).numel())
+        row(name, err, 1e-5,
+            lambda: knn.knn_query(table, qw, k=k, radius=1, bucket_width=8),
+            time_ms(lambda: knn.knn_query_plain(table, qw, k=k, radius=1, bucket_width=8)),
+            n_q * 12 + n_probe * 4 + n_m * 20 + 20 + n_q * k * 17, n_q * 27 * 8 * 10,
+            note=f"{n_q} queries x 27 bins x 8, {int(ok_k.sum())} neighbours found; "
+                 f"{n_probe} distinct bins probed")
+
+    # ---- K2b with the loop's weight residual (one coarse step) ----
+    nb, nb_ok, _ = knn.knn_query(table, qw, k=5, radius=1, bucket_width=8)
+    fit = icp.plane_fit_5nn(qw, nb, nb_ok, q_mask, icfg, gate=False)
+    r_nn = torch.sum(fit.normal * (qw - fit.nearest), -1).contiguous()
+    flags = torch.zeros((3,), dtype=torch.int32, device=dev)
+    aux, scale = icp._scale_and_alpha(fit.dist, fit.valid, flags,
+                                      torch.ones((1,), device=dev), True, consts, icfg)
+    T16 = T_init.reshape(16).contiguous()
+    args = (q_pts, fit.normal, r_nn, fit.valid, T16, scale, flags, aux, consts, icfg)
+    Tk, fk, _ = icp.icp_normal_eq(*args, rw=fit.dist)
+    Tp, fp_, _ = icp.icp_normal_eq_plain(*args, rw=fit.dist)
+    if not torch.equal(fk, fp_):
+        fail(f"icp_normal_eq (weight residual): flags {fk.tolist()} vs plain {fp_.tolist()}")
+    err = float((Tk - Tp).abs().max())
+    ms_k = time_ms(lambda: icp.icp_normal_eq(*args, rw=fit.dist))
+    dev_k = device_ms(lambda: icp.icp_normal_eq(*args, rw=fit.dist))
+    ms_p = time_ms(lambda: icp.icp_normal_eq_plain(*args, rw=fit.dist))
+    b, by = bound_ms(n_q * (12 + 12 + 4 + 4 + 1) + 64 + 28 + 64 + 12 + 108,
+                     int(fit.valid.sum()) * 90)
+    print(f"  {'icp_normal_eq (loop)':22s} max_abs_err {err:.3e} (tol 1e-05) "
+          f"{'ok' if err <= 1e-5 else 'FAIL'} | kernel {ms_k:.4f} ms"
+          + (f" (device {dev_k:.4f} ms)" if dev_k is not None else "")
+          + f", plain {ms_p:.4f} ms, "
+          f"bound {b:.5f} ms ({by}) | the loop's coarse step: residual to the nearest "
+          f"neighbour, weights from the plane distance", flush=True)
+    if err > 1e-5:
+        fail(f"icp_normal_eq with a weight residual disagrees with its plain version: {err}")
+    rows["icp_normal_eq"] = dict(rows_in["icp_normal_eq"],
+                                 weight_residual=dict(max_abs_err=err, ms=ms_k, device_ms=dev_k,
+                                                      plain_ms=ms_p, bound_ms=b, bound_by=by,
+                                                      library_ms=None))
+
+    # ---- K8a iris_image, K8b iris_encode (a drain batch of 16 keyframes) ----
+    clouds = torch.stack([feats(i)[0] for i in range(0, 32, 2)]).contiguous()
+    masks = torch.stack([feats(i)[1] for i in range(0, 32, 2)]).contiguous()
+    nb_pts = int(masks.sum())
+    bk = iris.iris_bits(clouds, masks)
+    bp = iris._iris_bits_plain(clouds, masks)
+    n_px = int((bp > 0).sum())
+    row("iris_image", float((bk != bp).sum()), max(2, n_px // 1000),
+        lambda: iris.iris_bits(clouds, masks),
+        time_ms(lambda: iris._iris_bits_plain(clouds, masks)),
+        clouds.numel() * 4 + masks.numel() + bk.numel() * 4, nb_pts * 40,
+        note=f"16 keyframes, {n_px} occupied pixels; err = differing pixels (points on a "
+             f"ring, height or yaw edge)")
+    filters = torch.as_tensor(iris.log_gabor_filters(), device=dev)
+    spec = torch.fft.fft(bk.to(torch.complex64), dim=-1)
+    gk = iris.gabor_product(spec, filters)
+    gp = iris.gabor_product_plain(spec, filters)
+    filt_c = filters.to(torch.complex64)[None, :, None, :]
+    row("gabor_product", float((gk - gp).abs().max()), 0.0,
+        lambda: iris.gabor_product(spec, filters),
+        time_ms(lambda: iris.gabor_product_plain(spec, filters)),
+        spec.numel() * 8 + filters.numel() * 4 + gk.numel() * 8, gk.numel() * 2,
+        library_ms=time_ms(lambda: torch.mul(spec[:, None], filt_c)),
+        note="16 keyframes x 80 x 360 row spectra x 4 log-Gabor scales; library: one "
+             "broadcast torch.mul")
+    resp = iris._responses(bk.to(torch.float32), filters).contiguous()
+    Tk8, Mk8 = iris.iris_encode(resp)
+    Tp8, Mp8 = iris.iris_encode_plain(resp)
+    row("iris_encode", float((Tk8 != Tp8).sum() + (Mk8 != Mp8).sum()), 0,
+        lambda: iris.iris_encode(resp),
+        time_ms(lambda: iris.iris_encode_plain(resp)),
+        resp.numel() * 8 + 2 * Tk8.numel() * 4, resp.numel() * 10,
+        note="16 keyframes x 4 scales x 80 x 360 responses; err = differing code words")
+
+    # ---- K8c iris_hamming (a query against 32 candidates of the DB) ----
+    img8 = bk.to(torch.uint8)
+    cand = torch.arange(32, device=dev, dtype=torch.int32) % 16
+    valid = torch.arange(32, device=dev) < 30
+    shifts = iris.phase_shifts(img8[0].float(), img8[cand.long()].float())
+    hk = iris.iris_hamming(Tk8, Mk8, 0, cand, shifts, valid)
+    hp = iris.iris_hamming_plain(Tk8, Mk8, 0, cand, shifts, valid)
+    if not torch.equal(hk[:, 1], hp[:, 1]):
+        fail("iris_hamming: biases differ from the plain version")
+    fin = torch.isfinite(hp[:, 0])
+    row("iris_hamming", float((hk[fin, 0] - hp[fin, 0]).abs().max()), 1e-6,
+        lambda: iris.iris_hamming(Tk8, Mk8, 0, cand, shifts, valid),
+        time_ms(lambda: iris.iris_hamming_plain(Tk8, Mk8, 0, cand, shifts, valid)),
+        17 * 2 * 7200 * 4 + 32 * (4 + 8 + 1 + 8), 32 * 10 * 7200 * 6,
+        note=f"32 candidates (16 distinct rows), best distance {float(hk[fin, 0].min()):.4f}")
+
+    # ---- K7c cross_power (the query's 64 Iris spectra; the prealign's) ----
+    imgf = img8.float()
+    qf = torch.fft.fft2(imgf[0].to(torch.complex64)).reshape(-1)
+    cf = imgf[cand.long()]
+    xs = torch.cat([torch.fft.fft2(cf.to(torch.complex64)),
+                    torch.fft.fft2(torch.roll(cf, 180, -1).to(torch.complex64))]).reshape(64, -1)
+    ck, cp = bev_align.cross_power(xs, qf), bev_align.cross_power_plain(xs, qf)
+    n_x = xs.numel()
+    row("cross_power", float((ck - cp).abs().max()), 1e-6,
+        lambda: bev_align.cross_power(xs, qf),
+        time_ms(lambda: bev_align.cross_power_plain(xs, qf)),
+        2 * n_x * 8 + qf.numel() * 8, n_x * 14,
+        note="32 candidates x (forward, flipped) x 80 x 360 against the query's spectrum; "
+             "unit-magnitude values")
+    fa = torch.fft.fft2(ip[0].to(torch.complex64)).reshape(-1)
+    fb = torch.fft.fft2(ip[1].to(torch.complex64)).reshape(1, -1)
+    bk7, bp7 = bev_align.cross_power(fb, fa), bev_align.cross_power_plain(fb, fa)
+    sub = {}
+    record(sub, "cross_power (prealign)", float((bk7 - bp7).abs().max()), 1e-6,
+           lambda: bev_align.cross_power(fb, fa),
+           time_ms(lambda: bev_align.cross_power_plain(fb, fa)),
+           3 * fa.numel() * 8, fa.numel() * 14, note="the prealign's 128 x 128 BEV spectra")
+    rows["cross_power"]["prealign"] = sub["cross_power (prealign)"]
+
+    # ---- K9a map_bulk_index (the fresh index of the surfel path's map) ----
+    corr = torch.as_tensor(drift, device=dev)
+    cen, cnt, live, cap, _ = vm.rehash_records(surfel_map, corr)
+    plan = vm.bulk_plan(cen, cnt, live, cap, surfel_map.c1, voxel_size=cfg.map_voxel_size)
+    c1 = surfel_map.c1
+    bargs = vm.bulk_parents(plan.s_key, plan.first, cap, c1, plan.fresh.n_buckets)
+    fk, fp9 = vm.empty_map(0, c1, device=dev), vm.empty_map(0, c1, device=dev)
+    n_k = vm.map_bulk_index(*bargs, fk.l1_index, fk.l1_meta, c1)
+    n_p = vm.map_bulk_index_plain(*bargs, fp9.l1_index, fp9.l1_meta, c1)
+    if int(n_k) != int(n_p):
+        fail(f"map_bulk_index: {int(n_k)} parents placed vs plain {int(n_p)}")
+    n_par = int((bargs[0] < plan.fresh.n_buckets).sum())
+    row("map_bulk_index", float((fk.l1_index != fp9.l1_index).sum()
+                                + (fk.l1_meta != fp9.l1_meta).sum()), 0,
+        lambda: vm.map_bulk_index(*bargs, fk.l1_index, fk.l1_meta, c1),
+        time_ms(lambda: vm.map_bulk_index_plain(*bargs, fp9.l1_index, fp9.l1_meta, c1)),
+        c1 * (8 + 8 + 4 + 4 + 4 + 4) + int(n_k) * (12 + 16) + 4, c1 * 10,
+        note=f"{n_par} distinct parents, {int(n_k)} placed; err = differing index and meta "
+             f"entries")
+
+    # ---- K9b map_bulk_merge (the rehash of the surfel path's map) ----
+    l0k, l0p = plan.fresh.l0_data.clone(), plan.fresh.l0_data.clone()
+    a_k = vm.map_bulk_merge(l0k, plan.s_key, plan.s_idx, plan.first, plan.counts, plan.centroids,
+                            plan.fresh.l1_index)
+    a_p = vm.map_bulk_merge_plain(l0p, plan.s_key, plan.s_idx, plan.first, plan.counts,
+                                  plan.centroids, plan.fresh.l1_index)
+    if not torch.equal(a_k, a_p):
+        fail(f"map_bulk_merge: placed/dropped {a_k.tolist()} vs plain {a_p.tolist()}")
+    err = float(((l0k - l0p).abs() / l0p.abs().clamp(min=1.0)).max())
+    n_rec, n_live = cen.shape[0], int(live.sum())
+    n_merged = int(plan.first.sum())
+    # the library call: index_add_ of each live record's [count | sum] at its
+    # child row, given the rows
+    rec_row = torch.full((n_rec,), surfel_map.c1 * 27, dtype=torch.int64, device=dev)
+    ok_s = plan.s_key != K.INVALID_SORT_KEY
+    coords = K.unpack_key(*K.split_sort_key(plan.s_key))
+    par = torch.div(coords, 3, rounding_mode="floor")
+    pslot, phit, _, _ = vm.bucket_find(plan.fresh.l1_index, *K.pack_key(par))
+    rec_row[plan.s_idx] = torch.where(ok_s & phit, pslot.clamp(min=0) * 27
+                                      + vm._child_offset_of(coords), surfel_map.c1 * 27)
+    data4 = torch.cat([cnt[:, None], cen * cnt[:, None]], 1)
+    l0_lib = plan.fresh.l0_data.clone()
+    row("map_bulk_merge", err, 1e-5,
+        lambda: vm.map_bulk_merge(l0k, plan.s_key, plan.s_idx, plan.first, plan.counts,
+                                          plan.centroids, plan.fresh.l1_index),
+        time_ms(lambda: vm.map_bulk_merge_plain(l0p, plan.s_key, plan.s_idx, plan.first,
+                                                plan.counts, plan.centroids,
+                                                plan.fresh.l1_index)),
+        n_rec * (8 + 8 + 1) + n_live * 16 + n_merged * (128 + 16) + 8, n_live * 8,
+        library_ms=time_ms(lambda: l0_lib.index_add_(0, rec_row, data4)),
+        note=f"{n_live} live records, {n_merged} merged voxels, placed/dropped "
+             f"{a_k.tolist()}; err is relative")
     return rows
 
 
@@ -532,6 +893,106 @@ def mid360_path(scans, gt, sysc):
     shutil.rmtree(data, ignore_errors=True)
     return launches, dict(scans_per_s=res.fps, ate_m=ate, frames=n,
                           keyframes=est.get_keyframe_count())
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the loops path
+# ---------------------------------------------------------------------------
+
+def _run_chunks(est, scans) -> float:
+    """Wall seconds of the scans in chunks and finalize_loops."""
+    sync()
+    t0 = time.perf_counter()
+    for c in range(0, len(scans), LOOP_CHUNK):
+        est.process_chunk(scans[c:c + LOOP_CHUNK])
+    est.finalize_loops()
+    sync()
+    return time.perf_counter() - t0
+
+
+def loops_path(scans, gt, cfg):
+    """config/kitti.yaml with loops on through Estimator(sync_loop=True) in
+    chunks of LOOP_CHUNK, then finalize_loops; then the same scans with
+    loops off."""
+    import numpy as np
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.models.estimator import Estimator
+
+    print(f"loops path: config/kitti.yaml (loops on, pgo_backend {cfg.pgo_backend}, "
+          f"loop_prealign {cfg.loop_prealign}, keyframe_capacity {cfg.keyframe_capacity}, "
+          f"gates: gap {cfg.min_keyframe_gap}, distance {cfg.max_search_distance} m, "
+          f"similarity {cfg.similarity_threshold}); cut: point_stride 8 -> 1 and scans of "
+          f"{LOOP_POINTS} returns at {LOOP_RANGE} m range (with 16384 returns both the JAX "
+          f"estimator and the port lose track at the circuit's first corner: "
+          f"tools/loop_scan_density.py)", flush=True)
+    est = Estimator(cfg, sync_loop=True, device=DEVICE)
+    est.warm_loop_programs()
+    est.reset()
+    kernels.reset_counts()
+    wall = _run_chunks(est, scans)
+    launches = kernels.counts()
+    traj = est.trajectory()
+    n = len(scans)
+    if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
+        fail(f"loops path: poses of shape {traj.shape} not all finite")
+    ate = ate_rmse(traj, gt)
+    stages = est.loop_stage_snapshot()
+    ms = est.map_state
+    print(f"loops path: {n} frames in chunks of {LOOP_CHUNK}, sync_loop; {n / wall:.1f} scans/s "
+          f"({wall:.3f} s); ATE {ate:.4f} m; keyframes {est.get_keyframe_count()}; "
+          f"loop queries {est.loop_detector.total_queries}, loop ICP attempts "
+          f"{est.loop_icp_attempts}, loop constraints {est.get_loop_closure_count()}, rehashes "
+          f"{est.rehash_count}, loop errors {est.loop_errors}; n_l0 {int(ms.n_l0)}; n_l1 "
+          f"{int(ms.n_l1)}; n_dropped {int(ms.n_dropped)}", flush=True)
+    print("loop stages (ms, cumulative): " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    check_launches("loops", launches, LOOPS_PATH_KERNELS, ("grid_knn",))
+    if est.get_loop_closure_count() < 1:
+        fail("the loops path accepted no loop")
+    if est.rehash_count < 1:
+        fail("the loops path ran no map rehash")
+    if est.loop_errors:
+        fail(f"the loops path logged {est.loop_errors} loop errors")
+    if not ate <= 0.5:
+        fail(f"loops path ATE {ate:.4f} m > 0.5 m")
+    loops = dict(scans_per_s=n / wall, ate_m=ate, loops=est.get_loop_closure_count(),
+                 rehashes=est.rehash_count, stages_ms=stages)
+    if PROFILE:
+        profile_loop(est)
+    del est
+
+    off = Estimator(cfg.replace(enable_loop_detection=False), device=DEVICE)
+    wall_off = _run_chunks(off, scans)
+    ate_off = ate_rmse(off.trajectory(), gt)
+    print(f"loops off on the same scans: {n / wall_off:.1f} scans/s ({wall_off:.3f} s); "
+          f"ATE {ate_off:.4f} m; keyframes {off.get_keyframe_count()}", flush=True)
+    print("loops path summary: " + json.dumps(dict(
+        loops, scans_per_s_loops_off=n / wall_off, ate_m_loops_off=ate_off)), flush=True)
+    return launches
+
+
+def profile_loop(est) -> None:
+    """The accepted loop's solve again, then a rehash of the final map,
+    under the profiler (the estimator's own state, nothing changed)."""
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch.ops import icp
+    keys = est.pose_graph.export_factors()["between_keys"]
+    pair = keys[keys[:, 1] - keys[:, 0] != 1][0]
+    m_kf, q_kf = est.keyframes[int(pair[0])], est.keyframes[int(pair[1])]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=DEVICE)
+
+    def solve_and_rehash():
+        icp.loop_closure_solve(
+            t(q_kf.feature_cloud[::2]), t(q_kf.feature_mask[::2]), t(q_kf.stored_pose),
+            t(m_kf.feature_cloud), t(m_kf.feature_mask), t(m_kf.stored_pose),
+            torch.zeros((), device=DEVICE), est.pko_consts, est.icp_cfg, bucket_width=8,
+            max_loop_iterations=30).cpu()
+        est.backend.rehash(est.map_state, np.eye(4, dtype=np.float32))
+    solve_and_rehash()
+    profile_window(solve_and_rehash, f"the loop solve {int(pair[1])} <-> {int(pair[0])} and a "
+                   f"rehash of the map", "loops_")
 
 
 def count_syncs(runner, carry, scans) -> int:
@@ -637,11 +1098,23 @@ def main() -> None:
           f"({min(map(len, indoor))}-{max(map(len, indoor))} returns), "
           f"made in {time.perf_counter() - t0:.1f} s", flush=True)
     sysc = mid360_config()
+    t0 = time.perf_counter()
+    loop_scans, loop_gt = make_loop_scans()
+    print(f"loop scans: {LOOP_FRAMES} x {LOOP_POINTS} points on a circuit that revisits its "
+          f"start, made in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    dense = make_dense_loop_frames()
+    print(f"dense loop frames: {len(dense)} x {DENSE_POINTS} points, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 3: kernels against their plain versions ----
     print("kernels against their plain PyTorch versions (CUDA events):", flush=True)
-    rows = check_kernels(scans_np, cfg, consts, kw)
+    rows, surfel_map = check_kernels(scans_np, cfg, consts, kw)
     rows.update(check_kd_kernels(indoor, sysc))
+    kitti = kitti_config()
+    rows.update(check_loop_kernels(dense, loop_gt, kitti, surfel_map, rows))
+    del dense
+    del surfel_map
 
     # ---- phase 4: the surfel path ----
     by_path = {"surfel": main_path(scans_np, gt, cfg, consts, kw)[0]}
@@ -651,7 +1124,10 @@ def main() -> None:
     if PROFILE:
         profile_mid360(indoor, sysc)
 
-    # ---- phase 6: report ----
+    # ---- phase 6: the loops path ----
+    by_path["loops"] = loops_path(loop_scans, loop_gt, kitti)
+
+    # ---- phase 7: report ----
     out = []
     for name, k in kernels.KERNELS.items():
         per = {path: counts[name] for path, counts in by_path.items()}

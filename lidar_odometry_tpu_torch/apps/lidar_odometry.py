@@ -3,10 +3,11 @@ apps/lidar_odometry.py, without the live viewer):
 
     python -m lidar_odometry_tpu_torch.apps.lidar_odometry <config.yaml>
         [--start N] [--end N] [--skip N] [--format kitti|tum] [--output DIR]
-        [--chunk N] [--device cuda|cpu] [--no-loop-closure]
+        [--chunk N] [--device cuda|cpu] [--no-loop-closure] [--sync-loop]
 
-The port has no loop closure yet: a config that enables it (as
-config/mid360.yaml does) is refused unless --no-loop-closure turns it off.
+--sync-loop runs each loop query inline at its keyframe (deterministic)
+instead of on the loop worker thread; --no-loop-closure turns loop
+detection off.
 """
 import argparse
 import sys
@@ -28,6 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("--no-loop-closure", action="store_true",
                     help="run with enable_loop_detection off")
+    ap.add_argument("--sync-loop", action="store_true",
+                    help="run loop queries inline instead of on the worker thread")
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
@@ -43,7 +46,7 @@ def main(argv=None) -> int:
     print("=" * 60)
     player = PLYPlayer(cfg, device=args.device)
     result = player.run(start=args.start, end=args.end, skip=args.skip,
-                        chunk_frames=args.chunk)
+                        chunk_frames=args.chunk, sync_loop=args.sync_loop)
     if result.frames_processed == 0:
         return 1
     print("-" * 60)

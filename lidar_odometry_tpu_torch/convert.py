@@ -1,7 +1,9 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
-The repo has no model weights: what crosses is PKO's constant tables and
-the map / odometry state. The map keeps the JAX layout field for field
+The repo has no model weights: what crosses is PKO's constant tables, the
+map / odometry state, the loop detector's Iris DB (the arrays of the JAX
+LoopClosureDetector.export_state(); its uint32 code words become the
+port's int32 words, bit for bit) and the pose graph's factors. The map keeps the JAX layout field for field
 (bucket rows of [slot x8 | hi x8 | lo x8 | pad], key halves as int32 bit
 patterns), so conversion is a copy; the port's tables only add one
 trailing sink row each (ops/voxel_map.py), which these functions add and
@@ -14,11 +16,18 @@ import numpy as np
 import torch
 
 from .models.fast_pipeline import OdomCarry
+from .models.loop_closure import LoopClosureConfig, LoopClosureDetector
+from .models.pose_graph import PoseGraphOptimizer
 from .ops import pko
 from .ops.voxel_map import VoxelMapState
 
 __all__ = ["pko_constants_from_numpy", "map_state_from_numpy",
-           "map_state_to_numpy", "carry_from_numpy", "MAP_FIELDS"]
+           "map_state_to_numpy", "carry_from_numpy", "loop_detector_from_numpy",
+           "pose_graph_from_numpy", "MAP_FIELDS", "POSE_GRAPH_FIELDS"]
+
+POSE_GRAPH_FIELDS = ("keyframe_ids", "poses", "prior_keys", "prior_measured",
+                     "prior_sqrt_info", "between_keys", "between_measured",
+                     "between_sqrt_info", "counts")
 
 MAP_FIELDS = VoxelMapState._fields
 _TABLES = ("l0_data", "l1_index", "l1_meta", "l1_last", "l1_surfel", "l1_free")
@@ -71,3 +80,24 @@ def carry_from_numpy(arrays: dict, device="cuda") -> OdomCarry:
         last_kf_pose=t("last_kf_pose").to(torch.float32),
         initialized=t("initialized").to(torch.bool),
         kf_count=t("kf_count").to(torch.int32))
+
+
+def loop_detector_from_numpy(arrays: dict, config: LoopClosureConfig, capacity: int,
+                             device="cuda") -> LoopClosureDetector:
+    """A detector holding the Iris DB of a JAX LoopClosureDetector's
+    export_state(): iris_img, iris_T, iris_M, iris_kf_ids,
+    iris_positions."""
+    det = LoopClosureDetector(config, capacity=capacity, device=device)
+    det.import_state({k: np.asarray(v) for k, v in arrays.items()})
+    return det
+
+
+def pose_graph_from_numpy(arrays: dict) -> PoseGraphOptimizer:
+    """A "manual" pose graph from the JAX graph's fields: keyframe_ids (K,),
+    poses (K, 4, 4) in keyframe order, prior_keys (P,) / prior_measured
+    (P, 4, 4) / prior_sqrt_info (P, 6, 6), between_keys (B, 2) /
+    between_measured (B, 4, 4) / between_sqrt_info (B, 6, 6) (keys are
+    keyframe indices), counts (2,) [odometry, loop closures]."""
+    graph = PoseGraphOptimizer(backend="manual")
+    graph.import_factors({k: np.asarray(arrays[k]) for k in POSE_GRAPH_FIELDS})
+    return graph

@@ -25,6 +25,11 @@
 //    the 6x6 system by Gaussian elimination with partial pivoting, retracts
 //    T <- T * (Exp(dw), dt) and updates done / failed / n_corr. The whole
 //    iteration tail stays in one launch with no host read.
+//    An optional weight residual `rw` sets the robust weights in place of
+//    |r|: the loop-closure ICP (ops/icp.py:258 icp_optimize_loop) weights
+//    each point by its centroid-plane distance while its residual is taken
+//    against the nearest neighbour. Without it (nullptr) the arithmetic is
+//    the odometry path's, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -115,7 +120,8 @@ __device__ void solve6(const float* hg, float x[6]) {
 
 __global__ void __launch_bounds__(THREADS)
 normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
-                 const float* __restrict__ resid, const bool* __restrict__ valid, int n,
+                 const float* __restrict__ resid, const float* __restrict__ rw,
+                 const bool* __restrict__ valid, int n,
                  const float* __restrict__ T, const float* __restrict__ scale,
                  const int* __restrict__ flags, const int* __restrict__ aux,
                  const float* __restrict__ alphas, int use_pko, float fixed_delta, int robust,
@@ -142,7 +148,7 @@ normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   for (int i = blockIdx.x * blockDim.x + tid; i < n; i += gridDim.x * blockDim.x) {
     if (!valid[i]) continue;
     const float r = resid[i];
-    const float rn = fabsf(r) / denom;
+    const float rn = fabsf(rw != nullptr ? rw[i] : r) / denom;
     float w = 1.0f;
     if (robust) {
       if (cauchy) {
@@ -253,7 +259,8 @@ LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, const
 }
 
 LO_EXPORT int lo_icp_normal_eq(const float* pts, const float* nrm, const float* resid,
-                               const bool* valid, int n, const float* T, const float* scale,
+                               const float* rw, const bool* valid, int n, const float* T,
+                               const float* scale,
                                const int* flags, const int* aux, const float* alphas,
                                int use_pko, float fixed_delta, int robust, int cauchy,
                                int min_corr, float tol_t, float tol_r, float* partials,
@@ -261,7 +268,7 @@ LO_EXPORT int lo_icp_normal_eq(const float* pts, const float* nrm, const float* 
                                void* stream) {
   const int grid = max(1, min(128, blocks(n)));
   normal_eq_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      pts, nrm, resid, valid, n, T, scale, flags, aux, alphas, use_pko, fixed_delta, robust,
+      pts, nrm, resid, rw, valid, n, T, scale, flags, aux, alphas, use_pko, fixed_delta, robust,
       cauchy, min_corr, tol_t, tol_r, partials, counter, T_out, flags_out, hg);
   return (int)cudaGetLastError();
 }

@@ -123,7 +123,9 @@ class PLYPlayer:
         return sorted(files, key=frame_number)
 
     def run(self, start: int = 0, end: Optional[int] = None, skip: int = 1,
-            chunk_frames: Optional[int] = None) -> PlyPlayerResult:
+            chunk_frames: Optional[int] = None, sync_loop: bool = False) -> PlyPlayerResult:
+        """`sync_loop` runs each loop query inline at its keyframe instead
+        of on the loop worker thread."""
         from .feeder import ChunkFeeder, ReadAhead
         result = PlyPlayerResult()
         files = self.ply_files()[start:end:skip]
@@ -138,7 +140,7 @@ class PLYPlayer:
         if use_chunked and self.cfg.point_stride > 1:
             # the stride-skip moves to decode time (io/feeder.py)
             est_cfg = self.cfg.replace(point_stride=1)
-        self.estimator = Estimator(est_cfg, device=self.device)
+        self.estimator = Estimator(est_cfg, sync_loop=sync_loop, device=self.device)
         frames_done = 0
         t_run = time.perf_counter()
         rest = files

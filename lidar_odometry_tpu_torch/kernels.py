@@ -11,7 +11,10 @@ Every C entry point takes its tensors as raw pointers, its sizes as int,
 and the stream last; it launches on that stream and returns
 cudaGetLastError(). `Kernel.launch` raises on a nonzero return and adds
 one to `Kernel.launches`, a plain integer that shows which kernels a run
-went through.
+went through. The loop-closure worker launches from its own thread and
+stream while the main thread runs chunks: the build, the library loads and
+the counts are taken under one lock, and a launch goes to the calling
+thread's current stream. No wrapper keeps scratch memory between calls.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,7 +34,8 @@ __all__ = ["Kernel", "KERNELS", "build", "reset_counts", "counts", "check",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("voxel_filter", "icp", "pko", "voxel_map", "grid_knn")
+SOURCES = ("voxel_filter", "icp", "pko", "voxel_map", "grid_knn", "knn", "bev_align", "iris",
+           "rehash")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +47,7 @@ REF = "lidar_odometry" "_tpu"
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 _libs: dict = {}
+_lock = threading.RLock()
 
 
 def _digest(src: str) -> str:
@@ -71,6 +77,11 @@ def build() -> dict:
     processes at once. Returns {source: seconds} for the sources built;
     raises with nvcc's output if any fails. The -Xptxas -v report of each
     build is kept beside its library (.log)."""
+    with _lock:
+        return _build()
+
+
+def _build() -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [s for s in SOURCES if not _lib_path(s).exists()]
     if not todo:
@@ -100,10 +111,11 @@ def build() -> dict:
 
 
 def _lib(src: str):
-    if src not in _libs:
-        build()
-        _libs[src] = ctypes.CDLL(str(_lib_path(src)))
-    return _libs[src]
+    with _lock:
+        if src not in _libs:
+            _build()
+            _libs[src] = ctypes.CDLL(str(_lib_path(src)))
+        return _libs[src]
 
 
 class Kernel:
@@ -128,7 +140,8 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch "
                                f"(cudaError {err})")
-        self.launches += 1
+        with _lock:
+            self.launches += 1
 
 
 KERNELS = {k.name: k for k in [
@@ -139,7 +152,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _I, _P, _P, _P, _I, _P, _I, _F, _F, _P, _P, _P],
            REF + "/ops/icp.py:121"),
     Kernel("icp_normal_eq", "icp",
-           [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _F,
+           [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _F,
             _F, _P, _P, _P, _P, _P],
            REF + "/ops/icp.py:91"),
     Kernel("pko_alpha", "pko",
@@ -160,16 +173,51 @@ KERNELS = {k.name: k for k in [
     Kernel("plane_fit_5nn", "grid_knn",
            [_P, _P, _P, _P, _I, _I, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
            REF + "/ops/icp.py:142"),
+    Kernel("point_grid", "knn",
+           [_P, _P, _I, _F, _P, _P],
+           REF + "/ops/knn.py:47"),
+    Kernel("point_knn", "knn",
+           [_P, _I, _P, _P, _P, _I, _P, _P, _F, _I, _I, _P, _P, _P],
+           REF + "/ops/knn.py:112"),
+    Kernel("point_nn1", "knn",
+           [_P, _I, _P, _P, _P, _I, _P, _P, _F, _I, _I, _P, _P, _P],
+           REF + "/ops/knn.py:152"),
+    Kernel("bev_raster", "bev_align",
+           [_P, _P, _I, _P, _P, _P, _I, _P, _I, _F, _P],
+           REF + "/ops/bev_align.py:40"),
+    Kernel("cross_power", "bev_align",
+           [_P, _P, _I, _I, _P],
+           REF + "/ops/bev_align.py:61"),
+    Kernel("iris_image", "iris",
+           [_P, _P, _I, _I, _F, _P],
+           REF + "/ops/iris.py:50"),
+    Kernel("gabor_product", "iris",
+           [_P, _P, _I, _P],
+           REF + "/ops/iris.py:114"),
+    Kernel("iris_encode", "iris",
+           [_P, _I, _F, _P, _P],
+           REF + "/ops/iris.py:105"),
+    Kernel("iris_hamming", "iris",
+           [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+           REF + "/ops/iris.py:144"),
+    Kernel("map_bulk_index", "rehash",
+           [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+           REF + "/ops/voxel_map.py:967"),
+    Kernel("map_bulk_merge", "rehash",
+           [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+           REF + "/ops/voxel_map.py:1029"),
 ]}
 
 
 def reset_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _lock:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    with _lock:
+        return {name: k.launches for name, k in KERNELS.items()}
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -1,42 +1,51 @@
-"""The odometry front door with loop closure off (counterpart of the JAX
-package's models/estimator.py).
+"""The SLAM front door (counterpart of the JAX package's
+models/estimator.py).
 
 `process_frame` runs one scan: preprocess (voxel filter) -> ICP against
 the map with a constant-velocity guess -> velocity update -> keyframe
-decision -> keyframe record and map update. `process_chunk` runs a chunk
-of scans through the fused chunk runner (models/fast_pipeline.py) and
-does the same host bookkeeping afterwards, optionally deferred so that
-consecutive chunks run with no host round trip. Poses, keyframe records
-and the trajectory live on the host as numpy arrays; the map and the
-chunk carry stay on the device.
+decision -> keyframe record, pose-graph odometry factor, map update and
+loop query. `process_chunk` runs a chunk of scans through the fused chunk
+runner (models/fast_pipeline.py) and does the same host bookkeeping
+afterwards, optionally deferred (loops off) so that consecutive chunks run
+with no host round trip. Poses, keyframe records and the pose graph live
+on the host; the map, the chunk carry and the Iris DB stay on the device.
 
-Loop closure and pose-graph optimization come with their own slice
-(ROADMAP queue 1, item 10): a config with enable_loop_detection raises
-at construction. The pose graph is left out as well. With loops off the
-JAX estimator only appends odometry factors to its graph and never
-optimizes it (add_loop_and_optimize is called only from the loop
-worker), so leaving the graph out changes no pose and no map.
+Loop closure: a keyframe's loop query runs Iris detection
+(models/loop_closure.py), the loop-closure solve (ops/icp.py) and the host
+pose-graph optimisation, then posts a result that the main thread applies
+before its next frame or chunk: keyframe poses, the map rehash
+(ops/voxel_map.py transform_and_rehash) and the live pose. With
+sync_loop=True the query runs inline; otherwise a worker thread takes the
+newest query and launches its kernels on its own CUDA stream, after an
+event that the main stream recorded when it queued the keyframe. The
+worker logs an error and carries on, as the JAX worker does; every such
+error is counted in `loop_errors`.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..config import SystemConfig
-from ..ops import icp, pko
+from ..ops import icp, iris, pko
 from ..ops import voxel_filter as vf
 from ..ops import voxel_map as vm
 from ..utils import lie
 from ..utils import logging_util as log
 from . import fast_pipeline as fp
+from .loop_closure import LoopCandidate, LoopClosureConfig, LoopClosureDetector
 from .map_backend import SingleChipMapBackend
+from .pose_graph import PoseGraphOptimizer
 
 __all__ = ["Estimator", "KeyframeRecord", "FrameRecord", "TimingStats"]
 
@@ -48,8 +57,9 @@ def _host(x) -> np.ndarray:
 class KeyframeRecord:
     """Host-side keyframe state. The feature cloud of a keyframe older than
     the window (`keyframe.window_size`) spills its live points to disk and
-    reloads on the rare paths that read it (map export). A cloud may also
-    be a device tensor (deferred chunk ingest) until something reads it."""
+    reloads on the rare paths that read it (loop-closure ICP against a
+    matched old keyframe, map export). A cloud may also be a device tensor
+    (deferred chunk ingest, loops off) until something reads it."""
 
     __slots__ = ("kf_id", "stored_pose", "relative_pose", "frame_index",
                  "_cloud", "_mask", "_spill_path")
@@ -114,13 +124,23 @@ class TimingStats:
     total_ms: float = 0.0
 
 
+@dataclass
+class PGOResult:
+    last_optimized_kf_id: int
+    optimized_poses: Dict[int, np.ndarray]
+    last_kf_correction: np.ndarray
+
+
 class Estimator:
-    def __init__(self, config: SystemConfig, device="cuda"):
-        if config.enable_loop_detection:
-            raise ValueError(
-                "the port has no loop closure yet (ROADMAP queue 1, item 10): "
-                "set enable_loop_detection to false")
+    def __init__(self, config: SystemConfig, sync_loop: bool = False, device="cuda"):
+        """`sync_loop` runs each loop query inline at its keyframe (the
+        deterministic mode); else a worker thread runs them."""
+        if config.pgo_backend != "manual":
+            raise NotImplementedError(
+                f"pgo_backend {config.pgo_backend!r}: the port has the 'manual' pose-graph "
+                "backend only; the distributed one comes with ROADMAP queue 1, item 12")
         self.cfg = config
+        self.sync_loop = sync_loop
         self.device = device
         self.backend = SingleChipMapBackend(config, device=device)
 
@@ -143,9 +163,62 @@ class Estimator:
             config.num_alpha_segments, config.truncated_threshold,
             config.pko_kernel_type, config.gmm_components,
             config.gmm_sample_size, device=device)
+        self.loop_detector = LoopClosureDetector(
+            LoopClosureConfig(
+                enable_loop_detection=config.enable_loop_detection,
+                similarity_threshold=config.similarity_threshold,
+                min_keyframe_gap=config.min_keyframe_gap,
+                max_search_distance=config.max_search_distance,
+                enable_debug_output=config.enable_debug_output),
+            capacity=config.keyframe_capacity, device=device)
         self._chunk_runner = None
         self._spool_dir: Optional[str] = None   # keyframe cloud spill dir
-        self.reset()
+
+        # the loop worker: queries (newest wins) under _query_cv; reset()
+        # bumps the generation and waits for the worker to go idle, so an
+        # in-flight query can neither touch the fresh state nor post a
+        # result whose keyframe ids alias the new sequence's
+        self._query_queue: deque = deque()
+        self._query_cv = threading.Condition()
+        self._result_lock = threading.Lock()
+        self._keyframes_lock = threading.Lock()
+        self._stage_lock = threading.Lock()
+        self._generation = 0
+        self._worker_busy = False
+        self._thread_running = False
+        self._thread: Optional[threading.Thread] = None
+        self._loop_stream = (torch.cuda.Stream(device=torch.device(device))
+                             if torch.device(device).type == "cuda" else None)
+        self._init_state()
+        if not sync_loop and config.enable_loop_detection:
+            self._start_worker()
+
+    def _init_state(self) -> None:
+        self.map_state = self.backend.empty()
+        self.pose_graph = PoseGraphOptimizer(backend=self.cfg.pgo_backend)
+        self.initialized = False
+        self.T_current = np.eye(4, dtype=np.float32)
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last_keyframe_pose = np.eye(4, dtype=np.float32)
+        self._prev_pose = np.eye(4, dtype=np.float32)
+        self.next_keyframe_id = 0
+        with self._keyframes_lock:
+            self.keyframes: List[KeyframeRecord] = []
+        self.frames: List[FrameRecord] = []
+        self.last_successful_loop_kf_id = -1
+        with self._result_lock:
+            self._pending_result: Optional[PGOResult] = None
+        self._drop_spool()
+        self.timing_history: List[TimingStats] = []
+        self.frame_count = 0
+        self.loop_constraint_count = 0
+        self.loop_icp_attempts = 0
+        self.loop_errors = 0
+        self.rehash_count = 0
+        with self._stage_lock:
+            self._loop_stage_ms: Dict[str, float] = {}
+        self._chunk_carry = None        # the device-resident odometry carry
+        self._deferred_chunks = []      # packed results awaiting bookkeeping
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -168,6 +241,7 @@ class Estimator:
             n_points = len(raw_points)
         if self._deferred_chunks:
             self.drain_chunks()
+        self._apply_pending_pgo_result_if_available()
 
         t0 = time.perf_counter()
         feat, mask, _ = self._preprocess(raw_points, n_points)
@@ -263,15 +337,24 @@ class Estimator:
         self.next_keyframe_id += 1
         pose = (self.T_current if pose is None else pose).astype(np.float32)
         if self.keyframes:
-            rel_raw = np.linalg.inv(self.keyframes[-1].stored_pose) @ pose
+            prev = self.keyframes[-1]
+            rel_raw = np.linalg.inv(prev.stored_pose) @ pose
             rel = self._normalize_rotation(rel_raw).astype(np.float32)
+            if self.cfg.enable_pgo:
+                self.pose_graph.add_keyframe_with_odom(
+                    prev.kf_id, kf_id, pose, rel, self.cfg.odometry_translation_noise,
+                    self.cfg.odometry_rotation_noise)
         else:
             rel = np.eye(4, dtype=np.float32)
+            if self.cfg.enable_pgo:
+                self.pose_graph.add_first_keyframe(kf_id, pose)
+        feat_host = feat if lazy_cloud else _host(feat)
+        mask_host = _host(mask)
         record = KeyframeRecord(
-            kf_id=kf_id, stored_pose=pose, relative_pose=rel,
-            feature_cloud=feat if lazy_cloud else _host(feat),
-            feature_mask=_host(mask), frame_index=len(self.frames) - 1)
-        self.keyframes.append(record)
+            kf_id=kf_id, stored_pose=pose, relative_pose=rel, feature_cloud=feat_host,
+            feature_mask=mask_host, frame_index=len(self.frames) - 1)
+        with self._keyframes_lock:
+            self.keyframes.append(record)
         self._spill_old_keyframes()
         frame.is_keyframe = True
         frame.kf_index = len(self.keyframes) - 1
@@ -288,6 +371,21 @@ class Estimator:
                 evict_enabled=torch.full((), kf_id % 4 == 0, dtype=torch.bool,
                                          device=self.device))
         self.last_keyframe_pose = pose
+
+        if self.cfg.enable_loop_detection:
+            self.loop_detector.add_keyframe(feat_host, mask_host, kf_id, pose[:3, 3])
+            if kf_id - self.last_successful_loop_kf_id >= self.cfg.min_keyframe_gap:
+                if self.sync_loop:
+                    self._process_loop_query(kf_id)
+                else:
+                    # the worker's stream waits for what this stream has queued
+                    ev = None
+                    if self._loop_stream is not None:
+                        ev = torch.cuda.Event()
+                        ev.record(torch.cuda.current_stream(self._loop_stream.device))
+                    with self._query_cv:
+                        self._query_queue.append((kf_id, ev))
+                        self._query_cv.notify()
 
     # ------------------------------------------------------------------
     # Chunk path: the fused chunk runner on the device, the keyframe
@@ -322,7 +420,14 @@ class Estimator:
         defer_host=True queues the packed result instead of fetching it,
         so consecutive chunks run back to back with no host round trip;
         drain_chunks() (or trajectory() / finalize_loops(), which call it)
-        runs the queued bookkeeping."""
+        runs the queued bookkeeping. It needs loop detection off: deferred
+        bookkeeping would delay the loop queries, and a correction would
+        rebase poses that deferred chunks still hold."""
+        if defer_host and self.cfg.enable_loop_detection:
+            raise ValueError(
+                "defer_host requires loop detection off: deferred keyframe bookkeeping "
+                "would delay loop queries and a PGO correction would rebase poses while "
+                "deferred chunks still hold pre-correction values")
         if sample_stages and not defer_host and len(raw_scans) > 1:
             self.process_frame(raw_scans[0])
             raw_scans = raw_scans[1:]
@@ -341,6 +446,7 @@ class Estimator:
                 compute_surfels=self.cfg.use_surfel_correspondence,
                 return_features=True)
 
+        self._apply_pending_pgo_result_if_available()
         if self._chunk_carry is not None:
             carry = self._chunk_carry._replace(map_state=self.map_state)
         else:
@@ -466,7 +572,9 @@ class Estimator:
         """World-frame accumulation of the keyframes' feature clouds,
         optionally voxel-downsampled."""
         clouds = []
-        for kf in self.keyframes:
+        with self._keyframes_lock:
+            kfs = list(self.keyframes)
+        for kf in kfs:
             pts = kf.feature_cloud[kf.feature_mask]
             clouds.append(pts @ kf.stored_pose[:3, :3].T + kf.stored_pose[:3, 3])
         if not clouds:
@@ -487,33 +595,285 @@ class Estimator:
         return self.T_current.copy()
 
     def get_keyframe_count(self) -> int:
-        return len(self.keyframes)
+        with self._keyframes_lock:
+            return len(self.keyframes)
 
     def get_keyframe(self, index: int) -> Optional[KeyframeRecord]:
-        if 0 <= index < len(self.keyframes):
-            return self.keyframes[index]
+        with self._keyframes_lock:
+            if 0 <= index < len(self.keyframes):
+                return self.keyframes[index]
         return None
 
     def get_loop_closure_count(self) -> int:
-        return 0
+        return self.loop_constraint_count
+
+    def enable_loop_closure(self, enable: bool) -> None:
+        """Turn loop detection on or off at run time; starts the worker if
+        it is needed and not running."""
+        self.loop_detector.config.enable_loop_detection = enable
+        self.cfg = self.cfg.replace(enable_loop_detection=enable)
+        if enable and not self.sync_loop and self._thread is None:
+            self._start_worker()
+
+    # ------------------------------------------------------------------
+    # Loop closure and pose-graph optimisation
+    # ------------------------------------------------------------------
+
+    def _start_worker(self) -> None:
+        self._thread_running = True
+        self._thread = threading.Thread(target=self._loop_pgo_thread, daemon=True)
+        self._thread.start()
+
+    def _on_loop_stream(self):
+        return (torch.cuda.stream(self._loop_stream) if self._loop_stream is not None
+                else contextlib.nullcontext())
+
+    def _loop_pgo_thread(self) -> None:
+        while self._thread_running:
+            with self._query_cv:
+                self._query_cv.wait_for(lambda: self._query_queue or not self._thread_running,
+                                        timeout=0.2)
+                if not self._thread_running:
+                    break
+                if not self._query_queue:
+                    continue
+                query_kf_id, ev = self._query_queue[-1]     # newest wins
+                self._query_queue.clear()
+                self._worker_busy = True
+                gen = self._generation
+            try:
+                with self._on_loop_stream():
+                    if ev is not None:
+                        torch.cuda.current_stream().wait_event(ev)
+                    self._process_loop_query(query_kf_id, gen)
+            except Exception as e:  # the worker carries on, and counts it
+                self._loop_error("[Background] loop/PGO worker error: {}", repr(e))
+            finally:
+                with self._query_cv:
+                    self._worker_busy = False
+                    self._query_cv.notify_all()
+
+    def _loop_error(self, fmt: str, *args) -> None:
+        self.loop_errors += 1
+        log.error(fmt, *args)
+
+    def _find_keyframe(self, kf_id: int) -> Optional[KeyframeRecord]:
+        with self._keyframes_lock:
+            for kf in self.keyframes:
+                if kf.kf_id == kf_id:
+                    return kf
+        return None
+
+    def _process_loop_query(self, query_kf_id: int, gen: Optional[int] = None) -> None:
+        if gen is None:
+            gen = self._generation
+        query_kf = self._find_keyframe(query_kf_id)
+        if query_kf is None:
+            return
+        candidates = self.loop_detector.detect_loop_closures(
+            query_kf.feature_cloud, query_kf.feature_mask, query_kf_id,
+            query_kf.stored_pose[:3, 3])
+        if candidates:
+            self._run_pgo_for_loop(query_kf, candidates, gen)
+
+    def _run_pgo_for_loop(self, current_kf: KeyframeRecord, candidates: List[LoopCandidate],
+                          gen: Optional[int] = None) -> bool:
+        """The loop-closure solve, the pose-graph optimisation, and the
+        result posted for the main thread."""
+        candidate = candidates[0]
+        matched_kf = self._find_keyframe(candidate.match_keyframe_id)
+        if matched_kf is None:
+            return False
+        self.loop_icp_attempts += 1
+        # both poses under the lock: the main thread may rewrite stored_pose
+        with self._keyframes_lock:
+            current_pose = current_kf.stored_pose.copy()
+            matched_pose = matched_kf.stored_pose.copy()
+
+        t0 = time.perf_counter()
+        # the query cloud at half density (every other row), the matched
+        # keyframe's in full for its point tables; 8-wide bin probes
+        packed = _host(icp.loop_closure_solve(
+            self._t(current_kf.feature_cloud[::2]),
+            torch.as_tensor(np.ascontiguousarray(current_kf.feature_mask[::2]),
+                            device=self.device),
+            self._t(current_pose), self._t(matched_kf.feature_cloud),
+            torch.as_tensor(matched_kf.feature_mask, device=self.device),
+            self._t(matched_pose),
+            torch.tensor(float(candidate.bias), dtype=torch.float32, device=self.device),
+            self.pko_consts, self.icp_cfg, prealign=self.cfg.loop_prealign, bucket_width=8,
+            max_loop_iterations=(30 if self.cfg.loop_prealign else 100)))
+        self._add_stage_ms("loop_icp", (time.perf_counter() - t0) * 1e3)
+        T_rel = packed[:16].reshape(4, 4).astype(np.float64)
+        inlier_ratio, resid_rms = float(packed[17]), float(packed[18])
+        if not packed[16] > 0.5:
+            log.warn("[Background] Loop ICP failed {} <-> {}",
+                     candidate.query_keyframe_id, candidate.match_keyframe_id)
+            return False
+        if inlier_ratio < 0.3:
+            log.warn("[Background] Loop rejected: {:.1f}% inliers < 30%", inlier_ratio * 100.0)
+            return False
+
+        T_world_current = current_pose.astype(np.float64)
+        T_world_matched = matched_pose.astype(np.float64)
+        T_matched_to_current = np.linalg.inv(T_world_matched) @ (T_world_current @ T_rel)
+        if not self.cfg.enable_pgo:
+            return False
+        if gen is not None and gen != self._generation:
+            log.warn("[Background] dropping stale loop (generation {} != {})",
+                     gen, self._generation)
+            return False
+        self.loop_constraint_count += 1
+        with self._keyframes_lock:
+            kf_ids = [kf.kf_id for kf in self.keyframes]
+            before = self.keyframes[-1].stored_pose.astype(np.float64)
+
+        # the loop factor's noise: scaled by the polish phase's RMS plane
+        # distance (over 5 mm), and made inert (x1000) when the measured
+        # relative pose agrees with the trajectory within the innovation
+        # gate, where the factor would only add measurement noise
+        noise_scale = 1.0
+        if self.cfg.loop_residual_weighting and resid_rms > 0.0:
+            noise_scale = float(np.clip(resid_rms / 0.005, 1.0, 100.0))
+        D = np.linalg.inv(T_matched_to_current) @ (np.linalg.inv(T_world_matched)
+                                                   @ T_world_current)
+        innov_t = float(np.linalg.norm(D[:3, 3]))
+        innov_r = float(np.arccos(np.clip((np.trace(D[:3, :3]) - 1.0) * 0.5, -1.0, 1.0)))
+        inert = (self.cfg.loop_residual_weighting and innov_t < self.cfg.loop_innovation_gate_t
+                 and innov_r < self.cfg.loop_innovation_gate_r)
+        if inert:
+            noise_scale = 1000.0
+        t0 = time.perf_counter()
+        ok = self.pose_graph.add_loop_and_optimize(
+            matched_kf.kf_id, current_kf.kf_id, T_matched_to_current,
+            self.cfg.loop_translation_noise * noise_scale,
+            self.cfg.loop_rotation_noise * noise_scale)
+        self._add_stage_ms("pgo_solve", (time.perf_counter() - t0) * 1e3)
+        if not ok:
+            self._loop_error("[Background] PGO failed!")
+            return False
+
+        optimized = self.pose_graph.get_all_optimized_poses()
+        last_kf_id = kf_ids[-1]
+        correction = optimized[last_kf_id] @ np.linalg.inv(before)
+        result = PGOResult(last_optimized_kf_id=last_kf_id, optimized_poses=optimized,
+                           last_kf_correction=correction.astype(np.float32))
+        if gen is not None and gen != self._generation:
+            log.warn("[Background] dropping stale PGO result (generation {} != {})",
+                     gen, self._generation)
+            return False
+        with self._result_lock:
+            self._pending_result = result
+        # further queries are gated from accept time, not apply time
+        self.last_successful_loop_kf_id = max(self.last_successful_loop_kf_id, last_kf_id)
+        if self.sync_loop:
+            self._apply_pending_pgo_result_if_available()
+        log.info("[Background] Loop {} <-> {} accepted ({:.0f}% inliers, resid {:.1f} mm, "
+                 "innov {:.1f} mm/{:.2f} mrad{}); PGO over {} KFs",
+                 candidate.query_keyframe_id, candidate.match_keyframe_id,
+                 inlier_ratio * 100.0, resid_rms * 1e3, innov_t * 1e3, innov_r * 1e3,
+                 ", inert: consistent within noise" if inert else f", noise x{noise_scale:.1f}",
+                 len(kf_ids))
+        return True
+
+    def _add_stage_ms(self, key: str, ms: float) -> None:
+        with self._stage_lock:
+            self._loop_stage_ms[key] = self._loop_stage_ms.get(key, 0.0) + ms
+
+    def loop_stage_snapshot(self) -> Dict[str, float]:
+        """Cumulative loop-path stage times in ms (loop_icp, pgo_solve,
+        pgo_apply)."""
+        with self._stage_lock:
+            return dict(self._loop_stage_ms)
+
+    def _apply_pending_pgo_result_if_available(self) -> None:
+        """On the main thread: the optimised keyframe poses, the poses of
+        newer keyframes chained onto them, the map rehash by the last
+        keyframe's correction, and the live pose moved into the corrected
+        world frame. The device chunk carry is dropped (it holds
+        pre-correction poses). The stage time includes the rehash's device
+        time (a synchronise)."""
+        with self._result_lock:
+            result, self._pending_result = self._pending_result, None
+        if result is None:
+            return
+        t0 = time.perf_counter()
+        last_id = result.last_optimized_kf_id
+        with self._keyframes_lock:
+            for kf in self.keyframes:
+                if kf.kf_id > last_id:
+                    break
+                opt = result.optimized_poses.get(kf.kf_id)
+                if opt is not None:
+                    kf.stored_pose = opt.astype(np.float32)
+        self._propagate_poses_after_pgo(last_id)
+        self.map_state = self.backend.rehash(self.map_state, result.last_kf_correction)
+        self.rehash_count += 1
+        self.last_successful_loop_kf_id = max(self.last_successful_loop_kf_id, last_id)
+        with self._keyframes_lock:
+            self.last_keyframe_pose = self.keyframes[-1].stored_pose.copy()
+        C = result.last_kf_correction.astype(np.float32)
+        self.T_current = C @ self.T_current
+        self._prev_pose = C @ self._prev_pose
+        self._chunk_carry = None
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.current_stream(torch.device(self.device)).synchronize()
+        self._add_stage_ms("pgo_apply", (time.perf_counter() - t0) * 1e3)
+
+    def _propagate_poses_after_pgo(self, last_optimized_kf_id: int) -> None:
+        """Chain the relative poses of keyframes newer than the
+        optimisation onto the optimised one."""
+        with self._keyframes_lock:
+            accumulated = None
+            for kf in self.keyframes:
+                if kf.kf_id == last_optimized_kf_id:
+                    accumulated = kf.stored_pose.copy()
+                    continue
+                if accumulated is None:
+                    continue
+                accumulated = accumulated @ kf.relative_pose
+                kf.stored_pose = accumulated.copy()
+
+    def warm_loop_programs(self) -> None:
+        """Run each loop-path program once on stand-in data before the
+        first loop query: builds the kernels' libraries and plans cuFFT's
+        transforms, so the first real query does not pay for them. The DB
+        rows it writes lie past the live region."""
+        cap = self.cfg.scan_capacity
+        rng = np.random.default_rng(0)
+        cloud = rng.uniform(-20.0, 20.0, (cap, 3)).astype(np.float32)
+        mask = np.ones(cap, bool)
+        det = self.loop_detector
+        with self._on_loop_stream():
+            if det._db_n == 0 and det.capacity >= 2:
+                det._extract_store(np.stack([cloud, cloud]), np.stack([mask, mask]), 0)
+                iris.compare_rows(det._img, det._T, det._M, 0,
+                                  torch.zeros((2,), dtype=torch.int32, device=self.device),
+                                  torch.ones((2,), dtype=torch.bool, device=self.device))
+            eye = torch.eye(4, dtype=torch.float32, device=self.device)
+            cj = self._t(cloud)
+            mj = torch.as_tensor(mask, device=self.device)
+            icp.loop_closure_solve(
+                cj[::2].contiguous(), mj[::2].contiguous(), eye, cj, mj, eye,
+                torch.zeros((), dtype=torch.float32, device=self.device), self.pko_consts,
+                self.icp_cfg, prealign=self.cfg.loop_prealign, bucket_width=8,
+                max_loop_iterations=(30 if self.cfg.loop_prealign else 100))
+        self.backend.rehash(self.map_state, np.eye(4, dtype=np.float32))
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize(torch.device(self.device))
 
     def reset(self) -> None:
-        """Clear all state (map, trajectory, keyframes) and keep the chunk
-        runner: a fresh sequence on the same estimator."""
-        self.map_state = self.backend.empty()
-        self.initialized = False
-        self.T_current = np.eye(4, dtype=np.float32)
-        self.velocity = np.eye(4, dtype=np.float32)
-        self.last_keyframe_pose = np.eye(4, dtype=np.float32)
-        self._prev_pose = np.eye(4, dtype=np.float32)
-        self.next_keyframe_id = 0
-        self.keyframes: List[KeyframeRecord] = []
-        self.frames: List[FrameRecord] = []
-        self._drop_spool()
-        self.timing_history: List[TimingStats] = []
-        self.frame_count = 0
-        self._chunk_carry = None        # the device-resident odometry carry
-        self._deferred_chunks = []      # packed results awaiting bookkeeping
+        """Clear all state (map, trajectory, keyframes, Iris DB, pose graph)
+        and keep the chunk runner: a fresh sequence on the same estimator.
+        The loop worker is quiesced first."""
+        with self._query_cv:
+            self._query_queue.clear()
+            self._generation += 1
+            if not self._query_cv.wait_for(lambda: not self._worker_busy, timeout=60.0):
+                log.warn("[Estimator] reset(): loop/PGO worker still busy after 60 s; "
+                         "stale results will be dropped by generation check")
+        self.loop_detector.clear()
+        self._init_state()
 
     def _spill_old_keyframes(self) -> None:
         """Spill the feature clouds of keyframes older than the window to
@@ -523,7 +883,8 @@ class Estimator:
         w = self.cfg.window_size
         if w <= 0:
             return
-        old = [kf for kf in self.keyframes[:-w] if not kf.is_spilled]
+        with self._keyframes_lock:
+            old = [kf for kf in self.keyframes[:-w] if not kf.is_spilled]
         if not old:
             return
         dev = [kf for kf in old if not isinstance(kf._cloud, np.ndarray)]
@@ -546,8 +907,14 @@ class Estimator:
             self._spool_dir = None
 
     def shutdown(self) -> None:
-        """Nothing runs in the background with loops off; the keyframe
-        spool lives until reset() or garbage collection."""
+        """Stop the loop worker. The keyframe spool lives until reset() or
+        garbage collection: finalize_loops still reads spilled clouds."""
+        if self._thread is not None:
+            self._thread_running = False
+            with self._query_cv:
+                self._query_cv.notify_all()
+            self._thread.join(timeout=5.0)
+            self._thread = None
 
     def __del__(self):  # pragma: no cover - interpreter-dependent timing
         try:
@@ -556,10 +923,23 @@ class Estimator:
             pass
 
     def finalize_loops(self) -> None:
-        """End of a run: drain the deferred chunks (there is no loop query
-        to finish with loops off)."""
+        """End of a run: stop the worker, drain the deferred chunks, run the
+        newest still-queued loop query inline and apply any pending
+        result."""
+        self.shutdown()
         if self._deferred_chunks:
             self.drain_chunks()
+        pending = None
+        with self._query_cv:
+            if self._query_queue:
+                pending = self._query_queue[-1][0]
+                self._query_queue.clear()
+        if pending is not None:
+            try:
+                self._process_loop_query(pending)
+            except Exception as e:
+                self._loop_error("[Estimator] finalize_loops query failed: {}", repr(e))
+        self._apply_pending_pgo_result_if_available()
 
     # ------------------------------------------------------------------
     # Timing statistics

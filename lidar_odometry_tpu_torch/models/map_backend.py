@@ -2,10 +2,14 @@
 package's models/map_backend.py, SingleChipMapBackend).
 
 One device holds the whole map: the backend owns the map's device and
-gives the Estimator the device-side map operations it needs. The sharded
-backend comes with the multi-GPU slice (ROADMAP queue 1, item 12).
+gives the Estimator the device-side map operations it needs (empty map,
+ICP, keyframe update, rehash after a loop correction). The sharded backend
+comes with the multi-GPU slice (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from ..ops import icp as icp_ops
 from ..ops import voxel_map as vm
@@ -37,6 +41,10 @@ class SingleChipMapBackend:
             evict_enabled=evict_enabled)
 
     def rehash(self, state, correction):
-        raise NotImplementedError(
-            "map rehash after a pose-graph correction comes with loop closure "
-            "(ROADMAP queue 1, item 10)")
+        """The map moved by a pose-graph correction (4, 4), rebuilt into a
+        fresh state (ops/voxel_map.py transform_and_rehash)."""
+        T = torch.as_tensor(np.asarray(correction, np.float32), device=self.device)
+        return vm.transform_and_rehash(
+            state, T, voxel_size=self.cfg.map_voxel_size,
+            planarity_threshold=self.cfg.surfel_planarity_threshold,
+            hierarchy_factor=self.cfg.derived_hierarchy_factor())

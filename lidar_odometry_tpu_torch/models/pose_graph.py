@@ -1,0 +1,426 @@
+"""Batch Gauss-Newton pose-graph optimizer (counterpart of the JAX
+package's models/pose_graph.py, a copy of its host solver: float64 numpy
+and scipy sparse, as the reference runs it on its background thread).
+
+  * GTSAM conventions: [rot, trans] tangent ordering;
+  * BetweenFactor error log(measured^-1 * T_from^-1 * T_to) with
+    J_to = I, J_from = -Ad(hx^-1);
+  * PriorFactor error log(measured^-1 * T), J = I;
+  * diagonal information from noise sigmas, whitened by sqrt-info;
+  * sparse H assembled from triplets and solved with scipy's sparse
+    solver, retraction T <- T * Exp(delta), <= 10 iterations,
+    ||dx|| < 1e-6;
+  * incremental API: add_first_keyframe (tight 1e-4 prior),
+    add_keyframe_with_odom, add_loop_and_optimize.
+
+Only the "manual" backend is ported. The "distributed" backend (the
+Schur-complement partitioned device solve) comes with the multi-GPU slice
+(ROADMAP queue 1, item 12) and raises until then.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
+
+_EPS = 1e-10  # reference kEpsLie (PoseGraphOptimizer.cpp:31)
+
+
+# ---- SE(3) helpers in GTSAM [rot, trans] ordering (reference :36-162) ----
+
+def _skew(v):
+    return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]], dtype=np.float64)
+
+
+def so3_log(R):
+    tr = np.trace(R)
+    theta = np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0))
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    if theta < _EPS:
+        return w / 2.0
+    return w * (theta / (2.0 * np.sin(theta)))
+
+
+def so3_exp(w):
+    theta = np.linalg.norm(w)
+    if theta < _EPS:
+        return np.eye(3) + _skew(w)
+    W = _skew(w / theta)
+    return np.eye(3) + np.sin(theta) * W + (1.0 - np.cos(theta)) * W @ W
+
+
+def se3_log(R, t):
+    """(R, t) -> [w, u] (GTSAM order, reference SE3_Logmap :81-96)."""
+    w = so3_log(R)
+    theta = np.linalg.norm(w)
+    if theta < _EPS:
+        return np.concatenate([w, t])
+    W = _skew(w / theta)
+    tan_half = np.tan(0.5 * theta)
+    Wt = W @ t
+    u = t - (0.5 * theta) * Wt + (1.0 - theta / (2.0 * tan_half)) * (W @ Wt)
+    return np.concatenate([w, u])
+
+
+def se3_exp(xi):
+    """[w, u] -> (R, t) (reference SE3_Expmap :98-118)."""
+    w, u = xi[:3], xi[3:]
+    R = so3_exp(w)
+    theta = np.linalg.norm(w)
+    if theta < _EPS:
+        return R, u.copy()
+    W = _skew(w)
+    t2 = theta * theta
+    V = (np.eye(3) + (1.0 - np.cos(theta)) / t2 * W
+         + (theta - np.sin(theta)) / (t2 * theta) * W @ W)
+    return R, V @ u
+
+
+def adjoint(R, t):
+    """Ad_T for [rot, trans] ordering (reference SE3_AdjointMap :120-130)."""
+    Ad = np.zeros((6, 6))
+    Ad[:3, :3] = R
+    Ad[3:, :3] = _skew(t) @ R
+    Ad[3:, 3:] = R
+    return Ad
+
+
+def make_information(trans_noise, rot_noise):
+    """Diagonal information in GTSAM order [rot x3, trans x3]
+    (reference makeInformationMatrix :605-621)."""
+    info = np.zeros(6)
+    info[:3] = 1.0 / (rot_noise * rot_noise)
+    info[3:] = 1.0 / (trans_noise * trans_noise)
+    return np.diag(info)
+
+
+@dataclass
+class PriorFactor:
+    key: int
+    measured: np.ndarray  # (4,4)
+    sqrt_info: np.ndarray  # (6,6)
+
+
+@dataclass
+class BetweenFactor:
+    key_from: int
+    key_to: int
+    measured: np.ndarray
+    sqrt_info: np.ndarray
+
+
+def between_error(T_from, T_to, measured):
+    """Error + Jacobians of a between factor (reference :463-498)."""
+    R_from, t_from = T_from[:3, :3], T_from[:3, 3]
+    R_to, t_to = T_to[:3, :3], T_to[:3, 3]
+    R_m, t_m = measured[:3, :3], measured[:3, 3]
+    R_hx = R_from.T @ R_to
+    t_hx = R_from.T @ (t_to - t_from)
+    R_err = R_m.T @ R_hx
+    t_err = R_m.T @ (t_hx - t_m)
+    err = se3_log(R_err, t_err)
+    R_hx_inv = R_hx.T
+    t_hx_inv = -R_hx_inv @ t_hx
+    J_from = -adjoint(R_hx_inv, t_hx_inv)
+    J_to = np.eye(6)
+    return err, J_from, J_to
+
+
+def prior_error(T, measured):
+    R, t = T[:3, :3], T[:3, 3]
+    R_m, t_m = measured[:3, :3], measured[:3, 3]
+    err = se3_log(R_m.T @ R, R_m.T @ (t - t_m))
+    return err, np.eye(6)
+
+
+# ---- batched linearization (vectorized over factors; the per-factor
+# python path cost ~0.1 ms/factor in meshgrid/log branches — 250 ms per
+# solve at 340 keyframes, most of the loop worker's host budget) ----
+
+def _skew_batch(v):
+    N = v.shape[0]
+    S = np.zeros((N, 3, 3))
+    S[:, 0, 1], S[:, 0, 2] = -v[:, 2], v[:, 1]
+    S[:, 1, 0], S[:, 1, 2] = v[:, 2], -v[:, 0]
+    S[:, 2, 0], S[:, 2, 1] = -v[:, 1], v[:, 0]
+    return S
+
+
+def _se3_log_batch(R, t):
+    """Batched se3_log: (N,3,3),(N,3) -> (N,6) in [w, u] order."""
+    tr = np.trace(R, axis1=1, axis2=2)
+    theta = np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0))
+    w_raw = np.stack([R[:, 2, 1] - R[:, 1, 2],
+                      R[:, 0, 2] - R[:, 2, 0],
+                      R[:, 1, 0] - R[:, 0, 1]], axis=1)
+    small = theta < _EPS
+    fac = np.where(small, 0.5,
+                   theta / np.maximum(2.0 * np.sin(theta), _EPS))
+    w = w_raw * fac[:, None]
+    th_safe = np.where(small, 1.0, theta)
+    W = _skew_batch(w / th_safe[:, None])
+    Wt = np.einsum("nij,nj->ni", W, t)
+    WWt = np.einsum("nij,nj->ni", W, Wt)
+    tan_half = np.tan(0.5 * theta)
+    coef = 1.0 - theta / np.maximum(2.0 * tan_half, _EPS)
+    u = t - (0.5 * theta)[:, None] * Wt + coef[:, None] * WWt
+    u = np.where(small[:, None], t, u)
+    return np.concatenate([w, u], axis=1)
+
+
+def _se3_exp_batch(xi):
+    """Batched se3_exp: (N,6) [w,u] -> (R (N,3,3), t (N,3))."""
+    w, u = xi[:, :3], xi[:, 3:]
+    theta = np.linalg.norm(w, axis=1)
+    small = theta < _EPS
+    th = np.where(small, 1.0, theta)
+    Wu = _skew_batch(w / th[:, None])
+    WWu = np.einsum("nij,njk->nik", Wu, Wu)
+    I = np.broadcast_to(np.eye(3), (len(xi), 3, 3))
+    s, c = np.sin(theta), np.cos(theta)
+    R = I + s[:, None, None] * Wu + (1.0 - c)[:, None, None] * WWu
+    R = np.where(small[:, None, None], I + _skew_batch(w), R)
+    V = (I + ((1.0 - c) / th)[:, None, None] * Wu
+         + ((th - s) / th)[:, None, None] * WWu)
+    t = np.einsum("nij,nj->ni", V, u)
+    t = np.where(small[:, None], u, t)
+    return R, t
+
+
+def _between_error_batch(T_from, T_to, measured):
+    """Batched between_error: (N,4,4)x3 -> err (N,6), J_from (N,6,6)
+    (J_to = I for every factor, reference :463-498)."""
+    R_from, t_from = T_from[:, :3, :3], T_from[:, :3, 3]
+    R_to, t_to = T_to[:, :3, :3], T_to[:, :3, 3]
+    R_m, t_m = measured[:, :3, :3], measured[:, :3, 3]
+    R_hx = np.einsum("nji,njk->nik", R_from, R_to)
+    t_hx = np.einsum("nji,nj->ni", R_from, t_to - t_from)
+    R_err = np.einsum("nji,njk->nik", R_m, R_hx)
+    t_err = np.einsum("nji,nj->ni", R_m, t_hx - t_m)
+    err = _se3_log_batch(R_err, t_err)
+    R_hx_inv = np.swapaxes(R_hx, 1, 2)
+    t_hx_inv = -np.einsum("nij,nj->ni", R_hx_inv, t_hx)
+    Ad = np.zeros((len(err), 6, 6))
+    Ad[:, :3, :3] = R_hx_inv
+    Ad[:, 3:, :3] = np.einsum("nij,njk->nik", _skew_batch(t_hx_inv), R_hx_inv)
+    Ad[:, 3:, 3:] = R_hx_inv
+    return err, -Ad
+
+
+class PoseGraphOptimizer:
+    """Incremental-build, batch-solve pose graph. Thread-safe: a lock
+    guards the graph, since the estimator's loop worker calls
+    add_loop_and_optimize while the main thread adds odometry factors.
+    backend="manual" is the scipy sparse solve; "distributed" raises."""
+
+    def __init__(self, backend: str = "manual", n_blocks: int = 8):
+        if backend != "manual":
+            raise NotImplementedError(
+                f"pgo_backend {backend!r}: the port has the 'manual' backend only; the "
+                "distributed device solve comes with ROADMAP queue 1, item 12")
+        self._priors: List[PriorFactor] = []
+        self._betweens: List[BetweenFactor] = []
+        self._poses: Dict[int, np.ndarray] = {}
+        self._keyframe_ids: List[int] = []
+        self._kf_to_index: Dict[int, int] = {}
+        self._lock = threading.Lock()
+        self.backend = backend
+        self.n_blocks = n_blocks
+        self.loop_closure_count = 0
+        self.odometry_count = 0
+
+    # ---- incremental API ----
+
+    def add_first_keyframe(self, keyframe_id: int, pose: np.ndarray) -> bool:
+        with self._lock:
+            if self._keyframe_ids:
+                return False
+            info = make_information(1e-4, 1e-4)  # tight prior (:184)
+            self._priors.append(PriorFactor(0, pose.astype(np.float64), np.sqrt(info)))
+            self._poses[keyframe_id] = pose.astype(np.float64)
+            self._keyframe_ids.append(keyframe_id)
+            self._kf_to_index[keyframe_id] = 0
+            return True
+
+    def add_keyframe_with_odom(self, prev_id: int, curr_id: int,
+                               curr_pose: np.ndarray, relative_pose: np.ndarray,
+                               trans_noise: float, rot_noise: float) -> bool:
+        with self._lock:
+            if curr_id in self._kf_to_index:
+                return True
+            curr_index = len(self._keyframe_ids)
+            if prev_id in self._kf_to_index:
+                prev_index = self._kf_to_index[prev_id]
+                info = make_information(trans_noise, rot_noise)
+                self._betweens.append(BetweenFactor(
+                    prev_index, curr_index, relative_pose.astype(np.float64),
+                    np.sqrt(info)))
+            else:
+                # loose prior fallback (:226-231)
+                info = make_information(0.5, 0.1)
+                self._priors.append(PriorFactor(
+                    curr_index, curr_pose.astype(np.float64), np.sqrt(info)))
+            self._poses[curr_id] = curr_pose.astype(np.float64)
+            self._keyframe_ids.append(curr_id)
+            self._kf_to_index[curr_id] = curr_index
+            self.odometry_count += 1
+            return True
+
+    def add_loop_and_optimize(self, from_id: int, to_id: int,
+                              relative_pose: np.ndarray,
+                              trans_noise: float, rot_noise: float) -> bool:
+        with self._lock:
+            if from_id not in self._kf_to_index or to_id not in self._kf_to_index:
+                return False
+            info = make_information(trans_noise, rot_noise)
+            self._betweens.append(BetweenFactor(
+                self._kf_to_index[from_id], self._kf_to_index[to_id],
+                relative_pose.astype(np.float64), np.sqrt(info)))
+            # Propagate solver failure so Estimator's "PGO failed" path
+            # actually fires (ADVICE round-1 item 2).
+            ok = self._optimize(max_iterations=10, convergence_threshold=1e-6)
+            if ok:
+                self.loop_closure_count += 1
+            return ok
+
+    def get_all_optimized_poses(self) -> Dict[int, np.ndarray]:
+        with self._lock:
+            return {k: v.copy() for k, v in self._poses.items()}
+
+    def get_optimized_pose(self, keyframe_id: int):
+        with self._lock:
+            p = self._poses.get(keyframe_id)
+            return None if p is None else p.copy()
+
+    def clear(self):
+        with self._lock:
+            self._priors.clear()
+            self._betweens.clear()
+            self._poses.clear()
+            self._keyframe_ids.clear()
+            self._kf_to_index.clear()
+            self.loop_closure_count = 0
+            self.odometry_count = 0
+
+    # ---- solver (reference optimize :326-390) ----
+
+    def _build_linear_system(self, n_vars):
+        """Vectorized over factors: batched error/Jacobian evaluation +
+        one COO assembly (the per-factor python path cost ~250 ms per
+        solve at 340 keyframes — most of the async loop worker's host
+        budget, round-4 profiling)."""
+        b = np.zeros(n_vars * 6)
+        blk_r, blk_c = np.meshgrid(np.arange(6), np.arange(6),
+                                   indexing="ij")
+        all_i, all_j, all_B = [], [], []
+
+        if self._priors:
+            for prior in self._priors:
+                kf_id = self._keyframe_ids[prior.key]
+                err, J = prior_error(self._poses[kf_id], prior.measured)
+                Jw = prior.sqrt_info @ J
+                ew = prior.sqrt_info @ err
+                all_i.append(prior.key)
+                all_j.append(prior.key)
+                all_B.append(Jw.T @ Jw)
+                b[prior.key * 6: prior.key * 6 + 6] -= Jw.T @ ew
+
+        if self._betweens:
+            ki = np.array([bt.key_from for bt in self._betweens])
+            kj = np.array([bt.key_to for bt in self._betweens])
+            T_from = np.stack([self._poses[self._keyframe_ids[i]]
+                               for i in ki])
+            T_to = np.stack([self._poses[self._keyframe_ids[j]]
+                             for j in kj])
+            meas = np.stack([bt.measured for bt in self._betweens])
+            sq = np.stack([bt.sqrt_info for bt in self._betweens])
+            err, J_from = _between_error_batch(T_from, T_to, meas)
+            Jw_f = np.einsum("nab,nbc->nac", sq, J_from)
+            Jw_t = sq                                  # J_to = I
+            ew = np.einsum("nab,nb->na", sq, err)
+            all_i.extend([ki, kj, ki, kj])
+            all_j.extend([ki, kj, kj, ki])
+            all_B.extend([
+                np.einsum("nba,nbc->nac", Jw_f, Jw_f),
+                np.einsum("nba,nbc->nac", Jw_t, Jw_t),
+                np.einsum("nba,nbc->nac", Jw_f, Jw_t),
+                np.einsum("nba,nbc->nac", Jw_t, Jw_f)])
+            g_f = np.einsum("nba,nb->na", Jw_f, ew)
+            g_t = np.einsum("nba,nb->na", Jw_t, ew)
+            np.subtract.at(b.reshape(n_vars, 6), ki, g_f)
+            np.subtract.at(b.reshape(n_vars, 6), kj, g_t)
+
+        bi = np.concatenate([np.atleast_1d(i) for i in all_i])
+        bj = np.concatenate([np.atleast_1d(j) for j in all_j])
+        Bv = np.concatenate([np.asarray(B).reshape(-1, 6, 6)
+                             for B in all_B])
+        rows = (bi[:, None, None] * 6 + blk_r[None]).ravel()
+        cols = (bj[:, None, None] * 6 + blk_c[None]).ravel()
+        H = sp.csc_matrix((Bv.ravel(), (rows, cols)),
+                          shape=(n_vars * 6, n_vars * 6))
+        return H, b
+
+    def _optimize(self, max_iterations=10, convergence_threshold=1e-6) -> bool:
+        n_vars = len(self._keyframe_ids)
+        if n_vars == 0:
+            return True
+        for _ in range(max_iterations):
+            H, b = self._build_linear_system(n_vars)
+            try:
+                dx = spla.spsolve(H, b)
+            except Exception:
+                return False
+            if dx is None or not np.all(np.isfinite(dx)):
+                return False
+            # batched retraction T <- T * Exp(delta)
+            P = np.stack([self._poses[k] for k in self._keyframe_ids])
+            dR, dt = _se3_exp_batch(dx.reshape(-1, 6))
+            T_new = np.broadcast_to(np.eye(4), P.shape).copy()
+            T_new[:, :3, :3] = np.einsum("nij,njk->nik", P[:, :3, :3], dR)
+            T_new[:, :3, 3] = (np.einsum("nij,nj->ni", P[:, :3, :3], dt)
+                               + P[:, :3, 3])
+            for i, kf_id in enumerate(self._keyframe_ids):
+                self._poses[kf_id] = T_new[i]
+            if np.linalg.norm(dx) < convergence_threshold:
+                return True
+        return False
+
+    # ---- state carried across from the JAX package (convert.py) ----
+
+    def export_factors(self) -> dict:
+        """The graph as arrays: poses by keyframe order, priors, betweens."""
+        with self._lock:
+            return {
+                "keyframe_ids": np.asarray(self._keyframe_ids, np.int64),
+                "poses": (np.stack([self._poses[k] for k in self._keyframe_ids])
+                          if self._keyframe_ids else np.zeros((0, 4, 4))),
+                "prior_keys": np.asarray([p.key for p in self._priors], np.int64),
+                "prior_measured": np.asarray([p.measured for p in self._priors]).reshape(-1, 4, 4),
+                "prior_sqrt_info": np.asarray([p.sqrt_info for p in self._priors]).reshape(-1, 6, 6),
+                "between_keys": np.asarray([(b.key_from, b.key_to) for b in self._betweens],
+                                           np.int64).reshape(-1, 2),
+                "between_measured": np.asarray([b.measured for b in self._betweens]).reshape(-1, 4, 4),
+                "between_sqrt_info": np.asarray([b.sqrt_info for b in self._betweens]
+                                                ).reshape(-1, 6, 6),
+                "counts": np.asarray([self.odometry_count, self.loop_closure_count], np.int64),
+            }
+
+    def import_factors(self, state: dict) -> None:
+        """Replace the graph by the arrays of export_factors."""
+        with self._lock:
+            ids = [int(k) for k in state["keyframe_ids"]]
+            self._keyframe_ids = ids
+            self._kf_to_index = {k: i for i, k in enumerate(ids)}
+            self._poses = {k: np.asarray(state["poses"][i], np.float64) for i, k in enumerate(ids)}
+            self._priors = [PriorFactor(int(k), np.asarray(m, np.float64), np.asarray(s, np.float64))
+                            for k, m, s in zip(state["prior_keys"], state["prior_measured"],
+                                               state["prior_sqrt_info"])]
+            self._betweens = [BetweenFactor(int(k[0]), int(k[1]), np.asarray(m, np.float64),
+                                            np.asarray(s, np.float64))
+                              for k, m, s in zip(state["between_keys"], state["between_measured"],
+                                                 state["between_sqrt_info"])]
+            self.odometry_count, self.loop_closure_count = (int(c) for c in state["counts"])

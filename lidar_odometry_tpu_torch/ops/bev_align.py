@@ -1,0 +1,149 @@
+"""Coarse loop-closure prealignment: yaw from the Iris bias, x-y translation
+from bird's-eye-view phase correlation (counterpart of the JAX package's
+ops/bev_align.py: bev_translation_offset, prealign_pose_jnp,
+prealign_pose).
+
+Both keyframe clouds are rasterised into (G, G) occupancy images around
+the matched keyframe's position; the offset is the argmax of the
+normalised cross-power spectrum (the first maximum in row-major order, as
+jnp.argmax and torch.argmax both take it). The FFTs are torch.fft.
+
+Kernels (csrc/bev_align.cu), each with its plain twin below:
+  K7 bev_raster — the query cloud's transform and both occupancy images;
+  K7c cross_power — the normalised cross-power spectrum between the FFTs
+      (also the Iris shift estimate's, ops/iris.py).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..utils import keys as K
+from ..utils import lie
+
+__all__ = ["bev_raster", "bev_raster_plain", "cross_power", "cross_power_plain",
+           "bev_translation_offset", "prealign_pose_t", "prealign_pose"]
+
+
+def bev_raster(pts_a, mask_a, T_a, pts_b, mask_b, center, *, grid: int = 128,
+               bin_size: float = 1.0):
+    """K7's wrapper: (2, G, G) f32 occupancy images of cloud A moved by
+    T_a (16,) f32 row-major and of world cloud B, centred at center (3,)."""
+    if not pts_a.is_cuda:
+        return bev_raster_plain(pts_a, mask_a, T_a, pts_b, mask_b, center, grid=grid,
+                                bin_size=bin_size)
+    na, nb = pts_a.shape[0], pts_b.shape[0]
+    kernels.check(pts_a, "pts_a", torch.float32, (na, 3))
+    kernels.check(mask_a, "mask_a", torch.bool, (na,))
+    kernels.check(T_a, "T_a", torch.float32, (16,))
+    kernels.check(pts_b, "pts_b", torch.float32, (nb, 3))
+    kernels.check(mask_b, "mask_b", torch.bool, (nb,))
+    kernels.check(center, "center", torch.float32, (3,))
+    img = torch.zeros((2, grid, grid), dtype=torch.float32, device=pts_a.device)
+    kernels.KERNELS["bev_raster"].launch(
+        pts_a.data_ptr(), mask_a.data_ptr(), na, T_a.data_ptr(), pts_b.data_ptr(),
+        mask_b.data_ptr(), nb, center.data_ptr(), grid, K.f32(bin_size), img.data_ptr())
+    return img
+
+
+def _occupancy(p, m, center, grid: int, bin_size: float):
+    half = grid // 2
+    ij = torch.floor((p[:, :2] - center[None, :2]) / K.f32(bin_size)).to(torch.int32) + half
+    ok = m & torch.all((ij >= 0) & (ij < grid), 1)
+    flat = torch.where(ok, ij[:, 0] * grid + ij[:, 1], grid * grid).to(torch.int64)
+    occ = torch.zeros((grid * grid + 1,), dtype=torch.float32, device=p.device)
+    occ[flat] = 1.0
+    return occ[:-1].view(grid, grid)
+
+
+def bev_raster_plain(pts_a, mask_a, T_a, pts_b, mask_b, center, *, grid: int = 128,
+                     bin_size: float = 1.0):
+    a_world = lie.transform_points(T_a.view(4, 4), pts_a)
+    return torch.stack([_occupancy(a_world, mask_a, center, grid, bin_size),
+                        _occupancy(pts_b, mask_b, center, grid, bin_size)])
+
+
+def cross_power(x, y):
+    """K7c's wrapper: x (B, N) and y (N,) complex64 spectra. Returns (B, N)
+    complex64 x conj(y) / max(|x conj(y)|, 1e-12), y broadcast over B."""
+    if not x.is_cuda:
+        return cross_power_plain(x, y)
+    b, n = x.shape
+    kernels.check(x, "x", torch.complex64, (b, n))
+    kernels.check(y, "y", torch.complex64, (n,))
+    out = torch.empty_like(x)
+    kernels.KERNELS["cross_power"].launch(x.data_ptr(), y.data_ptr(), b, n, out.data_ptr())
+    return out
+
+
+def cross_power_plain(x, y):
+    cross = x * torch.conj(y)[None]
+    return cross / torch.clamp(torch.abs(cross), min=1e-12)
+
+
+def _offset_from_images(img, grid: int, bin_size: float):
+    fa = torch.fft.fft2(img[0].to(torch.complex64))
+    fb = torch.fft.fft2(img[1].to(torch.complex64))
+    cross = cross_power(fb.reshape(1, -1), fa.reshape(-1)).view(grid, grid)
+    corr = torch.real(torch.fft.ifft2(cross))
+    flat = torch.argmax(corr.reshape(-1))
+    half = grid // 2
+    d = torch.stack([flat // grid, flat % grid])
+    d = torch.where(d >= half, d - grid, d)
+    return d.to(torch.float32) * K.f32(bin_size)
+
+
+def bev_translation_offset(pts_a, mask_a, pts_b, mask_b, center, *, grid: int = 128,
+                           bin_size: float = 1.0, T_a=None):
+    """x-y translation (2,) f32 that moves cloud A (moved by T_a, if given,
+    else taken as world points) onto world cloud B."""
+    if T_a is None:
+        T_a = torch.eye(4, dtype=torch.float32, device=pts_a.device)
+    img = bev_raster(pts_a, mask_a, T_a.reshape(16).contiguous(), pts_b, mask_b,
+                     center.contiguous(), grid=grid, bin_size=bin_size)
+    return _offset_from_images(img, grid, bin_size)
+
+
+def _yaw_corrected(current_pose, matched_pose, bias_deg):
+    delta = (torch.remainder(bias_deg + 180.0, 360.0) - 180.0) * K.f32(math.pi / 180.0)
+    yaw_m = torch.atan2(matched_pose[1, 0], matched_pose[0, 0])
+    yaw_c = torch.atan2(current_pose[1, 0], current_pose[0, 0])
+    dyaw = yaw_m + delta - yaw_c
+    dyaw = torch.remainder(dyaw + K.f32(math.pi), K.f32(2.0 * math.pi)) - K.f32(math.pi)
+    c, s = torch.cos(dyaw), torch.sin(dyaw)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    Rz = torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]),
+                      torch.stack([zero, zero, one])])
+    return lie.se3_matrix(Rz @ current_pose[:3, :3], current_pose[:3, 3])
+
+
+def prealign_pose_t(current_pose, matched_pose, bias_deg, query_cloud, query_mask,
+                    matched_world, matched_mask, *, grid: int = 128, bin_size: float = 1.0):
+    """Device prealignment (the JAX prealign_pose_jnp): poses (4, 4) f32
+    tensors, bias_deg a 0-d f32 tensor. Returns the prealigned (4, 4) world
+    pose of the query keyframe, with no host read."""
+    T_init = _yaw_corrected(current_pose, matched_pose, bias_deg)
+    off = bev_translation_offset(query_cloud, query_mask, matched_world, matched_mask,
+                                 matched_pose[:3, 3], grid=grid, bin_size=bin_size,
+                                 T_a=T_init)
+    T_init[:2, 3] += off
+    return T_init
+
+
+def prealign_pose(current_pose: np.ndarray, matched_pose: np.ndarray, bias_deg: int,
+                  query_cloud, query_mask, matched_world, matched_mask, *,
+                  grid: int = 128, bin_size: float = 1.0, device="cuda") -> np.ndarray:
+    """Host orchestration of the prealignment: numpy poses and clouds in,
+    the corrected (4, 4) float32 world pose of the query out. The JAX
+    package's host prealign_pose, kept for callers of that API; the loop
+    solve calls prealign_pose_t on device tensors."""
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    return prealign_pose_t(
+        t(current_pose.astype(np.float32)), t(matched_pose.astype(np.float32)),
+        torch.tensor(float(bias_deg), dtype=torch.float32, device=device),
+        t(np.asarray(query_cloud, np.float32)), t(np.asarray(query_mask, bool)),
+        t(np.asarray(matched_world, np.float32)), t(np.asarray(matched_mask, bool)),
+        grid=grid, bin_size=bin_size).cpu().numpy()

@@ -28,11 +28,22 @@ in the L0 voxels instead of the surfels, in two launches in place of K2a:
 then K3 and K2b as in surfel mode. The residual target is the plane's
 centroid; the magnitude that sets the iteration-0 scale and PKO's alpha
 is K5b's point-to-plane distance.
+
+The loop-closure solve (icp_optimize_loop, loop_closure_solve) aligns a
+keyframe to a matched keyframe's world cloud: the prealign (ops/
+bev_align.py, K7), then up to 30 (100 without prealign) coarse steps on
+2 m point-table bins and up to 8 polish steps on 0.5 m bins, each step
+  K6b point_knn (ops/knn.py): the 5 nearest table points;
+  K5b: their plane fit, ungated (coarse) or gated (polish);
+  K3, then K2b with a weight residual: the residual is taken against the
+      nearest neighbour (coarse) or the centroid (polish), the robust
+      weight from the plane distance;
+then the 1-NN inlier ratio (K6b point_nn1). One host read per solve.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import torch
@@ -41,12 +52,13 @@ from .. import kernels
 from ..utils import eigh3 as E
 from ..utils import keys as K
 from ..utils import lie
-from . import pko
+from . import bev_align, knn, pko
 from . import voxel_map as vm
 
 __all__ = ["ICPConfig", "icp_optimize", "icp_correspond", "icp_correspond_plain",
            "icp_normal_eq", "icp_normal_eq_plain", "robust_weights", "PlaneFit",
-           "plane_fit_5nn", "plane_fit_5nn_plain"]
+           "plane_fit_5nn", "plane_fit_5nn_plain", "icp_optimize_loop",
+           "loop_solve", "loop_prealign", "loop_closure_solve", "POLISH_TOLERANCE"]
 
 NE_THREADS = 256
 NE_MAX_BLOCKS = 128
@@ -124,17 +136,23 @@ def icp_correspond_plain(pts, mask, T, map_state, cfg: ICPConfig):
 # K2b: normal equations, solve, retract
 # ---------------------------------------------------------------------------
 
-def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConfig):
-    """K2b's wrapper. scale (1,) f32; aux (2,) int32 [count, alpha_index].
-    Returns (T_out (16,), flags_out (3,) int32, hg (27,) = the 21 upper
-    entries of H row by row, then g)."""
+def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConfig,
+                  rw=None):
+    """K2b's wrapper. scale (1,) f32; aux (2,) int32 [count, alpha_index];
+    rw (N,) f32 or None: the residual whose magnitude sets the robust
+    weights, in place of r (the loop-closure ICP weights by the plane
+    distance and takes r against the nearest neighbour). Returns (T_out
+    (16,), flags_out (3,) int32, hg (27,) = the 21 upper entries of H row
+    by row, then g)."""
     if not pts.is_cuda:
         return icp_normal_eq_plain(pts, nrm, r, valid, T, scale, flags, aux,
-                                   consts, cfg)
+                                   consts, cfg, rw)
     n = pts.shape[0]
     kernels.check(pts, "pts", torch.float32, (n, 3))
     kernels.check(nrm, "nrm", torch.float32, (n, 3))
     kernels.check(r, "r", torch.float32, (n,))
+    if rw is not None:
+        kernels.check(rw, "rw", torch.float32, (n,))
     kernels.check(valid, "valid", torch.bool, (n,))
     kernels.check(T, "T", torch.float32, (16,))
     kernels.check(scale, "scale", torch.float32, (1,))
@@ -148,7 +166,8 @@ def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConf
     flags_out = torch.empty((3,), dtype=torch.int32, device=dev)
     hg = torch.empty((27,), dtype=torch.float32, device=dev)
     kernels.KERNELS["icp_normal_eq"].launch(
-        pts.data_ptr(), nrm.data_ptr(), r.data_ptr(), valid.data_ptr(), n,
+        pts.data_ptr(), nrm.data_ptr(), r.data_ptr(),
+        None if rw is None else rw.data_ptr(), valid.data_ptr(), n,
         T.data_ptr(), scale.data_ptr(), flags.data_ptr(), aux.data_ptr(),
         consts.alphas.data_ptr(), int(cfg.use_adaptive_m_estimator),
         K.f32(cfg.robust_loss_delta), int(cfg.use_robust_loss),
@@ -162,13 +181,13 @@ def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConf
 _TRIU = [(a, b) for a in range(6) for b in range(a, 6)]
 
 
-def icp_normal_eq_plain(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg):
+def icp_normal_eq_plain(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg, rw=None):
     T4 = T.view(4, 4)
     R = T4[:3, :3]
     done, failed, n_corr = flags[0] != 0, flags[1] != 0, flags[2]
     count, aidx = aux[0], aux[1]
     insufficient = count < cfg.min_correspondence_points
-    rn = torch.abs(r) / torch.clamp(scale.reshape(()), min=1e-6)
+    rn = torch.abs(r if rw is None else rw) / torch.clamp(scale.reshape(()), min=1e-6)
     if cfg.use_adaptive_m_estimator:
         delta = consts.alphas[aidx.to(torch.int64)]
     else:
@@ -308,15 +327,153 @@ def icp_optimize(map_state: vm.VoxelMapState, pts, mask, T_init,
         else:
             fit = _grid_plane_correspondences(map_state, pts, mask, T, flags, cfg)
             nrm, r, valid, r_abs = fit.normal, fit.resid, fit.valid, fit.dist
-        if cfg.use_adaptive_m_estimator:
-            aux, scale = pko.pko_alpha_index(r_abs, valid, flags, scale, i == 0,
-                                             pko_consts)
-        else:
-            if i == 0:
-                scale = pko.norm_scale_from(torch.abs(r_abs), valid).reshape(1)
-            aux = torch.stack([valid.sum(), torch.zeros_like(valid.sum())]).to(torch.int32)
+        aux, scale = _scale_and_alpha(r_abs, valid, flags, scale, i == 0, pko_consts, cfg)
         T, flags, _ = icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux,
                                     pko_consts, cfg)
     success = flags[1] == 0
     T_final = torch.where(success, T.view(4, 4), T_init)
     return T_final, success, flags[2]
+
+
+def _scale_and_alpha(r_abs, valid, flags, scale, first: bool, pko_consts, cfg: ICPConfig):
+    """The iteration-0 residual scale and the robust delta's index (K3)."""
+    if cfg.use_adaptive_m_estimator:
+        return pko.pko_alpha_index(r_abs, valid, flags, scale, first, pko_consts)
+    if first:
+        scale = pko.norm_scale_from(torch.abs(r_abs), valid).reshape(1)
+    aux = torch.stack([valid.sum(), torch.zeros_like(valid.sum())]).to(torch.int32)
+    return aux, scale
+
+
+# ---------------------------------------------------------------------------
+# the loop-closure solve (JAX icp_optimize_loop, _loop_solve_jit,
+# _loop_prealign_jit, loop_closure_solve)
+# ---------------------------------------------------------------------------
+
+# The polish phase's step tolerances, much tighter than the odometry's: a
+# 3e-4 rad loop rotation error at a 20 m lever arm bends the trajectory by
+# ~6 mm (the JAX package's measurement behind the same values).
+POLISH_TOLERANCE = (1e-4, 2e-5)
+
+
+def _plane_correspondences(table: knn.PointTable, pts, mask, T, cfg: ICPConfig, *,
+                           radius: int, bucket_width: int, gate: bool, flags):
+    """5-NN against a point table (K6b) and the plane fit (K5b)."""
+    p_world = lie.transform_points(T.view(4, 4), pts).contiguous()
+    nb, nb_ok, _ = knn.knn_query(table, p_world, k=5, radius=radius,
+                                 bucket_width=bucket_width, flags=flags)
+    return p_world, plane_fit_5nn(p_world, nb, nb_ok, mask, cfg, gate=gate, flags=flags)
+
+
+def _loop_phase(table, pts, mask, T, flags, pko_consts, cfg: ICPConfig, *, iterations: int,
+                radius: int, bucket_width: int, polish: bool):
+    """Up to `iterations` Gauss-Newton steps against one table. Coarse
+    (polish=False): ungated fits, the residual against the nearest
+    neighbour. Polish: gated fits, the residual against the fitted
+    centroid, and the RMS plane distance of the last step taken. Both
+    weight each point by its plane distance (K2b's weight residual)."""
+    scale = torch.ones((1,), dtype=torch.float32, device=pts.device)
+    rms = torch.zeros((), dtype=torch.float32, device=pts.device)
+    for i in range(iterations):
+        if not pts.is_cuda and bool(flags[0]):
+            break     # on the host the loop may stop; the card's kernels return at once
+        p_world, fit = _plane_correspondences(table, pts, mask, T, cfg, radius=radius,
+                                              bucket_width=bucket_width, gate=polish,
+                                              flags=flags)
+        r = fit.resid if polish else torch.sum(fit.normal * (p_world - fit.nearest), -1)
+        aux, scale = _scale_and_alpha(fit.dist, fit.valid, flags, scale, i == 0, pko_consts, cfg)
+        if polish:
+            w = fit.valid.to(torch.float32)
+            step = (flags[0] == 0) & (aux[0] >= cfg.min_correspondence_points)
+            new = torch.sqrt(torch.sum(fit.dist * fit.dist * w) / torch.clamp(w.sum(), min=1.0))
+            rms = torch.where(step, new, rms)
+        T, flags, _ = icp_normal_eq(pts, fit.normal, r, fit.valid, T, scale, flags, aux,
+                                    pko_consts, cfg, rw=fit.dist)
+    return T, flags, rms
+
+
+def icp_optimize_loop(curr_pts, curr_mask, T_curr, matched_table: knn.PointTable,
+                      pko_consts: pko.PKOConstants, cfg: ICPConfig, *, T_init=None,
+                      max_loop_iterations: int = 100, search_radius: int = 2,
+                      bucket_width: int = 16, fine_table=None, polish_iterations: int = 8):
+    """Loop-closure ICP of the query keyframe's local features against the
+    matched keyframe's world cloud: up to max_loop_iterations coarse steps
+    (success needs convergence), then, with a fine table, up to
+    polish_iterations steps from a converged pose, then the 1-NN inlier
+    ratio (distance < 1 m, >= 0.5 to succeed). Returns (T_rel =
+    T_curr^-1 T_opt (4, 4), success () bool, inlier_ratio (), resid_rms ()),
+    all on the device."""
+    dev = curr_pts.device
+    T = (T_curr if T_init is None else T_init).reshape(16).contiguous()
+    flags = torch.zeros((3,), dtype=torch.int32, device=dev)
+    T, flags, _ = _loop_phase(matched_table, curr_pts, curr_mask, T, flags, pko_consts, cfg,
+                              iterations=max_loop_iterations, radius=search_radius,
+                              bucket_width=bucket_width, polish=False)
+    converged = (flags[0] != 0) & (flags[1] == 0)
+    resid_rms = torch.zeros((), dtype=torch.float32, device=dev)
+    if fine_table is not None and polish_iterations > 0:
+        tol_t, tol_r = POLISH_TOLERANCE
+        pcfg = replace(cfg, translation_tolerance=tol_t, rotation_tolerance=tol_r)
+        pflags = torch.stack([(~converged).to(torch.int32), flags[1] * 0, flags[2] * 0])
+        T, _, resid_rms = _loop_phase(fine_table, curr_pts, curr_mask, T, pflags, pko_consts,
+                                      pcfg, iterations=polish_iterations, radius=1,
+                                      bucket_width=4, polish=True)
+    p_world = lie.transform_points(T.view(4, 4), curr_pts).contiguous()
+    d1 = knn.nn1_distance(matched_table, p_world, radius=search_radius,
+                          bucket_width=bucket_width)
+    w = curr_mask.to(torch.float32)
+    inlier_ratio = (torch.sum(((d1 < 1.0) & curr_mask).to(torch.float32))
+                    / torch.clamp(w.sum(), min=1.0))
+    success = converged & (inlier_ratio >= 0.5)
+    T_rel = lie.se3_inv(T_curr) @ T.view(4, 4)
+    return T_rel, success, inlier_ratio, resid_rms
+
+
+def loop_solve(curr_pts, curr_mask, T_curr, matched_pts, matched_mask, matched_pose, T_init,
+               pko_consts, cfg: ICPConfig, max_loop_iterations: int, search_radius: int,
+               bucket_width: int, bin_scale: float, polish_iterations: int):
+    """The matched keyframe's world cloud, its coarse (and fine) point
+    tables, the loop ICP. Returns one packed (19,) f32 tensor
+    [T_rel (16) | success | inlier_ratio | resid_rms]."""
+    matched_world = lie.transform_points(matched_pose, matched_pts).contiguous()
+    table = knn.build_point_table(matched_world, matched_mask,
+                                  bin_size=K.f32(cfg.voxel_size * bin_scale))
+    fine = None
+    if polish_iterations > 0:
+        fine = knn.build_point_table(matched_world, matched_mask, bin_size=cfg.voxel_size)
+    T_rel, success, inlier, rms = icp_optimize_loop(
+        curr_pts, curr_mask, T_curr, table, pko_consts, cfg, T_init=T_init,
+        max_loop_iterations=max_loop_iterations, search_radius=search_radius,
+        bucket_width=bucket_width, fine_table=fine, polish_iterations=polish_iterations)
+    return torch.cat([T_rel.reshape(16), success.to(torch.float32)[None], inlier[None],
+                      rms[None]])
+
+
+def loop_prealign(T_curr, matched_pose, bias_deg, curr_pts, curr_mask, matched_pts,
+                  matched_mask):
+    """The prealigned world pose of the query keyframe (Iris yaw + BEV
+    phase correlation against the matched keyframe's world cloud)."""
+    matched_world = lie.transform_points(matched_pose, matched_pts).contiguous()
+    return bev_align.prealign_pose_t(T_curr, matched_pose, bias_deg, curr_pts, curr_mask,
+                                     matched_world, matched_mask)
+
+
+def loop_closure_solve(curr_pts, curr_mask, T_curr, matched_pts, matched_mask, matched_pose,
+                       bias_deg, pko_consts, cfg: ICPConfig, *, prealign: bool = True,
+                       max_loop_iterations: int = 100, search_radius: int = 2,
+                       bucket_width: int = 16, bin_scale: float = 4.0,
+                       polish_iterations: int = 8):
+    """The loop-closure geometry: prealign (with `prealign`, then a coarse
+    search radius of at most 1), coarse + fine loop ICP, inlier check.
+    curr/matched points are each keyframe's LOCAL features, poses (4, 4)
+    f32 world poses, bias_deg a 0-d f32 tensor. Returns the packed (19,)
+    f32 tensor of loop_solve, on the device."""
+    if prealign:
+        T_init = loop_prealign(T_curr, matched_pose, bias_deg, curr_pts, curr_mask,
+                               matched_pts, matched_mask)
+        search_radius = min(search_radius, 1)
+    else:
+        T_init = T_curr
+    return loop_solve(curr_pts, curr_mask, T_curr, matched_pts, matched_mask, matched_pose,
+                      T_init, pko_consts, cfg, max_loop_iterations, search_radius,
+                      bucket_width, bin_scale, polish_iterations)

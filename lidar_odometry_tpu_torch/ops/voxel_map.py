@@ -34,6 +34,18 @@ Kernels (csrc/voxel_map.cu), each with its plain twin below:
 With compute_surfels=False (KD-tree mode) update_map keeps no surfels: it
 skips K4c and the non-planar deletion, still frees the cells that
 eviction emptied, and writes has = 0 on every affected cell.
+
+transform_and_rehash (the map correction after a pose-graph optimisation)
+rebuilds the map from its live L0 records moved by the correction:
+  K9a map_bulk_index (csrc/rehash.cu) — gives the distinct parents, sorted
+      by bucket, their bucket cells and slots and writes the fresh index
+      and meta rows;
+  K9b map_bulk_merge (csrc/rehash.cu) — merges the records of equal key in
+      sorted order and scatters each merged voxel into its parent's block
+      of the freshly built index;
+then K4c recomputes every parent's statistics. A rebuilt cell keeps its
+surfel row even when it is not planar (has = 0), where update_map deletes
+such a cell.
 """
 from __future__ import annotations
 
@@ -51,7 +63,9 @@ __all__ = ["VoxelMapState", "empty_map", "update_map", "lookup_surfels", "parent
            "map_evict_scan", "map_evict_scan_plain", "map_scatter_add",
            "map_scatter_add_plain", "map_surfel_recompute",
            "map_surfel_recompute_plain", "grid_knn_neighbors",
-           "grid_knn_neighbors_plain", "l0_points", "MIN_OCCUPIED_CHILDREN"]
+           "grid_knn_neighbors_plain", "l0_points", "MIN_OCCUPIED_CHILDREN",
+           "transform_and_rehash", "bulk_build", "bulk_plan", "bulk_parents", "rehash_records",
+           "map_bulk_index", "map_bulk_index_plain", "map_bulk_merge", "map_bulk_merge_plain"]
 
 MIN_OCCUPIED_CHILDREN = 5
 BUCKET = 8
@@ -723,3 +737,233 @@ def l1_surfels(state: VoxelMapState):
     """All cached surfels: (normals, centroids, planarity, valid)."""
     s = state.l1_surfel[:state.c1]
     return s[:, 0:3], s[:, 3:6], s[:, 6], s[:, 7] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# rehash (the pose-graph correction)
+# ---------------------------------------------------------------------------
+
+def map_bulk_merge(l0_data, s_key, s_idx, first, counts, centroids, l1_index):
+    """K9b's wrapper. The records in sorted order: s_key (M,) int64 sorted
+    keys (INVALID_SORT_KEY for dead records), s_idx (M,) int64 the
+    permutation, first (M,) bool run leaders of live keys; counts (M,) f32
+    and centroids (M, 3) f32 by record. Sums each run's [count | count *
+    centroid] in the sorted order and writes it to its parent's child row
+    of l0_data (in place; the parent found in l1_index). Returns (2,) int32
+    [merged voxels placed, merged voxels whose parent is not in the
+    index]."""
+    if not s_key.is_cuda:
+        return map_bulk_merge_plain(l0_data, s_key, s_idx, first, counts, centroids, l1_index)
+    m = s_key.shape[0]
+    kernels.check(l0_data, "l0_data", torch.float32)
+    kernels.check(s_key, "s_key", torch.int64, (m,))
+    kernels.check(s_idx, "s_idx", torch.int64, (m,))
+    kernels.check(first, "first", torch.bool, (m,))
+    kernels.check(counts, "counts", torch.float32, (m,))
+    kernels.check(centroids, "centroids", torch.float32, (m, 3))
+    kernels.check(l1_index, "l1_index", torch.int32)
+    out = torch.zeros((2,), dtype=torch.int32, device=s_key.device)
+    kernels.KERNELS["map_bulk_merge"].launch(
+        s_key.data_ptr(), s_idx.data_ptr(), first.data_ptr(), counts.data_ptr(),
+        centroids.data_ptr(), m, l1_index.data_ptr(), l1_index.shape[0] - 1,
+        l0_data.data_ptr(), out.data_ptr())
+    return out
+
+
+def map_bulk_merge_plain(l0_data, s_key, s_idx, first, counts, centroids, l1_index):
+    m = s_key.shape[0]
+    nrows = l0_data.shape[0] - 1
+    live = s_key != K.INVALID_SORT_KEY
+    w = torch.where(live, counts[s_idx], 0.0)
+    data4 = torch.cat([w[:, None], centroids[s_idx] * w[:, None]], 1)
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    # segment sums in the sorted order, one run after another
+    tot = torch.zeros((m, 4), dtype=torch.float32, device=s_key.device)
+    tot.index_add_(0, torch.where(live, seg.clamp(min=0), m - 1), torch.where(live[:, None], data4, 0.0))
+    coords = K.unpack_key(*K.split_sort_key(s_key))
+    par = torch.div(coords, 3, rounding_mode="floor")
+    pslot, phit, _, _ = bucket_find(l1_index, *K.pack_key(par))
+    ok = first & phit
+    addr = torch.where(ok, torch.clamp(pslot, 0) * NCH + _child_offset_of(coords), nrows)
+    l0_data[addr] = torch.where(ok[:, None], tot[seg.clamp(min=0)], 0.0)
+    l0_data[nrows:].fill_(0.0)
+    return torch.stack([ok.sum(), (first & ~phit).sum()]).to(torch.int32)
+
+
+def map_bulk_index(b_s, i_s, hi, lo, l1_index, l1_meta, slot_from_top: int):
+    """K9a's wrapper: the slots and bucket cells of DISTINCT keys in a fresh
+    map, by sort. b_s (N,) int64 the keys' buckets in stable sorted order
+    (n_buckets where the key is dead), i_s (N,) int64 the sort permutation,
+    hi, lo (N,) int32 the keys' bits. A key's cell is its rank within its
+    bucket (cells past 8 are not placed); the placed keys take slots
+    counting down from slot_from_top - 1 in key order. Writes each placed
+    key's index cell (slot, hi, lo) into l1_index and its meta row (hi, lo,
+    -1, cell position) into l1_meta, in place. Returns the number placed,
+    () int32."""
+    if not b_s.is_cuda:
+        return map_bulk_index_plain(b_s, i_s, hi, lo, l1_index, l1_meta, slot_from_top)
+    n = b_s.shape[0]
+    kernels.check(b_s, "b_s", torch.int64, (n,))
+    kernels.check(i_s, "i_s", torch.int64, (n,))
+    kernels.check(hi, "hi", torch.int32, (n,))
+    kernels.check(lo, "lo", torch.int32, (n,))
+    kernels.check(l1_index, "l1_index", torch.int32)
+    kernels.check(l1_meta, "l1_meta", torch.int32)
+    if slot_from_top > l1_meta.shape[0] - 1:
+        raise ValueError(f"map_bulk_index: {slot_from_top} slots but {l1_meta.shape[0] - 1} "
+                         f"meta rows")
+    cp = torch.empty((n,), dtype=torch.int32, device=b_s.device)
+    out = torch.empty((), dtype=torch.int32, device=b_s.device)
+    kernels.KERNELS["map_bulk_index"].launch(
+        b_s.data_ptr(), i_s.data_ptr(), hi.data_ptr(), lo.data_ptr(), n, l1_index.shape[0] - 1,
+        slot_from_top, cp.data_ptr(), l1_index.data_ptr(), l1_meta.data_ptr(), out.data_ptr())
+    return out
+
+
+def map_bulk_index_plain(b_s, i_s, hi, lo, l1_index, l1_meta, slot_from_top: int):
+    n = b_s.shape[0]
+    dev = b_s.device
+    nb = l1_index.shape[0] - 1
+    bfirst = torch.ones((n,), dtype=torch.bool, device=dev)
+    bfirst[1:] = b_s[1:] != b_s[:-1]
+    pos = torch.arange(n, device=dev)
+    cell = torch.zeros((n,), dtype=torch.int64, device=dev)
+    cell[i_s] = pos - torch.cummax(torch.where(bfirst, pos, 0), 0).values
+    b = torch.zeros((n,), dtype=torch.int64, device=dev)
+    b[i_s] = b_s
+    placed = (b < nb) & (cell < BUCKET)
+    rank = torch.cumsum(placed.to(torch.int64), 0) - 1
+    slot = torch.where(placed & (rank < slot_from_top), slot_from_top - 1 - rank, -1)
+    placed = slot >= 0
+    cellpos = torch.where(placed, b * BUCKET + cell, -1)
+    base = torch.where(placed, (cellpos >> 3) * ROW + (cellpos & 7), nb * ROW)
+    flat = l1_index.view(-1)
+    flat[base] = slot.to(torch.int32)
+    flat[torch.where(placed, base + BUCKET, nb * ROW)] = hi
+    flat[torch.where(placed, base + 2 * BUCKET, nb * ROW)] = lo
+    sink = l1_meta.shape[0] - 1
+    l1_meta[torch.where(placed, slot, sink)] = torch.stack(
+        [hi, lo, torch.full_like(hi, INVALID_I32), cellpos.to(torch.int32)], 1)
+    l1_index[-1:].fill_(-1)
+    l1_meta[-1:].fill_(INVALID_I32)
+    return placed.sum().to(torch.int32)
+
+
+class BulkPlan(NamedTuple):
+    """A bulk build up to its merge: the fresh state with its index and meta
+    rows written, and the records in key order for K9b."""
+    fresh: VoxelMapState
+    s_key: torch.Tensor      # (M,) int64 sorted record keys
+    s_idx: torch.Tensor      # (M,) int64 the sort permutation
+    first: torch.Tensor      # (M,) bool run leaders of live keys
+    counts: torch.Tensor     # (M,) f32 by record, 0 where dead
+    centroids: torch.Tensor  # (M, 3) f32 by record
+    n1: torch.Tensor         # () i32 distinct parents that got a slot
+
+
+def bulk_parents(s_key, first, c0: int, c1: int, n_buckets: int, hierarchy_factor: int = 3):
+    """The distinct parents of the merged voxels (the run leaders `first` of
+    the sorted record keys s_key, at most c0), in key order and at most c1,
+    as K9a takes them: (b_s, i_s) their buckets (n_buckets past the last
+    parent) in stable sorted order and the permutation, (hi, lo) their key
+    bits, each (c1,)."""
+    seg_pos = _compact(first, c0)
+    m_live = seg_pos >= 0
+    m_key = torch.where(m_live, s_key[torch.clamp(seg_pos, 0)], K.INVALID_SORT_KEY)
+    par = torch.div(K.unpack_key(*K.split_sort_key(m_key)), hierarchy_factor,
+                    rounding_mode="floor")
+    p_key = torch.where(m_live, K.sort_key(*K.pack_key(par)), K.INVALID_SORT_KEY)
+    ps_key, _ = torch.sort(p_key, stable=True)
+    pfirst = ps_key != K.INVALID_SORT_KEY
+    pfirst[1:] &= ps_key[1:] != ps_key[:-1]
+    u_pos = _compact(pfirst, c1)
+    u_live = u_pos >= 0
+    u_hi, u_lo = K.split_sort_key(torch.where(u_live, ps_key[torch.clamp(u_pos, 0)],
+                                              K.INVALID_SORT_KEY))
+    b_s, i_s = torch.sort(torch.where(u_live, hash_bucket(u_hi, u_lo, n_buckets - 1), n_buckets),
+                          stable=True)
+    return b_s, i_s, K.to_i32(u_hi), K.to_i32(u_lo)
+
+
+def bulk_plan(centroids, counts, live, c0: int, c1: int, *, voxel_size: float,
+              hierarchy_factor: int = 3) -> BulkPlan:
+    """Key the records, sort them, find the distinct parents of the merged
+    voxels and give them slots and bucket cells in a fresh map (c0 is the
+    merge capacity)."""
+    if hierarchy_factor != 3:
+        raise ValueError("bulk_build: the port takes hierarchy factor 3")
+    dev = centroids.device
+    cnt = torch.where(live, counts, 0.0)
+    key = torch.where(live, K.sort_key(*K.pack_key(K.voxel_coords(
+        centroids, K.f32(1.0 / K.f32(voxel_size))))), K.INVALID_SORT_KEY)
+    s_key, s_idx = torch.sort(key, stable=True)
+    first = s_key != K.INVALID_SORT_KEY
+    first[1:] &= s_key[1:] != s_key[:-1]
+
+    fresh = empty_map(0, c1, device=dev)
+    n1 = map_bulk_index(*bulk_parents(s_key, first, c0, c1, fresh.n_buckets, hierarchy_factor),
+                        fresh.l1_index, fresh.l1_meta, c1)
+    return BulkPlan(fresh, s_key, s_idx, first, cnt, centroids.contiguous(), n1)
+
+
+def bulk_build(centroids, counts, live, c0: int, c1: int, *, voxel_size: float,
+               planarity_threshold: float, hierarchy_factor: int = 3,
+               n_dropped=None) -> VoxelMapState:
+    """A fresh map from (M,) weighted-centroid records: records of equal
+    key merge by weighted centroid, distinct parents get slots and cells
+    by sort (K9a), each merged voxel lands in its parent's block (K9b), and every
+    parent's statistics are recomputed (K4c). c0 is the merge capacity."""
+    plan = bulk_plan(centroids, counts, live, c0, c1, voxel_size=voxel_size,
+                     hierarchy_factor=hierarchy_factor)
+    fresh, dev = plan.fresh, centroids.device
+    if n_dropped is None:
+        n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    placed = map_bulk_merge(fresh.l0_data, plan.s_key, plan.s_idx, plan.first, plan.counts,
+                            plan.centroids, fresh.l1_index)
+    n_dropped = n_dropped + placed[1] + torch.clamp(plan.first.sum() - c0, min=0).to(torch.int32)
+
+    # every parent's statistics (K4c), has without the non-planar deletion
+    l1_meta = fresh.l1_meta
+    occ = l1_meta[:c1, 0] != INVALID_I32
+    srows, _np, kidmask = map_surfel_recompute(
+        fresh.l0_data, torch.arange(c1, device=dev), c1, K.f32(planarity_threshold))
+    ccnt = ((kidmask[:, None] >> torch.arange(NCH, dtype=torch.int32, device=dev)) & 1).sum(1)
+    has = occ & (ccnt >= MIN_OCCUPIED_CHILDREN) & (srows[:, 6] <= K.f32(planarity_threshold))
+    fresh.l1_surfel[:c1] = torch.cat([srows[:, :7], has.to(torch.float32)[:, None]], 1)
+    l1_meta[:c1, 2] = torch.where(occ, ccnt.to(torch.int32), l1_meta[:c1, 2])
+    fresh.l1_last[:c1] = torch.where(occ, ccnt, 0).to(torch.int32)
+    n1 = plan.n1
+    return fresh._replace(l1_free_top=(c1 - n1).to(torch.int32), n_l0=placed[0].clone(),
+                          n_l1=n1, n_dropped=n_dropped.to(torch.int32))
+
+
+def rehash_records(state: VoxelMapState, T):
+    """The live L0 records of a map, compacted to 4 a parent slot and moved
+    by T (4, 4). Returns (centroids (cap, 3), counts (cap,), live (cap,),
+    cap, n_dropped with the compaction's overflow)."""
+    c1 = state.c1
+    m = c1 * NCH
+    cap = min(4 * c1, m)
+    live = state.l0_data[:m, 0] > 0.0
+    live_idx = _compact(live, cap)
+    ok = live_idx >= 0
+    rows = state.l0_data[torch.clamp(live_idx, 0, m - 1)]
+    c_cnt = torch.where(ok, rows[:, 0], 0.0)
+    c_cen = rows[:, 1:4] / torch.clamp(c_cnt, min=1.0)[:, None]
+    T = T.to(torch.float32)
+    new_centroid = c_cen @ T[:3, :3].T + T[:3, 3][None, :]
+    n_dropped = state.n_dropped + torch.clamp(live.sum() - cap, min=0).to(torch.int32)
+    return new_centroid, c_cnt, ok, cap, n_dropped
+
+
+def transform_and_rehash(state: VoxelMapState, T, *, voxel_size: float,
+                         planarity_threshold: float, hierarchy_factor: int = 3) -> VoxelMapState:
+    """The map correction after a pose-graph optimisation: move every live
+    L0 centroid by T (4, 4), re-key, merge collisions by weighted centroid
+    and recompute every surfel, into a fresh map. The live records are
+    compacted to 4 per parent slot first; a map denser than that drops the
+    excess into n_dropped."""
+    centroids, counts, live, cap, n_dropped = rehash_records(state, T)
+    return bulk_build(centroids, counts, live, cap, state.c1, voxel_size=voxel_size,
+                      planarity_threshold=planarity_threshold,
+                      hierarchy_factor=hierarchy_factor, n_dropped=n_dropped)

@@ -23,7 +23,7 @@ import torch
 
 __all__ = ["INVALID_U32", "INVALID_SORT_KEY", "COMPACT_BITS", "COMPACT_HALF",
            "voxel_coords", "f32", "pack_key", "unpack_key", "sort_key",
-           "compact_key", "segment_starts", "to_i32", "from_i32"]
+           "compact_key", "segment_starts", "to_i32", "from_i32", "split_sort_key"]
 
 INVALID_U32 = 0xFFFFFFFF
 INVALID_SORT_KEY = (1 << 63) - 1          # sort_key(INVALID_U32, INVALID_U32)
@@ -70,6 +70,11 @@ def sort_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """One signed int64 that orders like the unsigned (hi, lo) pair:
     (hi - 2^31) << 32 | lo. (INVALID, INVALID) maps to INVALID_SORT_KEY."""
     return ((hi - _BIAS32) << 32) + lo
+
+
+def split_sort_key(key: torch.Tensor):
+    """Inverse of sort_key -> (hi, lo) int64 tensors holding uint32."""
+    return ((key >> 32) + _BIAS32) & 0xFFFFFFFF, key & 0xFFFFFFFF
 
 
 def compact_key(coords: torch.Tensor):

@@ -1,7 +1,19 @@
-"""The port's Estimator front door against the JAX Estimator in KD-tree
-mode with loop closure off (CPU): 12 frames of 8k points, once through
+"""The port's Estimator front door against the JAX Estimator (CPU).
+
+Loops off, KD-tree mode: 12 frames of 8k points, once through
 process_frame and once through process_chunk (two chunks of 4, the first
 with its sampled per-frame first frame, then a per-frame tail of 4).
+
+Loops on, surfel mode, sync_loop: the JAX loop test's circuit (seed 9,
+1.07 laps of a 30 m x 10 m stadium at 0.6 m a frame, 6000-point scans)
+through process_frame on both sides: the same accepted loops between the
+same keyframe ids, and trajectories within 5 cm and 5e-3 in rotation
+entries of each other, the ATE scale of either run (each ICP agrees to
+~1e-4 m and the differences add up along 220 frames; the largest gaps
+seen were 3.9 cm and 3.6e-3, each on one frame). The port
+alone also runs the circuit through process_chunk (the same loop, a map
+rehash) and a short run with the loop worker thread that ends cleanly
+through finalize_loops and reset().
 
 The JAX estimator runs in a fresh subprocess that writes its outputs to an
 .npz, so that its large compiles never land late in a long-lived test
@@ -137,9 +149,16 @@ def test_chunk_path_records_a_sampled_stage_breakdown(runs):
 
 
 def test_estimator_refuses_loop_closure():
+    """Loop closure is ported; what is refused is its distributed pose-graph
+    backend, with a ROADMAP pointer. process_chunk(defer_host=True) with
+    loops on still raises, as in JAX."""
     cfg = SystemConfig(**{**CFG, "enable_loop_detection": True})
-    with pytest.raises(ValueError, match="loop closure"):
-        Estimator(cfg, device="cpu")
+    est = Estimator(cfg, sync_loop=True, device="cpu")
+    with pytest.raises(ValueError, match="loop detection off"):
+        est.process_chunk(np.zeros((2, 16, 3), np.float32), defer_host=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Estimator(SystemConfig(**{**CFG, "enable_loop_detection": True,
+                                  "pgo_backend": "distributed"}), device="cpu")
 
 
 def test_reset_and_accessors():
@@ -157,3 +176,125 @@ def test_reset_and_accessors():
     assert est.frame_count == 0 and len(est.trajectory()) == 0
     assert len(est.map_points()) == 0
     assert dataclasses.is_dataclass(est.cfg)
+
+
+# ---------------------------------------------------------------------------
+# loops on
+# ---------------------------------------------------------------------------
+
+LOOP_CFG = dict(scan_capacity=8192, map_l0_capacity=131072, map_l1_capacity=32768,
+                keyframe_capacity=256, point_stride=1, max_iterations=4,
+                enable_loop_detection=True, min_keyframe_gap=25, max_search_distance=8.0,
+                similarity_threshold=0.4, enable_console_statistics=False)
+
+_JAX_LOOPS = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from lidar_odometry_tpu.config import SystemConfig
+    from lidar_odometry_tpu.models.estimator import Estimator
+    d = np.load(sys.argv[1])
+    est = Estimator(SystemConfig(**json.loads(sys.argv[3])), sync_loop=True)
+    for i in range(int(d["n"])):
+        est.process_frame(d["scans"][i, :d["lens"][i]])
+    est.finalize_loops()
+    loops = [(b.key_from, b.key_to) for b in est.pose_graph._betweens
+             if b.key_to - b.key_from != 1]
+    np.savez(sys.argv[2], traj=est.trajectory(), loops=np.asarray(loops).reshape(-1, 2),
+             count=est.get_loop_closure_count(), kfs=len(est.keyframes))
+""")
+
+
+def _loop_pairs(est):
+    keys = est.pose_graph.export_factors()["between_keys"]
+    return keys[keys[:, 1] - keys[:, 0] != 1]
+
+
+@pytest.fixture(scope="module")
+def loop_runs(tmp_path_factory):
+    world = synthetic.make_world(seed=9, extent=60.0, n_buildings=18)
+    poses = synthetic.circuit_trajectory(220, length=30.0, radius=10.0, step=0.6)
+    rng = np.random.default_rng(9)
+    scans = [synthetic.sample_scan(world, p, 6000, rng, max_range=45.0, noise=0.02)
+             for p in poses]
+    padded = np.full((len(scans), 6000, 3), np.nan, np.float32)
+    for i, s in enumerate(scans):
+        padded[i, :len(s)] = s
+    tmp = tmp_path_factory.mktemp("loops")
+    inp, outp = tmp / "in.npz", tmp / "jax.npz"
+    np.savez(inp, scans=padded, lens=np.array([len(s) for s in scans]), n=len(scans))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_LOOPS, str(inp), str(outp),
+                             json.dumps(LOOP_CFG)], env=env, cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the port's runs while the JAX side runs in its own process
+        cfg = SystemConfig(**LOOP_CFG)
+        est = Estimator(cfg, sync_loop=True, device="cpu")
+        for s in scans:
+            assert est.process_frame(s)
+        est.finalize_loops()
+        port = dict(traj=est.trajectory(), loops=_loop_pairs(est),
+                    count=est.get_loop_closure_count(), kfs=len(est.keyframes),
+                    rehash=est.rehash_count, errors=est.loop_errors,
+                    stages=est.loop_stage_snapshot())
+        est = Estimator(cfg, sync_loop=True, device="cpu")
+        for c in range(0, 200, 20):
+            est.process_chunk(padded[c:c + 20])
+        for s in scans[200:]:
+            est.process_frame(s)
+        est.finalize_loops()
+        chunk = dict(traj=est.trajectory(), loops=_loop_pairs(est), rehash=est.rehash_count,
+                     errors=est.loop_errors)
+        _, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-4000:]
+    return poses, dict(np.load(outp)), port, chunk
+
+
+def test_loops_match_jax(loop_runs):
+    gt, jo, po, _ = loop_runs
+    assert int(jo["count"]) >= 1, "the workload must close a loop on the JAX side"
+    assert po["count"] == int(jo["count"]) and po["kfs"] == int(jo["kfs"])
+    np.testing.assert_array_equal(po["loops"], jo["loops"])
+    assert po["rehash"] >= 1 and po["errors"] == 0
+    assert set(po["stages"]) == {"loop_icp", "pgo_solve", "pgo_apply"}
+    a, b = po["traj"], jo["traj"]
+    assert a.shape == b.shape == (220, 4, 4)
+    np.testing.assert_allclose(a[:, :3, 3], b[:, :3, 3], atol=5e-2)
+    np.testing.assert_allclose(a[:, :3, :3], b[:, :3, :3], atol=5e-3)
+    assert ate_rmse(a, gt) < 0.1
+
+
+def test_loops_through_the_chunk_path(loop_runs):
+    gt, _, po, co = loop_runs
+    np.testing.assert_array_equal(co["loops"], po["loops"])
+    assert co["rehash"] >= 1 and co["errors"] == 0
+    np.testing.assert_allclose(co["traj"][:, :3, 3], po["traj"][:, :3, 3], atol=5e-2)
+    assert ate_rmse(co["traj"], gt) < 0.1
+
+
+def test_loop_worker_thread_ends_cleanly():
+    world = synthetic.make_world(seed=9, extent=60.0, n_buildings=18)
+    poses = synthetic.circuit_trajectory(70, length=30.0, radius=10.0, step=0.6)
+    rng = np.random.default_rng(9)
+    cfg = SystemConfig(**{**LOOP_CFG, "min_keyframe_gap": 5})
+    est = Estimator(cfg, sync_loop=False, device="cpu")
+    assert est._thread is not None and est._thread.is_alive()
+    for p in poses:
+        est.process_frame(synthetic.sample_scan(world, p, 6000, rng, max_range=45.0,
+                                                noise=0.02))
+    est.finalize_loops()
+    assert est._thread is None and est.loop_errors == 0
+    assert est.loop_detector.total_queries >= 1
+    assert len(est.trajectory()) == 70
+    est.reset()
+    assert est.frame_count == 0 and len(est.keyframes) == 0
+    assert est.loop_detector._db_n == 0 and est.get_loop_closure_count() == 0
+    est.enable_loop_closure(True)
+    assert est._thread is not None and est._thread.is_alive()
+    est.shutdown()
+    assert est._thread is None

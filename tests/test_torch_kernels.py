@@ -188,3 +188,206 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(scene):
         vf.voxel_segments(key, perm, raw, 16, 2.0, 0.5)
     with pytest.raises(ValueError):
         vf.voxel_segments(key.long(), perm, raw[:, :2].contiguous(), 16, 2.0, 0.5)
+
+
+# ---------------------------------------------------------------------------
+# the loop-closure kernels (K6a, K6b, K7, K7c, K8a-c, K8g, K9a, K9b, K2b's
+# weight residual)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def loop_scene(scene):
+    feat, mask = scene["feat"], scene["mask"]
+    T = scene["T"].view(4, 4)
+    world = lie.transform_points(T, feat).contiguous()
+    drift = torch.eye(4, device="cuda")
+    drift[:3, 3] = torch.tensor([0.6, -0.4, 0.0], device="cuda")
+    return dict(world=world, mask=mask, q=feat[::2].contiguous(), q_mask=mask[::2].contiguous(),
+                T=T, T_q=(drift @ T).contiguous())
+
+
+def test_point_table_kernels(loop_scene):
+    from lidar_odometry_tpu_torch.ops import knn
+    world, mask = loop_scene["world"], loop_scene["mask"]
+    for bin_size, fits in ((2.0, True), (0.1, False)):
+        t = knn.build_point_table(world, mask, bin_size=bin_size)
+        g, m = knn.point_grid_plain(t.key, t.pts, t.inv)
+        assert torch.equal(t.grid, g) and torch.equal(t.meta, m) and bool(t.fits) == fits
+        q = lie.transform_points(loop_scene["T_q"], loop_scene["q"]).contiguous()
+        for k, radius, width in ((5, 1, 8), (5, 2, 8), (5, 1, 4), (1, 1, 8)):
+            nk, ok_k, dk = knn.knn_query(t, q, k=k, radius=radius, bucket_width=width)
+            np_, ok_p, dp = knn.knn_query_plain(t, q, k=k, radius=radius, bucket_width=width)
+            assert torch.equal(ok_k, ok_p) and torch.equal(nk[ok_k], np_[ok_p])
+            fin = torch.isfinite(dp)
+            assert torch.equal(torch.isfinite(dk), fin)
+            assert float((dk[fin] - dp[fin]).abs().max()) <= 1e-5
+
+
+def test_bev_and_loop_solve_kernels(loop_scene, scene):
+    from lidar_odometry_tpu_torch.ops import bev_align
+    q, q_mask, world, mask = (loop_scene[k] for k in ("q", "q_mask", "world", "mask"))
+    T16 = loop_scene["T_q"].reshape(16).contiguous()
+    center = loop_scene["T"][:3, 3].contiguous()
+    ik = bev_align.bev_raster(q, q_mask, T16, world, mask, center)
+    ip = bev_align.bev_raster_plain(q, q_mask, T16, world, mask, center)
+    assert int((ik != ip).sum()) <= 2
+    # the whole loop solve through the kernels lands where its plain path does
+    cfg, consts = scene["cfg"], scene["consts"]
+    local = scene["feat"]
+    args = (q, q_mask, loop_scene["T_q"], local, mask, loop_scene["T"],
+            torch.tensor(0.0, device="cuda"), consts, cfg)
+    counts = kernels.counts()
+    pk = icp.loop_closure_solve(*args, bucket_width=8, max_loop_iterations=30)
+    after = kernels.counts()
+    assert all(after[k] > counts[k] for k in ("point_grid", "point_knn", "point_nn1",
+                                              "bev_raster", "plane_fit_5nn", "icp_normal_eq"))
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    cpu[7] = pko.make_pko_constants(*ARGS, device="cpu")
+    pp = icp.loop_closure_solve(*cpu, bucket_width=8, max_loop_iterations=30)
+    pk = pk.cpu()
+    assert (pk[16] > 0.5) == (pp[16] > 0.5)
+    assert float((pk[:16] - pp[:16]).abs().max()) <= 1e-3
+
+
+def test_iris_kernels(loop_scene):
+    from lidar_odometry_tpu_torch.ops import iris
+    clouds = torch.stack([loop_scene["q"], loop_scene["q"].flip(0)]).contiguous()
+    masks = torch.stack([loop_scene["q_mask"], loop_scene["q_mask"].flip(0)]).contiguous()
+    bk = iris.iris_bits(clouds, masks)
+    bp = iris._iris_bits_plain(clouds, masks)
+    assert int((bk != bp).sum()) <= 2
+    filters = torch.as_tensor(iris.log_gabor_filters(), device="cuda")
+    resp = iris._responses(bk.float(), filters).contiguous()
+    Tk, Mk = iris.iris_encode(resp)
+    Tp, Mp = iris.iris_encode_plain(resp)
+    assert torch.equal(Tk, Tp) and torch.equal(Mk, Mp)
+    cand = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device="cuda")
+    valid = torch.tensor([True, True, True, False], device="cuda")
+    shifts = iris.phase_shifts(bk[0].float(), bk[cand.long()].float())
+    hk = iris.iris_hamming(Tk, Mk, 0, cand, shifts, valid)
+    hp = iris.iris_hamming_plain(Tk, Mk, 0, cand, shifts, valid)
+    assert torch.equal(hk[:, 1], hp[:, 1]) and torch.isinf(hk[3, 0])
+    assert float((hk[:3, 0] - hp[:3, 0]).abs().max()) <= 1e-6 and float(hk[0, 0]) == 0.0
+
+
+def test_spectrum_kernels(loop_scene):
+    """K7c cross_power at the prealign's and the Iris query's shapes, and
+    K8g gabor_product, against their plain twins: within 1e-6 of the
+    unit-magnitude spectra, the Gabor products bit for bit, and the phase
+    correlations' shifts equal."""
+    from lidar_odometry_tpu_torch.ops import bev_align, iris
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for b, n in ((1, 128 * 128), (8, iris.ROWS * iris.COLS)):
+        x = torch.randn((b, n), dtype=torch.complex64, device="cuda", generator=g)
+        y = torch.randn((n,), dtype=torch.complex64, device="cuda", generator=g)
+        y[:7] = 0
+        ck, cp = bev_align.cross_power(x, y), bev_align.cross_power_plain(x, y)
+        assert float((ck - cp).abs().max()) <= 1e-6
+    clouds = torch.stack([loop_scene["q"], loop_scene["q"].flip(0)]).contiguous()
+    masks = torch.stack([loop_scene["q_mask"], loop_scene["q_mask"].flip(0)]).contiguous()
+    img = iris.iris_bits(clouds, masks).float()
+    spec = torch.fft.fft(img.to(torch.complex64), dim=-1)
+    filters = torch.as_tensor(iris.log_gabor_filters(), device="cuda")
+    assert torch.equal(iris.gabor_product(spec, filters), iris.gabor_product_plain(spec, filters))
+    before = kernels.counts()["cross_power"]
+    sk = iris.phase_shifts(img[0], img)
+    assert kernels.counts()["cross_power"] == before + 1
+    # the same shifts through the plain cross-power spectrum
+    qf = torch.fft.fft2(img[0].to(torch.complex64))
+    fd = torch.fft.fft2(img.to(torch.complex64))
+    fdx = torch.fft.fft2(torch.roll(img, 180, -1).to(torch.complex64))
+    cross = bev_align.cross_power_plain(torch.cat([fd, fdx]).reshape(4, -1), qf.reshape(-1))
+    corr = torch.real(torch.fft.ifft2(cross.view(4, iris.ROWS, iris.COLS)))
+    dx = torch.argmax(corr.reshape(4, -1), 1) % iris.COLS
+    dx = torch.where(dx >= iris.COLS // 2, dx - iris.COLS, dx).view(2, 2).T
+    assert torch.equal(sk, dx.to(torch.int32)) and int(sk[0, 0]) == 0
+
+
+def test_bulk_index_kernel(scene):
+    """K9a against its plain twin on the rehash of a map: the same index
+    and meta rows, bit for bit, and the same count of placed parents."""
+    st = scene["carry"].map_state
+    T = torch.eye(4, device="cuda")
+    T[:3, 3] = torch.tensor([1.3, -0.7, 0.2], device="cuda")
+    cen, cnt, live, cap, _ = vm.rehash_records(st, T)
+    plan = vm.bulk_plan(cen, cnt, live, cap, st.c1, voxel_size=0.5)
+    args = vm.bulk_parents(plan.s_key, plan.first, cap, st.c1, plan.fresh.n_buckets)
+    a, b = vm.empty_map(0, st.c1, device="cuda"), vm.empty_map(0, st.c1, device="cuda")
+    na = vm.map_bulk_index(*args, a.l1_index, a.l1_meta, st.c1)
+    nb = vm.map_bulk_index_plain(*args, b.l1_index, b.l1_meta, st.c1)
+    assert int(na) == int(nb) > 100
+    assert torch.equal(a.l1_index, b.l1_index) and torch.equal(a.l1_meta, b.l1_meta)
+    # fewer slots than parents: the ones past the top are not placed
+    a, b = vm.empty_map(0, st.c1, device="cuda"), vm.empty_map(0, st.c1, device="cuda")
+    na = vm.map_bulk_index(*args, a.l1_index, a.l1_meta, 50)
+    nb = vm.map_bulk_index_plain(*args, b.l1_index, b.l1_meta, 50)
+    assert int(na) == int(nb) == 50
+    assert torch.equal(a.l1_index, b.l1_index) and torch.equal(a.l1_meta, b.l1_meta)
+
+
+def test_rehash_kernel(scene):
+    st = scene["carry"].map_state
+    T = torch.eye(4, device="cuda")
+    T[:3, :3] = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                             device="cuda")
+    T[:3, 3] = torch.tensor([3.0, -2.0, 0.5], device="cuda")
+    cen, cnt, live, cap, nd = vm.rehash_records(st, T)
+    plan = vm.bulk_plan(cen, cnt, live, cap, st.c1, voxel_size=0.5)
+    a, b = plan.fresh.l0_data.clone(), plan.fresh.l0_data.clone()
+    pa = vm.map_bulk_merge(a, plan.s_key, plan.s_idx, plan.first, plan.counts, plan.centroids,
+                           plan.fresh.l1_index)
+    pb = vm.map_bulk_merge_plain(b, plan.s_key, plan.s_idx, plan.first, plan.counts,
+                                 plan.centroids, plan.fresh.l1_index)
+    assert torch.equal(pa, pb) and int(pa[0]) > 1000
+    assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-5
+    # the whole rehash on the card against its plain path on the host
+    rk = vm.transform_and_rehash(st, T, voxel_size=0.5, planarity_threshold=0.1)
+    cpu = vm.VoxelMapState(*(x.cpu() for x in st))
+    rp = vm.transform_and_rehash(cpu, T.cpu(), voxel_size=0.5, planarity_threshold=0.1)
+    for name in ("l1_index", "l1_meta", "l1_free_top", "n_l0", "n_l1", "n_dropped"):
+        assert torch.equal(getattr(rk, name).cpu(), getattr(rp, name)), name
+
+
+def test_weight_residual_kernel(scene):
+    st, cfg, consts = scene["carry"].map_state, scene["cfg"], scene["consts"]
+    feat, mask, T = scene["feat"], scene["mask"], scene["T"]
+    flags = torch.zeros((3,), dtype=torch.int32, device="cuda")
+    nk, rk, vk = icp.icp_correspond(feat, mask, T, flags, st, cfg)
+    aux, s = pko.pko_alpha_index(rk, vk, flags, torch.ones((1,), device="cuda"), True, consts)
+    rw = (rk.abs() * 1.5).contiguous()
+    Tk, fk, hk = icp.icp_normal_eq(feat, nk, rk, vk, T, s, flags, aux, consts, cfg, rw=rw)
+    Tp, fp_, hp = icp.icp_normal_eq_plain(feat, nk, rk, vk, T, s, flags, aux, consts, cfg, rw=rw)
+    assert torch.equal(fk, fp_) and float((Tk - Tp).abs().max()) <= 1e-5
+    T0, _, h0 = icp.icp_normal_eq(feat, nk, rk, vk, T, s, flags, aux, consts, cfg)
+    assert not torch.equal(h0, hk)
+
+
+def test_loop_worker_on_its_own_stream(dev):
+    """The loops-on estimator on the card with the loop worker thread (its
+    own CUDA stream, an event per query) and inline: each closes the
+    circuit's loop, rehashes the map and logs no loop error."""
+    from lidar_odometry_tpu_torch.config import SystemConfig
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.models.estimator import Estimator
+    world = synthetic.make_world(seed=9, extent=60.0, n_buildings=18)
+    poses = synthetic.circuit_trajectory(220, length=30.0, radius=10.0, step=0.6)
+    rng = np.random.default_rng(9)
+    scans = np.full((220, 6000, 3), np.nan, np.float32)
+    for i, p in enumerate(poses):
+        s = synthetic.sample_scan(world, p, 6000, rng, max_range=45.0, noise=0.02)
+        scans[i, :len(s)] = s
+    cfg = SystemConfig(scan_capacity=8192, map_l0_capacity=131072, map_l1_capacity=32768,
+                       keyframe_capacity=256, point_stride=1, enable_loop_detection=True,
+                       min_keyframe_gap=25, max_search_distance=8.0, similarity_threshold=0.4,
+                       enable_console_statistics=False)
+    for sync_loop in (False, True):
+        est = Estimator(cfg, sync_loop=sync_loop, device=dev)
+        for c in range(0, 220, 20):
+            est.process_chunk(scans[c:c + 20])
+        est.finalize_loops()
+        torch.cuda.synchronize()
+        assert est.loop_errors == 0 and est.get_loop_closure_count() >= 1
+        assert est.rehash_count >= 1
+        assert ate_rmse(est.trajectory(), poses) < 0.1
+        est.reset()
+        assert est.loop_detector._db_n == 0

@@ -119,26 +119,31 @@ def test_chunk_feeder_on_the_cpu(dataset):
 def test_ply_player_cli_at_the_mid360_configuration(dataset):
     """config/mid360.yaml through the CLI on the CPU: two chunks of 4 (the
     first with its sampled per-frame frame) and a per-frame tail of 2; an
-    8-column TUM trajectory that follows the synthetic poses."""
+    8-column TUM trajectory that follows the synthetic poses. Once with
+    the config's loop closure on (--sync-loop; 10 frames hold no revisit)
+    and once with --no-loop-closure: the same trajectory."""
     d, _, poses = dataset
     text = (ROOT / "config" / "mid360.yaml").read_text()
     text = text.replace('data_directory: "/data/mid360"', f'data_directory: "{d}"')
     text = text.replace("  map_l1_capacity: 65536", "  map_l1_capacity: 8192")
     text = text.replace("  scan_capacity: 16384", "  scan_capacity: 8192")
+    text = text.replace("  keyframe_capacity: 4096", "  keyframe_capacity: 64")
     cfg_path = d / "mid360_small.yaml"
     cfg_path.write_text(text)
     args = [str(cfg_path), "--device", "cpu", "--chunk", "4", "--format", "tum",
             "--output", str(d / "out")]
-    with pytest.raises(ValueError, match="loop closure"):
-        cli.main(args)
-    assert cli.main(args + ["--no-loop-closure"]) == 0
-    rows = np.loadtxt(d / "out" / "slam" / "slam_lo_tpu.txt")
-    assert rows.shape == (10, 8)
-    est = np.tile(np.eye(4), (10, 1, 1))
-    est[:, :3, 3] = rows[:, 1:4]
     from scipy.spatial.transform import Rotation
-    est[:, :3, :3] = Rotation.from_quat(rows[:, 4:8]).as_matrix()
-    assert ate_rmse(est, poses) < 0.05
+    trajs = []
+    for extra in (["--sync-loop"], ["--no-loop-closure"]):
+        assert cli.main(args + extra) == 0
+        rows = np.loadtxt(d / "out" / "slam" / "slam_lo_tpu.txt")
+        assert rows.shape == (10, 8)
+        est = np.tile(np.eye(4), (10, 1, 1))
+        est[:, :3, 3] = rows[:, 1:4]
+        est[:, :3, :3] = Rotation.from_quat(rows[:, 4:8]).as_matrix()
+        assert ate_rmse(est, poses) < 0.05
+        trajs.append(est)
+    np.testing.assert_allclose(trajs[0], trajs[1], atol=1e-6)
 
 
 def test_ply_player_on_the_cpu(dataset):

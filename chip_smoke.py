@@ -46,20 +46,37 @@ Phases, each of which exits nonzero on failure:
      finalize_loops, over a synthetic circuit that revisits its start; it
      must accept a loop, rehash the map, log no loop error and end with ATE
      below 0.5 m; then the same scans with loops off, for scans/s and ATE;
-  7. one JSON line of kernels, then the card line, then the result line.
+  7. the blocked path: make_blocked_runner, B = 4 lanes over one shared
+     map of 4 x 65536 parents at the JAX bench's blocked operating point
+     (bench.py:153-200: lane b the bench's world and drive with seed
+     11 + b, 131072-point scans strided by 8, scan capacity 14336), a boot
+     chunk of 20 frames at block=1, then two chunks of 20 at block=4, 60
+     frames a lane; aggregate scans/s after the boot chunk beside the
+     surfel path's, ATE per lane (each below 0.5 m), keyframes per lane
+     (lane 0 within 1 of the surfel path's over the same 60 frames), map
+     size, and the host syncs of one block=4 chunk (at most 1);
+  8. one JSON line of kernels, then the card line, then the result line.
+Phase 3 also holds K1, K2a, K3 and K2b at B = 4 (the first frame of each
+lane after a boot chunk) against their plain versions, and each lane
+bit for bit against a one-lane launch on its inputs.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
-loops path the surfel path's kernels, K5b and every loop-closure kernel.
+loops path the surfel path's kernels, K5b and every loop-closure kernel,
+the blocked path the surfel path's kernels (K4b once a block) and no
+KD-tree or loop kernel. Lanes 1-3's scans are made in spawned worker
+processes while the parent makes the other scans.
 
 It imports nothing of JAX. It needs torch with CUDA and a CUDA toolkit.
 """
 import functools
 import json
+import multiprocessing
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -103,6 +120,15 @@ LOOP_KERNELS = ("point_grid", "point_knn", "point_nn1", "bev_raster", "cross_pow
                 "iris_image", "gabor_product", "iris_encode", "iris_hamming", "map_bulk_index",
                 "map_bulk_merge")
 LOOPS_PATH_KERNELS = SURFEL_KERNELS + ("plane_fit_5nn",) + LOOP_KERNELS
+# the blocked path: B lanes over one shared map, the JAX bench's blocked
+# mode (bench.py:153-200) cut to 60 frames a lane; lane 0's scans are the
+# surfel path's first 60
+LANES = 4
+LANE_FRAMES = 60
+LANE_CHUNK = 20
+LANE_BLOCK = 4
+LANE_KERNELS = ("voxel_filter", "icp_correspond", "pko_alpha", "icp_normal_eq")
+BLOCKED_NEVER = ("grid_knn", "plane_fit_5nn") + LOOP_KERNELS
 
 
 def fail(msg: str) -> None:
@@ -798,6 +824,151 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     return rows
 
 
+def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
+    """K1, K2a, K3 and K2b at B = LANES on the first frame of each lane after
+    a boot chunk of the blocked runner: each against its plain version (per
+    lane, the one-lane tolerances) and each lane bit for bit against a
+    one-lane launch on its inputs. The times go into rows[name]["lanes4"]."""
+    import torch
+    from lidar_odometry_tpu_torch.models import fast_pipeline as fp
+    from lidar_odometry_tpu_torch.ops import icp, pko, voxel_filter as vf, voxel_map as vm
+    from lidar_odometry_tpu_torch.utils import keys as K, lie
+
+    dev = DEVICE
+    boot = fp.make_blocked_runner(cfg, consts, batch=LANES, block=1, **kw)
+    carry = fp.init_blocked_carry(LANES, 0, C1 * LANES, device=dev)
+    carry, _ = boot(carry, torch.as_tensor(lanes_np[:, :LANE_CHUNK], device=dev))
+    sync()
+    state = carry.map_state
+    raw = torch.as_tensor(lanes_np[:, LANE_CHUNK], device=dev)     # (B, n, 3)
+    one = lambda t, b: t[b].contiguous()
+    sub = {}
+
+    def lane_row(name, err, tol, kernel, plain_ms, nbytes, ops, note, library_ms=None):
+        record(sub, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms, note)
+        rows[name]["lanes4"] = sub[name]
+
+    def same(name, a, b, lane):
+        if not torch.equal(a, b):
+            fail(f"{name}: lane {lane} of the B = {LANES} launch differs from a one-lane launch")
+
+    print(f"  lanes: B = {LANES}, the first frame of each lane after a boot chunk of "
+          f"{LANE_CHUNK} frames at block=1 (a shared map of {C1 * LANES} parents)", flush=True)
+    # ---- K1 ----
+    n = raw.shape[1]
+    inv, vox = K.f32(1.0 / 0.5), K.f32(0.5)
+    valid = torch.all(torch.isfinite(raw), dim=-1)
+    key, okk = K.compact_key(torch.floor(torch.nan_to_num(raw, 0.0, 0.0, 0.0) * inv)
+                             .to(torch.int32))
+    key = torch.where(valid & okk, key, torch.full_like(key, K.INVALID_SORT_KEY))
+    key_s, perm = torch.sort(key, dim=-1, stable=True)
+    ck, mk, nk = vf.voxel_segments(key_s, perm, raw, SCAN_CAP, inv, vox)
+    err = 0.0
+    for b in range(LANES):
+        c1, m1, n1 = vf.voxel_segments(one(key_s, b), one(perm, b), one(raw, b), SCAN_CAP,
+                                       inv, vox)
+        for a, o in ((ck[b], c1), (mk[b], m1), (nk[b], n1)):
+            same("voxel_filter", a, o, b)
+        cp, mp, n_p = vf.voxel_segments_plain(key_s[b], perm[b], raw[b], SCAN_CAP, inv, vox)
+        if not (torch.equal(mk[b], mp) and int(nk[b]) == int(n_p)):
+            fail(f"voxel_filter: lane {b}'s mask or count differs from the plain version")
+        err = max(err, float((ck[b] - cp).abs().max()))
+    plain = lambda: [vf.voxel_segments_plain(key_s[b], perm[b], raw[b], SCAN_CAP, inv, vox)
+                     for b in range(LANES)]
+    # the library call: one index_add_ of every lane's points at its
+    # segment's row, the lanes' rows side by side
+    ok_s = key_s != K.INVALID_SORT_KEY
+    seg = torch.cumsum(ok_s & torch.cat([ok_s[:, :1], key_s[:, 1:] != key_s[:, :-1]], 1), 1) - 1
+    seg = (torch.clamp(seg, 0, SCAN_CAP)
+           + (SCAN_CAP + 1) * torch.arange(LANES, device=dev)[:, None]).reshape(-1)
+    p_rel = torch.where(ok_s[..., None], torch.gather(raw, 1, perm[..., None].expand(-1, -1, 3)),
+                        0.0).reshape(-1, 3)
+    lib_out = torch.zeros((LANES * (SCAN_CAP + 1), 3), device=dev)
+    lane_row("voxel_filter", err, 1e-5,
+             lambda: vf.voxel_segments(key_s, perm, raw, SCAN_CAP, inv, vox), time_ms(plain),
+             LANES * (n * (8 + 8 + 12) + SCAN_CAP * 13 + 4), LANES * n * 10,
+             note=f"B = {LANES}: {nk.tolist()} voxels; each lane bit-equal to a one-lane launch",
+             library_ms=time_ms(lambda: lib_out.index_add_(0, seg, p_rel)))
+
+    # ---- K2a ----
+    feat, mask, _ = vf.voxel_filter(raw, n, voxel_size=0.5, stride=1, out_capacity=SCAN_CAP,
+                                    compact_keys=True)
+    T = (carry.T_prev @ carry.velocity).reshape(LANES, 16).contiguous()
+    flags = torch.zeros((LANES, 3), dtype=torch.int32, device=dev)
+    nrm, r, v = icp.icp_correspond(feat, mask, T, flags, state, cfg)
+    err, mism = 0.0, 0
+    for b in range(LANES):
+        outs = icp.icp_correspond(one(feat, b), one(mask, b), one(T, b), one(flags, b), state,
+                                  cfg)
+        for a, o in zip((nrm[b], r[b], v[b]), outs):
+            same("icp_correspond", a, o, b)
+        n_p, r_p, v_p = icp.icp_correspond_plain(feat[b], mask[b], T[b], state, cfg)
+        mism = max(mism, int((v[b] != v_p).sum()))
+        both = v[b] & v_p
+        if bool(both.any()):
+            err = max(err, float((r[b] - r_p)[both].abs().max()),
+                      float((nrm[b] - n_p)[both].abs().max()))
+    if mism > 2:
+        fail(f"icp_correspond: {mism} validity flags of a lane differ from the plain version")
+    N = feat.shape[1]
+    qhi, qlo = K.pack_key(K.voxel_coords(lie.transform_points(T.view(LANES, 4, 4), feat),
+                                         vm.parent_inv(0.5, 3)).reshape(-1, 3))
+    n_rows_b = int(torch.unique(vm.hash_bucket(qhi, qlo, state.n_buckets - 1)).numel())
+    n_rows_s = int(torch.unique(vm.bucket_find(state.l1_index, qhi, qlo)[0]).numel())
+    lane_row("icp_correspond", err, 1e-4,
+             lambda: icp.icp_correspond(feat, mask, T, flags, state, cfg),
+             time_ms(lambda: [icp.icp_correspond_plain(feat[b], mask[b], T[b], state, cfg)
+                              for b in range(LANES)]),
+             LANES * (N * (12 + 1) + 64 + 12 + N * 17) + n_rows_b * 128 + n_rows_s * 32,
+             LANES * N * 40,
+             note=f"B = {LANES}: {v.sum(1).tolist()} correspondences, at most {mism} flag "
+                  f"mismatches a lane")
+
+    # ---- K3 ----
+    scale = torch.ones((LANES, 1), device=dev)
+    aux, s_k = pko.pko_alpha_index(r, v, flags, scale, True, consts)
+    err = 0.0
+    for b in range(LANES):
+        outs = pko.pko_alpha_index(one(r, b), one(v, b), one(flags, b), one(scale, b), True,
+                                   consts)
+        same("pko_alpha", aux[b], outs[0], b)
+        same("pko_alpha", s_k[b], outs[1], b)
+        a_p, c_p, s_p = pko.pko_alpha_index_plain(r[b], v[b], scale[b].reshape(()), True, consts)
+        if int(aux[b, 1]) != int(a_p) or int(aux[b, 0]) != int(c_p):
+            fail(f"pko_alpha: lane {b}'s alpha index / count differ from the plain version")
+        err = max(err, float((s_k[b, 0] - s_p).abs()) / max(float(s_p), 1e-12))
+    n_a, n_g = consts.Q.shape
+    lane_row("pko_alpha", err, 1e-5,
+             lambda: pko.pko_alpha_index(r, v, flags, scale, True, consts),
+             time_ms(lambda: [pko.pko_alpha_index_plain(r[b], v[b], scale[b].reshape(()), True,
+                                                        consts) for b in range(LANES)]),
+             LANES * (N * 5 + 12 + 12) + n_a * n_g * 4 + (n_a + n_g + 100) * 4,
+             LANES * (N * 4 + n_a * n_g * 12),
+             note=f"B = {LANES}: alpha indices {aux[:, 1].tolist()}; err is relative, of the "
+                  f"scale")
+
+    # ---- K2b ----
+    Tk, fk, hk = icp.icp_normal_eq(feat, nrm, r, v, T, s_k, flags, aux, consts, cfg)
+    err = 0.0
+    for b in range(LANES):
+        outs = icp.icp_normal_eq(one(feat, b), one(nrm, b), one(r, b), one(v, b), one(T, b),
+                                 one(s_k, b), one(flags, b), one(aux, b), consts, cfg)
+        for a, o in zip((Tk[b], fk[b], hk[b]), outs):
+            same("icp_normal_eq", a, o, b)
+        Tp, fp_, _ = icp.icp_normal_eq_plain(feat[b], nrm[b], r[b], v[b], T[b], s_k[b],
+                                             flags[b], aux[b], consts, cfg)
+        if not torch.equal(fk[b], fp_):
+            fail(f"icp_normal_eq: lane {b}'s flags {fk[b].tolist()} vs plain {fp_.tolist()}")
+        err = max(err, float((Tk[b] - Tp).abs().max()))
+    lane_row("icp_normal_eq", err, 1e-5,
+             lambda: icp.icp_normal_eq(feat, nrm, r, v, T, s_k, flags, aux, consts, cfg),
+             time_ms(lambda: [icp.icp_normal_eq_plain(feat[b], nrm[b], r[b], v[b], T[b],
+                                                      s_k[b], flags[b], aux[b], consts, cfg)
+                              for b in range(LANES)]),
+             LANES * (N * (12 + 12 + 4 + 1) + 64 + 28 + 64 + 12 + 108),
+             int(v.sum()) * 90, note=f"B = {LANES}: per-lane partials and counters")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the surfel path
 # ---------------------------------------------------------------------------
@@ -817,13 +988,14 @@ def main_path(scans_np, gt, cfg, consts, kw):
     kernels.reset_counts()
     t0 = time.perf_counter()
     carry, out = runner(carry, chunks[0])
-    poses = [out[0]]
+    poses, kfs = [out[0]], [out[1]]
     sync()
     warm = time.perf_counter() - t0
     t0 = time.perf_counter()
     for ch in chunks[1:]:
         carry, out = runner(carry, ch)
         poses.append(out[0])
+        kfs.append(out[1])
     sync()
     elapsed = time.perf_counter() - t0
     launches = kernels.counts()
@@ -845,7 +1017,8 @@ def main_path(scans_np, gt, cfg, consts, kw):
     if not ate < 0.5:
         fail(f"surfel path ATE {ate:.4f} m >= 0.5 m")
     return launches, dict(scans_per_s=fps, ate_m=ate, frames=len(scans_np),
-                          keyframes=int(carry.kf_count))
+                          keyframes=int(carry.kf_count),
+                          keyframes_lane_frames=int(torch.cat(kfs)[:LANE_FRAMES].sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -995,6 +1168,91 @@ def profile_loop(est) -> None:
                    f"rehash of the map", "loops_")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the blocked path
+# ---------------------------------------------------------------------------
+
+def make_lane_scans(seed: int):
+    """One lane's scans: the bench's world and drive with `seed`, the first
+    LANE_FRAMES frames (run in a spawned worker process)."""
+    return make_scans(LANE_FRAMES, seed=seed)
+
+
+def blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel):
+    """make_blocked_runner over LANES lanes and one shared map: a boot chunk
+    at block=1, then chunks at block=LANE_BLOCK. `surfel` is the surfel
+    path's summary (its scans/s and keyframes over the first LANE_FRAMES
+    frames, lane 0's scans)."""
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.models import fast_pipeline as fp
+
+    boot = fp.make_blocked_runner(cfg, consts, batch=LANES, block=1, **kw)
+    blocked = fp.make_blocked_runner(cfg, consts, batch=LANES, block=LANE_BLOCK, **kw)
+    chunks = [torch.as_tensor(lanes_np[:, c:c + LANE_CHUNK], device=DEVICE)
+              for c in range(0, LANE_FRAMES, LANE_CHUNK)]
+    carry = fp.init_blocked_carry(LANES, 0, C1 * LANES, device=DEVICE)
+    sync()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    carry, out = boot(carry, chunks[0])
+    poses, kfs = [out[0]], [out[1]]
+    sync()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ch in chunks[1:]:
+        carry, out = blocked(carry, ch)
+        poses.append(out[0])
+        kfs.append(out[1])
+    sync()
+    elapsed = time.perf_counter() - t0
+    launches = kernels.counts()
+    est = torch.cat(poses, 1).cpu().numpy()
+    kf = torch.cat(kfs, 1).sum(1).tolist()
+    ms = carry.map_state
+    n_l0, n_l1, n_dropped = int(ms.n_l0), int(ms.n_l1), int(ms.n_dropped)
+    if est.shape != (LANES, LANE_FRAMES, 4, 4) or not np.all(np.isfinite(est)):
+        fail(f"blocked path: poses of shape {est.shape} not all finite")
+    ates = [ate_rmse(est[b], lane_gt[b]) for b in range(LANES)]
+    thr = LANES * (LANE_FRAMES - LANE_CHUNK) / elapsed
+    syncs = count_syncs(blocked, carry, chunks[-1])
+    if PROFILE:
+        profile_window(lambda: blocked(carry, chunks[-1]),
+                       f"the blocked path, one chunk of {LANE_CHUNK} frames x {LANES} lanes",
+                       "blocked_")
+    n_blocks = LANE_CHUNK + (LANE_FRAMES - LANE_CHUNK) // LANE_BLOCK
+    print(f"blocked path: {LANES} lanes x {LANE_FRAMES} frames over one map of {C1 * LANES} "
+          f"parents; boot chunk of {LANE_CHUNK} at block=1 {warm:.3f} s, then chunks of "
+          f"{LANE_CHUNK} at block={LANE_BLOCK}: {thr:.1f} scans/s aggregate after the boot "
+          f"chunk (surfel path, one stream, this call: {surfel['scans_per_s']:.1f}); ATE per "
+          f"lane {[round(a, 4) for a in ates]} m; keyframes per lane {kf} (surfel path over "
+          f"the same {LANE_FRAMES} frames: {surfel['keyframes_lane_frames']}); n_l0 {n_l0}; "
+          f"n_l1 {n_l1}; n_dropped {n_dropped}; host syncs: {syncs} in one chunk of "
+          f"{LANE_CHUNK} frames at block={LANE_BLOCK}", flush=True)
+    check_launches("blocked", launches, SURFEL_KERNELS, BLOCKED_NEVER)
+    if launches["map_scatter_add"] != n_blocks:
+        fail(f"blocked path: {launches['map_scatter_add']} map updates (K4b), expected one a "
+             f"block, {n_blocks}")
+    if launches["voxel_filter"] != LANE_FRAMES:
+        fail(f"blocked path: {launches['voxel_filter']} K1 launches, expected one a frame for "
+             f"all lanes, {LANE_FRAMES}")
+    bad = [b for b in range(LANES) if not ates[b] < 0.5]
+    if bad:
+        fail(f"blocked path: lanes {bad} have ATE >= 0.5 m ({ates})")
+    if abs(kf[0] - surfel["keyframes_lane_frames"]) > 1:
+        fail(f"blocked path: lane 0 made {kf[0]} keyframes, the surfel path "
+             f"{surfel['keyframes_lane_frames']} over the same frames")
+    if syncs > 1:
+        fail(f"blocked path: {syncs} host syncs in one block={LANE_BLOCK} chunk (at most 1)")
+    print("blocked path summary: " + json.dumps(dict(
+        scans_per_s_aggregate=thr, scans_per_s_surfel_single=surfel["scans_per_s"],
+        ate_m=ates, keyframes=kf, n_l0=n_l0, n_l1=n_l1, n_dropped=n_dropped,
+        host_syncs_block_chunk=syncs)), flush=True)
+    return launches
+
+
 def count_syncs(runner, carry, scans) -> int:
     """Synchronising CUDA calls the host makes over one chunk, as
     torch.cuda's sync debug mode reports them (one warning each)."""
@@ -1026,9 +1284,11 @@ def profile_window(fn, label: str, prefix: str = "") -> None:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events)
+    launched = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cuLaunchKernelEx"))
     print(f"profile: {label}, wall {wall * 1e3:.3f} ms, "
-          f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f} %)",
-          flush=True)
+          f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f} %), "
+          f"{launched} kernel launches", flush=True)
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     (out / f"{prefix}profile_device.txt").write_text(table)
     (out / f"{prefix}profile_host.txt").write_text(
@@ -1055,6 +1315,7 @@ def profile_mid360(scans, sysc) -> None:
 
 
 def main() -> None:
+    import numpy as np
     try:
         import torch
     except ImportError:
@@ -1064,6 +1325,11 @@ def main() -> None:
     if not (ROOT / "lidar_odometry_tpu_torch" / "csrc").is_dir():
         fail("run from the root of a checkout: lidar_odometry_tpu_torch/ is missing")
     sys.path.insert(0, str(ROOT))
+    # lanes 1..LANES-1 of the blocked path, made in spawned workers while
+    # this process makes the other scans
+    pool = ProcessPoolExecutor(max_workers=LANES - 1,
+                               mp_context=multiprocessing.get_context("spawn"))
+    lane_jobs = [pool.submit(make_lane_scans, 11 + b) for b in range(1, LANES)]
 
     # ---- phase 1: device ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1106,6 +1372,14 @@ def main() -> None:
     dense = make_dense_loop_frames()
     print(f"dense loop frames: {len(dense)} x {DENSE_POINTS} points, made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lanes = [(scans_np[:LANE_FRAMES], gt[:LANE_FRAMES])] + [j.result() for j in lane_jobs]
+    pool.shutdown()
+    lanes_np = np.stack([sc for sc, _ in lanes])
+    lane_gt = [g for _, g in lanes]
+    print(f"lane scans: {LANES} lanes x {LANE_FRAMES} frames (worlds of seeds "
+          f"{list(range(11, 11 + LANES))}; lane 0 the surfel path's first {LANE_FRAMES}), "
+          f"waited {time.perf_counter() - t0:.1f} s for the workers", flush=True)
 
     # ---- phase 3: kernels against their plain versions ----
     print("kernels against their plain PyTorch versions (CUDA events):", flush=True)
@@ -1115,9 +1389,11 @@ def main() -> None:
     rows.update(check_loop_kernels(dense, loop_gt, kitti, surfel_map, rows))
     del dense
     del surfel_map
+    check_lane_kernels(lanes_np, cfg, consts, kw, rows)
 
     # ---- phase 4: the surfel path ----
-    by_path = {"surfel": main_path(scans_np, gt, cfg, consts, kw)[0]}
+    launches, surfel = main_path(scans_np, gt, cfg, consts, kw)
+    by_path = {"surfel": launches}
 
     # ---- phase 5: the mid360 path ----
     by_path["mid360"] = mid360_path(indoor, indoor_gt, sysc)[0]
@@ -1127,7 +1403,10 @@ def main() -> None:
     # ---- phase 6: the loops path ----
     by_path["loops"] = loops_path(loop_scans, loop_gt, kitti)
 
-    # ---- phase 7: report ----
+    # ---- phase 7: the blocked path ----
+    by_path["blocked"] = blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel)
+
+    # ---- phase 8: report ----
     out = []
     for name, k in kernels.KERNELS.items():
         per = {path: counts[name] for path, counts in by_path.items()}

@@ -72,7 +72,9 @@ def map_state_to_numpy(state: VoxelMapState) -> dict:
 
 
 def carry_from_numpy(arrays: dict, device="cuda") -> OdomCarry:
-    """An OdomCarry's fields; `map_state` is itself a dict of map fields."""
+    """An OdomCarry's fields; `map_state` is itself a dict of map fields.
+    Takes a single-stream carry (poses (4, 4), flags ()) or a blocked one
+    (poses (B, 4, 4), flags (B,)) alike."""
     t = lambda k: torch.tensor(np.asarray(arrays[k]), device=device)
     return OdomCarry(
         map_state=map_state_from_numpy(arrays["map_state"], device=device),

@@ -25,6 +25,17 @@
 //    the 6x6 system by Gaussian elimination with partial pivoting, retracts
 //    T <- T * (Exp(dw), dt) and updates done / failed / n_corr. The whole
 //    iteration tail stays in one launch with no host read.
+//  * Lanes: B independent solves against one shared map (the blocked
+//    multi-sequence runner, JAX icp_optimize under vmap) run in one launch
+//    of each kernel, lane b on blockIdx.y = b with its own points, pose,
+//    flags, scale and alpha index. icp_normal_eq gives each lane its own
+//    partials region and its own ticket counter (the wrapper zeroes the
+//    counters on the launch's stream), so the last block of lane b sums
+//    only lane b's partials. A lane's grid-stride partition and
+//    block-order sum depend on n alone, never on B, so lane b of a B-lane
+//    launch is bit-identical to a one-lane launch on lane b's inputs. A lane whose solve is done
+//    returns at once while the others iterate (the vmapped while_loop's
+//    frozen lanes). The single-stream and loop solves are B = 1.
 //    An optional weight residual `rw` sets the robust weights in place of
 //    |r|: the loop-closure ICP (ops/icp.py:258 icp_optimize_loop) weights
 //    each point by its centroid-plane distance while its residual is taken
@@ -52,8 +63,16 @@ correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, 
                   const int* __restrict__ index, int n_buckets, const float* __restrict__ surfel,
                   int c1, float inv, float max_dist, float* __restrict__ nrm,
                   float* __restrict__ resid, bool* __restrict__ valid) {
+  const size_t lane_ix = blockIdx.y;
+  T += 16 * lane_ix;
+  flags += 3 * lane_ix;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n || flags[0]) return;  // a done solve reads nothing more
+  pts += lane_ix * n * 3;
+  mask += lane_ix * n;
+  nrm += lane_ix * n * 3;
+  resid += lane_ix * n;
+  valid += lane_ix * n;
   float R[3][3], t[3];
   load_T(T, R, t);
   const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
@@ -131,6 +150,21 @@ normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   __shared__ float red[NSUM][THREADS / 32];
   __shared__ float sums[NSUM];
   __shared__ bool last;
+  const size_t lane_ix = blockIdx.y;
+  pts += lane_ix * n * 3;
+  nrm += lane_ix * n * 3;
+  resid += lane_ix * n;
+  if (rw != nullptr) rw += lane_ix * n;
+  valid += lane_ix * n;
+  T += 16 * lane_ix;
+  scale += lane_ix;
+  flags += 3 * lane_ix;
+  aux += 2 * lane_ix;
+  partials += lane_ix * gridDim.x * NSUM;
+  counter += lane_ix;
+  T_out += 16 * lane_ix;
+  flags_out += 3 * lane_ix;
+  hg += NSUM * lane_ix;
   const int tid = threadIdx.x;
   if (flags[0]) {  // done: pass the state through
     if (blockIdx.x == 0 && tid < 16) T_out[tid] = T[tid];
@@ -249,24 +283,27 @@ inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
 
-LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, const float* T,
-                                const int* flags, const int* index, int n_buckets,
-                                const float* surfel, int c1, float inv, float max_dist,
-                                float* nrm, float* resid, bool* valid, void* stream) {
-  correspond_kernel<<<max(1, blocks(n)), THREADS, 0, (cudaStream_t)stream>>>(
+LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, int lanes,
+                                const float* T, const int* flags, const int* index,
+                                int n_buckets, const float* surfel, int c1, float inv,
+                                float max_dist, float* nrm, float* resid, bool* valid,
+                                void* stream) {
+  const dim3 grid(max(1, blocks(n)), lanes);
+  correspond_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       pts, mask, n, T, flags, index, n_buckets, surfel, c1, inv, max_dist, nrm, resid, valid);
   return (int)cudaGetLastError();
 }
 
 LO_EXPORT int lo_icp_normal_eq(const float* pts, const float* nrm, const float* resid,
-                               const float* rw, const bool* valid, int n, const float* T,
+                               const float* rw, const bool* valid, int n, int lanes,
+                               const float* T,
                                const float* scale,
                                const int* flags, const int* aux, const float* alphas,
                                int use_pko, float fixed_delta, int robust, int cauchy,
                                int min_corr, float tol_t, float tol_r, float* partials,
                                unsigned int* counter, float* T_out, int* flags_out, float* hg,
                                void* stream) {
-  const int grid = max(1, min(128, blocks(n)));
+  const dim3 grid(max(1, min(128, blocks(n))), lanes);
   normal_eq_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       pts, nrm, resid, rw, valid, n, T, scale, flags, aux, alphas, use_pko, fixed_delta, robust,
       cauchy, min_corr, tol_t, tol_r, partials, counter, T_out, flags_out, hg);

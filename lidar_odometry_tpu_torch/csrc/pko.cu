@@ -12,8 +12,16 @@
 //
 // Input is the signed point-to-plane residual; the kernel takes |r|.
 //
-// Design: one block of 1024 threads. The block scans the valid flags to
-// rank the valid residuals in feature order (and, at iteration 0, takes
+// Lanes: B independent residual sets (the blocked multi-sequence runner,
+// JAX pko_scale_factor under vmap, whose fixed PRNGKey(42) gives every
+// lane the same draws) take one block each (gridDim.x = B), with shared
+// constants. Block b offsets its pointers to lane b and runs the one-lane
+// body unchanged, so lane b is bit-identical to a one-lane launch on its
+// inputs. A lane whose solve is done writes its scale through and a zero
+// count and index, and returns.
+//
+// Design: one block of 1024 threads per lane. The block scans the valid
+// flags to rank the valid residuals in feature order (and, at iteration 0, takes
 // mean and variance in two passes over the same chunks), resolves the 100
 // stratified ranks to indices, and gathers the normalised samples into
 // shared memory. One warp then runs k-means and EM with its 32 lanes over
@@ -85,8 +93,19 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
   __shared__ float cost[MAX_A];
 
   const int t = threadIdx.x;
+  const size_t lane_ix = blockIdx.x;
+  resid += lane_ix * n;
+  valid += lane_ix * n;
+  flags += 3 * lane_ix;
+  scale_in += lane_ix;
+  scale_out += lane_ix;
+  aux += 2 * lane_ix;
   if (flags[0]) {  // the solve is done: nothing to choose
-    if (t == 0) scale_out[0] = scale_in[0];
+    if (t == 0) {
+      scale_out[0] = scale_in[0];
+      aux[0] = 0;
+      aux[1] = 0;
+    }
     return;
   }
   const int chunk = (n + THREADS - 1) / THREADS;
@@ -275,14 +294,15 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
 
 }  // namespace
 
-LO_EXPORT int lo_pko_alpha(const float* resid, const bool* valid, int n, const int* flags,
-                           const float* scale_in, int compute_scale, const float* u,
-                           const int* pick, const float* alphas, const float* r_grid,
-                           const float* Q, int n_alpha, int n_grid, float* scale_out, int* aux,
-                           void* stream) {
+LO_EXPORT int lo_pko_alpha(const float* resid, const bool* valid, int n, int lanes,
+                           const int* flags, const float* scale_in, int compute_scale,
+                           const float* u, const int* pick, const float* alphas,
+                           const float* r_grid, const float* Q, int n_alpha, int n_grid,
+                           float* scale_out, int* aux, void* stream) {
   if (n_alpha > MAX_A || n_grid > MAX_G) return (int)cudaErrorInvalidValue;
-  pko_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(resid, valid, n, flags, scale_in,
-                                                      compute_scale, u, pick, alphas, r_grid, Q,
-                                                      n_alpha, n_grid, scale_out, aux);
+  pko_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(resid, valid, n, flags, scale_in,
+                                                          compute_scale, u, pick, alphas,
+                                                          r_grid, Q, n_alpha, n_grid, scale_out,
+                                                          aux);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,14 @@
 // about 0.6 MB, so the memory bound is ~0.2 us and the kernel is bound by
 // launch latency and by the serial block scan, not by bytes or flops.
 //
-// Design: ONE block of 1024 threads. Each thread owns a contiguous chunk
-// of the sorted array, counts the segment starts in it, and a block scan
+// Lanes: B independent scans (the blocked multi-sequence runner, JAX
+// voxel_filter under vmap) take one block each (gridDim.x = B); block b
+// offsets every pointer to lane b's rows and then runs the single-scan
+// body unchanged, so lane b of a B-lane launch is bit-identical to a
+// one-lane launch on lane b's inputs. The single-stream filter is B = 1.
+//
+// Design: ONE block of 1024 threads per lane. Each thread owns a
+// contiguous chunk of the sorted array, counts the segment starts in it, and a block scan
 // turns the counts into segment numbers. The thread then walks the run of
 // every segment that starts in its chunk, summing exact integer counts and
 // coordinates relative to the voxel corner (which keeps magnitudes below
@@ -36,6 +42,13 @@ voxel_filter_kernel(const long long* __restrict__ key_s, const long long* __rest
                     const float* __restrict__ pts, int n, int cap, float inv, float voxel,
                     float* __restrict__ cent, bool* __restrict__ mask, int* __restrict__ n_voxels) {
   __shared__ int scan[THREADS];
+  const size_t lane_ix = blockIdx.x;
+  key_s += lane_ix * n;
+  perm += lane_ix * n;
+  pts += lane_ix * n * 3;
+  cent += lane_ix * cap * 3;
+  mask += lane_ix * cap;
+  n_voxels += lane_ix;
   const int t = threadIdx.x;
   const int chunk = (n + THREADS - 1) / THREADS;
   const int b0 = min(n, t * chunk);
@@ -82,9 +95,10 @@ voxel_filter_kernel(const long long* __restrict__ key_s, const long long* __rest
 }  // namespace
 
 LO_EXPORT int lo_voxel_filter(const long long* key_s, const long long* perm, const float* pts,
-                              int n, int cap, float inv, float voxel, float* cent, bool* mask,
-                              int* n_voxels, void* stream) {
-  voxel_filter_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(key_s, perm, pts, n, cap, inv,
-                                                               voxel, cent, mask, n_voxels);
+                              int n, int lanes, int cap, float inv, float voxel, float* cent,
+                              bool* mask, int* n_voxels, void* stream) {
+  voxel_filter_kernel<<<lanes, THREADS, 0, (cudaStream_t)stream>>>(key_s, perm, pts, n, cap,
+                                                                   inv, voxel, cent, mask,
+                                                                   n_voxels);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@ their sources, so a process reuses an up-to-date build.
 
 Every C entry point takes its tensors as raw pointers, its sizes as int,
 and the stream last; it launches on that stream and returns
-cudaGetLastError(). `Kernel.launch` raises on a nonzero return and adds
+cudaGetLastError(). The lane-batched kernels (K1, K2a, K2b, K3) take the
+lane count after the per-lane size and derive each lane's offsets from
+those two. `Kernel.launch` raises on a nonzero return and adds
 one to `Kernel.launches`, a plain integer that shows which kernels a run
 went through. The loop-closure worker launches from its own thread and
 stream while the main thread runs chunks: the build, the library loads and
@@ -146,17 +148,17 @@ class Kernel:
 
 KERNELS = {k.name: k for k in [
     Kernel("voxel_filter", "voxel_filter",
-           [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+           [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
            REF + "/ops/voxel_filter.py:50"),
     Kernel("icp_correspond", "icp",
-           [_P, _P, _I, _P, _P, _P, _I, _P, _I, _F, _F, _P, _P, _P],
+           [_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _F, _P, _P, _P],
            REF + "/ops/icp.py:121"),
     Kernel("icp_normal_eq", "icp",
-           [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _F,
+           [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _F,
             _F, _P, _P, _P, _P, _P],
            REF + "/ops/icp.py:91"),
     Kernel("pko_alpha", "pko",
-           [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+           [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
            REF + "/ops/pko.py:257"),
     Kernel("map_evict_scan", "voxel_map",
            [_P, _I, _P, _I, _F, _P, _P],

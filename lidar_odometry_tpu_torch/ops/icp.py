@@ -17,7 +17,11 @@ K3 needs every normalised residual before any weight exists, hence two
 ICP launches and not one. The loop always runs max_iterations launches;
 once the solve is done (converged or failed) the kernels return at once
 and leave the state as it is, which gives the result of the JAX
-while_loop with early exit.
+while_loop with early exit. Lanes (the blocked multi-sequence runner; JAX
+icp_optimize under vmap with the map shared): B solves against one map
+take one launch of each kernel, with a leading B on the points, poses,
+flags, scale and alpha index; each lane keeps its own done and failed
+flags, and a done lane stays frozen while the others iterate.
 
 KD-tree mode (use_surfel_correspondence=False) finds its correspondences
 in the L0 voxels instead of the surfels, in two launches in place of K2a:
@@ -96,24 +100,47 @@ def robust_weights(abs_norm_resid, delta, loss_type: str):
 # K2a: correspondences
 # ---------------------------------------------------------------------------
 
+def _lanes(pts, name: str):
+    """The leading lane shape of (N, 3) or (B, N, 3) points: () or (B,)."""
+    lead = tuple(pts.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"{name}: expected (N, 3) or (B, N, 3) points")
+    return lead
+
+
+def _per_lane(fn, *args):
+    """fn over each lane of the leading-B tensors among args (None and
+    non-tensors pass as they are), its tensor results stacked."""
+    b = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+    pick = lambda a, i: a[i] if isinstance(a, torch.Tensor) else a
+    outs = [fn(*(pick(a, i) for a in args)) for i in range(b)]
+    return tuple(torch.stack(c) for c in zip(*outs))
+
+
 def icp_correspond(pts, mask, T, flags, map_state: vm.VoxelMapState, cfg: ICPConfig):
     """K2a's wrapper. pts (N, 3) f32, mask (N,) bool, T (16,) f32 row-major,
-    flags (3,) int32 [done, failed, n_corr]. Returns (normals (N, 3),
-    signed residual (N,), valid (N,) bool)."""
+    flags (3,) int32 [done, failed, n_corr]; for B lanes each with a
+    leading B. Returns (normals (N, 3), signed residual (N,), valid (N,)
+    bool), with the leading B for lanes."""
+    lead = _lanes(pts, "icp_correspond")
     if not pts.is_cuda:
+        if lead:
+            return _per_lane(lambda p, m, t: icp_correspond_plain(p, m, t, map_state, cfg),
+                             pts, mask, T)
         return icp_correspond_plain(pts, mask, T, map_state, cfg)
-    n = pts.shape[0]
-    kernels.check(pts, "pts", torch.float32, (n, 3))
-    kernels.check(mask, "mask", torch.bool, (n,))
-    kernels.check(T, "T", torch.float32, (16,))
-    kernels.check(flags, "flags", torch.int32, (3,))
+    n = pts.shape[-2]
+    kernels.check(pts, "pts", torch.float32, lead + (n, 3))
+    kernels.check(mask, "mask", torch.bool, lead + (n,))
+    kernels.check(T, "T", torch.float32, lead + (16,))
+    kernels.check(flags, "flags", torch.int32, lead + (3,))
     kernels.check(map_state.l1_index, "l1_index", torch.int32)
     kernels.check(map_state.l1_surfel, "l1_surfel", torch.float32)
-    nrm = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
-    r = torch.empty((n,), dtype=torch.float32, device=pts.device)
-    valid = torch.empty((n,), dtype=torch.bool, device=pts.device)
+    nrm = torch.empty(lead + (n, 3), dtype=torch.float32, device=pts.device)
+    r = torch.empty(lead + (n,), dtype=torch.float32, device=pts.device)
+    valid = torch.empty(lead + (n,), dtype=torch.bool, device=pts.device)
     kernels.KERNELS["icp_correspond"].launch(
-        pts.data_ptr(), mask.data_ptr(), n, T.data_ptr(), flags.data_ptr(),
+        pts.data_ptr(), mask.data_ptr(), n, lead[0] if lead else 1, T.data_ptr(),
+        flags.data_ptr(),
         map_state.l1_index.data_ptr(), map_state.n_buckets,
         map_state.l1_surfel.data_ptr(), map_state.c1,
         vm.parent_inv(cfg.voxel_size, cfg.hierarchy_factor),
@@ -143,31 +170,37 @@ def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConf
     weights, in place of r (the loop-closure ICP weights by the plane
     distance and takes r against the nearest neighbour). Returns (T_out
     (16,), flags_out (3,) int32, hg (27,) = the 21 upper entries of H row
-    by row, then g)."""
+    by row, then g), with a leading B for lanes (hg is left unwritten for
+    a lane whose solve is done)."""
+    lead = _lanes(pts, "icp_normal_eq")
     if not pts.is_cuda:
+        if lead:
+            return _per_lane(lambda *a: icp_normal_eq_plain(*a[:8], consts, cfg, a[8]),
+                             pts, nrm, r, valid, T, scale, flags, aux, rw)
         return icp_normal_eq_plain(pts, nrm, r, valid, T, scale, flags, aux,
                                    consts, cfg, rw)
-    n = pts.shape[0]
-    kernels.check(pts, "pts", torch.float32, (n, 3))
-    kernels.check(nrm, "nrm", torch.float32, (n, 3))
-    kernels.check(r, "r", torch.float32, (n,))
+    n = pts.shape[-2]
+    kernels.check(pts, "pts", torch.float32, lead + (n, 3))
+    kernels.check(nrm, "nrm", torch.float32, lead + (n, 3))
+    kernels.check(r, "r", torch.float32, lead + (n,))
     if rw is not None:
-        kernels.check(rw, "rw", torch.float32, (n,))
-    kernels.check(valid, "valid", torch.bool, (n,))
-    kernels.check(T, "T", torch.float32, (16,))
-    kernels.check(scale, "scale", torch.float32, (1,))
-    kernels.check(flags, "flags", torch.int32, (3,))
-    kernels.check(aux, "aux", torch.int32, (2,))
+        kernels.check(rw, "rw", torch.float32, lead + (n,))
+    kernels.check(valid, "valid", torch.bool, lead + (n,))
+    kernels.check(T, "T", torch.float32, lead + (16,))
+    kernels.check(scale, "scale", torch.float32, lead + (1,))
+    kernels.check(flags, "flags", torch.int32, lead + (3,))
+    kernels.check(aux, "aux", torch.int32, lead + (2,))
     dev = pts.device
+    lanes = lead[0] if lead else 1
     grid = max(1, min(NE_MAX_BLOCKS, (n + NE_THREADS - 1) // NE_THREADS))
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)   # blocks done
-    partials = torch.empty((grid, 27), dtype=torch.float32, device=dev)
-    T_out = torch.empty((16,), dtype=torch.float32, device=dev)
-    flags_out = torch.empty((3,), dtype=torch.int32, device=dev)
-    hg = torch.empty((27,), dtype=torch.float32, device=dev)
+    counter = torch.zeros((lanes,), dtype=torch.int32, device=dev)   # blocks done, per lane
+    partials = torch.empty((lanes, grid, 27), dtype=torch.float32, device=dev)
+    T_out = torch.empty(lead + (16,), dtype=torch.float32, device=dev)
+    flags_out = torch.empty(lead + (3,), dtype=torch.int32, device=dev)
+    hg = torch.empty(lead + (27,), dtype=torch.float32, device=dev)
     kernels.KERNELS["icp_normal_eq"].launch(
         pts.data_ptr(), nrm.data_ptr(), r.data_ptr(),
-        None if rw is None else rw.data_ptr(), valid.data_ptr(), n,
+        None if rw is None else rw.data_ptr(), valid.data_ptr(), n, lanes,
         T.data_ptr(), scale.data_ptr(), flags.data_ptr(), aux.data_ptr(),
         consts.alphas.data_ptr(), int(cfg.use_adaptive_m_estimator),
         K.f32(cfg.robust_loss_delta), int(cfg.use_robust_loss),
@@ -315,11 +348,18 @@ def icp_optimize(map_state: vm.VoxelMapState, pts, mask, T_init,
                  pko_consts: pko.PKOConstants, cfg: ICPConfig):
     """Scan-to-map ICP. pts (N, 3) local features with mask (N,); T_init
     (4, 4) world pose guess. Returns (T_opt (4, 4), success () bool,
-    n_correspondences () int32); on failure T_opt is T_init."""
+    n_correspondences () int32); on failure T_opt is T_init. For B lanes
+    against the one map: pts (B, N, 3), mask (B, N), T_init (B, 4, 4) ->
+    (B, 4, 4), (B,), (B,)."""
+    lead = _lanes(pts, "icp_optimize")
+    if lead and not cfg.use_surfel_correspondence:
+        # KD-tree mode's kernels (K5a, K5b) take one lane: solve lane by lane
+        return _per_lane(lambda p, m, t: icp_optimize(map_state, p, m, t, pko_consts, cfg),
+                         pts, mask, T_init)
     dev = pts.device
-    T = T_init.reshape(16).contiguous()
-    flags = torch.zeros((3,), dtype=torch.int32, device=dev)
-    scale = torch.ones((1,), dtype=torch.float32, device=dev)
+    T = T_init.reshape(lead + (16,)).contiguous()
+    flags = torch.zeros(lead + (3,), dtype=torch.int32, device=dev)
+    scale = torch.ones(lead + (1,), dtype=torch.float32, device=dev)
     for i in range(cfg.max_iterations):
         if cfg.use_surfel_correspondence:
             nrm, r, valid = icp_correspond(pts, mask, T, flags, map_state, cfg)
@@ -330,9 +370,9 @@ def icp_optimize(map_state: vm.VoxelMapState, pts, mask, T_init,
         aux, scale = _scale_and_alpha(r_abs, valid, flags, scale, i == 0, pko_consts, cfg)
         T, flags, _ = icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux,
                                     pko_consts, cfg)
-    success = flags[1] == 0
-    T_final = torch.where(success, T.view(4, 4), T_init)
-    return T_final, success, flags[2]
+    success = flags[..., 1] == 0
+    T_final = torch.where(success[..., None, None], T.view(lead + (4, 4)), T_init)
+    return T_final, success, flags[..., 2]
 
 
 def _scale_and_alpha(r_abs, valid, flags, scale, first: bool, pko_consts, cfg: ICPConfig):
@@ -340,8 +380,9 @@ def _scale_and_alpha(r_abs, valid, flags, scale, first: bool, pko_consts, cfg: I
     if cfg.use_adaptive_m_estimator:
         return pko.pko_alpha_index(r_abs, valid, flags, scale, first, pko_consts)
     if first:
-        scale = pko.norm_scale_from(torch.abs(r_abs), valid).reshape(1)
-    aux = torch.stack([valid.sum(), torch.zeros_like(valid.sum())]).to(torch.int32)
+        scale = pko.norm_scale_from(torch.abs(r_abs), valid)[..., None]
+    count = valid.sum(-1)
+    aux = torch.stack([count, torch.zeros_like(count)], -1).to(torch.int32)
     return aux, scale
 
 

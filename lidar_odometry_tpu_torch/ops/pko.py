@@ -10,6 +10,9 @@ Jensen-Shannon divergence (index 0 skipped).
 
 Kernel K3 (csrc/pko.cu) does all of that in one single-block launch and
 leaves the alpha index on the device for the ICP normal-equation kernel.
+Lanes (the blocked multi-sequence runner) add a leading B to the
+residuals, flags, scale and results: one launch, one block per lane, and
+every lane takes the same draws, as JAX's fixed key does under vmap.
 
 The JAX program draws its randomness from a fixed PRNGKey(42): 100
 uniforms for the strata and 3 sample indices for the k-means start. With
@@ -133,11 +136,11 @@ def from_arrays(arrays: dict, kernel_type: str, device) -> PKOConstants:
 
 def norm_scale_from(abs_resid: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Iteration-0 normalisation scale: population std / 6 of the valid
-    residual magnitudes."""
+    residual magnitudes, over the last axis."""
     w = valid.to(abs_resid.dtype)
-    n = torch.clamp(torch.sum(w), min=1.0)
-    mean = torch.sum(torch.where(valid, abs_resid, 0.0)) / n
-    var = torch.sum(torch.where(valid, (abs_resid - mean) ** 2, 0.0)) / n
+    n = torch.clamp(torch.sum(w, -1), min=1.0)
+    mean = torch.sum(torch.where(valid, abs_resid, 0.0), -1) / n
+    var = torch.sum(torch.where(valid, (abs_resid - mean[..., None]) ** 2, 0.0), -1) / n
     return torch.sqrt(var) / 6.0
 
 
@@ -245,26 +248,34 @@ def pko_alpha_index_plain(resid, valid, scale, compute_scale: bool,
 def pko_alpha_index(resid, valid, flags, scale, compute_scale: bool,
                     consts: PKOConstants):
     """K3's wrapper. resid (N,) f32 signed residuals, valid (N,) bool, flags (3,) int32
-    [done, failed, n_corr] (a done solve skips the work), scale (1,) f32.
-    Returns (aux (2,) int32 [count, alpha_index], scale_out (1,) f32).
-    CPU tensors take the plain version."""
+    [done, failed, n_corr] (a done solve skips the work), scale (1,) f32;
+    for B lanes each with a leading B. Returns (aux (2,) int32 [count,
+    alpha_index], zero when done, scale_out (1,) f32), with the leading B
+    for lanes. CPU tensors take the plain version, lane by lane."""
     if not resid.is_cuda:
+        if resid.dim() == 2:
+            outs = [pko_alpha_index(resid[b], valid[b], flags[b], scale[b], compute_scale,
+                                    consts) for b in range(resid.shape[0])]
+            return tuple(torch.stack(c) for c in zip(*outs))
         if bool(flags[0]):    # done: the kernel returns at once too
             return torch.zeros((2,), dtype=torch.int32), scale
         a, c, s = pko_alpha_index_plain(resid, valid, scale.reshape(()),
                                         compute_scale, consts)
         return torch.stack([c, a]).to(torch.int32), s.reshape(1)
-    n = resid.shape[0]
-    kernels.check(resid, "resid", torch.float32, (n,))
-    kernels.check(valid, "valid", torch.bool, (n,))
-    kernels.check(flags, "flags", torch.int32, (3,))
-    kernels.check(scale, "scale", torch.float32, (1,))
+    lead = tuple(resid.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError("pko_alpha_index: expected (N,) or (B, N) residuals")
+    n = resid.shape[-1]
+    kernels.check(resid, "resid", torch.float32, lead + (n,))
+    kernels.check(valid, "valid", torch.bool, lead + (n,))
+    kernels.check(flags, "flags", torch.int32, lead + (3,))
+    kernels.check(scale, "scale", torch.float32, lead + (1,))
     n_alpha, n_grid = consts.Q.shape
-    aux = torch.empty((2,), dtype=torch.int32, device=resid.device)
-    scale_out = torch.empty((1,), dtype=torch.float32, device=resid.device)
+    aux = torch.empty(lead + (2,), dtype=torch.int32, device=resid.device)
+    scale_out = torch.empty(lead + (1,), dtype=torch.float32, device=resid.device)
     kernels.KERNELS["pko_alpha"].launch(
-        resid.data_ptr(), valid.data_ptr(), n, flags.data_ptr(), scale.data_ptr(),
-        int(compute_scale), consts.u.data_ptr(), consts.pick.data_ptr(),
+        resid.data_ptr(), valid.data_ptr(), n, lead[0] if lead else 1, flags.data_ptr(),
+        scale.data_ptr(), int(compute_scale), consts.u.data_ptr(), consts.pick.data_ptr(),
         consts.alphas.data_ptr(), consts.r_grid.data_ptr(), consts.Q.data_ptr(),
         n_alpha, n_grid, scale_out.data_ptr(), aux.data_ptr())
     return aux, scale_out

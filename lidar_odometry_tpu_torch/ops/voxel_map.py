@@ -177,9 +177,11 @@ def bucket_find(index: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor):
     return slot.to(torch.int64), hit, b, ~occ
 
 
-def _compact(mask: torch.Tensor, size: int, cap=None) -> torch.Tensor:
+def _compact(mask: torch.Tensor, size: int, cap=None):
     """Positions of the True entries in order, in (size,) int64 padded with
-    -1, and truncated at `cap` (an int or a 0-d device tensor) if given."""
+    -1, and truncated at `cap` (an int or a 0-d device tensor) if given;
+    and the count of True entries (0-d int64 on the device), which exceeds
+    the kept ones by what the truncation dropped."""
     n = mask.shape[0]
     rank = torch.cumsum(mask.to(torch.int64), 0) - 1
     keep = mask & (rank < size)
@@ -187,7 +189,7 @@ def _compact(mask: torch.Tensor, size: int, cap=None) -> torch.Tensor:
         keep = keep & (rank < cap)
     out = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
     out[torch.where(keep, rank, size)] = torch.arange(n, device=mask.device)
-    return out[:size]
+    return out[:size], mask.sum()
 
 
 def _pick(branch: torch.Tensor, values) -> torch.Tensor:
@@ -260,7 +262,7 @@ def _resolve_parents(index, meta, free, top, qhi, qlo, want, size, cap, find0):
     slot0, hit = find0[0], find0[1]
     slot = torch.full((n + 1,), -1, dtype=torch.int64, device=qhi.device)
     slot[:n] = torch.where(hit & want, slot0, -1)
-    rem_idx = _compact(want & ~hit, size, cap)
+    rem_idx, _ = _compact(want & ~hit, size, cap)
     rem_ok = rem_idx >= 0
     ri = torch.clamp(rem_idx, 0, n - 1)
     r_hi = torch.where(rem_ok, qhi[ri], K.INVALID_U32)
@@ -423,7 +425,7 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     # ---- Step 1: radius eviction (bounded, deferred beyond the caps) ----
     maxd2 = K.f32(K.f32(max_distance) * K.f32(max_distance))
     cand_evict = map_evict_scan(l0_data, c1, sensors, maxd2, evict_enabled)
-    ev_list = _compact(cand_evict, evict_list)
+    ev_list, _ = _compact(cand_evict, evict_list)
     ev_ok = ev_list >= 0
     evp = torch.clamp(ev_list, 0, c1 - 1)
     ev_rows = (evp[:, None] * NCH + torch.arange(NCH, device=dev)[None, :]).reshape(-1)
@@ -505,8 +507,8 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     n_dropped = n_dropped + (is_new_voxel & ~placed).sum().to(torch.int32)
 
     # ---- Step 6: affected parents = new-child parents + evicted parents ----
-    new_idx = _compact(new_child, new_sz, new_cap)
-    n_dropped = n_dropped + torch.clamp(new_child.sum() - new_cap, min=0).to(torch.int32)
+    new_idx, n_live = _compact(new_child, new_sz, new_cap)
+    n_dropped = n_dropped + torch.clamp(n_live - new_cap, min=0).to(torch.int32)
     new_ok = new_idx >= 0
     ni = torch.clamp(new_idx, 0, p - 1)
     new_par = torch.where(new_ok, pslot[ni], c1)
@@ -520,8 +522,8 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     lead2 = torch.ones((m2,), dtype=torch.bool, device=dev)
     lead2[1:] = s_slot[1:] != s_slot[:-1]
     lead2 = lead2 & (s_slot < c1)
-    lead_pos = _compact(lead2, aff_sz, aff_cap)
-    n_dropped = n_dropped + torch.clamp(lead2.sum() - aff_cap, min=0).to(torch.int32)
+    lead_pos, n_live = _compact(lead2, aff_sz, aff_cap)
+    n_dropped = n_dropped + torch.clamp(n_live - aff_cap, min=0).to(torch.int32)
     aff_ok = lead_pos >= 0
     lp = torch.clamp(lead_pos, 0, m2 - 1)
     aff_slot = torch.where(aff_ok, s_slot[lp], -1)
@@ -544,8 +546,8 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
     skip = prev_has & (prev_last == cnt)
     recompute = aff_new & enough & ~skip
 
-    r_pos = _compact(recompute, r_sz, r_cap)
-    n_dropped = n_dropped + torch.clamp(recompute.sum() - r_cap, min=0).to(torch.int32)
+    r_pos, n_live = _compact(recompute, r_sz, r_cap)
+    n_dropped = n_dropped + torch.clamp(n_live - r_cap, min=0).to(torch.int32)
     r_ok = r_pos >= 0
     rp = torch.clamp(r_pos, 0, aff_sz - 1)
     r_slot = torch.where(r_ok, aff_slot[rp], -1)
@@ -867,7 +869,7 @@ def bulk_parents(s_key, first, c0: int, c1: int, n_buckets: int, hierarchy_facto
     as K9a takes them: (b_s, i_s) their buckets (n_buckets past the last
     parent) in stable sorted order and the permutation, (hi, lo) their key
     bits, each (c1,)."""
-    seg_pos = _compact(first, c0)
+    seg_pos, _ = _compact(first, c0)
     m_live = seg_pos >= 0
     m_key = torch.where(m_live, s_key[torch.clamp(seg_pos, 0)], K.INVALID_SORT_KEY)
     par = torch.div(K.unpack_key(*K.split_sort_key(m_key)), hierarchy_factor,
@@ -876,7 +878,7 @@ def bulk_parents(s_key, first, c0: int, c1: int, n_buckets: int, hierarchy_facto
     ps_key, _ = torch.sort(p_key, stable=True)
     pfirst = ps_key != K.INVALID_SORT_KEY
     pfirst[1:] &= ps_key[1:] != ps_key[:-1]
-    u_pos = _compact(pfirst, c1)
+    u_pos, _ = _compact(pfirst, c1)
     u_live = u_pos >= 0
     u_hi, u_lo = K.split_sort_key(torch.where(u_live, ps_key[torch.clamp(u_pos, 0)],
                                               K.INVALID_SORT_KEY))
@@ -945,14 +947,14 @@ def rehash_records(state: VoxelMapState, T):
     m = c1 * NCH
     cap = min(4 * c1, m)
     live = state.l0_data[:m, 0] > 0.0
-    live_idx = _compact(live, cap)
+    live_idx, n_live = _compact(live, cap)
     ok = live_idx >= 0
     rows = state.l0_data[torch.clamp(live_idx, 0, m - 1)]
     c_cnt = torch.where(ok, rows[:, 0], 0.0)
     c_cen = rows[:, 1:4] / torch.clamp(c_cnt, min=1.0)[:, None]
     T = T.to(torch.float32)
     new_centroid = c_cen @ T[:3, :3].T + T[:3, 3][None, :]
-    n_dropped = state.n_dropped + torch.clamp(live.sum() - cap, min=0).to(torch.int32)
+    n_dropped = state.n_dropped + torch.clamp(n_live - cap, min=0).to(torch.int32)
     return new_centroid, c_cnt, ok, cap, n_dropped
 
 

@@ -2,6 +2,7 @@
 path) against the JAX icp_optimize, on the same JAX-built map carried
 across by convert.py and the same features (CPU)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -173,3 +174,39 @@ def test_normal_equations_match_autodiff_jacobian(scene):
     g = J.T @ resid(torch.zeros(6, dtype=torch.float64))[valid]
     ref = torch.cat([torch.stack([H[i, j] for i in range(6) for j in range(i, 6)]), g])
     np.testing.assert_allclose(hg.numpy(), ref.numpy(), rtol=2e-3, atol=2e-2)
+
+
+def test_lanes_equal_one_lane_each_and_jax_vmap(scene):
+    """Three solves against the one map as lanes (the blocked runner's
+    shape): each lane equals its one-lane solve exactly, and matches
+    jax.vmap of the JAX icp_optimize (in_axes=(None, 0, 0, 0)) at the
+    tolerances above. The last lane has no valid point, so it fails and
+    stays frozen at iteration 0 while the others iterate."""
+    state, feat, mask, pose = scene
+    cases = [((0.15, -0.1, 0.05), 0.01), ((-0.3, 0.2, 0.0), -0.02), ((0.1, 0.1, 0.0), 0.005)]
+    T0 = np.stack([_perturbed(pose, dt, dyaw) for dt, dyaw in cases])
+    feats = np.stack([feat] * 3)
+    masks = np.stack([mask, mask, np.zeros_like(mask)])
+    ts = convert.map_state_from_numpy({k: np.asarray(v) for k, v in state._asdict().items()},
+                                      device="cpu")
+    tcons = tpko.make_pko_constants(*ARGS, device="cpu")
+    tcfg = ticp.ICPConfig(max_iterations=4, voxel_size=0.5)
+    tT, tok, tn = ticp.icp_optimize(ts, torch.tensor(feats), torch.tensor(masks),
+                                    torch.tensor(T0), tcons, tcfg)
+    assert tT.shape == (3, 4, 4) and tok.shape == (3,) and tn.shape == (3,)
+    for b in range(3):
+        oT, ook, on = ticp.icp_optimize(ts, torch.tensor(feats[b]), torch.tensor(masks[b]),
+                                        torch.tensor(T0[b]), tcons, tcfg)
+        assert torch.equal(tT[b], oT) and torch.equal(tok[b], ook) and torch.equal(tn[b], on)
+    assert tok.tolist() == [True, True, False]
+    np.testing.assert_array_equal(tT[2].numpy(), T0[2])
+
+    jcons, jcfg = jpko.make_pko_constants(*ARGS), jicp.ICPConfig(max_iterations=4, voxel_size=0.5)
+    jT, jok, jn = jax.vmap(lambda p, m, t: jicp.icp_optimize(state, p, m, t, jcons, jcfg))(
+        jnp.asarray(feats), jnp.asarray(masks), jnp.asarray(T0))
+    jT = np.asarray(jT)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert np.all(np.abs(tn.numpy() - np.asarray(jn)) <= 2)
+    for b in range(3):
+        np.testing.assert_allclose(tT[b, :3, 3].numpy(), jT[b, :3, 3], atol=1e-4)
+        assert _rot_err(tT[b].numpy(), jT[b]) < 1e-4

@@ -180,6 +180,109 @@ def test_kd_tree_icp_on_the_card(scene):
     assert float((Tk.cpu() - Tp)[:3, 3].abs().max()) <= 1e-3
 
 
+# ---------------------------------------------------------------------------
+# lanes: K1, K2a, K3 and K2b with B = 4 (the blocked runner's launches)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lane_scene(scene):
+    """Four scans near the scene's last pose, as four lanes over the scene's
+    map, each with its own pose guess."""
+    world = synthetic.make_world(seed=5, extent=60.0, n_buildings=14)
+    pose = synthetic.straight_trajectory(6, step=0.4)[5]
+    rng = np.random.default_rng(55)
+    raws = np.full((4, 8000, 3), np.nan, np.float32)
+    for b in range(4):
+        s = synthetic.sample_scan(world, pose, 8000 - 500 * b, rng, max_range=50.0, noise=0.01)
+        raws[b, :len(s)] = s
+    raw = torch.tensor(raws, device="cuda")
+    feat, mask, _ = vf.voxel_filter(raw, 8000, voxel_size=0.5, stride=1, out_capacity=8192,
+                                    compact_keys=True)
+    T = scene["T"].view(4, 4).repeat(4, 1, 1)
+    T[:, 0, 3] += torch.arange(4, device="cuda", dtype=torch.float32) * 0.05
+    return dict(raw=raw, feat=feat, mask=mask, T=T.reshape(4, 16).contiguous())
+
+
+def test_lane_kernels_equal_one_lane_launches(scene, lane_scene):
+    """Each lane of a B = 4 launch is bit-identical to a B = 1 launch on its
+    inputs, and within the one-lane tolerances of the plain versions. Lane
+    2's solve is done: K2a, K3 and K2b pass it through while lanes 0, 1 and
+    3 work."""
+    st, cfg, consts = scene["carry"].map_state, scene["cfg"], scene["consts"]
+    raw, feat, mask, T = (lane_scene[k] for k in ("raw", "feat", "mask", "T"))
+    one = lambda t, b: t[b].contiguous()
+
+    coords = torch.floor(torch.nan_to_num(raw, 0.0, 0.0, 0.0) * 2.0).to(torch.int32)
+    key, ok = K.compact_key(coords)
+    key = torch.where(ok & torch.all(torch.isfinite(raw), -1), key, K.INVALID_SORT_KEY)
+    key_s, perm = torch.sort(key, dim=-1, stable=True)
+    n0 = kernels.KERNELS["voxel_filter"].launches
+    ck, mk, nk = vf.voxel_segments(key_s, perm, raw, 8192, 2.0, 0.5)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["voxel_filter"].launches == n0 + 1
+    for b in range(4):
+        c1, m1, n1 = vf.voxel_segments(one(key_s, b), one(perm, b), one(raw, b), 8192, 2.0, 0.5)
+        assert torch.equal(ck[b], c1) and torch.equal(mk[b], m1) and torch.equal(nk[b], n1)
+        cp, mp, n_p = vf.voxel_segments_plain(key_s[b], perm[b], raw[b], 8192, 2.0, 0.5)
+        assert int(nk[b]) == int(n_p) and torch.equal(mk[b], mp)
+        assert float((ck[b] - cp).abs().max()) <= 1e-5
+
+    live = (0, 1, 3)
+    flags = torch.zeros((4, 3), dtype=torch.int32, device="cuda")
+    flags[2, 0] = 1
+    nrm, r, v = icp.icp_correspond(feat, mask, T, flags, st, cfg)
+    for b in live:
+        n1, r1, v1 = icp.icp_correspond(one(feat, b), one(mask, b), one(T, b), one(flags, b),
+                                        st, cfg)
+        assert torch.equal(nrm[b], n1) and torch.equal(r[b], r1) and torch.equal(v[b], v1)
+        _, rp, vp = icp.icp_correspond_plain(feat[b], mask[b], T[b], st, cfg)
+        assert int((v[b] != vp).sum()) <= 2
+        assert float((r[b] - rp)[v[b] & vp].abs().max()) <= 1e-4
+
+    scale = torch.full((4, 1), 0.5, device="cuda")
+    aux, s = pko.pko_alpha_index(r, v, flags, scale, True, consts)
+    assert aux[2].tolist() == [0, 0] and float(s[2, 0]) == 0.5
+    for b in range(4):
+        a1, s1 = pko.pko_alpha_index(one(r, b), one(v, b), one(flags, b), one(scale, b), True,
+                                     consts)
+        assert torch.equal(aux[b], a1) and torch.equal(s[b], s1)
+    for b in live:
+        a_p, c_p, s_p = pko.pko_alpha_index_plain(r[b], v[b], scale[b].reshape(()), True, consts)
+        assert int(aux[b, 1]) == int(a_p) and int(aux[b, 0]) == int(c_p)
+        assert abs(float(s[b, 0]) - float(s_p)) <= 1e-5 * float(s_p)
+
+    Tk, fk, hk = icp.icp_normal_eq(feat, nrm, r, v, T, s, flags, aux, consts, cfg)
+    assert torch.equal(Tk[2], T[2]) and torch.equal(fk[2], flags[2])
+    for b in range(4):
+        T1, f1, h1 = icp.icp_normal_eq(one(feat, b), one(nrm, b), one(r, b), one(v, b), one(T, b),
+                                       one(s, b), one(flags, b), one(aux, b), consts, cfg)
+        assert torch.equal(Tk[b], T1) and torch.equal(fk[b], f1)
+        if b in live:
+            assert torch.equal(hk[b], h1)
+    for b in live:
+        Tp, fp_, hp = icp.icp_normal_eq_plain(feat[b], nrm[b], r[b], v[b], T[b], s[b], flags[b],
+                                              aux[b], consts, cfg)
+        assert torch.equal(fk[b], fp_)
+        assert float((Tk[b] - Tp).abs().max()) <= 1e-5
+        assert float(((hk[b] - hp).abs() / hp.abs().clamp(min=1.0)).max()) <= 1e-4
+
+
+def test_lane_icp_solve_with_an_early_finish(scene, lane_scene):
+    """icp_optimize over four lanes, one of them with no valid point (it
+    fails at iteration 0 and stays frozen while the others iterate): each
+    lane equals its one-lane solve exactly."""
+    st, cfg, consts = scene["carry"].map_state, scene["cfg"], scene["consts"]
+    feat, mask = lane_scene["feat"], lane_scene["mask"].clone()
+    mask[1] = False
+    T0 = lane_scene["T"].view(4, 4, 4)
+    T, ok, nc = icp.icp_optimize(st, feat, mask, T0, consts, cfg)
+    assert ok.tolist() == [True, False, True, True] and torch.equal(T[1], T0[1])
+    for b in range(4):
+        T1, ok1, nc1 = icp.icp_optimize(st, feat[b].contiguous(), mask[b].contiguous(),
+                                        T0[b].contiguous(), consts, cfg)
+        assert torch.equal(T[b], T1) and torch.equal(ok[b], ok1) and torch.equal(nc[b], nc1)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(scene):
     raw = scene["raw"]
     key = torch.zeros(raw.shape[0], dtype=torch.int32, device="cuda")

@@ -106,3 +106,34 @@ def test_done_solve_skips_the_choice(consts):
                                   torch.tensor([1, 0, 0], dtype=torch.int32), scale,
                                   True, tc)
     assert float(s[0]) == 0.25
+
+
+def test_lanes_equal_one_lane_each_and_jax_vmap(consts):
+    """Lane-batched residuals (one lane's solve already done) give each lane
+    exactly its one-lane result; the live lanes pick the alpha that
+    jax.vmap of pko_scale_factor picks (every lane the same PRNGKey(42)
+    draws)."""
+    jc, tc = consts
+    sets = [_residuals(kind, seed) for kind, seed in
+            (("tight", 4), ("wide", 5), ("mixture", 6), ("wide", 7))]
+    r = torch.as_tensor(np.stack([a for a, _ in sets]))
+    valid = torch.as_tensor(np.stack([v for _, v in sets]))
+    flags = torch.zeros((4, 3), dtype=torch.int32)
+    flags[2, 0] = 1
+    scale = torch.full((4, 1), 0.25)
+    aux, s = tpko.pko_alpha_index(r, valid, flags, scale, True, tc)
+    assert aux.shape == (4, 2) and s.shape == (4, 1)
+    for b in range(4):
+        a1, s1 = tpko.pko_alpha_index(r[b], valid[b], flags[b], scale[b], True, tc)
+        assert torch.equal(aux[b], a1) and torch.equal(s[b], s1)
+    assert float(s[2, 0]) == 0.25 and aux[2].tolist() == [0, 0]
+
+    r_abs = jnp.abs(jnp.asarray(r.numpy()))
+    jv = jnp.asarray(valid.numpy())
+    j_scale = jax.vmap(jicp._norm_scale_from)(r_abs, jv)
+    norm = r_abs / jnp.maximum(j_scale, 1e-6)[:, None]
+    j_alpha = np.asarray(jax.vmap(lambda x, v: jpko.pko_scale_factor(x, v, jc))(norm, jv))
+    for b in (0, 1, 3):
+        np.testing.assert_allclose(float(s[b, 0]), float(j_scale[b]), rtol=1e-6)
+        assert int(aux[b, 0]) == int(valid[b].sum())
+        assert float(tc.alphas[int(aux[b, 1])]) == float(j_alpha[b])

@@ -33,6 +33,14 @@ Phases, each of which exits nonzero on failure:
          K8a iris_image, K8g gabor_product, K8b iris_encode, K8c
          iris_hamming, K9a map_bulk_index, K9b map_bulk_merge, and K2b with
          the loop's weight residual;
+       - the pose-graph kernels (K10a pgo_linearize, K10b pgo_eliminate,
+         K10c pgo_reduced_solve, K10d pgo_backsub_retract) on a
+         KITTI-00-sized graph (3700 keyframes padded to 4096, 32 loop
+         edges: make_pgo_graph), each fed the first GN iteration's inputs
+         of its twin: at most 1e-10 of each output's largest magnitude,
+         1e-9 on the retracted poses, and for K10c's solve of a system of
+         kappa ~5e9 its normwise backward error at most 1e-13; their
+         bounds count f64 operations at 67 TFLOP/s;
   4. the surfel path: make_chunk_runner over chunks of 20 frames; scans/s
      after the first chunk, ATE against the synthetic ground truth (must
      stay below 0.5 m), keyframes, map size;
@@ -45,8 +53,15 @@ Phases, each of which exits nonzero on failure:
      Estimator(sync_loop=True).process_chunk in chunks of 20 and
      finalize_loops, over a synthetic circuit that revisits its start; it
      must accept a loop, rehash the map, log no loop error and end with ATE
-     below 0.5 m; then the same scans with loops off, for scans/s and ATE;
-  7. the blocked path: make_blocked_runner, B = 4 lanes over one shared
+     below 0.5 m; then the same scans with pgo_backend "distributed" (the
+     same loops and rehashes, no loop error, ATE within 1 mm of the manual
+     run's; pgo_solve ms of both), then loops off, for scans/s and ATE;
+  7. the PGO path: gn_optimize_device on the KITTI-00-sized graph: it must
+     converge, come within 1e-6 of the manual backend and 1e-9 of the plain
+     twins, give bit-equal poses in two calls and sync the host at most
+     once a call; device ms of the GN iterations beside the manual
+     backend's host ms;
+  8. the blocked path: make_blocked_runner, B = 4 lanes over one shared
      map of 4 x 65536 parents at the JAX bench's blocked operating point
      (bench.py:153-200: lane b the bench's world and drive with seed
      11 + b, 131072-point scans strided by 8, scan capacity 14336), a boot
@@ -55,17 +70,19 @@ Phases, each of which exits nonzero on failure:
      surfel path's, ATE per lane (each below 0.5 m), keyframes per lane
      (lane 0 within 1 of the surfel path's over the same 60 frames), map
      size, and the host syncs of one block=4 chunk (at most 1);
-  8. one JSON line of kernels, then the card line, then the result line.
+  9. one JSON line of kernels, then the card line, then the result line.
 Phase 3 also holds K1, K2a, K3 and K2b at B = 4 (the first frame of each
 lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
-loops path the surfel path's kernels, K5b and every loop-closure kernel,
-the blocked path the surfel path's kernels (K4b once a block) and no
-KD-tree or loop kernel. Lanes 1-3's scans are made in spawned worker
-processes while the parent makes the other scans.
+loops path the surfel path's kernels, K5b and every loop-closure kernel
+(and with the distributed backend K10a-K10d too, which the manual run must
+not launch), the PGO path K10a-K10d, the blocked path the surfel path's
+kernels (K4b once a block) and no KD-tree or loop kernel. Lanes 1-3's
+scans are made in spawned worker processes while the parent makes the
+other scans.
 
 It imports nothing of JAX. It needs torch with CUDA and a CUDA toolkit.
 """
@@ -92,6 +109,7 @@ PROFILE_DIR = Path(sys.argv[sys.argv.index("--profile") + 1]
 SCAN_CAP = 14336
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 67e12   # the H100 SXM's FP64 tensor-core peak
 # the mid360 path: config/mid360.yaml over indoor-corridor ring scans
 MID_FRAMES = 66          # three chunks of 20 and a per-frame tail of 6
 MID_CHUNK = 20
@@ -129,6 +147,14 @@ LANE_CHUNK = 20
 LANE_BLOCK = 4
 LANE_KERNELS = ("voxel_filter", "icp_correspond", "pko_alpha", "icp_normal_eq")
 BLOCKED_NEVER = ("grid_knn", "plane_fit_5nn") + LOOP_KERNELS
+# the distributed pose-graph backend: K10a-K10d, in the loops path's second
+# run and on a KITTI-00-sized graph (3700 keyframes, ~3.7 km at kitti.yaml's
+# 1 m keyframe distance, padded to its keyframe capacity of 4096; 32 loop
+# edges, each joining a keyframe to its revisit one or more laps later)
+PGO_KERNELS = ("pgo_linearize", "pgo_eliminate", "pgo_reduced_solve", "pgo_backsub_retract")
+PGO_N = 3700
+PGO_LOOPS = 32
+PGO_SEED = 0
 
 
 def fail(msg: str) -> None:
@@ -136,9 +162,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,13 +205,29 @@ def device_ms(fn, reps: int = 30):
     return start.elapsed_time(end) / reps if ahead else None
 
 
-def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms=None, note=""):
+def device_ms_once(fn):
+    """The device time of one call of fn, the host's launch cost taken out
+    as in device_ms; None when the host did not get ahead."""
+    import torch
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) if ahead else None
+
+
+def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms=None, note="",
+           ops_per_s=FP32_OPS_PER_S):
     """Time one kernel (`kernel` is a call of its wrapper: CUDA events over
     30 calls as launched, and device_ms), print its comparison with its
     plain version, fail if it is out of tolerance, and keep its numbers in
     rows[name]."""
     ms, dev_ms = time_ms(kernel), device_ms(kernel)
-    b, by = bound_ms(nbytes, ops)
+    b, by = bound_ms(nbytes, ops, ops_per_s)
     ok = err <= tol
     print(f"  {name:22s} max_abs_err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}"
           f" | kernel {ms:.4f} ms"
@@ -824,6 +866,123 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     return rows
 
 
+def make_pgo_graph():
+    """The KITTI-00-sized pose graph: PGO_N keyframes 1 m apart on a 250 m x
+    120 m stadium circuit (4.2 laps), odometry drifting 2 cm and 2 mrad a
+    keyframe, PGO_LOOPS loop edges with the true relative pose, a prior at
+    keyframe 0; information 1e4 on the prior, 1e4 (rotation) and 1e2
+    (translation) on every between factor. Returns (initial poses, priors,
+    betweens, true poses)."""
+    from lidar_odometry_tpu_torch.io import synthetic
+    return synthetic.revisit_pose_graph(PGO_N, PGO_LOOPS, seed=PGO_SEED)
+
+
+def check_pgo_kernels(graph):
+    """K10a-K10d against their plain twins on the full-width graph, one GN
+    iteration's inputs (the first), each kernel fed its twin's inputs: an
+    error relative to the output's largest magnitude of at most 1e-10 (the
+    information blocks reach ~1e4), K10c's backward error (below), 1e-9 m
+    on the retracted poses. The bounds are f64: bytes / 3.35 TB/s or f64
+    operations / 67 TFLOP/s."""
+    import torch
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+
+    dev = DEVICE
+    rows = {}
+    init, priors, betweens, _ = graph
+    pk = dpgo.pack_graph(init, priors, betweens)
+    g = dpgo.upload(pk, dev)
+    poses = g["poses"]
+    n_pad, D, max_m, L = pk.n_pad, pk.D, pk.max_m, pk.L
+    P_v, M_v = len(priors), len(betweens)
+    n_rows = int(pk.i32["valid"].sum())
+    n_adj = int(pk.i32["adj_mask"].sum())
+    n_inc, n_chain = pk.i32["inc_ent"].size, pk.i32["chain_ent"].size
+    print(f"  pgo graph: {PGO_N} keyframes padded to {n_pad}, {M_v} between factors "
+          f"({M_v - PGO_N + 1} loops), D = {D} partitions, max_m = {max_m} rows, "
+          f"{n_rows} interior rows, reduced system {6 * D} x {6 * D}", flush=True)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max()), float((a - b).abs().max())
+
+    def row(name, errs, tol, kernel, plain_ms, nbytes, ops, library_ms=None, note=""):
+        """errs: (compared error, max abs error) of each output."""
+        err = max(e[0] for e in errs)
+        record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms, note,
+               ops_per_s=FP64_OPS_PER_S)
+        rows[name].update(max_abs_err=max(e[1] for e in errs), compared_err=err)
+
+    lin_args = [g[k] for k in dpgo.LIN_KEYS]
+    lin_k = dpgo.linearize(g, poses)
+    lin_p = dpgo.linearize_plain(poses, *lin_args)
+    row("pgo_linearize", [rel(a, b) for a, b in zip(lin_k, lin_p)], 1e-10,
+        lambda: dpgo.linearize(g, poses), time_ms(lambda: dpgo.linearize_plain(poses, *lin_args)),
+        n_pad * (128 + 8 + 288 + 48 + 8) + (n_pad - 1) * 288 + P_v * (4 + 128 + 288 + 4)
+        + M_v * (8 + 128 + 288 + 12) + (n_inc + n_chain) * 4 + L * (8 + 288),
+        P_v * 600 + M_v * 2000 + n_inc * 42 + n_chain * 36,
+        note=f"{P_v} prior, {M_v} between factors; diag, off, b, lb; err relative")
+
+    diag, off, b, lb = lin_p
+    plan = [g[k] for k in dpgo.PLAN_KEYS]
+    el_k = dpgo.eliminate(g, diag, off, b)
+    el_p = dpgo.eliminate_plain(diag, off, b, *plan)
+    row("pgo_eliminate", [rel(a, c) for a, c in zip(el_k, el_p)], 1e-10,
+        lambda: dpgo.eliminate(g, diag, off, b),
+        time_ms(lambda: dpgo.eliminate_plain(diag, off, b, *plan), reps=3),
+        n_rows * (288 + 48 + 288) + D * (2 * 288 + 4 * 288 + 96)
+        + D * max_m * (2 * 288 + 48) + D * max_m * 4 * 8, n_rows * 2900,
+        note=f"{D} partitions x {max_m} rows, {n_rows} valid; S, r, F, G, g; err relative")
+
+    S, r = el_p[0], el_p[1]
+    red = [g[k] for k in dpgo.RED_KEYS]
+    xs_k = dpgo.reduced_solve(g, diag, off, b, lb, S, r)
+    xs_p, Hs, bs = dpgo.reduced_solve_plain(diag, off, b, lb, S, r, *red)
+    N = 6 * D
+    # The separator system of a 3700-keyframe chain is ill-conditioned
+    # (kappa ~5e9), so two correct solves differ in xs by up to
+    # kappa * eps: LAPACK's own LU and Cholesky solves of this Hs differ by
+    # ~3e-10 of max|xs|. The kernel's solve is therefore held to its
+    # normwise backward error in the twin's system, |Hs x - bs| / (|Hs|
+    # |x|), at 1e-13 (N eps = 4.9e-14 at N = 438); its difference from the
+    # twin's xs and kappa are printed beside it.
+    inf = lambda t: float(t.abs().max())
+    backward = inf(Hs @ xs_k.reshape(-1) - bs) / (float(Hs.abs().sum(1).max()) * inf(xs_k))
+    forward, fwd_abs = rel(xs_k, xs_p)
+    kappa = float(torch.linalg.cond(Hs))
+    row("pgo_reduced_solve", [(backward, fwd_abs)], 1e-13,
+        lambda: dpgo.reduced_solve(g, diag, off, b, lb, S, r),
+        time_ms(lambda: dpgo.reduced_solve_plain(diag, off, b, lb, S, r, *red)),
+        D * (288 + 4 * 288 + 96 + 48 + 48) + n_adj * 288 + L * 300,
+        N ** 3 / 3 + 2 * N ** 2 + 4 * N ** 2,
+        library_ms=time_ms(lambda: torch.linalg.solve(Hs, bs)),
+        note=f"xs of the {N} x {N} separator system (kappa {kappa:.3e}); err = normwise "
+             f"backward error; xs differs from the twin's by {forward:.3e} of max|xs|; "
+             f"library: torch.linalg.solve on the assembled Hs")
+    rows["pgo_reduced_solve"].update(forward_rel_err=forward, kappa=kappa)
+
+    F, G, gv = el_p[2:]
+    back = [g[k] for k in dpgo.BACK_KEYS]
+    p_p, dxn, ok = dpgo.backsub_retract_plain(poses, xs_p, F, G, gv, *back, g["real_mask"])
+    p_k = poses.clone()
+    dpgo.backsub_retract(g, p_k, xs_p, F, G, gv, 10, 1e-6)
+    st = g["st"].cpu().tolist()
+    dxf = float(dxn)
+    if not (bool(ok) and st[0] == 1 and st[2] == 1 and abs(st[1] - dxf) <= 1e-9 * dxf):
+        fail(f"pgo_backsub_retract: loop state {st} vs plain |dx| {float(dxn)}, ok {bool(ok)}")
+    err = float((p_k - p_p).abs().max())
+    scratch = poses.clone()
+    # timed with tol 0 and an unbounded max_iters on a scratch copy, so that
+    # every call runs (the loop state would otherwise stop it)
+    row("pgo_backsub_retract", [(err, err)], 1e-9,
+        lambda: dpgo.backsub_retract(g, scratch, xs_p, F, G, gv, 1 << 30, 0.0),
+        time_ms(lambda: dpgo.backsub_retract_plain(poses, xs_p, F, G, gv, *back,
+                                                   g["real_mask"])),
+        D * 48 + n_rows * (288 * 2 + 48) + n_pad * (12 + 2 * 128) + 32,
+        n_rows * 156 + n_pad * 170,
+        note=f"{n_pad} poses, |dx| {float(dxn):.4e}; err = max abs pose-entry difference")
+    return rows
+
+
 def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
     """K1, K2a, K3 and K2b at B = LANES on the first frame of each lane after
     a boot chunk of the blocked runner: each against its plain version (per
@@ -999,7 +1158,7 @@ def main_path(scans_np, gt, cfg, consts, kw):
     sync()
     elapsed = time.perf_counter() - t0
     launches = kernels.counts()
-    syncs = count_syncs(runner, carry, chunks[-1])
+    syncs = count_syncs(lambda: runner(carry, chunks[-1]))
     print(f"host syncs: {syncs} in one chunk of {chunks[-1].shape[0]} frames", flush=True)
     if PROFILE:
         profile_window(lambda: runner(carry, chunks[-1]),
@@ -1120,7 +1279,7 @@ def loops_path(scans, gt, cfg):
           f"{int(ms.n_l1)}; n_dropped {int(ms.n_dropped)}", flush=True)
     print("loop stages (ms, cumulative): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
-    check_launches("loops", launches, LOOPS_PATH_KERNELS, ("grid_knn",))
+    check_launches("loops", launches, LOOPS_PATH_KERNELS, ("grid_knn",) + PGO_KERNELS)
     if est.get_loop_closure_count() < 1:
         fail("the loops path accepted no loop")
     if est.rehash_count < 1:
@@ -1135,14 +1294,45 @@ def loops_path(scans, gt, cfg):
         profile_loop(est)
     del est
 
+    # the same scans with the distributed pose-graph backend (K10a-K10d)
+    est = Estimator(cfg.replace(pgo_backend="distributed"), sync_loop=True, device=DEVICE)
+    est.warm_loop_programs()
+    est.reset()
+    kernels.reset_counts()
+    wall_d = _run_chunks(est, scans)
+    launches_d = kernels.counts()
+    traj_d = est.trajectory()
+    if traj_d.shape != (n, 4, 4) or not np.all(np.isfinite(traj_d)):
+        fail(f"loops path (distributed): poses of shape {traj_d.shape} not all finite")
+    ate_d = ate_rmse(traj_d, gt)
+    stages_d = est.loop_stage_snapshot()
+    dist = dict(scans_per_s=n / wall_d, ate_m=ate_d, loops=est.get_loop_closure_count(),
+                rehashes=est.rehash_count, loop_errors=est.loop_errors, stages_ms=stages_d)
+    print(f"loops path, pgo_backend distributed: {n / wall_d:.1f} scans/s ({wall_d:.3f} s); ATE "
+          f"{ate_d:.4f} m (manual {ate:.4f} m); loop constraints {dist['loops']} (manual "
+          f"{loops['loops']}), rehashes {dist['rehashes']} (manual {loops['rehashes']}), loop "
+          f"errors {est.loop_errors}; pgo_solve {stages_d.get('pgo_solve', 0.0):.3f} ms against "
+          f"the manual backend's {stages.get('pgo_solve', 0.0):.3f} ms", flush=True)
+    check_launches("loops (distributed)", launches_d, LOOPS_PATH_KERNELS + PGO_KERNELS,
+                   ("grid_knn",))
+    if (dist["loops"], dist["rehashes"]) != (loops["loops"], loops["rehashes"]):
+        fail(f"loops path (distributed): {dist['loops']} loops and {dist['rehashes']} rehashes "
+             f"against the manual backend's {loops['loops']} and {loops['rehashes']}")
+    if est.loop_errors:
+        fail(f"loops path (distributed): {est.loop_errors} loop errors")
+    if not abs(ate_d - ate) <= 1e-3:
+        fail(f"loops path (distributed): ATE {ate_d:.5f} m, the manual backend's {ate:.5f} m")
+    del est
+
     off = Estimator(cfg.replace(enable_loop_detection=False), device=DEVICE)
     wall_off = _run_chunks(off, scans)
     ate_off = ate_rmse(off.trajectory(), gt)
     print(f"loops off on the same scans: {n / wall_off:.1f} scans/s ({wall_off:.3f} s); "
           f"ATE {ate_off:.4f} m; keyframes {off.get_keyframe_count()}", flush=True)
     print("loops path summary: " + json.dumps(dict(
-        loops, scans_per_s_loops_off=n / wall_off, ate_m_loops_off=ate_off)), flush=True)
-    return launches
+        loops, scans_per_s_loops_off=n / wall_off, ate_m_loops_off=ate_off,
+        distributed=dist)), flush=True)
+    return launches, launches_d
 
 
 def profile_loop(est) -> None:
@@ -1169,7 +1359,92 @@ def profile_loop(est) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the blocked path
+# phase 7: the PGO path
+# ---------------------------------------------------------------------------
+
+def pgo_path(graph):
+    """gn_optimize_device, the distributed backend's entry point, on the
+    KITTI-00-sized graph: converged, iterations, partitions; the poses
+    against the port's manual backend (host scipy) and the plain twins (on
+    the CPU); two calls bit-equal; device ms of the GN iterations (CUDA
+    events, the card's queue filled first) beside the manual backend's
+    host wall ms; launches and host syncs of one call."""
+    import numpy as np
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.models.pose_graph import PoseGraphOptimizer
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+
+    init, priors, betweens, true = graph
+    args = (init, priors, betweens)
+    manual = PoseGraphOptimizer(backend="manual")
+    manual.import_factors(dict(
+        keyframe_ids=np.arange(PGO_N), poses=init,
+        prior_keys=np.array([p[0] for p in priors]),
+        prior_measured=np.stack([p[1] for p in priors]),
+        prior_sqrt_info=np.stack([p[2] for p in priors]),
+        between_keys=np.array([(b[0], b[1]) for b in betweens]),
+        between_measured=np.stack([b[2] for b in betweens]),
+        between_sqrt_info=np.stack([b[3] for b in betweens]),
+        counts=np.array([PGO_N - 1, 0])))
+    t0 = time.perf_counter()
+    ok_m = manual._optimize(max_iterations=10, convergence_threshold=1e-6)
+    manual_ms = (time.perf_counter() - t0) * 1e3
+    opt = manual.get_all_optimized_poses()
+    ref = np.stack([opt[i] for i in range(PGO_N)])
+    t0 = time.perf_counter()
+    plain, ok_p = dpgo.gn_optimize_device(*args, device="cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    sync()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out, ok = dpgo.gn_optimize_device(*args, device=DEVICE)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.counts()
+    holder = {}
+    syncs = count_syncs(lambda: holder.update(r=dpgo.gn_optimize_device(*args, device=DEVICE)))
+    out2, ok2 = holder["r"]
+
+    pk = dpgo.pack_graph(np.asarray(init, np.float64), priors, betweens)
+    g = dpgo.upload(pk, DEVICE)
+    device_ms = device_ms_once(lambda: dpgo.gn_iterations(g, 10, 1e-6))
+    it, dxn, ok_st, _ = g["st"].cpu().tolist()
+    d_manual = float(np.abs(out - ref).max())
+    d_plain = float(np.abs(out - plain).max())
+    err0, err1 = ate_rmse(init, true), ate_rmse(out, true)
+    summary = dict(keyframes=PGO_N, n_pad=pk.n_pad, loops=PGO_LOOPS, D=pk.D, max_m=pk.max_m,
+                   converged=bool(ok), iterations=int(it), dx_norm=dxn,
+                   max_diff_manual=d_manual, max_diff_plain=d_plain,
+                   bit_equal=bool(np.array_equal(out, out2)),
+                   device_ms=device_ms, call_ms=call_ms,
+                   manual_host_ms=manual_ms, plain_cpu_ms=plain_ms,
+                   launches={k: launches[k] for k in PGO_KERNELS},
+                   host_syncs=syncs, ate_before_m=err0, ate_after_m=err1)
+    print(f"pgo path: {PGO_N} keyframes (n_pad {pk.n_pad}, {PGO_LOOPS} loops, D {pk.D}, max_m "
+          f"{pk.max_m}): converged {ok} in {int(it)} iterations (|dx| {dxn:.3e}); max pose "
+          f"difference {d_manual:.3e} to the manual backend, {d_plain:.3e} to the plain twins; "
+          f"two calls bit-equal {summary['bit_equal']}; GN iterations on the device "
+          f"{device_ms} ms, a whole call {call_ms:.3f} ms, the manual backend {manual_ms:.3f} ms (host wall); "
+          f"{syncs} host sync(s) a call; ATE to the true poses {err0:.3f} m -> {err1:.3f} m",
+          flush=True)
+    print("pgo path summary: " + json.dumps(summary), flush=True)
+    check_launches("pgo", launches, PGO_KERNELS)
+    if not (ok and ok2 and ok_m and ok_p and ok_st):
+        fail(f"pgo path: not converged (device {ok}/{ok2}, manual {ok_m}, plain {ok_p})")
+    if not d_manual <= 1e-6:
+        fail(f"pgo path: {d_manual} from the manual backend (> 1e-6)")
+    if not d_plain <= 1e-9:
+        fail(f"pgo path: {d_plain} from the plain twins (> 1e-9)")
+    if not summary["bit_equal"]:
+        fail("pgo path: two calls on the same graph differ")
+    if syncs > 1:
+        fail(f"pgo path: {syncs} host syncs in one call (at most 1: the poses' download)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the blocked path
 # ---------------------------------------------------------------------------
 
 def make_lane_scans(seed: int):
@@ -1217,7 +1492,7 @@ def blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel):
         fail(f"blocked path: poses of shape {est.shape} not all finite")
     ates = [ate_rmse(est[b], lane_gt[b]) for b in range(LANES)]
     thr = LANES * (LANE_FRAMES - LANE_CHUNK) / elapsed
-    syncs = count_syncs(blocked, carry, chunks[-1])
+    syncs = count_syncs(lambda: blocked(carry, chunks[-1]))
     if PROFILE:
         profile_window(lambda: blocked(carry, chunks[-1]),
                        f"the blocked path, one chunk of {LANE_CHUNK} frames x {LANES} lanes",
@@ -1253,9 +1528,9 @@ def blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel):
     return launches
 
 
-def count_syncs(runner, carry, scans) -> int:
-    """Synchronising CUDA calls the host makes over one chunk, as
-    torch.cuda's sync debug mode reports them (one warning each)."""
+def count_syncs(fn) -> int:
+    """Synchronising CUDA calls the host makes in fn(), as torch.cuda's sync
+    debug mode reports them (one warning each)."""
     import warnings
     import torch
     sync()
@@ -1263,7 +1538,7 @@ def count_syncs(runner, carry, scans) -> int:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            runner(carry, scans)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     return sum("synchroniz" in str(w.message) for w in caught)
@@ -1390,6 +1665,10 @@ def main() -> None:
     del dense
     del surfel_map
     check_lane_kernels(lanes_np, cfg, consts, kw, rows)
+    t0 = time.perf_counter()
+    pgo_graph = make_pgo_graph()
+    print(f"  pgo graph made in {time.perf_counter() - t0:.1f} s", flush=True)
+    rows.update(check_pgo_kernels(pgo_graph))
 
     # ---- phase 4: the surfel path ----
     launches, surfel = main_path(scans_np, gt, cfg, consts, kw)
@@ -1400,13 +1679,16 @@ def main() -> None:
     if PROFILE:
         profile_mid360(indoor, sysc)
 
-    # ---- phase 6: the loops path ----
-    by_path["loops"] = loops_path(loop_scans, loop_gt, kitti)
+    # ---- phase 6: the loops path, manual then distributed pose graph ----
+    by_path["loops"], by_path["loops_distributed"] = loops_path(loop_scans, loop_gt, kitti)
 
-    # ---- phase 7: the blocked path ----
+    # ---- phase 7: the PGO path ----
+    by_path["pgo"] = pgo_path(pgo_graph)
+
+    # ---- phase 8: the blocked path ----
     by_path["blocked"] = blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel)
 
-    # ---- phase 8: report ----
+    # ---- phase 9: report ----
     out = []
     for name, k in kernels.KERNELS.items():
         per = {path: counts[name] for path, counts in by_path.items()}

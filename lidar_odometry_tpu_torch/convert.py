@@ -94,12 +94,15 @@ def loop_detector_from_numpy(arrays: dict, config: LoopClosureConfig, capacity: 
     return det
 
 
-def pose_graph_from_numpy(arrays: dict) -> PoseGraphOptimizer:
-    """A "manual" pose graph from the JAX graph's fields: keyframe_ids (K,),
+def pose_graph_from_numpy(arrays: dict, backend: str = "manual", n_blocks: int = 8,
+                          device="cuda") -> PoseGraphOptimizer:
+    """A pose graph of `backend` ("manual" or "distributed", the latter
+    solving on `device` in `n_blocks` partitions) from the JAX graph's
+    fields: keyframe_ids (K,),
     poses (K, 4, 4) in keyframe order, prior_keys (P,) / prior_measured
     (P, 4, 4) / prior_sqrt_info (P, 6, 6), between_keys (B, 2) /
     between_measured (B, 4, 4) / between_sqrt_info (B, 6, 6) (keys are
     keyframe indices), counts (2,) [odometry, loop closures]."""
-    graph = PoseGraphOptimizer(backend="manual")
+    graph = PoseGraphOptimizer(backend=backend, n_blocks=n_blocks, device=device)
     graph.import_factors({k: np.asarray(arrays[k]) for k in POSE_GRAPH_FIELDS})
     return graph

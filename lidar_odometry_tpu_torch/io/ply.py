@@ -145,6 +145,8 @@ class PLYPlayer:
         t_run = time.perf_counter()
         rest = files
         if use_chunked:
+            if self.cfg.enable_loop_detection:
+                self.estimator.warm_loop_programs()
             feeder = ChunkFeeder(files, int(chunk_frames), loader=load_ply, device=self.device,
                                  point_stride=self.cfg.point_stride)
             try:

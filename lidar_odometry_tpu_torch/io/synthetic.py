@@ -422,3 +422,54 @@ def sample_scan(world: List[Rect], pose: np.ndarray, n_points: int,
     # world -> sensor frame
     R, t = pose[:3, :3], pose[:3, 3]
     return ((pts - t) @ R).astype(np.float32)
+
+
+def _so3_exp_np(w: np.ndarray) -> np.ndarray:
+    theta = float(np.linalg.norm(w))
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if theta < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(theta) / theta * K + (1.0 - np.cos(theta)) / theta ** 2 * K @ K
+
+
+def revisit_pose_graph(n: int, n_loops: int, seed: int = 0, *, length: float = 250.0,
+                       radius: float = 60.0, min_gap: int = 50):
+    """A pose graph of n keyframes 1 m apart on a stadium circuit (straights
+    of `length`, ends of `radius`) driven for several laps, the revisit
+    structure of a city drive: the initial poses chain odometry that drifts
+    by Gaussian noise of 2 cm and 2 mrad a keyframe on all six axes; n_loops
+    loop edges join a keyframe to its revisit one or more laps later (at
+    least min_gap keyframes apart) with the true relative pose; one prior
+    pins keyframe 0. Information is diagonal, GTSAM order [rot, trans]:
+    1e4 for the prior; 1e4 (rotation, 0.01 rad) and 1e2 (translation,
+    0.1 m) for every between factor. Returns (initial poses (n,4,4) f64,
+    priors, betweens, true poses), the factors as PoseGraphOptimizer and
+    gn_optimize_device take them: priors (key, measured, sqrt_info),
+    betweens (from, to, measured, sqrt_info)."""
+    step, drift_t, drift_r = 1.0, 0.02, 0.002
+    rng = np.random.default_rng(seed)
+    true = circuit_trajectory(n, length=length, radius=radius, step=step).astype(np.float64)
+    for T in true:   # exact rotations about z in float64
+        phi = np.arctan2(T[1, 0], T[0, 0])
+        T[:3, :3] = [[np.cos(phi), -np.sin(phi), 0.0], [np.sin(phi), np.cos(phi), 0.0],
+                     [0.0, 0.0, 1.0]]
+    sq_between = np.diag([1.0 / 0.01] * 3 + [1.0 / 0.1] * 3)
+    init = [true[0].copy()]
+    betweens = []
+    for i in range(1, n):
+        rel = np.linalg.inv(true[i - 1]) @ true[i]
+        noise = np.eye(4)
+        noise[:3, :3] = _so3_exp_np(rng.normal(0.0, drift_r, 3))
+        noise[:3, 3] = rng.normal(0.0, drift_t, 3)
+        rel = rel @ noise
+        init.append(init[-1] @ rel)
+        betweens.append((i - 1, i, rel, sq_between))
+    lap = int(round((2.0 * length + 2.0 * np.pi * radius) / step))
+    if lap < min_gap or n <= lap:
+        raise ValueError("the circuit is not revisited within n keyframes")
+    for _ in range(n_loops):
+        i = int(rng.integers(0, n - lap))
+        j = i + lap * int(rng.integers(1, (n - 1 - i) // lap + 1))
+        betweens.append((i, j, np.linalg.inv(true[i]) @ true[j], sq_between))
+    priors = [(0, true[0].copy(), np.eye(6) / 1e-2)]
+    return np.stack(init), priors, betweens, true

@@ -37,7 +37,7 @@ __all__ = ["Kernel", "KERNELS", "build", "reset_counts", "counts", "check",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("voxel_filter", "icp", "pko", "voxel_map", "grid_knn", "knn", "bev_align", "iris",
-           "rehash")
+           "rehash", "pgo")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,7 +46,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # package's name finds no import.
 REF = "lidar_odometry" "_tpu"
 
-_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_P, _I, _F, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+                      ctypes.c_double)
 
 _libs: dict = {}
 _lock = threading.RLock()
@@ -208,6 +209,19 @@ KERNELS = {k.name: k for k in [
     Kernel("map_bulk_merge", "rehash",
            [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
            REF + "/ops/voxel_map.py:1029"),
+    Kernel("pgo_linearize", "pgo",
+           [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P],
+           REF + "/parallel/distributed_pgo.py:521"),
+    Kernel("pgo_eliminate", "pgo",
+           [_P] * 12 + [_I] * 3 + [_P] * 9,
+           REF + "/parallel/distributed_pgo.py:450"),
+    Kernel("pgo_reduced_solve", "pgo",
+           [_P] * 12 + [_I] * 2 + [_P] * 5,
+           REF + "/parallel/distributed_pgo.py:625"),
+    Kernel("pgo_backsub_retract", "pgo",
+           [_P] * 8 + [_I] * 3 + [_D] + [_P] * 5,
+           REF + "/parallel/distributed_pgo.py:649"),
 ]}
 
 

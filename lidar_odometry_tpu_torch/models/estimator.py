@@ -11,9 +11,10 @@ with no host round trip. Poses, keyframe records and the pose graph live
 on the host; the map, the chunk carry and the Iris DB stay on the device.
 
 Loop closure: a keyframe's loop query runs Iris detection
-(models/loop_closure.py), the loop-closure solve (ops/icp.py) and the host
-pose-graph optimisation, then posts a result that the main thread applies
-before its next frame or chunk: keyframe poses, the map rehash
+(models/loop_closure.py), the loop-closure solve (ops/icp.py) and the
+pose-graph optimisation (the host "manual" backend, or the float64 device
+solve of the "distributed" one), then posts a result that the main thread
+applies before its next frame or chunk: keyframe poses, the map rehash
 (ops/voxel_map.py transform_and_rehash) and the live pose. With
 sync_loop=True the query runs inline; otherwise a worker thread takes the
 newest query and launches its kernels on its own CUDA stream, after an
@@ -135,10 +136,6 @@ class Estimator:
     def __init__(self, config: SystemConfig, sync_loop: bool = False, device="cuda"):
         """`sync_loop` runs each loop query inline at its keyframe (the
         deterministic mode); else a worker thread runs them."""
-        if config.pgo_backend != "manual":
-            raise NotImplementedError(
-                f"pgo_backend {config.pgo_backend!r}: the port has the 'manual' pose-graph "
-                "backend only; the distributed one comes with ROADMAP queue 1, item 12")
         self.cfg = config
         self.sync_loop = sync_loop
         self.device = device
@@ -195,7 +192,7 @@ class Estimator:
 
     def _init_state(self) -> None:
         self.map_state = self.backend.empty()
-        self.pose_graph = PoseGraphOptimizer(backend=self.cfg.pgo_backend)
+        self.pose_graph = PoseGraphOptimizer(backend=self.cfg.pgo_backend, device=self.device)
         self.initialized = False
         self.T_current = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)

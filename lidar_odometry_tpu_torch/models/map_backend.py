@@ -4,7 +4,7 @@ package's models/map_backend.py, SingleChipMapBackend).
 One device holds the whole map: the backend owns the map's device and
 gives the Estimator the device-side map operations it needs (empty map,
 ICP, keyframe update, rehash after a loop correction). The sharded backend
-comes with the multi-GPU slice (ROADMAP queue 1, item 12).
+comes with the multi-GPU slice (ROADMAP queue 1, slice 6b).
 """
 from __future__ import annotations
 

@@ -13,9 +13,14 @@ and scipy sparse, as the reference runs it on its background thread).
   * incremental API: add_first_keyframe (tight 1e-4 prior),
     add_keyframe_with_odom, add_loop_and_optimize.
 
-Only the "manual" backend is ported. The "distributed" backend (the
-Schur-complement partitioned device solve) comes with the multi-GPU slice
-(ROADMAP queue 1, item 12) and raises until then.
+backend="manual" is that host solve. backend="distributed" runs the whole
+Gauss-Newton optimisation (linearisation, the partitioned Schur solve,
+retraction and the convergence loop) on `device` through
+parallel/distributed_pgo.gn_optimize_device, from 4 keyframes up; smaller
+graphs take the host loop, as in the JAX package. Unlike the JAX backend it
+never falls back to the host loop: an error of the device solve reaches
+the caller. A solve that does not converge returns False and leaves the
+poses as they were.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import Dict, List
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+
+from ..parallel import distributed_pgo as dpgo
 
 _EPS = 1e-10  # reference kEpsLie (PoseGraphOptimizer.cpp:31)
 
@@ -215,13 +222,12 @@ class PoseGraphOptimizer:
     """Incremental-build, batch-solve pose graph. Thread-safe: a lock
     guards the graph, since the estimator's loop worker calls
     add_loop_and_optimize while the main thread adds odometry factors.
-    backend="manual" is the scipy sparse solve; "distributed" raises."""
+    backend="manual" is the scipy sparse solve; "distributed" the float64
+    device solve on `device` in `n_blocks` partitions."""
 
-    def __init__(self, backend: str = "manual", n_blocks: int = 8):
-        if backend != "manual":
-            raise NotImplementedError(
-                f"pgo_backend {backend!r}: the port has the 'manual' backend only; the "
-                "distributed device solve comes with ROADMAP queue 1, item 12")
+    def __init__(self, backend: str = "manual", n_blocks: int = 8, device="cuda"):
+        if backend not in ("manual", "distributed"):
+            raise ValueError(f"pgo_backend {backend!r}: expected 'manual' or 'distributed'")
         self._priors: List[PriorFactor] = []
         self._betweens: List[BetweenFactor] = []
         self._poses: Dict[int, np.ndarray] = {}
@@ -230,6 +236,7 @@ class PoseGraphOptimizer:
         self._lock = threading.Lock()
         self.backend = backend
         self.n_blocks = n_blocks
+        self.device = device
         self.loop_closure_count = 0
         self.odometry_count = 0
 
@@ -368,6 +375,8 @@ class PoseGraphOptimizer:
         n_vars = len(self._keyframe_ids)
         if n_vars == 0:
             return True
+        if self.backend == "distributed" and n_vars >= 4:
+            return self._optimize_distributed_device(max_iterations, convergence_threshold)
         for _ in range(max_iterations):
             H, b = self._build_linear_system(n_vars)
             try:
@@ -388,6 +397,23 @@ class PoseGraphOptimizer:
             if np.linalg.norm(dx) < convergence_threshold:
                 return True
         return False
+
+    def _optimize_distributed_device(self, max_iterations, convergence_threshold) -> bool:
+        """The whole GN optimisation on the device
+        (parallel/distributed_pgo.gn_optimize_device); the host only packs
+        the factor arrays. The poses are written only when it converged."""
+        poses = np.stack([self._poses[k] for k in self._keyframe_ids])
+        priors = [(p.key, p.measured, p.sqrt_info) for p in self._priors]
+        betweens = [(bt.key_from, bt.key_to, bt.measured, bt.sqrt_info)
+                    for bt in self._betweens]
+        out, ok = dpgo.gn_optimize_device(
+            poses, priors, betweens, n_blocks=self.n_blocks, max_iters=max_iterations,
+            tol=convergence_threshold, device=self.device)
+        if not ok:
+            return False
+        for i, kf_id in enumerate(self._keyframe_ids):
+            self._poses[kf_id] = out[i]
+        return True
 
     # ---- state carried across from the JAX package (convert.py) ----
 

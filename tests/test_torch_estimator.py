@@ -149,16 +149,22 @@ def test_chunk_path_records_a_sampled_stage_breakdown(runs):
 
 
 def test_estimator_refuses_loop_closure():
-    """Loop closure is ported; what is refused is its distributed pose-graph
-    backend, with a ROADMAP pointer. process_chunk(defer_host=True) with
-    loops on still raises, as in JAX."""
+    """What the estimator refuses with loops on: process_chunk(defer_host=
+    True) raises, as in JAX. The distributed pose-graph backend, refused
+    before it was ported, is built with the configuration's backend on the
+    caller's device (and kept across reset()); an unknown backend is
+    refused."""
     cfg = SystemConfig(**{**CFG, "enable_loop_detection": True})
     est = Estimator(cfg, sync_loop=True, device="cpu")
     with pytest.raises(ValueError, match="loop detection off"):
         est.process_chunk(np.zeros((2, 16, 3), np.float32), defer_host=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Estimator(SystemConfig(**{**CFG, "enable_loop_detection": True,
-                                  "pgo_backend": "distributed"}), device="cpu")
+    assert est.pose_graph.backend == "manual"
+    dist = Estimator(dataclasses.replace(cfg, pgo_backend="distributed"), sync_loop=True,
+                     device="cpu")
+    dist.reset()
+    assert (dist.pose_graph.backend, dist.pose_graph.device) == ("distributed", "cpu")
+    with pytest.raises(ValueError, match="pgo_backend"):
+        Estimator(dataclasses.replace(cfg, pgo_backend="sharded"), device="cpu")
 
 
 def test_reset_and_accessors():

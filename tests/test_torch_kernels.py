@@ -467,8 +467,10 @@ def test_weight_residual_kernel(scene):
 
 def test_loop_worker_on_its_own_stream(dev):
     """The loops-on estimator on the card with the loop worker thread (its
-    own CUDA stream, an event per query) and inline: each closes the
-    circuit's loop, rehashes the map and logs no loop error."""
+    own CUDA stream, an event per query) and inline, and the worker with
+    the distributed pose-graph backend (the PGO kernels on the worker's
+    stream): each closes the circuit's loop, rehashes the map and logs no
+    loop error."""
     from lidar_odometry_tpu_torch.config import SystemConfig
     from lidar_odometry_tpu_torch.eval import ate_rmse
     from lidar_odometry_tpu_torch.models.estimator import Estimator
@@ -483,8 +485,8 @@ def test_loop_worker_on_its_own_stream(dev):
                        keyframe_capacity=256, point_stride=1, enable_loop_detection=True,
                        min_keyframe_gap=25, max_search_distance=8.0, similarity_threshold=0.4,
                        enable_console_statistics=False)
-    for sync_loop in (False, True):
-        est = Estimator(cfg, sync_loop=sync_loop, device=dev)
+    for sync_loop, backend in ((False, "manual"), (True, "manual"), (False, "distributed")):
+        est = Estimator(cfg.replace(pgo_backend=backend), sync_loop=sync_loop, device=dev)
         for c in range(0, 220, 20):
             est.process_chunk(scans[c:c + 20])
         est.finalize_loops()
@@ -494,3 +496,84 @@ def test_loop_worker_on_its_own_stream(dev):
         assert ate_rmse(est.trajectory(), poses) < 0.1
         est.reset()
         assert est.loop_detector._db_n == 0
+
+
+
+# ---------------------------------------------------------------------------
+# the pose-graph kernels (K10a-K10d)
+# ---------------------------------------------------------------------------
+
+def _pgo_graph(n, dev):
+    """n keyframes on a circuit revisited every lap, 4 loop edges, on the card."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    length, radius, gap = (3.0, 1.0, 4) if n < 50 else (40.0, 10.0, 50)
+    init, priors, betweens, _ = synthetic.revisit_pose_graph(n, 4, seed=n, length=length,
+                                                             radius=radius, min_gap=gap)
+    return dpgo.upload(dpgo.pack_graph(init, priors, betweens), dev), (init, priors, betweens)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+
+@pytest.mark.parametrize("n", [17, 300])
+def test_pgo_kernels(dev, n):
+    """K10a-K10d each against its plain twin on the same inputs, one
+    iteration: 1e-10 of each output's largest magnitude, 1e-9 m on the
+    retracted poses."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    g, _ = _pgo_graph(n, dev)
+    poses = g["poses"]
+    n0 = kernels.counts()
+    lin_k = dpgo.linearize(g, poses)
+    lin_p = dpgo.linearize_plain(poses, *[g[k] for k in dpgo.LIN_KEYS])
+    for a, b in zip(lin_k, lin_p):
+        assert _rel(a, b) <= 1e-10
+    el_k = dpgo.eliminate(g, *lin_p[:3])
+    el_p = dpgo.eliminate_plain(*lin_p[:3], *[g[k] for k in dpgo.PLAN_KEYS])
+    for a, b in zip(el_k, el_p):
+        assert _rel(a, b) <= 1e-10
+    xs_k = dpgo.reduced_solve(g, *lin_p, *el_p[:2])
+    xs_p = dpgo.reduced_solve_plain(*lin_p, *el_p[:2], *[g[k] for k in dpgo.RED_KEYS])[0]
+    assert _rel(xs_k, xs_p) <= 1e-10
+    p_p, dxn, ok = dpgo.backsub_retract_plain(poses, xs_p, *el_p[2:],
+                                              *[g[k] for k in dpgo.BACK_KEYS], g["real_mask"])
+    p_k = poses.clone()
+    dpgo.backsub_retract(g, p_k, xs_p, *el_p[2:], 10, 1e-6)
+    assert float((p_k - p_p).abs().max()) <= 1e-9
+    st = g["st"].cpu()
+    assert st[0] == 1 and st[2] == 1 and bool(ok) and st[3] == 1
+    assert abs(float(st[1]) - float(dxn)) <= 1e-12 * float(dxn)
+    counts = kernels.counts()
+    for name in ("pgo_linearize", "pgo_eliminate", "pgo_reduced_solve", "pgo_backsub_retract"):
+        assert counts[name] == n0[name] + 1
+
+
+def test_pgo_optimize_on_the_card_is_deterministic_and_matches_the_cpu(dev):
+    """Two calls of gn_optimize_device on the card give the same poses bit
+    for bit (the kernels sum in a fixed order), within 1e-9 of the plain
+    twins on the CPU, with the same ok and iteration-for-iteration loop."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    _, (init, priors, betweens) = _pgo_graph(300, dev)
+    a, ok_a = dpgo.gn_optimize_device(init, priors, betweens, device=dev)
+    b, ok_b = dpgo.gn_optimize_device(init, priors, betweens, device=dev)
+    c, ok_c = dpgo.gn_optimize_device(init, priors, betweens, device="cpu")
+    assert ok_a and ok_b and ok_c
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, c, atol=1e-9, rtol=0)
+
+
+def test_pgo_kernels_raise_and_do_not_fall_back(dev):
+    """A plan tensor left on the CPU is refused on the card, by the wrapper
+    and through PoseGraphOptimizer's device solve alike: no route to the
+    plain twins."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    g, _ = _pgo_graph(17, dev)
+    diag, off, b, _ = dpgo.linearize(g, g["poses"])
+    g["int_idx"] = g["int_idx"].cpu()
+    with pytest.raises(ValueError, match="int_idx"):
+        dpgo.eliminate(g, diag, off, b)
+    g, _ = _pgo_graph(17, dev)
+    g["st"] = g["st"].float()
+    with pytest.raises(ValueError, match="st"):
+        dpgo.linearize(g, g["poses"])

@@ -156,3 +156,21 @@ def test_ply_player_on_the_cpu(dataset):
     assert res.frames_processed == 6 and res.trajectory_path == ""
     assert player.estimator.get_keyframe_count() >= 1
     assert ate_rmse(player.estimator.trajectory(), poses[:6]) < 0.05
+
+
+@pytest.mark.parametrize("loops, chunk", [(True, 4), (False, 4), (True, 0)])
+def test_ply_player_warms_the_loop_programs(dataset, monkeypatch, loops, chunk):
+    """With loops on and chunks, the player runs the loop-path programs once
+    before its first chunk (JAX io/ply.py:146-147), so the first loop query
+    does not pay for their builds; not with loops off, nor frame by frame."""
+    d, _, _ = dataset
+    calls = []
+    monkeypatch.setattr(ply.Estimator, "warm_loop_programs",
+                        lambda self: calls.append(self.frame_count))
+    cfg = tconfig.load_config(str(ROOT / "config" / "mid360.yaml")).replace(
+        data_directory=str(d), output_directory="", enable_loop_detection=loops,
+        map_l1_capacity=8192, scan_capacity=8192, keyframe_capacity=64,
+        enable_console_statistics=False)
+    res = ply.PLYPlayer(cfg, device="cpu").run(chunk_frames=chunk, end=4, sync_loop=True)
+    assert res.frames_processed == 4
+    assert calls == ([0] if loops and chunk else [])

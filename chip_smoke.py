@@ -41,6 +41,14 @@ Phases, each of which exits nonzero on failure:
          1e-9 on the retracted poses, and for K10c's solve of a system of
          kappa ~5e9 its normwise backward error at most 1e-13; their
          bounds count f64 operations at 67 TFLOP/s;
+       - the sharded map's kernels (K11a shard_own, K11b
+         shard_alpha_normal_eq, K11c shard_sample, K11d shard_gn_select)
+         at kitti.yaml's width (16384 features of a dense loop frame, 101
+         alphas, a map of 65536 parents built by the sharded update from
+         the earlier dense frames) at 1, 2, 4 and 8 shards: K11a and K11c
+         exactly, K11b within 1e-5 of its largest entry, K11d the same
+         alpha and T within 1e-6, each shard of a launch bit-equal to a
+         one-shard launch; times at 4 shards;
   4. the surfel path: make_chunk_runner over chunks of 20 frames; scans/s
      after the first chunk, ATE against the synthetic ground truth (must
      stay below 0.5 m), keyframes, map size;
@@ -70,7 +78,16 @@ Phases, each of which exits nonzero on failure:
      surfel path's, ATE per lane (each below 0.5 m), keyframes per lane
      (lane 0 within 1 of the surfel path's over the same 60 frames), map
      size, and the host syncs of one block=4 chunk (at most 1);
-  9. one JSON line of kernels, then the card line, then the result line.
+  9. the sharded path and the data x map step, over a one-rank NCCL
+     process group with 4 shards on the card: config/kitti.yaml with the
+     distributed pose graph through Estimator(sync_loop=True,
+     map_backend=ShardedMapBackend).process_frame over the loops path's
+     220 scans (it must accept a loop, rehash the sharded map, log no loop
+     error, end below 0.5 m ATE and within 0.02 m of the loops path's
+     distributed run, launch K11a-d and no K5a); then
+     multichip_odometry_step at 2 lanes x 4 shards over the blocked path's
+     first two lanes, 60 frames (each lane below 0.5 m ATE);
+ 10. one JSON line of kernels, then the card line, then the result line.
 Phase 3 also holds K1, K2a, K3 and K2b at B = 4 (the first frame of each
 lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs.
@@ -80,7 +97,9 @@ mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
 loops path the surfel path's kernels, K5b and every loop-closure kernel
 (and with the distributed backend K10a-K10d too, which the manual run must
 not launch), the PGO path K10a-K10d, the blocked path the surfel path's
-kernels (K4b once a block) and no KD-tree or loop kernel. Lanes 1-3's
+kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
+the loops path's kernels, K10a-d and K11a-d, the step path K11a-d, K1,
+K2a and K4a-c. `--profile` also profiles 20 frames of the sharded path. Lanes 1-3's
 scans are made in spawned worker processes while the parent makes the
 other scans.
 
@@ -155,6 +174,14 @@ PGO_KERNELS = ("pgo_linearize", "pgo_eliminate", "pgo_reduced_solve", "pgo_backs
 PGO_N = 3700
 PGO_LOOPS = 32
 PGO_SEED = 0
+# the sharded map: K11a-d checked at these shard counts (the committed
+# draws'), the sharded path and the data x map step at SHARDS shards on
+# this card's one rank; the step over the blocked path's first STEP_LANES
+# lanes
+SHARD_CHECK = (1, 2, 4, 8)
+SHARDS = 4
+STEP_LANES = 2
+SHARD_KERNELS = ("shard_own", "shard_alpha_normal_eq", "shard_sample", "shard_gn_select")
 
 
 def fail(msg: str) -> None:
@@ -1332,7 +1359,7 @@ def loops_path(scans, gt, cfg):
     print("loops path summary: " + json.dumps(dict(
         loops, scans_per_s_loops_off=n / wall_off, ate_m_loops_off=ate_off,
         distributed=dist)), flush=True)
-    return launches, launches_d
+    return launches, launches_d, traj_d
 
 
 def profile_loop(est) -> None:
@@ -1525,6 +1552,495 @@ def blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel):
         scans_per_s_aggregate=thr, scans_per_s_surfel_single=surfel["scans_per_s"],
         ate_m=ates, keyframes=kf, n_l0=n_l0, n_l1=n_l1, n_dropped=n_dropped,
         host_syncs_block_chunk=syncs)), flush=True)
+    return launches, ates
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (shards): K11a-d against their plain twins
+# ---------------------------------------------------------------------------
+
+def shard_feature_frames(dense, loop_gt, cfg):
+    """The dense loop frames' features at kitti.yaml's scan capacity (K1),
+    with their true poses: {frame: (feat (16384, 3), mask, pose)}."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf
+    out = {}
+    for i, scan in dense.items():
+        raw = torch.as_tensor(scan, device=DEVICE)
+        feat, mask, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=cfg.voxel_size, stride=1,
+                                        out_capacity=cfg.scan_capacity,
+                                        compact_keys=vf.compact_keys_ok(cfg.voxel_size, 200.0))
+        out[i] = (feat, mask, torch.as_tensor(loop_gt[i], device=DEVICE))
+    return out
+
+
+def ne_errors(rk, rp, n_alpha: int):
+    """K11b's rows (G, ld) against the plain twin's, each block at its own
+    scale: the J J^T entries and the J r entries of every alpha, each
+    relative to the largest of its block, and the count's absolute gap."""
+    import torch
+    cols = torch.arange(n_alpha * 42, device=rk.device).view(n_alpha, 42)
+    rel = []
+    for idx in (cols[:, :36].flatten(), cols[:, 36:].flatten()):
+        a, b = rk[:, idx], rp[:, idx]
+        rel.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    return rel[0], rel[1], float((rk[:, -1] - rp[:, -1]).abs().max())
+
+
+def check_shard_lanes(frames, icfg, consts, st, g, inv):
+    """K11a-d at the step path's shapes: STEP_LANES lanes x g's shards over
+    N = SCAN_CAP features, each lane with its own scan (the first SCAN_CAP
+    features of one of the last STEP_LANES dense frames), its own guess
+    and so its own moments, all against the map `st`. Every output
+    against the plain twin (K11a, K11c and K11b's count exactly, K11b's
+    blocks within 1e-5 of each block's largest entry and its moments
+    within 1e-5 relative, K11d the same alpha and flags and T within
+    1e-6), with both lanes live and with each lane done in turn (its rows
+    left unwritten); and lane b of every launch bit-equal to a one-lane
+    launch on lane b's inputs."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import icp, pko
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    from lidar_odometry_tpu_torch.parallel import sharded_map as sm
+    from lidar_odometry_tpu_torch.utils import lie
+
+    dev, b, s, n = DEVICE, STEP_LANES, g.n_shards, SCAN_CAP
+    keys = sorted(frames)[-b:]
+    pts = torch.stack([frames[i][0][:n] for i in keys]).contiguous()
+    mask = torch.stack([frames[i][1][:n] for i in keys]).contiguous()
+    T = torch.stack([frames[i][2] for i in keys]).clone()
+    for lane, (dx, dy, yaw) in enumerate(((0.1, 0.0, 0.01), (0.0, -0.08, -0.015))):
+        T[lane, :3, :3] = T[lane, :3, :3] @ lie.so3_exp(torch.tensor([0.0, 0.0, yaw], device=dev))
+        T[lane, 0, 3] += dx
+        T[lane, 1, 3] += dy
+    T = T.reshape(b, 16).contiguous()
+    cap = so.owned_cap(n, s)
+    err = dict(own=0.0, mom=0.0, H=0.0, g=0.0, count=0.0, sample=0.0, T=0.0)
+    bad = []
+
+    def inst(x, lane):
+        return x[lane * s:(lane + 1) * s]
+
+    def gap(x, y):
+        return float((x.float() - y.float()).abs().max())
+
+    for Tx in (T, None):       # the ICP's compaction at a pose, and the update's
+        own_k = so.shard_own(pts, mask, Tx, s, 0, s, cap, inv)
+        own_p = so.shard_own_plain(pts, mask, Tx, s, 0, s, cap, inv)
+        err["own"] = max([err["own"]] + [gap(x, y) for x, y in zip(own_k, own_p)])
+        for lane in range(b):
+            one = so.shard_own(pts[lane:lane + 1], mask[lane:lane + 1],
+                               None if Tx is None else Tx[lane:lane + 1], s, 0, s, cap, inv)
+            if not all(torch.equal(inst(x, lane), y) for x, y in zip(own_k, one)):
+                bad.append(f"K11a lane {lane}{'' if Tx is None else ' at a pose'}")
+    p_own, ok = so.shard_own(pts, mask, T, s, 0, s, cap, inv)[:2]
+    live = torch.zeros((b, 3), dtype=torch.int32, device=dev)
+    corr = [icp.icp_correspond(p_own[i], ok[i], T[i // s], live[i // s],
+                               sm.local_view(st, i % s), icfg) for i in range(b * s)]
+    nrm, r, valid = (torch.stack(c).contiguous() for c in zip(*corr))
+    mk = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, live, None, None, icfg, n_local=s,
+                                  moments=True)
+    mp = so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, live, None, None, icfg,
+                                        n_local=s, moments=True)
+    err["mom"] = float(((mk - mp).abs() / mp.abs().clamp(min=1.0)).max())
+    for lane in range(b):
+        one = so.shard_alpha_normal_eq(inst(p_own, lane), inst(nrm, lane), inst(r, lane),
+                                       inst(valid, lane), T[lane:lane + 1], live[lane:lane + 1],
+                                       None, None, icfg, n_local=s, moments=True)
+        if not torch.equal(inst(mk, lane), one):
+            bad.append(f"K11b moments lane {lane}")
+    mom = mk.view(b, s, 3).contiguous()
+    if torch.equal(mom[0], mom[1]):
+        fail("shard lanes: the two lanes have the same moments")
+    u, pick = (torch.as_tensor(a, device=dev) for a in pko.shard_draws(s))
+    q, n_alpha = u.shape[1], consts.alphas.shape[0]
+    off, ld = n_alpha * 42, so.buffer_width(n_alpha, s, q)
+    alpha = []
+    for done in (None, 0, 1):
+        flags = torch.zeros((b, 3), dtype=torch.int32, device=dev)
+        if done is not None:
+            flags[done] = torch.tensor([1, 0, 77], dtype=torch.int32, device=dev)
+        rk = torch.full((b * s, ld), -7.0, device=dev)
+        rp = rk.clone()
+        so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, consts.alphas, icfg,
+                                 n_local=s, out=rk)
+        so.shard_sample(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=rk)
+        so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, flags, mom, consts.alphas, icfg,
+                                       n_local=s, out=rp)
+        so.shard_sample_plain(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=rp)
+        rel_h, rel_g, e_cnt = ne_errors(rk, rp, n_alpha)
+        err["H"], err["g"] = max(err["H"], rel_h), max(err["g"], rel_g)
+        err["count"] = max(err["count"], e_cnt)
+        err["sample"] = max(err["sample"], gap(rk[:, off:-1], rp[:, off:-1]))
+        if done is not None and not bool((inst(rk, done) == -7.0).all()):
+            bad.append(f"K11b/K11c wrote done lane {done}")
+        for lane in range(b):
+            one = torch.full((s, ld), -7.0, device=dev)
+            so.shard_alpha_normal_eq(inst(p_own, lane), inst(nrm, lane), inst(r, lane),
+                                     inst(valid, lane), T[lane:lane + 1], flags[lane:lane + 1],
+                                     mom[lane:lane + 1], consts.alphas, icfg, n_local=s, out=one)
+            so.shard_sample(inst(r, lane), inst(valid, lane), flags[lane:lane + 1],
+                            mom[lane:lane + 1], u, first=0, n_local=s, off=off, out=one)
+            if not torch.equal(one, inst(rk, lane)):
+                bad.append(f"K11b/K11c lane {lane} (done {done})")
+        buf = rk.view(b, s, ld)
+        sk = so.shard_gn_select(buf, T, flags, consts, pick, icfg, n_alpha=n_alpha, quota=q,
+                                use_pko=True)
+        sp = so.shard_gn_select_plain(buf, T, flags, consts, pick, icfg, n_alpha=n_alpha,
+                                      quota=q, use_pko=True)
+        if not (torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])):
+            bad.append(f"K11d flags or alpha (done {done}): {sk[2].tolist()} vs {sp[2].tolist()}")
+        err["T"] = max(err["T"], gap(sk[0], sp[0]))
+        for lane in range(b):
+            one = so.shard_gn_select(buf[lane:lane + 1], T[lane:lane + 1], flags[lane:lane + 1],
+                                     consts, pick, icfg, n_alpha=n_alpha, quota=q, use_pko=True)
+            if not all(torch.equal(x[lane], y[0]) for x, y in zip(sk, one)):
+                bad.append(f"K11d lane {lane} (done {done})")
+        alpha.append(sk[2][:, 0].tolist())
+    sync()
+    print(f"  shard lanes: {b} lanes x {s} shards, N {n}, cap {cap}, valid per lane "
+          f"{[int(inst(valid, i).sum()) for i in range(b)]}, moments per lane "
+          f"{[[round(float(v), 2) for v in mom[i].sum(0)] for i in range(b)]}; K11a "
+          f"{err['own']:.1e} (exact), K11b moments rel {err['mom']:.1e}, J J^T block "
+          f"{err['H']:.1e} rel, J r block {err['g']:.1e} rel, count {err['count']:.0e}, K11c "
+          f"{err['sample']:.1e} (exact), K11d T {err['T']:.1e}, alpha per lane (live, lane 0 "
+          f"done, lane 1 done) {alpha}; lanes bit-equal to one-lane launches: "
+          f"{'yes' if not bad else bad}", flush=True)
+    if bad:
+        fail(f"shard lanes: {bad}")
+    if (err["own"] != 0.0 or err["sample"] != 0.0 or err["count"] != 0.0 or err["mom"] > 1e-5
+            or err["H"] > 1e-5 or err["g"] > 1e-5 or err["T"] > 1e-6):
+        fail(f"shard lanes: a kernel differs from its plain version: {err}")
+
+
+def check_shard_kernels(frames, cfg, rows):
+    """K11a-d at kitti.yaml's width (N = 16384 features, A = 101 alphas, a
+    map of 65536 parents split over S shards) for S in SHARD_CHECK: a map
+    built by the sharded update from the dense frames before the last, the
+    last frame's features as the ICP scan from a guess 0.1 m and 0.01 rad
+    off. K11a and K11c exactly; K11b's count exactly and its J J^T and
+    J r blocks each within 1e-5 of that block's largest entry; K11d the
+    same alpha and T within 1e-6; instance k of an S-instance launch
+    bit-equal to a one-instance launch. At S = SHARDS, the sharded path's
+    count, the lanes as the step path launches them (check_shard_lanes),
+    and the times and bounds into rows."""
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch.ops import icp, pko
+    from lidar_odometry_tpu_torch.parallel import mesh
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    from lidar_odometry_tpu_torch.parallel import sharded_map as sm
+    from lidar_odometry_tpu_torch.utils import lie
+
+    dev = DEVICE
+    icfg = icp.ICPConfig(max_iterations=cfg.max_iterations, voxel_size=cfg.map_voxel_size,
+                         min_correspondence_points=cfg.min_correspondence_points)
+    consts = pko.make_pko_constants(cfg.min_scale_factor, cfg.max_scale_factor,
+                                    cfg.num_alpha_segments, cfg.truncated_threshold,
+                                    cfg.pko_kernel_type, cfg.gmm_components,
+                                    cfg.gmm_sample_size, device=dev)
+    n_alpha = consts.alphas.shape[0]
+    keys = sorted(frames)
+    feat, mask, pose = frames[keys[-2]]
+    guess = pose.clone()
+    guess[:3, :3] = guess[:3, :3] @ lie.so3_exp(torch.tensor([0.0, 0.0, 0.01], device=dev))
+    guess[0, 3] += 0.1
+    T1 = guess.reshape(1, 16).contiguous()
+    n = feat.shape[0]
+    inv = so.owner_inv(cfg.map_voxel_size, 3)
+    args = (feat[None].contiguous(), mask[None].contiguous(), T1)
+    for s in SHARD_CHECK:
+        g = mesh.make_group(s, device=dev)
+        st = sm.sharded_empty_map(0, C1, g)
+        for i in keys[:-2]:
+            f, m, p = frames[i]
+            sm.sharded_update_map(st, lie.transform_points(p, f).contiguous(), m, p[:3, 3],
+                                  cfg.max_range * 1.2, g, voxel_size=cfg.map_voxel_size,
+                                  planarity_threshold=cfg.surfel_planarity_threshold)
+        cap = so.owned_cap(n, s)
+        own_k = so.shard_own(*args, s, 0, s, cap, inv)
+        own_p = so.shard_own_plain(*args, s, 0, s, cap, inv)
+        err_own = max(float((a.float() - b.float()).abs().max()) for a, b in zip(own_k, own_p))
+        ones = [so.shard_own(*args, s, k, 1, cap, inv) for k in range(s)]
+        eq_own = all(torch.equal(a[0], b[k]) for k in range(s) for a, b in zip(ones[k], own_k))
+        p_own, ok = own_k[0], own_k[1]
+        flags = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+        corr = [icp.icp_correspond(p_own[k], ok[k], T1[0], flags[0], sm.local_view(st, k), icfg)
+                for k in range(s)]
+        nrm, r, valid = (torch.stack(c).contiguous() for c in zip(*corr))
+        mk = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T1, flags, None, None, icfg,
+                                      n_local=s, moments=True)
+        mp = so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T1, flags, None, None, icfg,
+                                            n_local=s, moments=True)
+        err_mom = float(((mk - mp).abs() / mp.abs().clamp(min=1.0)).max())
+        mom = mk.view(1, s, 3)
+        u, pick = (torch.as_tensor(a, device=dev) for a in pko.shard_draws(s))
+        q = u.shape[1]
+        off = n_alpha * 42
+        ld = so.buffer_width(n_alpha, s, q)
+        rk, rp = (torch.zeros((s, ld), device=dev) for _ in range(2))
+
+        def ne_k(out=rk):
+            return so.shard_alpha_normal_eq(p_own, nrm, r, valid, T1, flags, mom, consts.alphas,
+                                            icfg, n_local=s, out=out)
+
+        def ne_p():
+            return so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T1, flags, mom,
+                                                  consts.alphas, icfg, n_local=s, out=rp)
+
+        def sample_k(out=rk):
+            return so.shard_sample(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=out)
+
+        def sample_p():
+            return so.shard_sample_plain(r, valid, flags, mom, u, first=0, n_local=s, off=off,
+                                         out=rp)
+
+        ne_k(), ne_p(), sample_k(), sample_p()
+        rel_h, rel_g, err_cnt = ne_errors(rk, rp, n_alpha)
+        scale_ne = float(rp[:, :off].abs().max())
+        err_ne = float((rk[:, :off] - rp[:, :off]).abs().max())
+        err_smp = float((rk[:, off:-1] - rp[:, off:-1]).abs().max())
+        eq_rows = True
+        for k in range(s):
+            one = torch.zeros((1, ld), device=dev)
+            so.shard_alpha_normal_eq(p_own[k:k + 1], nrm[k:k + 1], r[k:k + 1], valid[k:k + 1],
+                                     T1, flags, mom, consts.alphas, icfg, n_local=1, out=one)
+            so.shard_sample(r[k:k + 1], valid[k:k + 1], flags, mom, u, first=k, n_local=1,
+                            off=off, out=one)
+            eq_rows &= torch.equal(one[0], rk[k])
+        buf = rk[None].contiguous()
+
+        def sel_k(b=buf):
+            return so.shard_gn_select(b, T1, flags, consts, pick, icfg, n_alpha=n_alpha,
+                                      quota=q, use_pko=True)
+
+        def sel_p():
+            return so.shard_gn_select_plain(buf, T1, flags, consts, pick, icfg,
+                                            n_alpha=n_alpha, quota=q, use_pko=True)
+
+        sk, sp = sel_k(), sel_p()
+        err_sel = float((sk[0] - sp[0]).abs().max())
+        lanes2 = so.shard_gn_select(torch.cat([buf, buf]), torch.cat([T1, T1]),
+                                    torch.cat([flags, flags]), consts, pick, icfg,
+                                    n_alpha=n_alpha, quota=q, use_pko=True)
+        eq_sel = all(torch.equal(a[1], b[0]) for a, b in zip(lanes2, sk))
+        sync()
+        n_valid = int(valid.sum())
+        print(f"  shards S={s}: K11a max_abs_err {err_own:.1e} (exact; over {own_k[3].tolist()}), "
+              f"K11b moments rel {err_mom:.1e}, systems {err_ne:.2e} of {scale_ne:.3e}: "
+              f"J J^T block {rel_h:.1e} rel, J r block {rel_g:.1e} rel, count {err_cnt:.0e}, "
+              f"K11c {err_smp:.1e} (exact), "
+              f"K11d alpha {int(sk[2][0, 0])} vs {int(sp[2][0, 0])}, T {err_sel:.1e}; "
+              f"instances bit-equal to one-instance launches: K11a {eq_own}, K11b/K11c "
+              f"{eq_rows}, K11d lanes {eq_sel}; {n_valid} valid correspondences", flush=True)
+        if err_own != 0.0 or err_smp != 0.0:
+            fail(f"shards S={s}: K11a or K11c differs from its plain version")
+        if err_mom > 1e-5 or rel_h > 1e-5 or rel_g > 1e-5 or err_cnt != 0.0:
+            fail(f"shards S={s}: K11b differs from its plain version")
+        if not torch.equal(sk[2], sp[2]) or not torch.equal(sk[1], sp[1]) or err_sel > 1e-6:
+            fail(f"shards S={s}: K11d differs from its plain version")
+        if not (eq_own and eq_rows and eq_sel):
+            fail(f"shards S={s}: an instance differs from its one-instance launch")
+        if s != SHARDS:
+            continue
+        check_shard_lanes(frames, icfg, consts, st, g, inv)
+        # times at the sharded path's count; bounds from this run's inputs
+        g_inst = s * cap
+        rows_n = [int(v) for v in valid.sum(1)]
+        pts_b = n * 12 + n + 64
+        record(rows, "shard_own", err_own, 0.0, lambda: so.shard_own(*args, s, 0, s, cap, inv),
+               time_ms(lambda: so.shard_own_plain(*args, s, 0, s, cap, inv), reps=5),
+               pts_b + g_inst * (12 + 1 + 4) + 4 * s, 0.0,
+               note=f"N {n}, S {s}, cap {cap}")
+        W = torch.stack([icp.robust_weights(
+            (r[k].abs() / torch.clamp(so.scale_from_moments(mom), min=1e-6))[None, :],
+            consts.alphas[:, None], icfg.loss_type) * valid[k] for k in range(s)])
+        Rm = T1.view(4, 4)[:3, :3]
+        an = nrm @ Rm
+        J = torch.cat([an, torch.linalg.cross(p_own, an)], -1)
+        Z = torch.cat([(J[..., :, None] * J[..., None, :]).flatten(-2), J * r[..., None]], -1)
+        lib = time_ms(lambda: torch.bmm(W, Z))
+        record(rows, "shard_alpha_normal_eq", err_ne, 1e-5 * scale_ne, ne_k, time_ms(ne_p, reps=5),
+               g_inst * (12 + 12 + 4 + 1) + s * ld * 4 + 64, sum(rows_n) * n_alpha * 2 * 27,
+               library_ms=lib, note=f"A {n_alpha}, {sum(rows_n)} valid of {g_inst}; library: "
+                                    f"torch.bmm of the materialised (S, A, cap) weights by Z")
+        record(rows, "shard_sample", err_smp, 0.0, sample_k, time_ms(sample_p, reps=5),
+               g_inst * (4 + 1) + s * 2 * s * q * 4 + s * 12, 0.0, note=f"quota {q}")
+        record(rows, "shard_gn_select", err_sel, 1e-6, sel_k, time_ms(sel_p, reps=3),
+               s * ld * 4 + (n_alpha * 100 + 100) * 4 + 64 + 12, 0.0,
+               note=f"alpha {int(sk[2][0, 0])} (plain {int(sp[2][0, 0])})")
+        del st
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the sharded path and the data x map step
+# ---------------------------------------------------------------------------
+
+def one_rank_nccl_group():
+    """A one-rank NCCL process group on a free local port."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, device_id=torch.device(DEVICE, 0))
+    one = torch.ones((1,), device=DEVICE)
+    dist.all_reduce(one)
+    sync()
+    print(f"process group: NCCL, world size {dist.get_world_size()}, all_reduce of 1 -> "
+          f"{float(one[0])}", flush=True)
+    return dist.group.WORLD
+
+
+def sharded_path(scans, gt, cfg, traj_dist, group):
+    """config/kitti.yaml with the distributed pose graph through
+    Estimator(sync_loop=True, map_backend=ShardedMapBackend) and
+    process_frame, the map over SHARDS shards on this card's one rank;
+    `traj_dist` the loops path's distributed run on the same scans."""
+    import numpy as np
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.models.estimator import Estimator
+    from lidar_odometry_tpu_torch.models.map_backend import ShardedMapBackend
+    from lidar_odometry_tpu_torch.parallel import mesh
+
+    g = mesh.make_group(SHARDS, device=DEVICE, group=group)
+    est = Estimator(cfg, sync_loop=True, device=DEVICE, map_backend=ShardedMapBackend(cfg, g))
+    print(f"sharded path: config/kitti.yaml (pgo_backend {cfg.pgo_backend}, loops on, prealign "
+          f"{cfg.loop_prealign}), the map of {cfg.map_l1_capacity} parents over {g.n_shards} "
+          f"shards ({g.world_size} rank x {g.n_local}, NCCL), process_frame over the loops "
+          f"path's {len(scans)} scans", flush=True)
+    est.warm_loop_programs()
+    est.reset()
+    sync()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for s in scans:
+        est.process_frame(s)
+    est.finalize_loops()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    traj = est.trajectory()
+    n = len(scans)
+    if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
+        fail(f"sharded path: poses of shape {traj.shape} not all finite")
+    ate = ate_rmse(traj, gt)
+    mutual = ate_rmse(traj, traj_dist)
+    stages = est.loop_stage_snapshot()
+    counts = est.map_counts()
+    over = int(est.backend.owned_overflow)
+    per_frame = sum(launches.values()) / n
+    syncs = count_syncs(lambda: est.process_frame(scans[-1]))
+    print(f"sharded path: {n} frames, sync_loop; {n / wall:.1f} scans/s ({wall:.3f} s); ATE "
+          f"{ate:.4f} m, {mutual:.4f} m from the loops path's distributed run; keyframes "
+          f"{est.get_keyframe_count()}; loop constraints {est.get_loop_closure_count()}, rehashes "
+          f"{est.rehash_count}, loop errors {est.loop_errors}; {per_frame:.1f} launches of the "
+          f"port's kernels a frame; "
+          f"{syncs} host syncs in one more frame; n_l0 {counts['n_l0']}, n_l1 {counts['n_l1']}, "
+          f"n_dropped {counts['n_dropped']}, owned points past the shard caps {over}", flush=True)
+    print("sharded loop stages (ms, cumulative): " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    check_launches("sharded", launches, LOOPS_PATH_KERNELS + PGO_KERNELS + SHARD_KERNELS,
+                   ("grid_knn",))
+    if est.get_loop_closure_count() < 1:
+        fail("the sharded path accepted no loop")
+    if est.rehash_count < 1:
+        fail("the sharded path ran no sharded rehash")
+    if est.loop_errors:
+        fail(f"the sharded path logged {est.loop_errors} loop errors")
+    if not ate < 0.5:
+        fail(f"sharded path ATE {ate:.4f} m >= 0.5 m")
+    if not mutual < 0.02:
+        fail(f"sharded path: {mutual:.4f} m from the loops path's distributed run (>= 0.02 m)")
+    print("sharded path summary: " + json.dumps(dict(
+        scans_per_s=n / wall, ate_m=ate, mutual_ate_m=mutual, loops=est.get_loop_closure_count(),
+        rehashes=est.rehash_count, launches_per_frame=per_frame, host_syncs_per_frame=syncs,
+        n_dropped=counts["n_dropped"], owned_overflow=over, stages_ms=stages)), flush=True)
+    if PROFILE:
+        prof = Estimator(cfg.replace(enable_loop_detection=False), sync_loop=True, device=DEVICE,
+                         map_backend=ShardedMapBackend(cfg, g))
+        for s in scans[:20]:
+            prof.process_frame(s)
+
+        def window():
+            for s in scans[20:40]:
+                prof.process_frame(s)
+        profile_window(window, "the sharded path, 20 frames of process_frame", "sharded_")
+    return launches
+
+
+def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
+    """multichip_odometry_step at STEP_LANES lanes x SHARDS shards over the
+    blocked path's first STEP_LANES lanes: features by K1, the pose guess
+    by constant velocity and the keyframe flags by the bench's rule (1 m,
+    0.3 rad from the last keyframe) on the guess, on the host: one host
+    read a frame (the new poses)."""
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf
+    from lidar_odometry_tpu_torch.parallel import mesh, pipeline
+
+    g = mesh.make_group(SHARDS, device=DEVICE, group=group)
+    b = STEP_LANES
+    step = pipeline.multichip_odometry_step(g, cfg, update_max_distance=120.0,
+                                            planarity_threshold=0.1, pko_consts=consts)
+    state = pipeline.batched_sharded_map_state(b, 0, C1, g)
+    scans = torch.as_tensor(lanes_np[:b], device=DEVICE)
+    T_prev = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    vel, last_kf = T_prev.copy(), T_prev.copy()
+    poses = np.zeros((b, LANE_FRAMES, 4, 4), np.float32)
+    n_kf = [0] * b
+    sync()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for f in range(LANE_FRAMES):
+        feat, mask, _ = vf.voxel_filter(scans[:, f], scans.shape[2], voxel_size=0.5, stride=1,
+                                        out_capacity=SCAN_CAP,
+                                        compact_keys=vf.compact_keys_ok(0.5, 200.0))
+        guess = T_prev @ vel
+        kf = []
+        for i in range(b):
+            d = float(np.linalg.norm(guess[i, :3, 3] - last_kf[i, :3, 3]))
+            c = np.clip((np.trace(last_kf[i, :3, :3].T @ guess[i, :3, :3]) - 1.0) * 0.5, -1, 1)
+            kf.append(f == 0 or d > 1.0 or float(np.arccos(c)) > 0.3)
+        T_new, state = step(state, feat, mask, torch.as_tensor(guess, device=DEVICE),
+                            torch.as_tensor(kf, device=DEVICE))
+        T_host = T_new.cpu().numpy()
+        vel = np.linalg.inv(T_prev) @ T_host
+        for i in range(b):
+            if kf[i]:
+                last_kf[i] = T_host[i]
+                n_kf[i] += 1
+        T_prev = T_host
+        poses[:, f] = T_host
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    if not np.all(np.isfinite(poses)):
+        fail("step path: poses not all finite")
+    ates = [ate_rmse(poses[i], lane_gt[i]) for i in range(b)]
+    n_l0 = [int(state.n_l0[i].sum()) for i in range(b)]
+    print(f"step path: multichip_odometry_step, {b} lanes x {g.n_shards} shards, {LANE_FRAMES} "
+          f"frames a lane; {b * LANE_FRAMES / wall:.1f} scans/s aggregate ({wall:.3f} s, one "
+          f"host read a frame); ATE per lane {[round(a, 4) for a in ates]} m (blocked path: "
+          f"{[round(a, 4) for a in blocked_ates[:b]]} m); keyframes {n_kf}; n_l0 per lane "
+          f"{n_l0}; {sum(launches.values()) / LANE_FRAMES:.1f} launches of the port's kernels a "
+          f"frame", flush=True)
+    check_launches("step", launches, SHARD_KERNELS + ("voxel_filter", "icp_correspond",
+                                                      "map_scatter_add"),
+                   ("grid_knn", "plane_fit_5nn", "pko_alpha", "icp_normal_eq") + LOOP_KERNELS)
+    bad = [i for i in range(b) if not ates[i] < 0.5]
+    if bad:
+        fail(f"step path: lanes {bad} have ATE >= 0.5 m ({ates})")
+    print("step path summary: " + json.dumps(dict(
+        scans_per_s_aggregate=b * LANE_FRAMES / wall, ate_m=ates, blocked_ate_m=blocked_ates[:b],
+        keyframes=n_kf, n_l0=n_l0, host_reads_per_frame=1)), flush=True)
     return launches
 
 
@@ -1662,13 +2178,14 @@ def main() -> None:
     rows.update(check_kd_kernels(indoor, sysc))
     kitti = kitti_config()
     rows.update(check_loop_kernels(dense, loop_gt, kitti, surfel_map, rows))
-    del dense
     del surfel_map
     check_lane_kernels(lanes_np, cfg, consts, kw, rows)
     t0 = time.perf_counter()
     pgo_graph = make_pgo_graph()
     print(f"  pgo graph made in {time.perf_counter() - t0:.1f} s", flush=True)
     rows.update(check_pgo_kernels(pgo_graph))
+    check_shard_kernels(shard_feature_frames(dense, loop_gt, kitti), kitti, rows)
+    del dense
 
     # ---- phase 4: the surfel path ----
     launches, surfel = main_path(scans_np, gt, cfg, consts, kw)
@@ -1680,15 +2197,27 @@ def main() -> None:
         profile_mid360(indoor, sysc)
 
     # ---- phase 6: the loops path, manual then distributed pose graph ----
-    by_path["loops"], by_path["loops_distributed"] = loops_path(loop_scans, loop_gt, kitti)
+    by_path["loops"], by_path["loops_distributed"], traj_dist = loops_path(loop_scans, loop_gt,
+                                                                             kitti)
 
     # ---- phase 7: the PGO path ----
     by_path["pgo"] = pgo_path(pgo_graph)
 
     # ---- phase 8: the blocked path ----
-    by_path["blocked"] = blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel)
+    by_path["blocked"], blocked_ates = blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel)
 
-    # ---- phase 9: report ----
+    # ---- phase 9: the sharded path and the data x map step ----
+    import torch.distributed as dist
+    group = one_rank_nccl_group()
+    try:
+        by_path["sharded"] = sharded_path(loop_scans, loop_gt,
+                                          kitti.replace(pgo_backend="distributed"), traj_dist,
+                                          group)
+        by_path["step"] = step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group)
+    finally:
+        dist.destroy_process_group()
+
+    # ---- phase 10: report ----
     out = []
     for name, k in kernels.KERNELS.items():
         per = {path: counts[name] for path, counts in by_path.items()}

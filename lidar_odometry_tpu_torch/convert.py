@@ -22,8 +22,9 @@ from .ops import pko
 from .ops.voxel_map import VoxelMapState
 
 __all__ = ["pko_constants_from_numpy", "map_state_from_numpy",
-           "map_state_to_numpy", "carry_from_numpy", "loop_detector_from_numpy",
-           "pose_graph_from_numpy", "MAP_FIELDS", "POSE_GRAPH_FIELDS"]
+           "map_state_to_numpy", "sharded_map_from_numpy", "sharded_map_to_numpy",
+           "carry_from_numpy", "loop_detector_from_numpy", "pose_graph_from_numpy",
+           "MAP_FIELDS", "POSE_GRAPH_FIELDS"]
 
 POSE_GRAPH_FIELDS = ("keyframe_ids", "poses", "prior_keys", "prior_measured",
                      "prior_sqrt_info", "between_keys", "between_measured",
@@ -68,6 +69,41 @@ def map_state_to_numpy(state: VoxelMapState) -> dict:
     for name in MAP_FIELDS:
         a = getattr(state, name).detach().cpu().numpy()
         out[name] = a[:-1] if name in _TABLES else a
+    return out
+
+
+def sharded_map_from_numpy(arrays: dict, n_shards: int, device="cuda",
+                           shards=None) -> VoxelMapState:
+    """A JAX sharded map (the ten fields of gather_state: tables (S *
+    local, ...), scalars (S,)) -> the port's layout of the shards in
+    `shards` (default all, in order; a rank passes its own): each shard's
+    tables with their sink rows, one shard after another, and (n,)
+    scalars."""
+    shards = range(n_shards) if shards is None else list(shards)
+    out = {}
+    for name in MAP_FIELDS:
+        a = np.asarray(arrays[name])
+        if name in _TABLES:
+            per = a.reshape((n_shards, a.shape[0] // n_shards) + a.shape[1:])
+            a = np.concatenate([np.concatenate([per[s], _sink_row(name, per[s])])
+                                for s in shards])
+        else:
+            a = a[list(shards)]
+        out[name] = torch.tensor(a, device=device)
+    return VoxelMapState(**out)
+
+
+def sharded_map_to_numpy(state: VoxelMapState) -> dict:
+    """The port's sharded layout -> the ten fields in the JAX global layout
+    (sink rows stripped)."""
+    n = state.n_l0.shape[0]
+    out = {}
+    for name in MAP_FIELDS:
+        a = getattr(state, name).detach().cpu().numpy().copy()
+        if name in _TABLES:
+            per = a.reshape((n, a.shape[0] // n) + a.shape[1:])
+            a = per[:, :-1].reshape((-1,) + a.shape[1:])
+        out[name] = a
     return out
 
 

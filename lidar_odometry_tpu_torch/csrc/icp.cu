@@ -21,7 +21,7 @@
 //    shuffles and shared memory reduce them per block, and the last block
 //    to finish (a threadfence + a ticket counter the wrapper zeroes) adds
 //    the block partials in block order, so the result is deterministic;
-//    its thread 0 then solves
+//    its thread 0 then (gn.cuh, shared with the sharded ICP's K11d) solves
 //    the 6x6 system by Gaussian elimination with partial pivoting, retracts
 //    T <- T * (Exp(dw), dt) and updates done / failed / n_corr. The whole
 //    iteration tail stays in one launch with no host read.
@@ -41,21 +41,12 @@
 //    each point by its centroid-plane distance while its residual is taken
 //    against the nearest neighbour. Without it (nullptr) the arithmetic is
 //    the odometry path's, unchanged.
-#include "common.cuh"
+#include "gn.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int NSUM = 27;   // 21 upper-triangle entries of H, then g
-
-__device__ __forceinline__ void load_T(const float* T, float R[3][3], float t[3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = T[4 * i + j];
-    t[i] = T[4 * i + 3];
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, int n,
@@ -74,7 +65,7 @@ correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, 
   resid += lane_ix * n;
   valid += lane_ix * n;
   float R[3][3], t[3];
-  load_T(T, R, t);
+  lo::load_T(T, R, t);
   const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
   float w[3];
 #pragma unroll
@@ -98,43 +89,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ bool finite3(const float* x) {
-  return isfinite(x[0]) && isfinite(x[1]) && isfinite(x[2]);
-}
-
-// Solve (H + 1e-8 I) x = -g, Gaussian elimination with partial pivoting.
-__device__ void solve6(const float* hg, float x[6]) {
-  float A[6][7];
-  int k = 0;
-  for (int a = 0; a < 6; ++a)
-    for (int b = a; b < 6; ++b) {
-      A[a][b] = hg[k];
-      A[b][a] = hg[k];
-      ++k;
-    }
-  for (int a = 0; a < 6; ++a) {
-    A[a][a] += 1e-8f;
-    A[a][6] = -hg[21 + a];
-  }
-  for (int c = 0; c < 6; ++c) {
-    int piv = c;
-    float best = fabsf(A[c][c]);
-    for (int r = c + 1; r < 6; ++r)
-      if (fabsf(A[r][c]) > best) { best = fabsf(A[r][c]); piv = r; }
-    if (piv != c)
-      for (int j = 0; j < 7; ++j) { const float tmp = A[c][j]; A[c][j] = A[piv][j]; A[piv][j] = tmp; }
-    for (int r = c + 1; r < 6; ++r) {
-      const float f = A[r][c] / A[c][c];
-      for (int j = c; j < 7; ++j) A[r][j] -= f * A[c][j];
-    }
-  }
-  for (int r = 5; r >= 0; --r) {
-    float s = A[r][6];
-    for (int j = r + 1; j < 6; ++j) s -= A[r][j] * x[j];
-    x[r] = s / A[r][r];
-  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -172,7 +126,7 @@ normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
     return;
   }
   float R[3][3], t[3];
-  load_T(T, R, t);
+  lo::load_T(T, R, t);
   const float delta = use_pko ? alphas[aux[1]] : fixed_delta;
   const float denom = fmaxf(scale[0], 1e-6f);
 
@@ -237,43 +191,13 @@ normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   __syncthreads();
   if (tid != 0) return;
   float x[6];
-  solve6(sums, x);
-  const bool ok = finite3(x) && finite3(x + 3);
-  const float dt[3] = {ok ? x[0] : 0.f, ok ? x[1] : 0.f, ok ? x[2] : 0.f};
-  const float dw[3] = {ok ? x[3] : 0.f, ok ? x[4] : 0.f, ok ? x[5] : 0.f};
-  // Exp(dw), Rodrigues with the small-angle branch
-  const float theta = sqrtf(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2]);
-  float E[3][3];
-  if (theta < 1e-6f) {
-    const float H[3][3] = {{1.f, -dw[2], dw[1]}, {dw[2], 1.f, -dw[0]}, {-dw[1], dw[0], 1.f}};
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) E[i][j] = H[i][j];
-  } else {
-    const float ax = dw[0] / theta, ay = dw[1] / theta, az = dw[2] / theta;
-    const float Kh[3][3] = {{0.f, -az, ay}, {az, 0.f, -ax}, {-ay, ax, 0.f}};
-    const float s = sinf(theta), c1m = 1.0f - cosf(theta);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) {
-        float kk = 0.f;
-        for (int m = 0; m < 3; ++m) kk += Kh[i][m] * Kh[m][j];
-        E[i][j] = (i == j ? 1.f : 0.f) + s * Kh[i][j] + c1m * kk;
-      }
-  }
-  const float D[4][4] = {{E[0][0], E[0][1], E[0][2], dt[0]},
-                         {E[1][0], E[1][1], E[1][2], dt[1]},
-                         {E[2][0], E[2][1], E[2][2], dt[2]},
-                         {0.f, 0.f, 0.f, 1.f}};
+  lo::solve6(sums, x);
+  float Tn[16];
+  const bool conv = lo::gn_retract(T, x, tol_t, tol_r, Tn);
   const int count = aux[0];
   const bool insufficient = count < min_corr;
   const bool step = !insufficient;   // not done here
-  const float dt_n = sqrtf(dt[0] * dt[0] + dt[1] * dt[1] + dt[2] * dt[2]);
-  const bool conv = dt_n < tol_t && theta < tol_r;
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      float v = 0.f;
-      for (int m = 0; m < 4; ++m) v += T[4 * i + m] * D[m][j];
-      T_out[4 * i + j] = step ? v : T[4 * i + j];
-    }
+  for (int k = 0; k < 16; ++k) T_out[k] = step ? Tn[k] : T[k];
   flags_out[0] = insufficient || (step && conv);
   flags_out[1] = flags[1] || insufficient;
   flags_out[2] = step ? count : flags[2];

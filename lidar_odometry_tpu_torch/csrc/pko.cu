@@ -28,18 +28,18 @@
 // the 100 samples and shuffle reductions, so an iteration costs a few
 // shuffles and no block barrier. The whole block evaluates P on the grid
 // and the 101 x 100 Jensen-Shannon table (one warp per alpha row), and
-// thread 0 takes the argmin with index 0 skipped. The alpha index stays
-// on the device, where the ICP normal-equation kernel reads it.
-#include "common.cuh"
+// thread 0 takes the argmin with index 0 skipped (both in gmm.cuh, which
+// the sharded ICP's K11d shares). The alpha index stays on the device,
+// where the ICP normal-equation kernel reads it.
+#include "gmm.cuh"
 
 namespace {
 
 constexpr int THREADS = 1024;
 constexpr int M = 100;       // samples
-constexpr int KC = 3;        // GMM components
+constexpr int KC = lo::GMM_KC;
 constexpr int MAX_A = 128;   // alpha rows held in shared memory
 constexpr int MAX_G = 128;   // grid points held in shared memory
-constexpr float TWO_PI = 6.28318548f;
 
 __device__ __forceinline__ float block_sum(float v, float* buf) {
   const int t = threadIdx.x;
@@ -52,27 +52,6 @@ __device__ __forceinline__ float block_sum(float v, float* buf) {
   const float out = buf[0];
   __syncthreads();
   return out;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float gaussian_pdf(float x, float mean, float var) {
-  var = fmaxf(var, 1e-12f);
-  const float d = x - mean;
-  return expf(((-0.5f * d) * d) / var) / sqrtf(TWO_PI * var);
-}
-
-__device__ __forceinline__ int nearest(float x, const float* mu) {
-  const float d0 = fabsf(x - mu[0]), d1 = fabsf(x - mu[1]), d2 = fabsf(x - mu[2]);
-  int a = 0;
-  float b = d0;
-  if (d1 < b) { a = 1; b = d1; }
-  if (d2 < b) a = 2;
-  return a;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -160,132 +139,13 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
   if (t < M) samp[t] = fabsf(resid[t < nv ? sidx[t] : first_idx]) / denom;
   __syncthreads();
 
-  // ---- GMM: k-means then EM, on warp 0 ----
-  if (t < 32) {
-    const int lane = t;
-    float x[4];
-    int nx = 0;
-    for (int i = lane; i < M; i += 32) x[nx++] = samp[i];
-    float mu[KC] = {0.f, samp[pick[1]], samp[pick[2]]};
-    bool changed = true;
-    for (int it = 0; changed && it < 100; ++it) {
-      float cnt[KC] = {0.f, 0.f, 0.f}, sx[KC] = {0.f, 0.f, 0.f};
-      for (int q = 0; q < nx; ++q) {
-        const int a = nearest(x[q], mu);
-        cnt[a] += 1.f;
-        sx[a] += x[q];
-      }
-      float nm[KC];
-      changed = false;
-#pragma unroll
-      for (int k = 0; k < KC; ++k) {
-        const float ck = warp_sum(cnt[k]);
-        const float sk = warp_sum(sx[k]);
-        nm[k] = ck > 0.f ? sk / fmaxf(ck, 1.f) : mu[k];
-      }
-      nm[0] = 0.f;
-#pragma unroll
-      for (int k = 0; k < KC; ++k) {
-        changed |= (nm[k] != mu[k]);
-        mu[k] = nm[k];
-      }
-    }
-    float sum = 0.f;
-    for (int q = 0; q < nx; ++q) sum += x[q];
-    const float dmean = warp_sum(sum) / (float)M;
-    float sv = 0.f;
-    float cnt[KC] = {0.f, 0.f, 0.f};
-    for (int q = 0; q < nx; ++q) {
-      const float d = x[q] - dmean;
-      sv += d * d;
-      cnt[nearest(x[q], mu)] += 1.f;
-    }
-    const float init_var = warp_sum(sv) / (float)M;
-    float w[KC], var[KC];
-#pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      w[k] = warp_sum(cnt[k]) / (float)M;
-      var[k] = init_var;
-    }
-    float change = INFINITY;
-    for (int it = 0; change >= 1e-6f && it < 100; ++it) {
-      float resp[4][KC];
-      float nk[KC] = {0.f, 0.f, 0.f}, sx[KC] = {0.f, 0.f, 0.f};
-      for (int q = 0; q < nx; ++q) {
-        float tot = 0.f;
-#pragma unroll
-        for (int k = 0; k < KC; ++k) {
-          resp[q][k] = w[k] * gaussian_pdf(x[q], mu[k], var[k]);
-          tot += resp[q][k];
-        }
-        tot = tot > 0.f ? tot : (tot != tot ? tot : 0.f);  // max(., 0), NaN kept
-#pragma unroll
-        for (int k = 0; k < KC; ++k) {
-          resp[q][k] = resp[q][k] / tot;
-          nk[k] += resp[q][k];
-          sx[k] += resp[q][k] * x[q];
-        }
-      }
-      float nmu[KC], Nk[KC];
-#pragma unroll
-      for (int k = 0; k < KC; ++k) {
-        const float a = warp_sum(nk[k]);
-        Nk[k] = (a > 1e-12f || a != a) ? a : 1e-12f;
-        nmu[k] = warp_sum(sx[k]) / Nk[k];
-      }
-      nmu[0] = 0.f;
-      float sv2[KC] = {0.f, 0.f, 0.f};
-      for (int q = 0; q < nx; ++q)
-#pragma unroll
-        for (int k = 0; k < KC; ++k) {
-          const float d = x[q] - nmu[k];
-          sv2[k] += (resp[q][k] * d) * d;
-        }
-#pragma unroll
-      for (int k = 0; k < KC; ++k) {
-        const float v = warp_sum(sv2[k]) / Nk[k];
-        var[k] = (v > 1e-6f || v != v) ? v : 1e-6f;
-        w[k] = Nk[k] / (float)M;
-      }
-      change = fabsf(nmu[1] - mu[1]) + fabsf(nmu[2] - mu[2]);
-#pragma unroll
-      for (int k = 0; k < KC; ++k) mu[k] = nmu[k];
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < KC; ++k) { gw[k] = w[k]; gmu[k] = mu[k]; gvar[k] = var[k]; }
-    }
-  }
+  // ---- GMM: k-means then EM, on warp 0 (gmm.cuh) ----
+  if (t < 32) lo::gmm_fit_warp(samp, M, pick, gw, gmu, gvar);
   __syncthreads();
 
-  // ---- P on the grid, JS cost per alpha, argmin ----
-  if (t < n_grid) {
-    float p = 0.f;
-#pragma unroll
-    for (int k = 0; k < KC; ++k) p += gw[k] * gaussian_pdf(r_grid[t], gmu[k], gvar[k]);
-    P[t] = p + 1e-10f;
-  }
-  __syncthreads();
-  const int warp = t / 32, lane = t % 32;
-  for (int a = warp; a < n_alpha; a += THREADS / 32) {
-    float acc = 0.f;
-    for (int g = lane; g < n_grid; g += 32) {
-      const float p = P[g], q = Q[a * n_grid + g];
-      const float m = 0.5f * (p + q);
-      acc += 0.5f * (p * logf(p / m) + q * logf(q / m));
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) cost[a] = acc / (float)n_grid;
-  }
-  __syncthreads();
+  // ---- P on the grid, JS cost per alpha, argmin (gmm.cuh) ----
+  const int best = lo::js_argmin_block(gw, gmu, gvar, r_grid, Q, n_alpha, n_grid, P, cost);
   if (t == 0) {
-    int best = 0;
-    float bv = INFINITY;  // cost[0] is replaced by +inf
-    for (int a = 1; a < n_alpha; ++a) {
-      const float v = cost[a];
-      if (v != v) { best = a; break; }  // argmin returns the first NaN
-      if (v < bv) { bv = v; best = a; }
-    }
     aux[0] = nv;
     aux[1] = best;
     scale_out[0] = scale;

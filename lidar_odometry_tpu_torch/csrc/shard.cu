@@ -1,0 +1,472 @@
+// K11 shard kernels: the sharded surfel map's ownership compaction and the
+// sharded ICP's per-shard normal equations, sample and replicated solve.
+//
+// Replaces: the JAX package's parallel/sharded_map.py
+//   K11a shard_own: owner_of_points (:92) and _compact_owned (:125);
+//   K11b shard_alpha_normal_eq: robust_icp_loop.gn_round's per-alpha
+//        (A, n) @ (n, 42) product (:312-345), the no-PKO w_rob @ Z
+//        (:357-366) and the iteration-0 moments (:378-386);
+//   K11c shard_sample: the per-shard stratified sample (:331-337, with
+//        ops/pko.py:274 stratified_sample);
+//   K11d shard_gn_select: gn_round after the psum (:346-370) and the
+//        while_loop's state rules (:388-413).
+//
+// Layout. A launch covers G = lanes x n_local shard instances, instance
+// g = lane * n_local + k holding global shard first + k of its lane's
+// map. Every instance's work depends on its own inputs and on n alone,
+// never on G, so instance k of a G-instance launch is bit-identical to a
+// one-instance launch on instance k's inputs. A lane whose ICP solve is
+// done (flags[0]) returns at once, as the JAX while_loop stops.
+//
+// The moments and the per-alpha systems of all shards meet between
+// launches: the caller gathers each shard's row in global shard order
+// (parallel/mesh.py ShardGroup.all_gather, no copy on one rank) and
+// K11b, K11c and K11d sum those rows in shard order themselves, so two
+// calls are bit-equal and a 2-rank x 2-shard layout sums exactly as a
+// 1-rank x 4-shard one.
+//
+// Bounds on the H100 at kitti.yaml's N = 16384 features over S = 4 shards
+// (cap = 7936 owned rows a shard), A = 101 alphas:
+//  * K11a reads N x 13 B and writes 4 x 7936 x 17 B (~0.75 MB, ~0.2 us at
+//    3.35 TB/s); one block per instance ranks its owned points by a block
+//    scan over contiguous chunks, so the kernel is latency-bound at a few
+//    microseconds. The owner-only mode is one thread a record.
+//  * K11b needs 54 flops per valid owned point per alpha, the 27
+//    multiply-adds of the 21 upper entries of J J^T and the 6 of J r
+//    (~0.15 GFLOP for the four shards, ~2 us at 67 TFLOP/s fp32), on ~1 MB
+//    of inputs: bound by operations. One block per (alpha, instance) recomputes J from
+//    the point's normal and the pose (cheaper than holding 42 floats a
+//    point), accumulates the 21 + 6 sums in registers in a fixed stride
+//    order and reduces with shuffles and shared memory in a fixed order.
+//  * K11c reads each instance's residuals and flags (~40 KB) once: one
+//    block per instance as in K3's sample step, latency-bound.
+//  * K11d is one block per lane over a few KB: K3's GMM fit and JS argmin
+//    (gmm.cuh) and K2b's solve and retract (gn.cuh); latency-bound.
+#include "gmm.cuh"
+#include "gn.cuh"
+
+namespace {
+
+constexpr int OWN_THREADS = 1024;   // a power of two: block_inclusive_scan
+constexpr int NE_THREADS = 256;
+constexpr int NE_SUM = 28;          // 21 upper entries of J J^T, J r (6), count
+constexpr int SAMPLE_THREADS = 1024;
+constexpr int SELECT_THREADS = 1024;
+constexpr int MAX_Q = 100;          // samples a shard draws
+constexpr int MAX_A = 128;          // alpha rows of K11d's JS table
+constexpr int MAX_G = 128;          // grid points of K11d's JS table
+
+// The owning shard of a point: a second hash of its parent cell's key
+// (independent of the bucket hash), mod n_shards. uint32 arithmetic.
+__device__ __forceinline__ int owner_of(float x, float y, float z, float inv,
+                                        uint32_t n_shards) {
+  uint32_t hi, lo;
+  lo::pack_key((int)floorf(__fmul_rn(x, inv)), (int)floorf(__fmul_rn(y, inv)),
+               (int)floorf(__fmul_rn(z, inv)), hi, lo);
+  uint32_t h = (hi * 0x85EBCA77u) ^ (lo * 0xC2B2AE3Du);
+  h = (h ^ (h >> 16)) * 0x7FEB352Du;
+  h = h ^ (h >> 15);
+  return (int)(h % n_shards);
+}
+
+// R p + t, each product and sum rounded in this order (the plain twin's
+// elementwise order), so that the owner agrees bit for bit.
+__device__ __forceinline__ void transform(float R[3][3], const float t[3], float px,
+                                          float py, float pz, float w[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    w[r] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(px, R[r][0]), __fmul_rn(py, R[r][1])),
+                               __fmul_rn(pz, R[r][2])),
+                     t[r]);
+}
+
+__device__ __forceinline__ bool is_mine(const float* pts, const bool* mask, int i, bool xf,
+                                        float R[3][3], const float t[3], float inv,
+                                        uint32_t n_shards, int me) {
+  if (!mask[i]) return false;
+  float w[3] = {pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]};
+  if (xf) transform(R, t, w[0], w[1], w[2], w);
+  return owner_of(w[0], w[1], w[2], inv, n_shards) == me;
+}
+
+// K11a, compaction mode: one block per instance.
+__global__ void __launch_bounds__(OWN_THREADS)
+own_compact_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, int n,
+                   const float* __restrict__ T, int n_shards, int first, int n_local, int cap,
+                   float inv, float* __restrict__ p_own, bool* __restrict__ ok,
+                   int* __restrict__ sel, int* __restrict__ over) {
+  __shared__ int scan[OWN_THREADS];
+  const int g = blockIdx.x;
+  const int lane = g / n_local;
+  const int me = first + g % n_local;
+  pts += (size_t)lane * n * 3;
+  mask += (size_t)lane * n;
+  p_own += (size_t)g * cap * 3;
+  ok += (size_t)g * cap;
+  sel += (size_t)g * cap;
+  const bool xf = T != nullptr;
+  float R[3][3] = {{1.f, 0.f, 0.f}, {0.f, 1.f, 0.f}, {0.f, 0.f, 1.f}}, t[3] = {0.f, 0.f, 0.f};
+  if (xf) lo::load_T(T + 16 * lane, R, t);
+  const uint32_t ns = (uint32_t)n_shards;
+  const int chunk = (n + OWN_THREADS - 1) / OWN_THREADS;
+  const int b0 = min(n, (int)threadIdx.x * chunk);
+  const int b1 = min(n, b0 + chunk);
+  int c = 0;
+  for (int i = b0; i < b1; ++i) c += is_mine(pts, mask, i, xf, R, t, inv, ns, me);
+  const int incl = lo::block_inclusive_scan(c, scan);
+  const int total = scan[OWN_THREADS - 1];
+  int pos = incl - c;
+  for (int i = b0; i < b1 && pos < cap; ++i) {
+    if (!is_mine(pts, mask, i, xf, R, t, inv, ns, me)) continue;
+    p_own[3 * pos] = pts[3 * i];
+    p_own[3 * pos + 1] = pts[3 * i + 1];
+    p_own[3 * pos + 2] = pts[3 * i + 2];
+    ok[pos] = true;
+    sel[pos] = i;
+    ++pos;
+  }
+  // slots past the owned points hold row n - 1, as the clipped sort does
+  for (int j = total + threadIdx.x; j < cap; j += OWN_THREADS) {
+    p_own[3 * j] = pts[3 * (n - 1)];
+    p_own[3 * j + 1] = pts[3 * (n - 1) + 1];
+    p_own[3 * j + 2] = pts[3 * (n - 1) + 2];
+    ok[j] = false;
+    sel[j] = n - 1;
+  }
+  if (threadIdx.x == 0) over[g] = max(total - cap, 0);
+}
+
+// K11a, owner-only mode: one thread a point.
+__global__ void own_ids_kernel(const float* __restrict__ pts, int n, int n_shards, float inv,
+                               int* __restrict__ owner) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  owner[i] = owner_of(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], inv, (uint32_t)n_shards);
+}
+
+// The iteration-0 scale std / 6 from the gathered raw moments [sum w |
+// sum |r| w | sum r^2 w] of n_shards shards, summed in shard order.
+__device__ __forceinline__ float scale_from_moments(const float* mom, int n_shards) {
+  float m0 = mom[0], m1 = mom[1], m2 = mom[2];
+  for (int s = 1; s < n_shards; ++s) {
+    m0 = __fadd_rn(m0, mom[3 * s]);
+    m1 = __fadd_rn(m1, mom[3 * s + 1]);
+    m2 = __fadd_rn(m2, mom[3 * s + 2]);
+  }
+  const float n0 = fmaxf(m0, 1.0f);
+  const float mean = __fdiv_rn(m1, n0);
+  const float var = fmaxf(__fsub_rn(__fdiv_rn(m2, n0), __fmul_rn(mean, mean)), 0.0f);
+  return __fdiv_rn(__fsqrt_rn(var), 6.0f);
+}
+
+__device__ __forceinline__ float warp_down_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// K11b: one block per (alpha, instance). moments = 1: grid.x = 1 and the
+// three raw moments at out[0..2]. Else out[a * 42 + (0..35)] = sum of
+// w_a vec(J J^T), out[a * 42 + 36 + (0..5)] = sum of w_a J r, and block
+// a = 0 writes the count at out[ld - 1].
+__global__ void __launch_bounds__(NE_THREADS)
+alpha_ne_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
+                const float* __restrict__ resid, const bool* __restrict__ valid, int n,
+                int n_local, const float* __restrict__ T, const int* __restrict__ flags,
+                const float* __restrict__ mom, int n_shards, const float* __restrict__ alphas,
+                int robust, int cauchy, int moments, int ld, float* __restrict__ out) {
+  __shared__ float red[NE_SUM][NE_THREADS / 32];
+  const int a = blockIdx.x, g = blockIdx.y, lane = g / n_local;
+  if (flags[3 * lane]) return;
+  pts += (size_t)g * n * 3;
+  nrm += (size_t)g * n * 3;
+  resid += (size_t)g * n;
+  valid += (size_t)g * n;
+  out += (size_t)g * ld;
+  const int tid = threadIdx.x;
+  float acc[NE_SUM];
+#pragma unroll
+  for (int k = 0; k < NE_SUM; ++k) acc[k] = 0.f;
+  if (moments) {
+    for (int i = tid; i < n; i += NE_THREADS) {
+      if (!valid[i]) continue;
+      const float ra = fabsf(resid[i]);
+      acc[0] += 1.f;
+      acc[1] += ra;
+      acc[2] += ra * ra;
+    }
+  } else {
+    float R[3][3], t[3];
+    lo::load_T(T + 16 * lane, R, t);
+    const float denom = fmaxf(scale_from_moments(mom + (size_t)lane * n_shards * 3, n_shards),
+                              1e-6f);
+    const float delta = alphas[a];
+    for (int i = tid; i < n; i += NE_THREADS) {
+      if (!valid[i]) continue;
+      const float r = resid[i];
+      const float rn = __fdiv_rn(fabsf(r), denom);
+      float w = 1.0f;
+      if (robust) {
+        if (cauchy) {
+          const float q = rn / delta;
+          w = 1.0f / (1.0f + q * q);
+        } else {
+          w = rn > delta ? delta / fmaxf(rn, 1e-30f) : 1.0f;
+        }
+      }
+      const float n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
+      const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
+      float J[6];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) J[j] = n0 * R[0][j] + n1 * R[1][j] + n2 * R[2][j];
+      J[3] = p1 * J[2] - p2 * J[1];
+      J[4] = p2 * J[0] - p0 * J[2];
+      J[5] = p0 * J[1] - p1 * J[0];
+      int k = 0;
+#pragma unroll
+      for (int x = 0; x < 6; ++x)
+#pragma unroll
+        for (int y = x; y < 6; ++y) acc[k++] += w * (J[x] * J[y]);
+#pragma unroll
+      for (int x = 0; x < 6; ++x) acc[21 + x] += w * (J[x] * r);
+      acc[27] += 1.f;
+    }
+  }
+  const int warp = tid / 32, wl = tid % 32;
+  const int nsum = moments ? 3 : NE_SUM;
+  for (int k = 0; k < nsum; ++k) {
+    const float v = warp_down_sum(acc[k]);
+    if (wl == 0) red[k][warp] = v;
+  }
+  __syncthreads();
+  __shared__ float sums[NE_SUM];
+  if (tid < nsum) {
+    float s = 0.f;
+    for (int wi = 0; wi < NE_THREADS / 32; ++wi) s += red[tid][wi];
+    if (moments) out[tid] = s;
+    sums[tid] = s;
+  }
+  __syncthreads();
+  if (moments || tid != 0) return;
+  float* o = out + (size_t)a * 42;
+  int k = 0;
+  for (int x = 0; x < 6; ++x)
+    for (int y = x; y < 6; ++y) {
+      o[x * 6 + y] = sums[k];
+      o[y * 6 + x] = sums[k];
+      ++k;
+    }
+  for (int x = 0; x < 6; ++x) o[36 + x] = sums[21 + x];
+  if (a == 0) out[ld - 1] = sums[27];
+}
+
+// K11c: one block per instance. Draws q samples of |r| / scale over the
+// valid entries' ranks (feature order) with the shard's uniforms, writes
+// them (times ok) at [off + me * q, ...) and ok at [off + S q + me * q,
+// ...), and zeros in every other shard's slots.
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+sample_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int n,
+              int n_local, int first, const int* __restrict__ flags,
+              const float* __restrict__ mom, int n_shards, const float* __restrict__ u, int q,
+              int off, int ld, float* __restrict__ out) {
+  __shared__ int scan[SAMPLE_THREADS];
+  __shared__ int ranks[MAX_Q];
+  __shared__ int sidx[MAX_Q];
+  __shared__ int first_idx;
+  const int g = blockIdx.x, lane = g / n_local, me = first + g % n_local;
+  if (flags[3 * lane]) return;
+  const int t = threadIdx.x;
+  resid += (size_t)g * n;
+  valid += (size_t)g * n;
+  out += (size_t)g * ld + off;
+  const int m = n_shards * q;
+  for (int j = t; j < m; j += SAMPLE_THREADS) {
+    if (j / q == me) continue;
+    out[j] = 0.f;
+    out[m + j] = 0.f;
+  }
+  const float denom = fmaxf(scale_from_moments(mom + (size_t)lane * n_shards * 3, n_shards),
+                            1e-6f);
+  const int chunk = (n + SAMPLE_THREADS - 1) / SAMPLE_THREADS;
+  const int b0 = min(n, t * chunk);
+  const int b1 = min(n, b0 + chunk);
+  int c = 0;
+  for (int i = b0; i < b1; ++i) c += valid[i];
+  const int incl = lo::block_inclusive_scan(c, scan);
+  const int nv = scan[SAMPLE_THREADS - 1];
+  const int base = incl - c;
+  if (t < q) {
+    const float uj = u[me * q + t];
+    const int k = (int)floorf(__fdiv_rn(__fmul_rn(__fadd_rn((float)t, uj), (float)nv), (float)q));
+    ranks[t] = min(max(k, 0), max(nv - 1, 0));
+  }
+  if (t == 0) first_idx = 0;
+  __syncthreads();
+  if (c > 0) {
+    for (int j = 0; j < q; ++j) {
+      const int want = ranks[j] - base;
+      if (want < 0 || want >= c) continue;
+      int seen = 0;
+      for (int i = b0; i < b1; ++i) {
+        if (!valid[i]) continue;
+        if (seen == want) { sidx[j] = i; break; }
+        ++seen;
+      }
+    }
+    if (base == 0) {
+      for (int i = b0; i < b1; ++i)
+        if (valid[i]) { first_idx = i; break; }
+    }
+  }
+  __syncthreads();
+  if (t < q) {
+    const float okf = t < nv ? 1.f : 0.f;
+    const float v = __fdiv_rn(fabsf(resid[t < nv ? sidx[t] : first_idx]), denom);
+    out[me * q + t] = __fmul_rn(v, okf);
+    out[m + me * q + t] = okf;
+  }
+}
+
+// K11d: one block per lane over the gathered (n_shards, ld) buffer.
+__global__ void __launch_bounds__(SELECT_THREADS)
+gn_select_kernel(const float* __restrict__ buf, int n_shards, int ld, int n_alpha, int q,
+                 int use_pko, const float* __restrict__ T, const int* __restrict__ flags,
+                 const int* __restrict__ pick, const float* __restrict__ r_grid,
+                 const float* __restrict__ Q, int n_grid, int min_corr, float tol_t,
+                 float tol_r, float* __restrict__ T_out, int* __restrict__ flags_out,
+                 int* __restrict__ info) {
+  __shared__ float samp[lo::GMM_MAX_M];
+  __shared__ float oks[lo::GMM_MAX_M];
+  __shared__ float gw[lo::GMM_KC], gmu[lo::GMM_KC], gvar[lo::GMM_KC];
+  __shared__ float P[MAX_G];
+  __shared__ float cost[MAX_A];
+  __shared__ float hg[42];
+  __shared__ float meanv;
+  __shared__ int best_s;
+  const int lane = blockIdx.x, t = threadIdx.x;
+  buf += (size_t)lane * n_shards * ld;
+  T += 16 * lane;
+  flags += 3 * lane;
+  T_out += 16 * lane;
+  flags_out += 3 * lane;
+  info += 2 * lane;
+  if (flags[0]) {  // done: pass the state through
+    if (t < 16) T_out[t] = T[t];
+    if (t < 3) flags_out[t] = flags[t];
+    if (t == 0) { info[0] = 0; info[1] = 0; }
+    return;
+  }
+  if (t == 0) best_s = 0;
+  if (use_pko) {
+    const int m = n_shards * q;
+    const int off_s = n_alpha * 42, off_o = off_s + m;
+    for (int j = t; j < m; j += SELECT_THREADS) {
+      float s = buf[off_s + j], o = buf[off_o + j];
+      for (int sh = 1; sh < n_shards; ++sh) {
+        s = __fadd_rn(s, buf[(size_t)sh * ld + off_s + j]);
+        o = __fadd_rn(o, buf[(size_t)sh * ld + off_o + j]);
+      }
+      samp[j] = s;
+      oks[j] = o;
+    }
+    __syncthreads();
+    if (t == 0) {
+      // slots of shards with too few valid residuals take the mean of the
+      // filled ones (the sums in double, then rounded)
+      double ss = 0.0, so = 0.0;
+      for (int j = 0; j < m; ++j) { ss += samp[j]; so += oks[j]; }
+      meanv = __fdiv_rn((float)ss, fmaxf((float)so, 1.0f));
+    }
+    __syncthreads();
+    for (int j = t; j < m; j += SELECT_THREADS)
+      if (!(oks[j] > 0.5f)) samp[j] = meanv;
+    __syncthreads();
+    if (t < 32) lo::gmm_fit_warp(samp, m, pick, gw, gmu, gvar);
+    __syncthreads();
+    const int best = lo::js_argmin_block(gw, gmu, gvar, r_grid, Q, n_alpha, n_grid, P, cost);
+    if (t == 0) best_s = best;
+  }
+  __syncthreads();
+  const int best = best_s;
+  if (t < 42) {
+    float s = buf[(size_t)best * 42 + t];
+    for (int sh = 1; sh < n_shards; ++sh) s = __fadd_rn(s, buf[(size_t)sh * ld + best * 42 + t]);
+    hg[t] = s;
+  }
+  __syncthreads();
+  if (t != 0) return;
+  float count = buf[ld - 1];
+  for (int sh = 1; sh < n_shards; ++sh) count = __fadd_rn(count, buf[(size_t)sh * ld + ld - 1]);
+  float h[27];
+  int k = 0;
+  for (int x = 0; x < 6; ++x)
+    for (int y = x; y < 6; ++y) h[k++] = hg[x * 6 + y];
+  for (int x = 0; x < 6; ++x) h[21 + x] = hg[36 + x];
+  float dx[6];
+  lo::solve6(h, dx);
+  float Tn[16];
+  const bool conv = lo::gn_retract(T, dx, tol_t, tol_r, Tn);
+  const bool insufficient = count < (float)min_corr;
+  const bool step = !insufficient;   // not done here
+  const int n_corr = (int)rintf(count);
+  for (int i = 0; i < 16; ++i) T_out[i] = step ? Tn[i] : T[i];
+  flags_out[0] = insufficient || (step && conv);
+  flags_out[1] = flags[1] || insufficient;
+  flags_out[2] = step ? n_corr : flags[2];
+  info[0] = best;
+  info[1] = n_corr;
+}
+
+}  // namespace
+
+LO_EXPORT int lo_shard_own(const float* pts, const bool* mask, int n, int lanes, const float* T,
+                           int n_shards, int first, int n_local, int cap, float inv,
+                           float* p_own, bool* ok, int* sel, int* over, int* owner,
+                           void* stream) {
+  if (owner != nullptr) {
+    const int total = n * lanes;
+    own_ids_kernel<<<max(1, (total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+        pts, total, n_shards, inv, owner);
+  } else {
+    if (n < 1 || cap < 1 || cap > n) return (int)cudaErrorInvalidValue;
+    own_compact_kernel<<<lanes * n_local, OWN_THREADS, 0, (cudaStream_t)stream>>>(
+        pts, mask, n, T, n_shards, first, n_local, cap, inv, p_own, ok, sel, over);
+  }
+  return (int)cudaGetLastError();
+}
+
+LO_EXPORT int lo_shard_alpha_normal_eq(const float* pts, const float* nrm, const float* resid,
+                                       const bool* valid, int n, int instances, int n_local,
+                                       const float* T, const int* flags, const float* mom,
+                                       int n_shards, const float* alphas, int n_alpha,
+                                       int robust, int cauchy, int moments, int ld, float* out,
+                                       void* stream) {
+  const dim3 grid(moments ? 1 : n_alpha, instances);
+  alpha_ne_kernel<<<grid, NE_THREADS, 0, (cudaStream_t)stream>>>(
+      pts, nrm, resid, valid, n, n_local, T, flags, mom, n_shards, alphas, robust, cauchy,
+      moments, ld, out);
+  return (int)cudaGetLastError();
+}
+
+LO_EXPORT int lo_shard_sample(const float* resid, const bool* valid, int n, int instances,
+                              int n_local, int first, const int* flags, const float* mom,
+                              int n_shards, const float* u, int q, int off, int ld, float* out,
+                              void* stream) {
+  if (q < 1 || q > MAX_Q) return (int)cudaErrorInvalidValue;
+  sample_kernel<<<instances, SAMPLE_THREADS, 0, (cudaStream_t)stream>>>(
+      resid, valid, n, n_local, first, flags, mom, n_shards, u, q, off, ld, out);
+  return (int)cudaGetLastError();
+}
+
+LO_EXPORT int lo_shard_gn_select(const float* buf, int lanes, int n_shards, int ld, int n_alpha,
+                                 int q, int use_pko, const float* T, const int* flags,
+                                 const int* pick, const float* r_grid, const float* Q,
+                                 int n_grid, int min_corr, float tol_t, float tol_r,
+                                 float* T_out, int* flags_out, int* info, void* stream) {
+  if (use_pko && (n_alpha > MAX_A || n_grid > MAX_G || n_shards * q > lo::GMM_MAX_M))
+    return (int)cudaErrorInvalidValue;
+  gn_select_kernel<<<lanes, SELECT_THREADS, 0, (cudaStream_t)stream>>>(
+      buf, n_shards, ld, n_alpha, q, use_pko, T, flags, pick, r_grid, Q, n_grid, min_corr,
+      tol_t, tol_r, T_out, flags_out, info);
+  return (int)cudaGetLastError();
+}

@@ -11,7 +11,8 @@ Every C entry point takes its tensors as raw pointers, its sizes as int,
 and the stream last; it launches on that stream and returns
 cudaGetLastError(). The lane-batched kernels (K1, K2a, K2b, K3) take the
 lane count after the per-lane size and derive each lane's offsets from
-those two. `Kernel.launch` raises on a nonzero return and adds
+those two; the shard kernels (K11a-d) take the count of shard instances
+(lanes x local shards) the same way. `Kernel.launch` raises on a nonzero return and adds
 one to `Kernel.launches`, a plain integer that shows which kernels a run
 went through. The loop-closure worker launches from its own thread and
 stream while the main thread runs chunks: the build, the library loads and
@@ -37,7 +38,7 @@ __all__ = ["Kernel", "KERNELS", "build", "reset_counts", "counts", "check",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("voxel_filter", "icp", "pko", "voxel_map", "grid_knn", "knn", "bev_align", "iris",
-           "rehash", "pgo")
+           "rehash", "pgo", "shard")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,7 +56,7 @@ _lock = threading.RLock()
 
 def _digest(src: str) -> str:
     h = hashlib.sha256()
-    for f in (CSRC / f"{src}.cu", CSRC / "common.cuh"):
+    for f in [CSRC / f"{src}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:12]
@@ -222,6 +223,18 @@ KERNELS = {k.name: k for k in [
     Kernel("pgo_backsub_retract", "pgo",
            [_P] * 8 + [_I] * 3 + [_D] + [_P] * 5,
            REF + "/parallel/distributed_pgo.py:649"),
+    Kernel("shard_own", "shard",
+           [_P, _P, _I, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
+           REF + "/parallel/sharded_map.py:92"),
+    Kernel("shard_alpha_normal_eq", "shard",
+           [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I, _P] + [_I] * 5 + [_P],
+           REF + "/parallel/sharded_map.py:312"),
+    Kernel("shard_sample", "shard",
+           [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P],
+           REF + "/parallel/sharded_map.py:331"),
+    Kernel("shard_gn_select", "shard",
+           [_P] + [_I] * 6 + [_P] * 5 + [_I] * 2 + [_F] * 2 + [_P] * 3,
+           REF + "/parallel/sharded_map.py:346"),
 ]}
 
 

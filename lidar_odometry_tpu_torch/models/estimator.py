@@ -20,7 +20,15 @@ sync_loop=True the query runs inline; otherwise a worker thread takes the
 newest query and launches its kernels on its own CUDA stream, after an
 event that the main stream recorded when it queued the keyframe. The
 worker logs an error and carries on, as the JAX worker does; every such
-error is counted in `loop_errors`.
+error is counted in `loop_errors`. The rehash always launches from the
+main thread, on the stream that owns the map.
+
+The map lives behind a backend (models/map_backend.py): one device, or the
+map sharded over a ShardGroup (ShardedMapBackend, BASELINE config 5),
+which runs through process_frame only. With more than one rank every rank
+must issue the same collectives in the same order: the same scans, and
+the loop queries inline (sync_loop=True), so that each rank rehashes at
+the same frame.
 """
 from __future__ import annotations
 
@@ -133,13 +141,25 @@ class PGOResult:
 
 
 class Estimator:
-    def __init__(self, config: SystemConfig, sync_loop: bool = False, device="cuda"):
+    def __init__(self, config: SystemConfig, sync_loop: bool = False, device="cuda",
+                 map_backend=None):
         """`sync_loop` runs each loop query inline at its keyframe (the
-        deterministic mode); else a worker thread runs them."""
+        deterministic mode); else a worker thread runs them. `map_backend`
+        (None: SingleChipMapBackend on `device`) holds the map; a
+        ShardedMapBackend must live on `device`."""
         self.cfg = config
         self.sync_loop = sync_loop
         self.device = device
-        self.backend = SingleChipMapBackend(config, device=device)
+        self.backend = map_backend or SingleChipMapBackend(config, device=device)
+        if torch.device(self.backend.device) != torch.device(device):
+            raise ValueError(f"the map backend lives on {self.backend.device}, the estimator "
+                             f"on {device}")
+        group = getattr(self.backend, "group", None)
+        if group is not None and group.world_size > 1 and not sync_loop:
+            raise ValueError(
+                "a map sharded over more than one rank needs sync_loop=True: every rank must "
+                "issue the same collectives in the same order, and a loop worker thread "
+                "would rehash each rank's map at a different frame")
 
         self.icp_cfg = icp.ICPConfig(
             max_iterations=config.max_iterations,
@@ -430,6 +450,10 @@ class Estimator:
             raw_scans = raw_scans[1:]
 
         t_start = time.perf_counter()
+        if self.backend.name != "single":
+            raise NotImplementedError(
+                "process_chunk (the fused chunk runner) needs the single-device map "
+                "backend; a sharded map runs through process_frame")
         if self._chunk_runner is None:
             self._chunk_runner = fp.make_chunk_runner(
                 self.icp_cfg, self.pko_consts,
@@ -560,8 +584,14 @@ class Estimator:
                 out[i] = np.eye(4, dtype=np.float32)
         return out
 
+    def map_counts(self) -> Dict[str, int]:
+        """n_l0, n_l1 and n_dropped of the map (summed over this rank's
+        shards for a sharded map)."""
+        return self.backend.counts(self.map_state)
+
     def map_points(self) -> np.ndarray:
-        """Every live L0 centroid of the map, (M, 3)."""
+        """Every live L0 centroid of the map, (M, 3) (this rank's shards of
+        a sharded map, whose sink rows hold no voxel)."""
         pts, valid = vm.l0_points(self.map_state)
         return _host(pts)[_host(valid)]
 
@@ -607,6 +637,9 @@ class Estimator:
     def enable_loop_closure(self, enable: bool) -> None:
         """Turn loop detection on or off at run time; starts the worker if
         it is needed and not running."""
+        group = getattr(self.backend, "group", None)
+        if enable and not self.sync_loop and group is not None and group.world_size > 1:
+            raise ValueError("a map sharded over more than one rank needs sync_loop=True")
         self.loop_detector.config.enable_loop_detection = enable
         self.cfg = self.cfg.replace(enable_loop_detection=enable)
         if enable and not self.sync_loop and self._thread is None:
@@ -835,7 +868,9 @@ class Estimator:
         """Run each loop-path program once on stand-in data before the
         first loop query: builds the kernels' libraries and plans cuFFT's
         transforms, so the first real query does not pay for them. The DB
-        rows it writes lie past the live region."""
+        rows it writes lie past the live region. The rehash's result is
+        dropped, and a sharded map's pending inserts stay pending (a
+        flush here would land them in the dropped state)."""
         cap = self.cfg.scan_capacity
         rng = np.random.default_rng(0)
         cloud = rng.uniform(-20.0, 20.0, (cap, 3)).astype(np.float32)
@@ -855,7 +890,7 @@ class Estimator:
                 torch.zeros((), dtype=torch.float32, device=self.device), self.pko_consts,
                 self.icp_cfg, prealign=self.cfg.loop_prealign, bucket_width=8,
                 max_loop_iterations=(30 if self.cfg.loop_prealign else 100))
-        self.backend.rehash(self.map_state, np.eye(4, dtype=np.float32))
+        self.backend.rehash(self.map_state, np.eye(4, dtype=np.float32), flush=False)
         if torch.device(self.device).type == "cuda":
             torch.cuda.synchronize(torch.device(self.device))
 
@@ -920,12 +955,15 @@ class Estimator:
             pass
 
     def finalize_loops(self) -> None:
-        """End of a run: stop the worker, drain the deferred chunks, run the
-        newest still-queued loop query inline and apply any pending
-        result."""
+        """End of a run: stop the worker, drain the deferred chunks, flush a
+        sharded map's pending inserts, run the newest still-queued loop
+        query inline and apply any pending result."""
         self.shutdown()
         if self._deferred_chunks:
             self.drain_chunks()
+        # a batched sharded backend may hold keyframe inserts
+        if hasattr(self.backend, "flush"):
+            self.map_state = self.backend.flush(self.map_state)
         pending = None
         with self._query_cv:
             if self._query_queue:

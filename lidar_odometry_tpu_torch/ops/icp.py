@@ -117,17 +117,25 @@ def _per_lane(fn, *args):
     return tuple(torch.stack(c) for c in zip(*outs))
 
 
-def icp_correspond(pts, mask, T, flags, map_state: vm.VoxelMapState, cfg: ICPConfig):
+def icp_correspond(pts, mask, T, flags, map_state: vm.VoxelMapState, cfg: ICPConfig,
+                   out=None):
     """K2a's wrapper. pts (N, 3) f32, mask (N,) bool, T (16,) f32 row-major,
     flags (3,) int32 [done, failed, n_corr]; for B lanes each with a
     leading B. Returns (normals (N, 3), signed residual (N,), valid (N,)
-    bool), with the leading B for lanes."""
+    bool), with the leading B for lanes, written into `out` (three
+    contiguous tensors of those shapes) when it is given."""
     lead = _lanes(pts, "icp_correspond")
     if not pts.is_cuda:
         if lead:
-            return _per_lane(lambda p, m, t: icp_correspond_plain(p, m, t, map_state, cfg),
-                             pts, mask, T)
-        return icp_correspond_plain(pts, mask, T, map_state, cfg)
+            res = _per_lane(lambda p, m, t: icp_correspond_plain(p, m, t, map_state, cfg),
+                            pts, mask, T)
+        else:
+            res = icp_correspond_plain(pts, mask, T, map_state, cfg)
+        if out is None:
+            return res
+        for o, v in zip(out, res):
+            o.copy_(v)
+        return out
     n = pts.shape[-2]
     kernels.check(pts, "pts", torch.float32, lead + (n, 3))
     kernels.check(mask, "mask", torch.bool, lead + (n,))
@@ -135,9 +143,15 @@ def icp_correspond(pts, mask, T, flags, map_state: vm.VoxelMapState, cfg: ICPCon
     kernels.check(flags, "flags", torch.int32, lead + (3,))
     kernels.check(map_state.l1_index, "l1_index", torch.int32)
     kernels.check(map_state.l1_surfel, "l1_surfel", torch.float32)
-    nrm = torch.empty(lead + (n, 3), dtype=torch.float32, device=pts.device)
-    r = torch.empty(lead + (n,), dtype=torch.float32, device=pts.device)
-    valid = torch.empty(lead + (n,), dtype=torch.bool, device=pts.device)
+    if out is None:
+        nrm = torch.empty(lead + (n, 3), dtype=torch.float32, device=pts.device)
+        r = torch.empty(lead + (n,), dtype=torch.float32, device=pts.device)
+        valid = torch.empty(lead + (n,), dtype=torch.bool, device=pts.device)
+    else:
+        nrm, r, valid = out
+        kernels.check(nrm, "nrm", torch.float32, lead + (n, 3))
+        kernels.check(r, "r", torch.float32, lead + (n,))
+        kernels.check(valid, "valid", torch.bool, lead + (n,))
     kernels.KERNELS["icp_correspond"].launch(
         pts.data_ptr(), mask.data_ptr(), n, lead[0] if lead else 1, T.data_ptr(),
         flags.data_ptr(),

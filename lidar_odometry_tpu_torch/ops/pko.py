@@ -18,7 +18,9 @@ The JAX program draws its randomness from a fixed PRNGKey(42): 100
 uniforms for the strata and 3 sample indices for the k-means start. With
 100 samples and 3 components both are constants, committed below as
 float32 bit patterns and held equal to JAX's draws by a test. Other sample
-sizes or component counts are refused.
+sizes or component counts are refused. The sharded ICP's per-shard draws
+(shard_draws) are committed the same way for 1, 2, 4 and 8 shards; the
+GMM fit and JS argmin of K3 serve its K11d too (csrc/gmm.cuh).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from .. import kernels
 __all__ = ["PKOConstants", "make_pko_constants", "pko_alpha_index",
            "pko_alpha_index_plain", "stratified_sample", "fit_gmm",
            "alpha_index_from_samples", "norm_scale_from", "STRATA_U",
-           "KMEANS_PICK"]
+           "KMEANS_PICK", "SHARD_COUNTS", "shard_quota", "shard_draws"]
 
 GMM_SAMPLES = 100
 GMM_COMPONENTS = 3
@@ -62,6 +64,122 @@ _U_BITS = [
 STRATA_U = np.asarray(_U_BITS, np.uint32).view(np.float32)
 # jax.random.randint(jax.random.PRNGKey(42), (3,), 0, 100)
 KMEANS_PICK = np.asarray([44, 14, 71], np.int32)
+
+# The sharded ICP (parallel/sharded_map.py) draws each shard's stratified
+# sample of ceil(100 / S) residuals with the uniforms
+# jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(42), shard),
+# (ceil(100 / S),)), and fits its GMM to the S * ceil(100 / S) merged
+# samples with the k-means start jax.random.randint(jax.random.PRNGKey(42),
+# (3,), 0, S * ceil(100 / S)). Both are committed below for S in
+# SHARD_COUNTS, as float32 bit patterns and indices, and held equal to
+# JAX's draws by a test.
+SHARD_COUNTS = (1, 2, 4, 8)
+_SHARD_U_BITS = {
+    1: [
+        [0x3f07bf2c, 0x3ea07100, 0x3f66cab0, 0x3f32c5f2, 0x3f1e398c, 0x3f1f31b2,
+         0x3f37be40, 0x3e56bba0, 0x3cbf9840, 0x3f3d1f6c, 0x3f160d66, 0x3f0040b0,
+         0x3f73b652, 0x3f149ab0, 0x3efba200, 0x3e7c0390, 0x3f01f698, 0x3f2e6f96,
+         0x3e4d08b0, 0x3f58a78a, 0x3c923cc0, 0x3f2ab0e4, 0x3e7abcf0, 0x3f5c4f64,
+         0x3f13ef58, 0x3f4d7434, 0x3f7727fa, 0x3f4325a2, 0x3f67b0d4, 0x3d691800,
+         0x3f00261c, 0x3ecb9648, 0x3f54e1de, 0x3f2a111a, 0x3e83bde0, 0x3f52a896,
+         0x3ebf5394, 0x3ea6c45c, 0x3db47560, 0x3f2e5c88, 0x3f1e3056, 0x3e056a48,
+         0x3eecdbf8, 0x3f7c06ce, 0x3f1e2fac, 0x3eff6428, 0x3ec87ed4, 0x3e9f40b0,
+         0x3f0e6418, 0x3f1f5010, 0x3f01f70a, 0x3f79d370, 0x3eccbf30, 0x3f771948,
+         0x3f4eabac, 0x3f420ede, 0x3ee5cfb0, 0x3f004a62, 0x3eff7e48, 0x3e9858c8,
+         0x3f734d40, 0x3f7a8f46, 0x3eff4708, 0x3e6cbc70, 0x3f6932f0, 0x3ed97cf0,
+         0x3c360680, 0x3f4ed806, 0x3f22602a, 0x3f7db976, 0x3f54ada4, 0x3f2dc3cc,
+         0x3eedb718, 0x3d97d140, 0x3f44b96c, 0x3f06eebe, 0x3f01d608, 0x3e579db8,
+         0x3ecbb3ac, 0x3ecea890, 0x3eaab9a0, 0x3f7efe8a, 0x3e536c68, 0x3f2ec234,
+         0x3e0e4078, 0x3e6168e0, 0x3efda424, 0x3f760632, 0x3f287d28, 0x3ec981a4,
+         0x3f4f1cb4, 0x3ea85510, 0x3f47af9c, 0x3eb353a4, 0x3f14de42, 0x3efd6748,
+         0x3e42cfd0, 0x3f482be2, 0x3e8b084c, 0x3f281bba],
+    ],
+    2: [
+        [0x3f07bf2c, 0x3ea07100, 0x3f66cab0, 0x3f32c5f2, 0x3f1e398c, 0x3f1f31b2,
+         0x3f37be40, 0x3e56bba0, 0x3cbf9840, 0x3f3d1f6c, 0x3f160d66, 0x3f0040b0,
+         0x3f73b652, 0x3f149ab0, 0x3efba200, 0x3e7c0390, 0x3f01f698, 0x3f2e6f96,
+         0x3e4d08b0, 0x3f58a78a, 0x3c923cc0, 0x3f2ab0e4, 0x3e7abcf0, 0x3f5c4f64,
+         0x3f13ef58, 0x3f4d7434, 0x3f7727fa, 0x3f4325a2, 0x3f67b0d4, 0x3d691800,
+         0x3f00261c, 0x3ecb9648, 0x3f54e1de, 0x3f2a111a, 0x3e83bde0, 0x3f52a896,
+         0x3ebf5394, 0x3ea6c45c, 0x3db47560, 0x3f2e5c88, 0x3f1e3056, 0x3e056a48,
+         0x3eecdbf8, 0x3f7c06ce, 0x3f1e2fac, 0x3eff6428, 0x3ec87ed4, 0x3e9f40b0,
+         0x3f0e6418, 0x3f1f5010],
+        [0x3f3a4834, 0x3f49b1b0, 0x3e3a0e10, 0x3e867778, 0x3de2c610, 0x3e4f7e70,
+         0x3ea2a810, 0x3dd83540, 0x3edc13f0, 0x3ef5f5a8, 0x3eae3584, 0x3eb1a06c,
+         0x3f67b9bc, 0x3f15d860, 0x3f28e21e, 0x3ec5ac4c, 0x3e2b3e58, 0x3f2c62d2,
+         0x3ea8dd54, 0x3e34f388, 0x3ec92f1c, 0x3f408e22, 0x3ea0a8d0, 0x3f31bcbe,
+         0x3ee2e8d8, 0x3f087b66, 0x3f450a5a, 0x3f651662, 0x3f4a2778, 0x3e08a3b0,
+         0x3e7e2860, 0x3d708220, 0x3ec2db48, 0x3f2737e8, 0x3e421f30, 0x3be60400,
+         0x3f530512, 0x3e316cd8, 0x3f2e562e, 0x3e91e26c, 0x3ef8b66c, 0x3f3e6a76,
+         0x3e7f2238, 0x3ed29040, 0x3e265c68, 0x3c97a200, 0x3f77682c, 0x3f25c21a,
+         0x3f4fb612, 0x3ec712ac],
+    ],
+    4: [
+        [0x3f07bf2c, 0x3ea07100, 0x3f66cab0, 0x3f32c5f2, 0x3f1e398c, 0x3f1f31b2,
+         0x3f37be40, 0x3e56bba0, 0x3cbf9840, 0x3f3d1f6c, 0x3f160d66, 0x3f0040b0,
+         0x3f73b652, 0x3f149ab0, 0x3efba200, 0x3e7c0390, 0x3f01f698, 0x3f2e6f96,
+         0x3e4d08b0, 0x3f58a78a, 0x3c923cc0, 0x3f2ab0e4, 0x3e7abcf0, 0x3f5c4f64,
+         0x3f13ef58],
+        [0x3f3a4834, 0x3f49b1b0, 0x3e3a0e10, 0x3e867778, 0x3de2c610, 0x3e4f7e70,
+         0x3ea2a810, 0x3dd83540, 0x3edc13f0, 0x3ef5f5a8, 0x3eae3584, 0x3eb1a06c,
+         0x3f67b9bc, 0x3f15d860, 0x3f28e21e, 0x3ec5ac4c, 0x3e2b3e58, 0x3f2c62d2,
+         0x3ea8dd54, 0x3e34f388, 0x3ec92f1c, 0x3f408e22, 0x3ea0a8d0, 0x3f31bcbe,
+         0x3ee2e8d8],
+        [0x3f2ad048, 0x3f38b35a, 0x3e01d678, 0x3eb563c8, 0x3ed79950, 0x3d2c55c0,
+         0x3d08cda0, 0x3ea4f160, 0x3ef97958, 0x3d1aa1e0, 0x3f6be9b6, 0x3f102030,
+         0x3f58c246, 0x3ec79c44, 0x3e44db28, 0x3e31a5e0, 0x3f5287ce, 0x3d9a3a00,
+         0x3e78e508, 0x3f2d8f04, 0x3e8a84dc, 0x3f31aa42, 0x3f01abd4, 0x3f3178e4,
+         0x3f73f6cc],
+        [0x3ec72c98, 0x3daf9660, 0x3d50fae0, 0x3f1f28fa, 0x3eb35b50, 0x3f149806,
+         0x3f10ff90, 0x3e4364c0, 0x3f0624c2, 0x3e9e1400, 0x3f46a426, 0x3d5fa040,
+         0x3f1b76a2, 0x3e10aa00, 0x3f61d4c4, 0x3f3633a0, 0x3f4d12be, 0x3e3a2258,
+         0x3f56b726, 0x3ec1add8, 0x3e861f70, 0x3f2b6b92, 0x3efd0c08, 0x3f4aafb2,
+         0x3e019a60],
+    ],
+    8: [
+        [0x3f07bf2c, 0x3ea07100, 0x3f66cab0, 0x3f32c5f2, 0x3f1e398c, 0x3f1f31b2,
+         0x3f37be40, 0x3e56bba0, 0x3cbf9840, 0x3f3d1f6c, 0x3f160d66, 0x3f0040b0,
+         0x3f73b652],
+        [0x3f3a4834, 0x3f49b1b0, 0x3e3a0e10, 0x3e867778, 0x3de2c610, 0x3e4f7e70,
+         0x3ea2a810, 0x3dd83540, 0x3edc13f0, 0x3ef5f5a8, 0x3eae3584, 0x3eb1a06c,
+         0x3f67b9bc],
+        [0x3f2ad048, 0x3f38b35a, 0x3e01d678, 0x3eb563c8, 0x3ed79950, 0x3d2c55c0,
+         0x3d08cda0, 0x3ea4f160, 0x3ef97958, 0x3d1aa1e0, 0x3f6be9b6, 0x3f102030,
+         0x3f58c246],
+        [0x3ec72c98, 0x3daf9660, 0x3d50fae0, 0x3f1f28fa, 0x3eb35b50, 0x3f149806,
+         0x3f10ff90, 0x3e4364c0, 0x3f0624c2, 0x3e9e1400, 0x3f46a426, 0x3d5fa040,
+         0x3f1b76a2],
+        [0x3f3e65b8, 0x3f11a048, 0x3f720608, 0x3f47bf10, 0x3f4623e2, 0x3f1b42c0,
+         0x3f22defe, 0x3ee6a50c, 0x3f7dd018, 0x3e82c8bc, 0x3f603434, 0x3f54b5f4,
+         0x3f0e8048],
+        [0x3ed419d4, 0x3cbfd480, 0x3e8a9d50, 0x3e3a64f8, 0x3f6f38de, 0x3eeb6ea0,
+         0x3e871cc4, 0x3f09bb6e, 0x3ee49d68, 0x3f010918, 0x3ea855ec, 0x3f62a288,
+         0x3f1b4df6],
+        [0x3ecc974c, 0x3e85e90c, 0x3e7c8580, 0x3f05bb44, 0x3f1c0af0, 0x3f6c0002,
+         0x3f278dca, 0x3f6f8fae, 0x3e826224, 0x3b62a800, 0x3e883c88, 0x3f3dfce2,
+         0x3ed8961c],
+        [0x3f1d1304, 0x3efe084c, 0x3f0f889e, 0x3f1e9306, 0x3f04d828, 0x3f0474bc,
+         0x3d8f5740, 0x3f585572, 0x3dcd1190, 0x3e9d7c70, 0x3f0016c2, 0x3cf55b00,
+         0x3f7fefc8],
+    ],
+}
+_PICK_BY_SAMPLES = {100: KMEANS_PICK, 104: np.asarray([76, 90, 103], np.int32)}
+
+
+def shard_quota(n_shards: int) -> int:
+    """Samples each of n_shards shards draws: ceil(100 / n_shards)."""
+    return -(-GMM_SAMPLES // n_shards)
+
+
+def shard_draws(n_shards: int):
+    """The sharded ICP's draws for n_shards shards: (u (S, quota) float32,
+    the k-means start (3,) int32 over S * quota samples). Raises for a
+    shard count that has no committed draws."""
+    if n_shards not in SHARD_COUNTS:
+        raise ValueError(f"the port carries the sharded ICP's draws for {SHARD_COUNTS} shards "
+                         f"only, not {n_shards}")
+    u = np.asarray(_SHARD_U_BITS[n_shards], np.uint32).view(np.float32)
+    return u, _PICK_BY_SAMPLES[n_shards * shard_quota(n_shards)].copy()
 
 
 def _kernel_weight_np(r, delta, kernel_type):
@@ -154,7 +272,10 @@ def stratified_sample(residuals: torch.Tensor, valid: torch.Tensor,
     idx_of_rank[torch.where(valid, rank, n).to(torch.int64)] = torch.arange(
         n, device=residuals.device)
     j = torch.arange(m, dtype=torch.float32, device=residuals.device)
-    k = torch.floor((j + u) * n_valid.to(torch.float32) / float(m)).to(torch.int64)
+    # divided by a tensor: CUDA multiplies by a Python scalar divisor's
+    # reciprocal, which rounds differently from the kernels' division
+    k = torch.floor((j + u) * n_valid.to(torch.float32)
+                    / torch.full((), float(m), device=residuals.device)).to(torch.int64)
     k = torch.minimum(torch.clamp(k, min=0), torch.clamp(n_valid - 1, min=0))
     samples = residuals[idx_of_rank[k]]
     ok = torch.arange(m, device=residuals.device) < n_valid
@@ -216,8 +337,12 @@ def _first_argmin(cost: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.any(nan), first_nan, first_min).to(torch.int32)
 
 
-def alpha_index_from_samples(samples: torch.Tensor, consts: PKOConstants) -> torch.Tensor:
-    w, mu, var = fit_gmm(samples, consts.pick, consts.gmm_components)
+def alpha_index_from_samples(samples: torch.Tensor, consts: PKOConstants,
+                             pick: torch.Tensor = None) -> torch.Tensor:
+    """The JS-argmin alpha index of the GMM fitted to `samples`, from the
+    k-means start `pick` (consts.pick, the draw for 100 samples, unless
+    given)."""
+    w, mu, var = fit_gmm(samples, consts.pick if pick is None else pick, consts.gmm_components)
     r = consts.r_grid
     P = (w[None, :] * _gaussian_pdf(r[:, None], mu[None, :], var[None, :])).sum(1) + 1e-10
     Q = consts.Q

@@ -51,7 +51,8 @@ def scene(dev):
     feat, mask, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=0.5, stride=1,
                                     out_capacity=8192, compact_keys=True)
     T = (carry.T_prev @ carry.velocity).reshape(16).contiguous()
-    return dict(carry=carry, raw=raw, feat=feat, mask=mask, T=T, cfg=cfg, consts=consts)
+    return dict(carry=carry, raw=raw, feat=feat, mask=mask, T=T, cfg=cfg, consts=consts,
+                raws=torch.tensor(scans[4:], device=dev))
 
 
 def test_voxel_filter_kernel(scene):
@@ -577,3 +578,166 @@ def test_pgo_kernels_raise_and_do_not_fall_back(dev):
     g["st"] = g["st"].float()
     with pytest.raises(ValueError, match="st"):
         dpgo.linearize(g, g["poses"])
+
+
+@pytest.mark.parametrize("n_shards", [1, 4, 8])
+def test_shard_kernels(scene, n_shards):
+    """K11a-d against their plain twins on the card, on a map of the
+    scene's voxels sharded over n_shards shards; instance k of an
+    n-instance launch bit-equal to a one-instance launch of instance k."""
+    from lidar_odometry_tpu_torch.parallel import mesh
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    from lidar_odometry_tpu_torch.parallel import sharded_map as sm
+    cfg, consts = scene["cfg"], scene["consts"]
+    feat, mask, T = scene["feat"], scene["mask"], scene["T"]
+    g = mesh.make_group(n_shards, device="cuda")
+    pts, live = vm.l0_points(scene["carry"].map_state)
+    st = sm.sharded_empty_map(0, 8192 * n_shards, g)
+    sm.sharded_update_map(st, pts.contiguous(), live.contiguous(), T.view(4, 4)[:3, 3], 1e4, g,
+                          voxel_size=0.5, planarity_threshold=0.1)
+    n = feat.shape[0]
+    cap = so.owned_cap(n, n_shards)
+    inv = so.owner_inv(0.5, 3)
+    args = (feat[None].contiguous(), mask[None].contiguous(), T[None].contiguous())
+    own_k = so.shard_own(*args, n_shards, 0, n_shards, cap, inv)
+    own_p = so.shard_own_plain(*args, n_shards, 0, n_shards, cap, inv)
+    assert all(torch.equal(a, b) for a, b in zip(own_k, own_p))
+    for k in range(n_shards):
+        one = so.shard_own(*args, n_shards, k, 1, cap, inv)
+        assert all(torch.equal(a[0], b[k]) for a, b in zip(one, own_k))
+    assert torch.equal(so.shard_owner(pts.contiguous(), n_shards, inv),
+                       so.shard_owner_plain(pts.contiguous(), n_shards, inv))
+    p_own, ok = own_k[0], own_k[1]
+    flags = torch.zeros((1, 3), dtype=torch.int32, device="cuda")
+    corr = [icp.icp_correspond(p_own[k], ok[k], T, flags[0], sm.local_view(st, k), cfg)
+            for k in range(n_shards)]
+    nrm, r, valid = (torch.stack(c).contiguous() for c in zip(*corr))
+    T1 = T[None].contiguous()
+    mk = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T1, flags, None, None, cfg,
+                                  n_local=n_shards, moments=True)
+    mp = so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T1, flags, None, None, cfg,
+                                        n_local=n_shards, moments=True)
+    assert float(((mk - mp).abs() / mp.abs().clamp(min=1.0)).max()) <= 1e-5
+    mom = mk.view(1, n_shards, 3)
+    u, pick = (torch.as_tensor(a, device="cuda") for a in pko.shard_draws(n_shards))
+    q = u.shape[1]
+    ld = so.buffer_width(101, n_shards, q)
+    rk, rp = (torch.zeros((n_shards, ld), device="cuda") for _ in range(2))
+    for fn, out in ((so.shard_alpha_normal_eq, rk), (so.shard_alpha_normal_eq_plain, rp)):
+        fn(p_own, nrm, r, valid, T1, flags, mom, consts.alphas, cfg, n_local=n_shards, out=out)
+    _assert_systems_close(rk, rp, 101)
+    so.shard_sample(r, valid, flags, mom, u, first=0, n_local=n_shards, off=101 * 42, out=rk)
+    so.shard_sample_plain(r, valid, flags, mom, u, first=0, n_local=n_shards, off=101 * 42,
+                          out=rp)
+    assert torch.equal(rk[:, 101 * 42:-1], rp[:, 101 * 42:-1])
+    for k in range(n_shards):
+        one = torch.zeros((1, ld), device="cuda")
+        so.shard_alpha_normal_eq(p_own[k:k + 1], nrm[k:k + 1], r[k:k + 1], valid[k:k + 1], T1,
+                                 flags, mom, consts.alphas, cfg, n_local=1, out=one)
+        so.shard_sample(r[k:k + 1], valid[k:k + 1], flags, mom, u, first=k, n_local=1,
+                        off=101 * 42, out=one)
+        assert torch.equal(one[0], rk[k])
+    sel_k = so.shard_gn_select(rk[None], T1, flags, consts, pick, cfg, n_alpha=101, quota=q,
+                               use_pko=True)
+    sel_p = so.shard_gn_select_plain(rk[None], T1, flags, consts, pick, cfg, n_alpha=101,
+                                     quota=q, use_pko=True)
+    assert torch.equal(sel_k[2], sel_p[2]) and torch.equal(sel_k[1], sel_p[1])
+    assert float((sel_k[0] - sel_p[0]).abs().max()) <= 1e-6
+    torch.cuda.synchronize()
+
+
+def _assert_systems_close(rk, rp, n_alpha):
+    """K11b's rows against the twin's, each block at its own scale: the
+    J J^T entries and the J r entries within 1e-5 of their block's
+    largest, the count exactly."""
+    cols = torch.arange(n_alpha * 42, device=rk.device).view(n_alpha, 42)
+    for idx in (cols[:, :36].flatten(), cols[:, 36:].flatten()):
+        assert float((rk[:, idx] - rp[:, idx]).abs().max()) <= 1e-5 * float(rp[:, idx].abs().max())
+    assert torch.equal(rk[:, -1], rp[:, -1])
+
+
+def test_shard_kernels_lanes(scene):
+    """K11a-d at the step path's shapes (2 lanes x 4 shards, N = 14336),
+    the lanes with their own scans, guesses and moments: every output
+    against the plain twin with both lanes live and with each lane done
+    in turn (its rows left unwritten), and lane b of each launch bit-equal
+    to a one-lane launch on lane b's inputs."""
+    from lidar_odometry_tpu_torch.parallel import mesh
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    from lidar_odometry_tpu_torch.parallel import sharded_map as sm
+    cfg, consts = scene["cfg"], scene["consts"]
+    b, s, n = 2, 4, 14336
+    g = mesh.make_group(s, device="cuda")
+    pts, live = vm.l0_points(scene["carry"].map_state)
+    st = sm.sharded_empty_map(0, 8192 * s, g)
+    sm.sharded_update_map(st, pts.contiguous(), live.contiguous(), scene["T"].view(4, 4)[:3, 3],
+                          1e4, g, voxel_size=0.5, planarity_threshold=0.1)
+    feats = [vf.voxel_filter(raw, raw.shape[0], voxel_size=0.5, stride=1, out_capacity=n,
+                             compact_keys=True)[:2] for raw in scene["raws"]]
+    feat = torch.stack([f for f, _ in feats]).contiguous()
+    mask = torch.stack([m for _, m in feats]).contiguous()
+    T = scene["T"].view(1, 16).repeat(b, 1)
+    T[0, 3] -= 0.4                 # frame 4's guess, one step back
+    T[1, 7] += 0.05
+    T = T.contiguous()
+    cap, inv = so.owned_cap(n, s), so.owner_inv(0.5, 3)
+
+    def inst(x, lane):
+        return x[lane * s:(lane + 1) * s]
+
+    for Tx in (T, None):
+        own_k = so.shard_own(feat, mask, Tx, s, 0, s, cap, inv)
+        own_p = so.shard_own_plain(feat, mask, Tx, s, 0, s, cap, inv)
+        assert all(torch.equal(x, y) for x, y in zip(own_k, own_p))
+        for lane in range(b):
+            one = so.shard_own(feat[lane:lane + 1], mask[lane:lane + 1],
+                               None if Tx is None else Tx[lane:lane + 1], s, 0, s, cap, inv)
+            assert all(torch.equal(inst(x, lane), y) for x, y in zip(own_k, one))
+    p_own, ok = so.shard_own(feat, mask, T, s, 0, s, cap, inv)[:2]
+    zero = torch.zeros((b, 3), dtype=torch.int32, device="cuda")
+    corr = [icp.icp_correspond(p_own[i], ok[i], T[i // s], zero[i // s],
+                               sm.local_view(st, i % s), cfg) for i in range(b * s)]
+    nrm, r, valid = (torch.stack(c).contiguous() for c in zip(*corr))
+    args = (p_own, nrm, r, valid)
+    mk = so.shard_alpha_normal_eq(*args, T, zero, None, None, cfg, n_local=s, moments=True)
+    mp = so.shard_alpha_normal_eq_plain(*args, T, zero, None, None, cfg, n_local=s, moments=True)
+    assert float(((mk - mp).abs() / mp.abs().clamp(min=1.0)).max()) <= 1e-5
+    mom = mk.view(b, s, 3).contiguous()
+    assert not torch.equal(mom[0], mom[1])
+    u, pick = (torch.as_tensor(a, device="cuda") for a in pko.shard_draws(s))
+    q = u.shape[1]
+    off, ld = 101 * 42, so.buffer_width(101, s, q)
+    for done in (None, 0, 1):
+        flags = zero.clone()
+        if done is not None:
+            flags[done] = torch.tensor([1, 0, 77], dtype=torch.int32, device="cuda")
+        rk = torch.full((b * s, ld), -7.0, device="cuda")
+        rp = rk.clone()
+        for ne, smp, out in ((so.shard_alpha_normal_eq, so.shard_sample, rk),
+                             (so.shard_alpha_normal_eq_plain, so.shard_sample_plain, rp)):
+            ne(*args, T, flags, mom, consts.alphas, cfg, n_local=s, out=out)
+            smp(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=out)
+        _assert_systems_close(rk, rp, 101)
+        assert torch.equal(rk[:, off:-1], rp[:, off:-1])
+        if done is not None:
+            assert bool((inst(rk, done) == -7.0).all())
+        for lane in range(b):
+            one = torch.full((s, ld), -7.0, device="cuda")
+            so.shard_alpha_normal_eq(*(inst(a, lane) for a in args), T[lane:lane + 1],
+                                     flags[lane:lane + 1], mom[lane:lane + 1], consts.alphas,
+                                     cfg, n_local=s, out=one)
+            so.shard_sample(inst(r, lane), inst(valid, lane), flags[lane:lane + 1],
+                            mom[lane:lane + 1], u, first=0, n_local=s, off=off, out=one)
+            assert torch.equal(one, inst(rk, lane))
+        buf = rk.view(b, s, ld)
+        sk = so.shard_gn_select(buf, T, flags, consts, pick, cfg, n_alpha=101, quota=q,
+                                use_pko=True)
+        sp = so.shard_gn_select_plain(buf, T, flags, consts, pick, cfg, n_alpha=101, quota=q,
+                                      use_pko=True)
+        assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
+        assert float((sk[0] - sp[0]).abs().max()) <= 1e-6
+        for lane in range(b):
+            one = so.shard_gn_select(buf[lane:lane + 1], T[lane:lane + 1], flags[lane:lane + 1],
+                                     consts, pick, cfg, n_alpha=101, quota=q, use_pko=True)
+            assert all(torch.equal(x[lane], y[0]) for x, y in zip(sk, one))
+    torch.cuda.synchronize()

@@ -40,7 +40,8 @@ Phases, each of which exits nonzero on failure:
          of its twin: at most 1e-10 of each output's largest magnitude,
          1e-9 on the retracted poses, and for K10c's solve of a system of
          kappa ~5e9 its normwise backward error at most 1e-13; their
-         bounds count f64 operations at 67 TFLOP/s;
+         bounds count f64 operations at 67 TFLOP/s (the host solvers' K12a
+         and K12b, on the same graph, are held in phase 7b);
        - the sharded map's kernels (K11a shard_own, K11b
          shard_alpha_normal_eq, K11c shard_sample, K11d shard_gn_select)
          at kitti.yaml's width (16384 features of a dense loop frame, 101
@@ -69,6 +70,17 @@ Phases, each of which exits nonzero on failure:
      twins, give bit-equal poses in two calls and sync the host at most
      once a call; device ms of the GN iterations beside the manual
      backend's host ms;
+  7b. the Schur path, the distributed backend's host solvers on the same
+     graph over a one-rank NCCL process group: K12a pgo_block_thomas and
+     K12b pgo_eliminate_lu against their plain twins on the first GN
+     iteration's system (K12a on its block-tridiagonal part in float64 and
+     float32, beside torch.linalg.solve of the dense 22200 x 22200 matrix;
+     K12b on D = 72 partitions of max_m = 211 rows); then
+     block_tridiag_solve, schur_partitioned_solve (normwise backward error
+     at most N eps, kappa_1 beside it), the host Gauss-Newton iteration
+     _optimize_distributed_host (converged, within 1e-6 of the manual
+     backend and of gn_optimize_device; its wall ms beside theirs) and the
+     solve over a ShardGroup of 4 shards (bit-equal to no group);
   8. the blocked path: make_blocked_runner, B = 4 lanes over one shared
      map of 4 x 65536 parents at the JAX bench's blocked operating point
      (bench.py:153-200: lane b the bench's world and drive with seed
@@ -78,7 +90,7 @@ Phases, each of which exits nonzero on failure:
      surfel path's, ATE per lane (each below 0.5 m), keyframes per lane
      (lane 0 within 1 of the surfel path's over the same 60 frames), map
      size, and the host syncs of one block=4 chunk (at most 1);
-  9. the sharded path and the data x map step, over a one-rank NCCL
+  9. the sharded path and the data x map step, over the one-rank NCCL
      process group with 4 shards on the card: config/kitti.yaml with the
      distributed pose graph through Estimator(sync_loop=True,
      map_backend=ShardedMapBackend).process_frame over the loops path's
@@ -96,7 +108,8 @@ and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
 loops path the surfel path's kernels, K5b and every loop-closure kernel
 (and with the distributed backend K10a-K10d too, which the manual run must
-not launch), the PGO path K10a-K10d, the blocked path the surfel path's
+not launch), the PGO path K10a-K10d, the Schur path K12a and K12b and no
+K10 kernel, the blocked path the surfel path's
 kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
 the loops path's kernels, K10a-d and K11a-d, the step path K11a-d, K1,
 K2a and K4a-c. `--profile` also profiles 20 frames of the sharded path. Lanes 1-3's
@@ -174,6 +187,8 @@ PGO_KERNELS = ("pgo_linearize", "pgo_eliminate", "pgo_reduced_solve", "pgo_backs
 PGO_N = 3700
 PGO_LOOPS = 32
 PGO_SEED = 0
+# the host solvers (K12a, K12b) on the same graph: phase 7b
+SCHUR_KERNELS = ("pgo_block_thomas", "pgo_eliminate_lu")
 # the sharded map: K11a-d checked at these shard counts (the committed
 # draws'), the sharded path and the data x map step at SHARDS shards on
 # this card's one rank; the step over the blocked path's first STEP_LANES
@@ -1399,21 +1414,11 @@ def pgo_path(graph):
     import numpy as np
     from lidar_odometry_tpu_torch import kernels
     from lidar_odometry_tpu_torch.eval import ate_rmse
-    from lidar_odometry_tpu_torch.models.pose_graph import PoseGraphOptimizer
     from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
 
     init, priors, betweens, true = graph
     args = (init, priors, betweens)
-    manual = PoseGraphOptimizer(backend="manual")
-    manual.import_factors(dict(
-        keyframe_ids=np.arange(PGO_N), poses=init,
-        prior_keys=np.array([p[0] for p in priors]),
-        prior_measured=np.stack([p[1] for p in priors]),
-        prior_sqrt_info=np.stack([p[2] for p in priors]),
-        between_keys=np.array([(b[0], b[1]) for b in betweens]),
-        between_measured=np.stack([b[2] for b in betweens]),
-        between_sqrt_info=np.stack([b[3] for b in betweens]),
-        counts=np.array([PGO_N - 1, 0])))
+    manual = import_graph(graph, backend="manual")
     t0 = time.perf_counter()
     ok_m = manual._optimize(max_iterations=10, convergence_threshold=1e-6)
     manual_ms = (time.perf_counter() - t0) * 1e3
@@ -1467,7 +1472,231 @@ def pgo_path(graph):
         fail("pgo path: two calls on the same graph differ")
     if syncs > 1:
         fail(f"pgo path: {syncs} host syncs in one call (at most 1: the poses' download)")
-    return launches
+    return launches, dict(manual=ref, device=out, manual_ms=manual_ms, call_ms=call_ms,
+                          device_ms=device_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the Schur path
+# ---------------------------------------------------------------------------
+
+def import_graph(graph, backend="distributed"):
+    """A PoseGraphOptimizer holding `graph` (make_pgo_graph's tuple), on
+    DEVICE."""
+    import numpy as np
+    from lidar_odometry_tpu_torch.models.pose_graph import PoseGraphOptimizer
+    init, priors, betweens, _ = graph
+    pg = PoseGraphOptimizer(backend=backend, device=DEVICE)
+    pg.import_factors(dict(
+        keyframe_ids=np.arange(len(init)), poses=init,
+        prior_keys=np.array([p[0] for p in priors]),
+        prior_measured=np.stack([p[1] for p in priors]),
+        prior_sqrt_info=np.stack([p[2] for p in priors]),
+        between_keys=np.array([(b[0], b[1]) for b in betweens]),
+        between_measured=np.stack([b[2] for b in betweens]),
+        between_sqrt_info=np.stack([b[3] for b in betweens]),
+        counts=np.array([len(init) - 1, 0])))
+    return pg
+
+
+def dense_system(diag, off, loop_edges=(), loop_blocks=()):
+    """The (6n)^2 float64 matrix of the block-tridiagonal system with its
+    loop blocks (duplicate edges add), assembled on DEVICE."""
+    import torch
+    n = diag.shape[0]
+    H = torch.zeros((6 * n, 6 * n), dtype=torch.float64, device=DEVICE)
+    H4 = H.view(n, 6, n, 6)
+    i = torch.arange(n, device=DEVICE)
+    H4[i, :, i, :] = diag
+    H4[i[:-1], :, i[1:], :] = off[: n - 1]
+    H4[i[1:], :, i[:-1], :] = off[: n - 1].mT
+    for (a, b), (Baa, Bab, Bbb) in zip(loop_edges, loop_blocks):
+        H4[a, :, a, :] += torch.as_tensor(Baa, device=DEVICE)
+        H4[a, :, b, :] += torch.as_tensor(Bab, device=DEVICE)
+        H4[b, :, a, :] += torch.as_tensor(Bab, device=DEVICE).mT
+        H4[b, :, b, :] += torch.as_tensor(Bbb, device=DEVICE)
+    return H
+
+
+def backward_error(H, x, b) -> float:
+    """The normwise backward error |H x - b| / (|H| |x|) in the inf-norm."""
+    x = x.reshape(-1)
+    return float((H @ x - b.reshape(-1)).abs().max()
+                 / (H.abs().sum(1).max() * x.abs().max()))
+
+
+def schur_path(graph, pgo, group):
+    """The distributed backend's host solvers on the KITTI-00-sized graph.
+    First K12a and K12b against their plain twins, each fed the first GN
+    iteration's system of _solve_distributed: K12a its block-tridiagonal
+    part (the 32 loop couplings dropped) in float64 (1e-10 of max|x|, also
+    beside torch.linalg.solve of the assembled dense matrix, the library
+    time) and float32 (1e-5 of max|x| from the float32 twin; the distance
+    from the float64 answer, ~7e-4, is printed only); K12b's S, r, F, G, g
+    at 1e-10 of each output's largest magnitude. Then the path, with the
+    launch counts reset before and read after: block_tridiag_solve of that
+    chain, schur_partitioned_solve of the whole system (held by its normwise
+    backward error, kappa_1 beside it), _optimize_distributed_host (it must
+    converge within 1e-6 of the manual backend's and gn_optimize_device's
+    poses; wall ms beside theirs, split into its steps' linearisation,
+    partitioned solve and the rest) and the solve over a ShardGroup of 4
+    shards on `group`, bit-equal to no group."""
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    from lidar_odometry_tpu_torch.parallel import mesh
+
+    rows = {}
+    n = len(graph[0])
+    pg = import_graph(graph)
+    diag, off, b, loops, blocks = pg._linearize_distributed(n)
+    seps = dpgo.plan_partition(n, min(pg.n_blocks, max(n // 2, 1)), loops)
+    N = 6 * n
+    eps = float(np.finfo(np.float64).eps)
+
+    def rel(a, c):
+        return float((a - c).abs().max() / c.abs().max()), float((a - c).abs().max())
+
+    # ---- K12a on the block-tridiagonal part ----
+    dd, oo, bb = (torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                  for a in (diag, off[: n - 1], b))
+    xk = dpgo.block_tridiag_solve(dd, oo, bb)
+    xp = dpgo.block_tridiag_solve_plain(dd, oo, bb)
+    err, err_abs = rel(xk, xp)
+    Hc = dense_system(dd, oo)
+    lib_ms = time_ms(lambda: torch.linalg.solve(Hc, bb.reshape(-1)), reps=3)
+    xd = torch.linalg.solve(Hc, bb.reshape(-1)).reshape(n, 6)
+    vs_dense = rel(xk, xd)[0]
+    bwd_chain = backward_error(Hc, xk, bb)
+    del Hc
+    d32, o32, b32 = dd.float(), oo.float(), bb.float()
+    xk32 = dpgo.block_tridiag_solve(d32, o32, b32)
+    xp32 = dpgo.block_tridiag_solve_plain(d32, o32, b32)
+    err32 = rel(xk32, xp32)[0]
+    f32_from_f64 = rel(xk32.double(), xk)[0]
+    twin32_from_f64 = rel(xp32.double(), xk)[0]
+    print(f"  schur graph: {n} keyframes, {len(loops)} loop edges, D = {len(seps)} "
+          f"partitions; K12a float32: {err32:.3e} of max|x| from its twin (tol 1e-05), "
+          f"{f32_from_f64:.3e} from the float64 kernel (the float32 twin {twin32_from_f64:.3e})",
+          flush=True)
+    if not err32 <= 1e-5:
+        fail(f"pgo_block_thomas float32 differs from its twin by {err32} of max|x| (> 1e-5)")
+    if not bwd_chain <= N * eps:
+        fail(f"pgo_block_thomas: backward error {bwd_chain} in the chain system (> N eps)")
+    record(rows, "pgo_block_thomas", err, 1e-10, lambda: dpgo.block_tridiag_solve(dd, oo, bb),
+           time_ms(lambda: dpgo.block_tridiag_solve_plain(dd, oo, bb), reps=3),
+           n * 288 + (n - 1) * 288 + n * 48 + n * 48,
+           n * (2 * 216 + 2 * 36 + 125 + 7 * 30 + 7 * 36) + n * 72,
+           library_ms=lib_ms, ops_per_s=FP64_OPS_PER_S,
+           note=f"x of the {N} x {N} chain system, float64; err relative to max|x|; "
+                f"{vs_dense:.3e} of max|x| from torch.linalg.solve on the dense matrix "
+                f"(library), backward error {bwd_chain:.3e}; float32 {err32:.3e} from its twin")
+    rows["pgo_block_thomas"].update(max_abs_err=err_abs, compared_err=err, float32_err=err32,
+                                    float32_from_float64=f32_from_f64, dense_rel=vs_dense,
+                                    backward_error=bwd_chain)
+
+    # ---- K12b on the packed interiors of the whole system ----
+    packed = [torch.from_numpy(a).to(DEVICE) for a in dpgo.pack_interiors(diag, off, b, seps)]
+    D, max_m = packed[0].shape[:2]
+    n_rows = int(packed[-1].sum())
+    el_k = dpgo.eliminate_interior_lu(*packed)
+    el_p = dpgo.eliminate_interior_lu_plain(*packed)
+    errs = [rel(a, c) for a, c in zip(el_k, el_p)]
+    # the bound reads only the valid rows (padded rows' contents are never
+    # read: Dt = I, zero right-hand sides) and writes every output in full
+    m_d = packed[-1].sum(1)
+    n_oint = int((m_d - 1).clamp(min=0).sum())
+    isz = packed[0].element_size()
+    in_bytes = ((n_rows * (36 + 6 + 36) + n_oint * 36 + 2 * D * 36) * isz
+                + packed[-1].numel() * packed[-1].element_size())
+    out_bytes = sum(t.numel() * t.element_size() for t in el_k)
+    record(rows, "pgo_eliminate_lu", max(e[0] for e in errs), 1e-10,
+           lambda: dpgo.eliminate_interior_lu(*packed),
+           time_ms(lambda: dpgo.eliminate_interior_lu_plain(*packed), reps=3),
+           in_bytes + out_bytes, n_rows * (2 * 468 + 125 + 13 * 66 + 2 * 468) + D * 6 * 66,
+           ops_per_s=FP64_OPS_PER_S,
+           note=f"{D} partitions x {max_m} rows, {n_rows} valid; S, r, F, G, g; err relative; "
+                f"no one PyTorch call computes a partition's Schur blocks and factors")
+    rows["pgo_eliminate_lu"].update(max_abs_err=max(e[1] for e in errs),
+                                    compared_err=max(e[0] for e in errs))
+    del packed, el_k, el_p
+
+    # ---- the path ----
+    sg = mesh.make_group(4, device=DEVICE, group=group)
+    host = import_graph(graph)
+    # the host loop's split: each step's linearisation, the rest of the step
+    # (the plan and schur_partitioned_solve) and, outside the steps, the
+    # retraction and the convergence test
+    spent = dict(linearize=0.0, step=0.0, steps=0)
+
+    def timed(fn, key):
+        def call(n_vars):
+            t = time.perf_counter()
+            out = fn(n_vars)
+            spent[key] += time.perf_counter() - t
+            spent["steps"] += key == "step"
+            return out
+        return call
+
+    host._linearize_distributed = timed(host._linearize_distributed, "linearize")
+    host._solve_distributed = timed(host._solve_distributed, "step")
+    sync()
+    kernels.reset_counts()
+    x_chain = dpgo.block_tridiag_solve(dd, oo, bb)
+    x = dpgo.schur_partitioned_solve(diag, off, b, seps, loops, blocks, device=DEVICE)
+    t0 = time.perf_counter()
+    ok = host._optimize_distributed_host(max_iterations=10, convergence_threshold=1e-6)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    x_g = dpgo.schur_partitioned_solve(diag, off, b, seps, loops, blocks, group=sg)
+    sync()
+    launches = kernels.counts()
+
+    chain_equal = bool(torch.equal(x_chain, xk))
+    Hf = dense_system(dd, torch.from_numpy(off).to(DEVICE), loops, blocks)
+    xt = torch.from_numpy(x).to(DEVICE)
+    bwd = backward_error(Hf, xt, bb)
+    kappa = float(torch.linalg.cond(Hf, p=1))
+    del Hf
+    opt = host.get_all_optimized_poses()
+    poses = np.stack([opt[i] for i in range(n)])
+    d_manual = float(np.abs(poses - pgo["manual"]).max())
+    d_device = float(np.abs(poses - pgo["device"]).max())
+    group_equal = bool(np.array_equal(x_g, x))
+    split = dict(steps=spent["steps"], linearize_ms=spent["linearize"] * 1e3,
+                 solve_ms=(spent["step"] - spent["linearize"]) * 1e3,
+                 rest_ms=host_ms - spent["step"] * 1e3)
+    summary = dict(keyframes=n, loops=len(loops), D=len(seps), max_m=max_m, N=N,
+                   schur_backward_error=bwd, kappa_1=kappa, chain_bit_equal=chain_equal,
+                   host_converged=bool(ok), host_ms=host_ms, host_split=split,
+                   manual_host_ms=pgo["manual_ms"],
+                   device_call_ms=pgo["call_ms"], device_gn_ms=pgo["device_ms"],
+                   max_diff_manual=d_manual, max_diff_device=d_device,
+                   group_shards=sg.n_shards, group_bit_equal=group_equal,
+                   launches={k: launches[k] for k in SCHUR_KERNELS})
+    print(f"schur path: {n} keyframes, D {len(seps)}, max_m {max_m}: the partitioned solve's "
+          f"backward error {bwd:.3e} in the {N} x {N} system (kappa_1 {kappa:.3e}); host "
+          f"iteration converged {ok} in {host_ms:.1f} ms over {split['steps']} steps "
+          f"(linearisation {split['linearize_ms']:.1f}, plan and partitioned solve "
+          f"{split['solve_ms']:.1f}, the rest {split['rest_ms']:.1f}; manual backend "
+          f"{pgo['manual_ms']:.1f} "
+          f"ms, gn_optimize_device {pgo['call_ms']:.1f} ms a call), max pose difference "
+          f"{d_manual:.3e} to the manual backend, {d_device:.3e} to gn_optimize_device; over "
+          f"{sg.n_shards} shards bit-equal {group_equal}", flush=True)
+    print("schur path summary: " + json.dumps(summary), flush=True)
+    check_launches("schur", launches, SCHUR_KERNELS, PGO_KERNELS)
+    if not chain_equal:
+        fail("schur path: block_tridiag_solve differs between two calls")
+    if not bwd <= N * eps:
+        fail(f"schur path: backward error {bwd} of the partitioned solve (> N eps)")
+    if not ok:
+        fail("schur path: the host iteration did not converge")
+    if not (d_manual <= 1e-6 and d_device <= 1e-6):
+        fail(f"schur path: {d_manual} from the manual backend, {d_device} from "
+             "gn_optimize_device (> 1e-6)")
+    if not group_equal:
+        fail(f"schur path: the solve over {sg.n_shards} shards differs from no group")
+    return launches, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2201,15 +2430,20 @@ def main() -> None:
                                                                              kitti)
 
     # ---- phase 7: the PGO path ----
-    by_path["pgo"] = pgo_path(pgo_graph)
+    by_path["pgo"], pgo = pgo_path(pgo_graph)
 
-    # ---- phase 8: the blocked path ----
-    by_path["blocked"], blocked_ates = blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel)
-
-    # ---- phase 9: the sharded path and the data x map step ----
     import torch.distributed as dist
     group = one_rank_nccl_group()
     try:
+        # ---- phase 7b: the Schur path ----
+        by_path["schur"], schur_rows = schur_path(pgo_graph, pgo, group)
+        rows.update(schur_rows)
+
+        # ---- phase 8: the blocked path ----
+        by_path["blocked"], blocked_ates = blocked_path(lanes_np, lane_gt, cfg, consts, kw,
+                                                        surfel)
+
+        # ---- phase 9: the sharded path and the data x map step ----
         by_path["sharded"] = sharded_path(loop_scans, loop_gt,
                                           kitti.replace(pgo_backend="distributed"), traj_dist,
                                           group)

@@ -12,9 +12,10 @@ and the stream last; it launches on that stream and returns
 cudaGetLastError(). The lane-batched kernels (K1, K2a, K2b, K3) take the
 lane count after the per-lane size and derive each lane's offsets from
 those two; the shard kernels (K11a-d) take the count of shard instances
-(lanes x local shards) the same way. `Kernel.launch` raises on a nonzero return and adds
-one to `Kernel.launches`, a plain integer that shows which kernels a run
-went through. The loop-closure worker launches from its own thread and
+(lanes x local shards) the same way; the host solvers' kernels (K12a,
+K12b) take an f64 flag and run in float or double. `Kernel.launch`
+raises on a nonzero return and adds one to `Kernel.launches`, a plain
+integer that shows which kernels a run went through. The loop-closure worker launches from its own thread and
 stream while the main thread runs chunks: the build, the library loads and
 the counts are taken under one lock, and a launch goes to the calling
 thread's current stream. No wrapper keeps scratch memory between calls.
@@ -38,7 +39,7 @@ __all__ = ["Kernel", "KERNELS", "build", "reset_counts", "counts", "check",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("voxel_filter", "icp", "pko", "voxel_map", "grid_knn", "knn", "bev_align", "iris",
-           "rehash", "pgo", "shard")
+           "rehash", "pgo", "shard", "schur")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -223,6 +224,12 @@ KERNELS = {k.name: k for k in [
     Kernel("pgo_backsub_retract", "pgo",
            [_P] * 8 + [_I] * 3 + [_D] + [_P] * 5,
            REF + "/parallel/distributed_pgo.py:649"),
+    Kernel("pgo_block_thomas", "schur",
+           [_P] * 3 + [_I] * 2 + [_P] * 3,
+           REF + "/parallel/distributed_pgo.py:74"),
+    Kernel("pgo_eliminate_lu", "schur",
+           [_P] * 7 + [_I] * 3 + [_P] * 5,
+           REF + "/parallel/distributed_pgo.py:104"),
     Kernel("shard_own", "shard",
            [_P, _P, _I, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
            REF + "/parallel/sharded_map.py:92"),

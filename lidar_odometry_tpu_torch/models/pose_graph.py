@@ -20,7 +20,9 @@ parallel/distributed_pgo.gn_optimize_device, from 4 keyframes up; smaller
 graphs take the host loop, as in the JAX package. Unlike the JAX backend it
 never falls back to the host loop: an error of the device solve reaches
 the caller. A solve that does not converge returns False and leaves the
-poses as they were.
+poses as they were. The JAX backend's host loop, whose steps are the
+partitioned Schur solve (distributed_pgo.schur_partitioned_solve), is
+_optimize_distributed_host, a method of its own.
 """
 from __future__ import annotations
 
@@ -315,61 +317,56 @@ class PoseGraphOptimizer:
 
     # ---- solver (reference optimize :326-390) ----
 
+    def _linearize(self, n_vars):
+        """Every factor linearised, batched over the between factors (the
+        per-factor python path cost ~250 ms per solve at 340 keyframes,
+        round-4 profiling). Returns b (n,6), the prior keys with their
+        blocks J^T J (P,6,6), and the between keys ki, kj with their blocks
+        H_ii, H_jj and H_ij = Jw_i^T Jw_j (N,6,6); H is their sum."""
+        b = np.zeros((n_vars, 6))
+        pk, Hp = [], []
+        for prior in self._priors:
+            kf_id = self._keyframe_ids[prior.key]
+            err, J = prior_error(self._poses[kf_id], prior.measured)
+            Jw = prior.sqrt_info @ J
+            ew = prior.sqrt_info @ err
+            pk.append(prior.key)
+            Hp.append(Jw.T @ Jw)
+            b[prior.key] -= Jw.T @ ew
+        pk = np.array(pk, dtype=np.int64)
+        Hp = np.array(Hp).reshape(-1, 6, 6)
+
+        ki = np.array([bt.key_from for bt in self._betweens], dtype=np.int64)
+        kj = np.array([bt.key_to for bt in self._betweens], dtype=np.int64)
+        if not self._betweens:
+            z = np.zeros((0, 6, 6))
+            return b, pk, Hp, ki, kj, z, z, z
+        T_from = np.stack([self._poses[self._keyframe_ids[i]] for i in ki])
+        T_to = np.stack([self._poses[self._keyframe_ids[j]] for j in kj])
+        meas = np.stack([bt.measured for bt in self._betweens])
+        sq = np.stack([bt.sqrt_info for bt in self._betweens])
+        err, J_from = _between_error_batch(T_from, T_to, meas)
+        Jw_f = np.einsum("nab,nbc->nac", sq, J_from)
+        Jw_t = sq                                  # J_to = I
+        ew = np.einsum("nab,nb->na", sq, err)
+        np.subtract.at(b, ki, np.einsum("nba,nb->na", Jw_f, ew))
+        np.subtract.at(b, kj, np.einsum("nba,nb->na", Jw_t, ew))
+        return (b, pk, Hp, ki, kj, np.einsum("nba,nbc->nac", Jw_f, Jw_f),
+                np.einsum("nba,nbc->nac", Jw_t, Jw_t), np.einsum("nba,nbc->nac", Jw_f, Jw_t))
+
     def _build_linear_system(self, n_vars):
-        """Vectorized over factors: batched error/Jacobian evaluation +
-        one COO assembly (the per-factor python path cost ~250 ms per
-        solve at 340 keyframes — most of the async loop worker's host
-        budget, round-4 profiling)."""
-        b = np.zeros(n_vars * 6)
-        blk_r, blk_c = np.meshgrid(np.arange(6), np.arange(6),
-                                   indexing="ij")
-        all_i, all_j, all_B = [], [], []
-
-        if self._priors:
-            for prior in self._priors:
-                kf_id = self._keyframe_ids[prior.key]
-                err, J = prior_error(self._poses[kf_id], prior.measured)
-                Jw = prior.sqrt_info @ J
-                ew = prior.sqrt_info @ err
-                all_i.append(prior.key)
-                all_j.append(prior.key)
-                all_B.append(Jw.T @ Jw)
-                b[prior.key * 6: prior.key * 6 + 6] -= Jw.T @ ew
-
-        if self._betweens:
-            ki = np.array([bt.key_from for bt in self._betweens])
-            kj = np.array([bt.key_to for bt in self._betweens])
-            T_from = np.stack([self._poses[self._keyframe_ids[i]]
-                               for i in ki])
-            T_to = np.stack([self._poses[self._keyframe_ids[j]]
-                             for j in kj])
-            meas = np.stack([bt.measured for bt in self._betweens])
-            sq = np.stack([bt.sqrt_info for bt in self._betweens])
-            err, J_from = _between_error_batch(T_from, T_to, meas)
-            Jw_f = np.einsum("nab,nbc->nac", sq, J_from)
-            Jw_t = sq                                  # J_to = I
-            ew = np.einsum("nab,nb->na", sq, err)
-            all_i.extend([ki, kj, ki, kj])
-            all_j.extend([ki, kj, kj, ki])
-            all_B.extend([
-                np.einsum("nba,nbc->nac", Jw_f, Jw_f),
-                np.einsum("nba,nbc->nac", Jw_t, Jw_t),
-                np.einsum("nba,nbc->nac", Jw_f, Jw_t),
-                np.einsum("nba,nbc->nac", Jw_t, Jw_f)])
-            g_f = np.einsum("nba,nb->na", Jw_f, ew)
-            g_t = np.einsum("nba,nb->na", Jw_t, ew)
-            np.subtract.at(b.reshape(n_vars, 6), ki, g_f)
-            np.subtract.at(b.reshape(n_vars, 6), kj, g_t)
-
-        bi = np.concatenate([np.atleast_1d(i) for i in all_i])
-        bj = np.concatenate([np.atleast_1d(j) for j in all_j])
-        Bv = np.concatenate([np.asarray(B).reshape(-1, 6, 6)
-                             for B in all_B])
+        """The sparse H (6n x 6n, CSC) and b (6n,) of _linearize's blocks,
+        one COO assembly."""
+        b, pk, Hp, ki, kj, Hii, Hjj, Hij = self._linearize(n_vars)
+        bi = np.concatenate([pk, ki, kj, ki, kj])
+        bj = np.concatenate([pk, ki, kj, kj, ki])
+        Bv = np.concatenate([Hp, Hii, Hjj, Hij, Hij.transpose(0, 2, 1)])
+        blk_r, blk_c = np.meshgrid(np.arange(6), np.arange(6), indexing="ij")
         rows = (bi[:, None, None] * 6 + blk_r[None]).ravel()
         cols = (bj[:, None, None] * 6 + blk_c[None]).ravel()
         H = sp.csc_matrix((Bv.ravel(), (rows, cols)),
                           shape=(n_vars * 6, n_vars * 6))
-        return H, b
+        return H, b.reshape(-1)
 
     def _optimize(self, max_iterations=10, convergence_threshold=1e-6) -> bool:
         n_vars = len(self._keyframe_ids)
@@ -377,12 +374,34 @@ class PoseGraphOptimizer:
             return True
         if self.backend == "distributed" and n_vars >= 4:
             return self._optimize_distributed_device(max_iterations, convergence_threshold)
+        return self._host_iterations(self._solve_sparse, n_vars, max_iterations,
+                                     convergence_threshold)
+
+    def _optimize_distributed_host(self, max_iterations=10, convergence_threshold=1e-6) -> bool:
+        """The JAX distributed backend's host Gauss-Newton loop
+        (models/pose_graph.py:383-406 there, which it runs when its device
+        program fails): from 4 keyframes up each step is _solve_distributed,
+        the partitioned Schur solve on self.device; smaller graphs take the
+        sparse solve. Not reached from _optimize: the port has no fallback."""
+        n_vars = len(self._keyframe_ids)
+        if n_vars == 0:
+            return True
+        solve = self._solve_distributed if n_vars >= 4 else self._solve_sparse
+        return self._host_iterations(solve, n_vars, max_iterations, convergence_threshold)
+
+    def _solve_sparse(self, n_vars):
+        H, b = self._build_linear_system(n_vars)
+        try:
+            return spla.spsolve(H, b)
+        except Exception:
+            return None
+
+    def _host_iterations(self, solve, n_vars, max_iterations, convergence_threshold) -> bool:
+        """Up to max_iterations steps dx = solve(n_vars), each retracted
+        into the poses; True once |dx| < convergence_threshold, False on a
+        failed or non-finite solve."""
         for _ in range(max_iterations):
-            H, b = self._build_linear_system(n_vars)
-            try:
-                dx = spla.spsolve(H, b)
-            except Exception:
-                return False
+            dx = solve(n_vars)
             if dx is None or not np.all(np.isfinite(dx)):
                 return False
             # batched retraction T <- T * Exp(delta)
@@ -397,6 +416,44 @@ class PoseGraphOptimizer:
             if np.linalg.norm(dx) < convergence_threshold:
                 return True
         return False
+
+    def _linearize_distributed(self, n_vars):
+        """_linearize's blocks in block-tridiagonal form: diag (n,6,6), off
+        (max(n-1,1),6,6) with off[i] = H[i, i+1], b (n,6), and the off-band
+        (loop) edges (lo, hi), in factor order, with their blocks (0,
+        H[lo, hi], 0), whose diagonal parts are already in diag (JAX
+        _solve_distributed)."""
+        b, pk, Hp, ki, kj, Hii, Hjj, Hij = self._linearize(n_vars)
+        diag = np.zeros((n_vars, 6, 6))
+        np.add.at(diag, pk, Hp)
+        np.add.at(diag, ki, Hii)
+        np.add.at(diag, kj, Hjj)
+        fwd = ki < kj
+        lo, hi = np.where(fwd, ki, kj), np.where(fwd, kj, ki)
+        H_lh = np.where(fwd[:, None, None], Hij, Hij.transpose(0, 2, 1))
+        band = hi == lo + 1
+        off = np.zeros((max(n_vars - 1, 1), 6, 6))
+        np.add.at(off, lo[band], H_lh[band])
+        zero = np.zeros((6, 6))
+        loop_edges = list(zip(lo[~band].tolist(), hi[~band].tolist()))
+        loop_blocks = [(zero, B, zero) for B in H_lh[~band]]
+        return diag, off, b, loop_edges, loop_blocks
+
+    def _solve_distributed(self, n_vars):
+        """One Gauss-Newton step by the partitioned Schur solve
+        (dpgo.schur_partitioned_solve, K12b on self.device), separators
+        planned over min(n_blocks, n/2) partitions and every loop endpoint.
+        Returns dx (6n,), or None when the reduced system is singular (JAX
+        returns None on any error; here a kernel's error reaches the
+        caller)."""
+        diag, off, b, loop_edges, loop_blocks = self._linearize_distributed(n_vars)
+        seps = dpgo.plan_partition(n_vars, min(self.n_blocks, max(n_vars // 2, 1)), loop_edges)
+        try:
+            x = dpgo.schur_partitioned_solve(diag, off, b, seps, loop_edges, loop_blocks,
+                                             device=self.device)
+        except np.linalg.LinAlgError:
+            return None
+        return x.reshape(-1)
 
     def _optimize_distributed_device(self, max_iterations, convergence_threshold) -> bool:
         """The whole GN optimisation on the device

@@ -1,7 +1,8 @@
 """The "distributed" pose-graph backend: Gauss-Newton over the chain +
 loop-edge graph with a partitioned Schur-complement solve, in float64
-(counterpart of the JAX package's parallel/distributed_pgo.py, the
-one-device part: gn_optimize_device and the host planning it uses).
+(counterpart of the JAX package's parallel/distributed_pgo.py:
+gn_optimize_device and the host planning it uses, and the host solvers
+block_tridiag_solve and schur_partitioned_solve).
 
 A SLAM pose graph is a chain of odometry factors plus a few loop edges, so
 its normal matrix is block-tridiagonal (6x6 blocks) plus a few off-band
@@ -32,6 +33,17 @@ and that state together. For CPU tensors the wrappers run the plain twins
 and the loop stops as soon as the state says so.
 
 Non-convergence is failure: gn_optimize_device returns ok = converged.
+
+The host solvers (the JAX host Gauss-Newton iteration's and the mesh dry
+runs') compute in their input's dtype, float32 or float64, with two
+kernels (csrc/schur.cu) and their plain twins:
+  K12a pgo_block_thomas — the block-Thomas solve of a chain system (JAX
+      block_tridiag_solve);
+  K12b pgo_eliminate_lu — every partition's interior chain eliminated by
+      LU (JAX _eliminate_interior under vmap), over the host packing of
+      schur_partitioned_solve, which solves the reduced separator system
+      and back-substitutes on the host, its partitions split over the
+      shards of a ShardGroup where one is given.
 Nothing falls back: on a CUDA tensor a wrapper launches its kernel or
 raises.
 """
@@ -50,7 +62,9 @@ __all__ = ["plan_partition", "dense_solve", "make_plan", "pack_graph", "upload",
            "gn_optimize_device", "linearize", "linearize_plain", "eliminate",
            "eliminate_plain", "reduced_solve", "reduced_solve_plain", "backsub_retract",
            "backsub_retract_plain", "gn_iterations", "LIN_KEYS", "PLAN_KEYS",
-           "RED_KEYS", "BACK_KEYS"]
+           "RED_KEYS", "BACK_KEYS", "block_tridiag_solve", "block_tridiag_solve_plain",
+           "pack_interiors", "eliminate_interior_lu", "eliminate_interior_lu_plain",
+           "schur_partitioned_solve"]
 
 _LIE_EPS = 1e-10  # reference kEpsLie (PoseGraphOptimizer.cpp:31)
 _F64 = torch.float64
@@ -505,8 +519,6 @@ def eliminate_plain(diag, off, b, int_idx, valid, off_idx, ovalid, has_left, lef
     valid, ovalid = valid.bool(), ovalid.bool()
     has_left, ur_valid = has_left.bool(), ur_valid.bool()
     I6 = torch.eye(6, dtype=dt, device=dev)
-    z66 = torch.zeros((D, 6, 6), dtype=dt, device=dev)
-    z6 = torch.zeros((D, 6), dtype=dt, device=dev)
     ii = int_idx.long()
     Dint = torch.where(valid[..., None, None], diag[ii], I6)
     Oint = (torch.where(ovalid[..., None, None], off[off_idx.long()], 0.0)
@@ -516,27 +528,43 @@ def eliminate_plain(diag, off, b, int_idx, valid, off_idx, ovalid, has_left, lef
     onehot = torch.nn.functional.one_hot(lsep_row.long(), max_m).to(dt)
     Lsep = onehot[..., None, None] * Lleft[:, None]
     Uright = torch.where(ur_valid[:, None, None], off[uright_off.long()], 0.0)
+    return _interior_chain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid,
+                           lambda A, B: _cho_solve(_cholesky(A), B))
 
+
+def _interior_chain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid, solve):
+    """Eliminate every partition's front-padded interior chain onto its
+    separators, batched over partitions (JAX _eliminate_interior and
+    _eliminate_interior_spd under vmap; `solve(A, B)` = A^-1 B is the 6x6
+    solve, LU or Cholesky). Padded rows get Dt = I and zero right-hand
+    sides. Returns S (D,4,6,6) = [S_ll, S_lr, S_rl, S_rr], r (D,2,6) =
+    [r_l, r_r] and F, G (D,max_m,6,6), g (D,max_m,6): x_i = g_i - F_i
+    x_left - G_i x_right."""
+    D, max_m = valid.shape
+    dt, dev = Dint.dtype, Dint.device
+    valid = valid.bool()
+    I6 = torch.eye(6, dtype=dt, device=dev)
+    z66 = torch.zeros((D, 6, 6), dtype=dt, device=dev)
+    z6 = torch.zeros((D, 6), dtype=dt, device=dev)
     U = torch.cat([Oint, z66[:, None]], 1)
     Lrow = torch.cat([z66[:, None], Oint.mT], 1)
     C_prev, E_prev, d_prev = z66, z66, z6
     Cs, Es, ds = [], [], []
-    Lc = None
+    Dt = None
     for r in range(max_m):
         v = valid[:, r]
         L_i = Lrow[:, r]
         Dt = torch.where(v[:, None, None], Dint[:, r] - L_i @ C_prev, I6)
         rhs_b = torch.where(v[:, None], Bint[:, r] - (L_i @ d_prev[..., None])[..., 0], 0.0)
         rhs_E = torch.where(v[:, None, None], Lsep[:, r] - L_i @ E_prev, 0.0)
-        Lc = _cholesky(Dt)
-        sol = _cho_solve(Lc, torch.cat([U[:, r], rhs_E, rhs_b[..., None]], -1))
+        sol = solve(Dt, torch.cat([U[:, r], rhs_E, rhs_b[..., None]], -1))
         C_prev = torch.where(v[:, None, None], sol[..., :6], 0.0)
         E_prev, d_prev = sol[..., 6:12], sol[..., 12]
         Cs.append(C_prev)
         Es.append(E_prev)
         ds.append(d_prev)
 
-    Ur_solved = _cho_solve(Lc, Uright)
+    Ur_solved = solve(Dt, Uright)
     F_next, G_next, g_next = Es[-1], Ur_solved, ds[-1]
     Fs, Gs, gs = [F_next], [G_next], [g_next]
     for r in range(max_m - 2, -1, -1):
@@ -801,3 +829,229 @@ def gn_optimize_device(poses: np.ndarray, priors, betweens, n_blocks: int = 8,
     if not np.all(np.isfinite(out)):
         return poses, False
     return out, bool(ok) and bool(dxn < tol)
+
+
+# ---------------------------------------------------------------------------
+# the host solvers: K12a block-Thomas, K12b LU interior elimination, and the
+# partitioned Schur solve around K12b (in the input's dtype)
+# ---------------------------------------------------------------------------
+
+_FLOATS = (torch.float32, torch.float64)
+
+
+def block_tridiag_solve_plain(diag, off, b):
+    """The block-Thomas solve of the block-tridiagonal system diag (n,6,6),
+    off (n-1,6,6) (off[i] = H[i, i+1]), b (n,6) -> x (n,6), a loop over the
+    rows with LU 6x6 solves (JAX block_tridiag_solve)."""
+    n = diag.shape[0]
+    z66 = torch.zeros((6, 6), dtype=diag.dtype, device=diag.device)
+    C_prev, d_prev = z66, torch.zeros((6,), dtype=diag.dtype, device=diag.device)
+    Cs, ds = [], []
+    for i in range(n):
+        L_i = off[i - 1].mT if i > 0 else z66
+        U_i = off[i] if i < n - 1 else z66
+        Dt = diag[i] - L_i @ C_prev
+        bt = b[i] - (L_i @ d_prev[:, None])[:, 0]
+        sol = torch.linalg.solve(Dt, torch.cat([U_i, bt[:, None]], 1))
+        C_prev, d_prev = sol[:, :6], sol[:, 6]
+        Cs.append(C_prev)
+        ds.append(d_prev)
+    x = torch.zeros((6,), dtype=diag.dtype, device=diag.device)
+    xs = [None] * n
+    for i in range(n - 1, -1, -1):
+        x = ds[i] - (Cs[i] @ x[:, None])[:, 0]
+        xs[i] = x
+    return torch.stack(xs) if n else torch.zeros_like(b)
+
+
+def block_tridiag_solve(diag, off, b):
+    """K12a's wrapper: x (n,6) of block_tridiag_solve_plain, in the inputs'
+    dtype (float32 or float64); one thread block walks the chain on a
+    card."""
+    if not diag.is_cuda:
+        return block_tridiag_solve_plain(diag, off, b)
+    n, dt = diag.shape[0], diag.dtype
+    if dt not in _FLOATS:
+        raise ValueError(f"diag: expected float32 or float64, got {dt}")
+    kernels.check(diag, "diag", dt, (n, 6, 6))
+    kernels.check(off, "off", dt, (max(n - 1, 0), 6, 6))
+    kernels.check(b, "b", dt, (n, 6))
+    dev = diag.device
+    x = torch.empty((n, 6), dtype=dt, device=dev)
+    if n == 0:
+        return x
+    C = torch.empty((n, 6, 6), dtype=dt, device=dev)
+    d = torch.empty((n, 6), dtype=dt, device=dev)
+    kernels.KERNELS["pgo_block_thomas"].launch(
+        diag.data_ptr(), off.data_ptr(), b.data_ptr(), n, int(dt == _F64), C.data_ptr(),
+        d.data_ptr(), x.data_ptr())
+    return x
+
+
+def pack_interiors(diag, off, b, seps):
+    """The JAX schur_partitioned_solve's host packing: every partition's
+    interior rows (between the previous separator and its own) FRONT-padded
+    to max_m with identity diagonal blocks and zero right-hand sides, in
+    diag's dtype. Returns (Dint (D,max_m,6,6), Oint (D,max_m-1,6,6), Bint
+    (D,max_m,6), Lsep (D,max_m,6,6), Lleft (D,6,6), Uright (D,6,6), Valid
+    (D,max_m) bool): Lleft = H[first interior, left separator], also in
+    Lsep at the first valid row; Uright = H[last interior, right
+    separator]."""
+    dtype = diag.dtype
+    D = len(seps)
+    prev = [-1] + list(seps[:-1])
+    max_m = max(max(s - p - 1 for p, s in zip(prev, seps)), 1)
+    Dint = np.zeros((D, max_m, 6, 6), dtype)
+    Oint = np.zeros((D, max_m - 1, 6, 6), dtype)
+    Bint = np.zeros((D, max_m, 6), dtype)
+    Lsep = np.zeros((D, max_m, 6, 6), dtype)
+    Lleft = np.zeros((D, 6, 6), dtype)
+    Uright = np.zeros((D, 6, 6), dtype)
+    Valid = np.zeros((D, max_m), bool)
+    for k, (p, s) in enumerate(zip(prev, seps)):
+        m = s - p - 1
+        if m == 0:
+            continue
+        sl = slice(p + 1, s)
+        Dint[k, max_m - m:] = diag[sl]
+        Dint[k, : max_m - m] = np.eye(6, dtype=dtype)
+        if m > 1:
+            Oint[k, max_m - m: max_m - 1] = off[p + 1: s - 1]
+        Bint[k, max_m - m:] = b[sl]
+        Valid[k, max_m - m:] = True
+        if p >= 0:
+            Lleft[k] = off[p].T
+            Lsep[k, max_m - m] = off[p].T
+        Uright[k] = off[s - 1]
+    return Dint, Oint, Bint, Lsep, Lleft, Uright, Valid
+
+
+def eliminate_interior_lu_plain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid):
+    """Every partition of pack_interiors' layout eliminated onto its two
+    separators by LU (JAX _eliminate_interior under vmap): S (D,4,6,6) =
+    [S_ll, S_lr, S_rl, S_rr], r (D,2,6) = [r_l, r_r], F, G (D,max_m,6,6),
+    g (D,max_m,6), a loop over the rows batched over partitions."""
+    return _interior_chain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid, torch.linalg.solve)
+
+
+def eliminate_interior_lu(Dint, Oint, Bint, Lsep, Lleft, Uright, valid):
+    """K12b's wrapper: (S, r, F, G, g) of eliminate_interior_lu_plain in the
+    inputs' dtype (float32 or float64; valid bool), one thread block a
+    partition on a card."""
+    if not Dint.is_cuda:
+        return eliminate_interior_lu_plain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid)
+    D, m, dt = Dint.shape[0], Dint.shape[1], Dint.dtype
+    if dt not in _FLOATS:
+        raise ValueError(f"Dint: expected float32 or float64, got {dt}")
+    kernels.check(Dint, "Dint", dt, (D, m, 6, 6))
+    kernels.check(Oint, "Oint", dt, (D, m - 1, 6, 6))
+    kernels.check(Bint, "Bint", dt, (D, m, 6))
+    kernels.check(Lsep, "Lsep", dt, (D, m, 6, 6))
+    kernels.check(Lleft, "Lleft", dt, (D, 6, 6))
+    kernels.check(Uright, "Uright", dt, (D, 6, 6))
+    kernels.check(valid, "valid", torch.bool, (D, m))
+    dev = Dint.device
+    S = torch.empty((D, 4, 6, 6), dtype=dt, device=dev)
+    r = torch.empty((D, 2, 6), dtype=dt, device=dev)
+    F = torch.empty((D, m, 6, 6), dtype=dt, device=dev)
+    G = torch.empty((D, m, 6, 6), dtype=dt, device=dev)
+    g = torch.empty((D, m, 6), dtype=dt, device=dev)
+    if D:
+        kernels.KERNELS["pgo_eliminate_lu"].launch(
+            Dint.data_ptr(), Oint.data_ptr(), Bint.data_ptr(), Lsep.data_ptr(),
+            Lleft.data_ptr(), Uright.data_ptr(), valid.data_ptr(), D, m, int(dt == _F64),
+            S.data_ptr(), r.data_ptr(), F.data_ptr(), G.data_ptr(), g.data_ptr())
+    return S, r, F, G, g
+
+
+def schur_partitioned_solve(diag, off, b, separators: Sequence[int], loop_edges=(),
+                            loop_blocks=(), group=None, device=None):
+    """Solve the chain (+ separator loop edges) system by the separator
+    Schur complement (JAX schur_partitioned_solve): every partition's
+    interior eliminated by K12b on `device`, then on the host the reduced
+    separator system (the separators' diagonal blocks, the Schur blocks,
+    the couplings of consecutive separators and the loop blocks (Baa, Bab,
+    Bbb) of each loop edge (a, b)) solved and the interiors
+    back-substituted. `separators` from plan_partition: sorted, ending at
+    n - 1, every loop endpoint among them.
+
+    It computes in diag's dtype: float64 in gives float64 out, float32
+    gives float32 (the JAX function casts to float32 unless x64 is on).
+    `group` (a ShardGroup) is the counterpart of the JAX `mesh=`: the
+    partitions split evenly over its shards (else ValueError), each rank
+    eliminates its shards' contiguous partitions in one launch, and the
+    outputs are all-gathered in partition order, so every rank solves the
+    same reduced system. `device` defaults to the group's, else "cuda".
+    Returns x (n,6) numpy."""
+    diag_np = np.asarray(diag)
+    dtype = diag_np.dtype
+    off_np = np.asarray(off).astype(dtype, copy=False)
+    b_np = np.asarray(b).astype(dtype, copy=False)
+    n = diag_np.shape[0]
+    seps = [int(s) for s in separators]
+    if seps != sorted(seps) or seps[-1] != n - 1:
+        raise ValueError("separators must be sorted and end at n - 1")
+    D = len(seps)
+    prev = [-1] + seps[:-1]
+    packed = pack_interiors(diag_np, off_np, b_np, seps)
+    max_m = packed[0].shape[1]
+    lo, hi = 0, D
+    if group is not None:
+        if D % group.n_shards:
+            raise ValueError(f"{D} partitions do not split evenly over {group.n_shards} shards")
+        per = D // group.n_shards
+        lo, hi = group.first * per, (group.first + group.n_local) * per
+        device = group.device if device is None else device
+    dev = torch.device("cuda" if device is None else device)
+    S, r, F, G, g = eliminate_interior_lu(
+        *[torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev) for a in packed])
+    out = torch.cat([t.reshape(hi - lo, -1) for t in (S, r, F, G, g)], 1)
+    if group is not None:
+        out = group.all_gather(out)
+    out = out.cpu().numpy()
+    cut = np.cumsum([0, 144, 12, 36 * max_m, 36 * max_m, 6 * max_m])
+    S, r, F, G, g = (out[:, a:z] for a, z in zip(cut[:-1], cut[1:]))
+    S_ll, S_lr, S_rl, S_rr = S.reshape(D, 4, 6, 6).transpose(1, 0, 2, 3)
+    r_l, r_r = r.reshape(D, 2, 6).transpose(1, 0, 2)
+    F, G, g = F.reshape(D, max_m, 6, 6), G.reshape(D, max_m, 6, 6), g.reshape(D, max_m, 6)
+
+    # ---- reduced separator system (replicated; D x 6 dims) ----
+    Hs = np.zeros((D * 6, D * 6), dtype)
+    bs = np.zeros(D * 6, dtype)
+    sep_of = {s: i for i, s in enumerate(seps)}
+    for i, s in enumerate(seps):
+        Hs[i*6:(i+1)*6, i*6:(i+1)*6] += diag_np[s]
+        bs[i*6:(i+1)*6] += b_np[s]
+        # couplings between consecutive separators with empty interiors
+        if i + 1 < D and seps[i + 1] == s + 1:
+            Hs[i*6:(i+1)*6, (i+1)*6:(i+2)*6] += off_np[s]
+            Hs[(i+1)*6:(i+2)*6, i*6:(i+1)*6] += off_np[s].T
+    for k in range(D):
+        Hs[k*6:(k+1)*6, k*6:(k+1)*6] += S_rr[k]
+        bs[k*6:(k+1)*6] += r_r[k]
+        if k > 0:
+            i_l = k - 1
+            Hs[i_l*6:(i_l+1)*6, i_l*6:(i_l+1)*6] += S_ll[k]
+            Hs[i_l*6:(i_l+1)*6, k*6:(k+1)*6] += S_lr[k]
+            Hs[k*6:(k+1)*6, i_l*6:(i_l+1)*6] += S_rl[k]
+            bs[i_l*6:(i_l+1)*6] += r_l[k]
+    for (a, bb), (Baa, Bab, Bbb) in zip(loop_edges, loop_blocks):
+        ia, ib = sep_of[a], sep_of[bb]
+        Hs[ia*6:(ia+1)*6, ia*6:(ia+1)*6] += Baa
+        Hs[ia*6:(ia+1)*6, ib*6:(ib+1)*6] += Bab
+        Hs[ib*6:(ib+1)*6, ia*6:(ia+1)*6] += Bab.T
+        Hs[ib*6:(ib+1)*6, ib*6:(ib+1)*6] += Bbb
+    xs = np.linalg.solve(Hs, bs).reshape(D, 6)
+
+    # ---- back-substitution: x_i = g_i - F_i x_left - G_i x_right ----
+    x = np.zeros((n, 6), dtype)
+    for i, s in enumerate(seps):
+        x[s] = xs[i]
+    for k, (p, s) in enumerate(zip(prev, seps)):
+        m = s - p - 1
+        if m == 0:
+            continue
+        xl = xs[sep_of[p]] if p in sep_of else np.zeros(6, dtype)
+        xi = g[k] - F[k] @ xl - G[k] @ xs[sep_of[s]]
+        x[p + 1: s] = xi[max_m - m:]
+    return x

@@ -580,6 +580,94 @@ def test_pgo_kernels_raise_and_do_not_fall_back(dev):
         dpgo.linearize(g, g["poses"])
 
 
+def _chain_system(n, seed):
+    """A random well-conditioned block-tridiagonal system (the JAX parallel
+    tests' chain): diag (n,6,6), off (n-1,6,6), b (n,6)."""
+    rng = np.random.default_rng(seed)
+    off = rng.standard_normal((max(n - 1, 0), 6, 6)) * 0.3
+    diag = np.eye(6) * 8.0 + rng.standard_normal((n, 6, 6)) * 0.1
+    return (diag + diag.swapaxes(1, 2)) / 2, off, rng.standard_normal((n, 6))
+
+
+def _graph_system(n):
+    """The first Gauss-Newton system of a revisit pose graph of n keyframes
+    as PoseGraphOptimizer._solve_distributed builds it, and its plan."""
+    from lidar_odometry_tpu_torch.models.pose_graph import BetweenFactor, PoseGraphOptimizer
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    init, priors, betweens, _ = synthetic.revisit_pose_graph(n, 4, seed=n, length=40.0,
+                                                             radius=10.0, min_gap=50)
+    pg = PoseGraphOptimizer(backend="distributed", device="cpu")
+    pg.add_first_keyframe(0, init[0])
+    for i in range(1, n):
+        pg.add_keyframe_with_odom(i - 1, i, init[i], betweens[i - 1][2], 0.1, 0.01)
+    for i, j, rel, sq in betweens[n - 1:]:
+        pg._betweens.append(BetweenFactor(i, j, rel, sq))
+    diag, off, b, loops, blocks = pg._linearize_distributed(n)
+    return diag, off, b, dpgo.plan_partition(n, 8, loops)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_schur_kernels(dev, dtype):
+    """K12a (block-Thomas) and K12b (LU interior elimination) against their
+    plain twins on the card, in float64 (1e-10 of each output's largest
+    magnitude) and float32 (1e-5 of it: the same float32 algorithm in
+    another order; each float32 result's distance from the float64 answer
+    is larger, set by the conditioning, and is not held here); n = 1,
+    max_m = 1 and an empty interior among them; each launch counted once
+    and two launches bit-equal."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    dt = getattr(torch, dtype)
+    f64 = dtype == "float64"
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    diag, off, b, seps = _graph_system(300)
+    tol = 1e-10 if f64 else 1e-5
+    chains = [_chain_system(n, n) for n in (1, 2, 300)] + [(diag, off, b)]
+    for d_, o_, b_ in chains:
+        args = [to(d_), to(o_), to(b_)]
+        n0 = kernels.KERNELS["pgo_block_thomas"].launches
+        xk = dpgo.block_tridiag_solve(*args)
+        assert kernels.KERNELS["pgo_block_thomas"].launches == n0 + 1
+        xp = dpgo.block_tridiag_solve_plain(*args)
+        assert xk.dtype == dt and _rel(xk, xp) <= tol, (len(d_), _rel(xk, xp))
+        assert torch.equal(xk, dpgo.block_tridiag_solve(*args))
+    packings = [dpgo.pack_interiors(diag, off, b, seps)]
+    d_, o_, b_ = _chain_system(7, 7)
+    packings.append(dpgo.pack_interiors(d_, o_, b_, [1, 2, 3, 5, 6]))   # max_m = 1
+    assert packings[1][0].shape[1] == 1
+    for packed in packings:
+        args = [to(a) for a in packed[:-1]] + [torch.from_numpy(packed[-1]).to(dev)]
+        n0 = kernels.KERNELS["pgo_eliminate_lu"].launches
+        outs = dpgo.eliminate_interior_lu(*args)
+        assert kernels.KERNELS["pgo_eliminate_lu"].launches == n0 + 1
+        for name, a, c in zip(("S", "r", "F", "G", "g"), outs,
+                              dpgo.eliminate_interior_lu_plain(*args)):
+            assert a.dtype == dt and a.shape == c.shape
+            assert _rel(a, c) <= tol, (name, _rel(a, c))
+        for a, c in zip(outs, dpgo.eliminate_interior_lu(*args)):
+            assert torch.equal(a, c)
+
+
+def test_schur_solve_on_the_card_matches_the_cpu(dev):
+    """schur_partitioned_solve on the card within 1e-9 of the same solve on
+    the CPU (the plain twins), bit-equal over a one-process ShardGroup of 4
+    shards where the partitions split."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    from lidar_odometry_tpu_torch.parallel import mesh
+    d_, o_, b_ = _chain_system(40, 8)
+    loops = [(0, 30), (12, 30)]
+    blocks = [(np.eye(6) * 2.0, -np.eye(6), np.eye(6) * 2.0)] * 2
+    seps = dpgo.plan_partition(40, 6, loops)
+    while len(seps) % 4:
+        seps = dpgo.plan_partition(40, len(seps) + 1, loops)
+    x = dpgo.schur_partitioned_solve(d_, o_, b_, seps, loops, blocks, device=dev)
+    xc = dpgo.schur_partitioned_solve(d_, o_, b_, seps, loops, blocks, device="cpu")
+    xg = dpgo.schur_partitioned_solve(d_, o_, b_, seps, loops, blocks,
+                                      group=mesh.make_group(4, device=dev))
+    assert x.dtype == np.float64
+    np.testing.assert_allclose(x, xc, atol=1e-9, rtol=0)
+    np.testing.assert_array_equal(xg, x)
+
+
 @pytest.mark.parametrize("n_shards", [1, 4, 8])
 def test_shard_kernels(scene, n_shards):
     """K11a-d against their plain twins on the card, on a map of the

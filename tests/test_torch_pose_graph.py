@@ -6,10 +6,12 @@ one (the float64 device solve, here on the CPU through its plain twins).
 Tolerances: optimised poses within 1e-9 of JAX's same backend (the same
 float64 math on the same inputs); the distributed backend within 1e-4 of
 the manual one, the JAX tests' bound between the two backends."""
+import jax
 import numpy as np
 import pytest
 
 from lidar_odometry_tpu.models.pose_graph import PoseGraphOptimizer as JaxGraph
+from lidar_odometry_tpu.parallel import distributed_pgo as jax_dpgo
 from lidar_odometry_tpu_torch import convert
 from lidar_odometry_tpu_torch.models.pose_graph import PoseGraphOptimizer, se3_exp
 
@@ -112,7 +114,7 @@ def _line(opt, n, drift, loop_from, loop_to):
 
 
 @pytest.mark.parametrize("case", ["matches_manual", "loop_to_keyframe_zero", "device_path_taken"])
-def test_distributed_backend_raises_with_a_roadmap_pointer(case):
+def test_distributed_backend_matches_manual_and_jax(case):
     """The "distributed" backend (once refused with a ROADMAP pointer) in the
     JAX backend tests' three cases: it matches the port's manual backend
     within 1e-4 and JAX's distributed backend within 1e-9; a loop to
@@ -146,6 +148,38 @@ def test_distributed_backend_raises_with_a_roadmap_pointer(case):
         before = np.linalg.norm(noisy[n - 1][:3, 3] - true[n - 1][:3, 3])
         after = np.linalg.norm(got[n - 1][:3, 3] - true[n - 1][:3, 3])
         assert after < before * 0.2, (before, after)
+
+
+LINES = {"matches_manual": (24, 0.03, 3, 20), "loop_to_keyframe_zero": (20, 0.04, 0, 19),
+         "device_path_taken": (12, 0.0, 1, 11)}
+
+
+@pytest.mark.parametrize("case", sorted(LINES))
+def test_distributed_host_iteration_matches_jax(case, monkeypatch):
+    """_optimize_distributed_host, the JAX distributed backend's host
+    Gauss-Newton loop with the partitioned Schur solve, against that loop
+    in JAX (reached there by making its device program raise), under x64,
+    on the backend tests' line graphs: poses within 1e-9."""
+    def device_fails(*a, **k):
+        raise RuntimeError("device program unavailable")
+
+    monkeypatch.setattr(jax_dpgo, "gn_optimize_device", device_fails)
+    port = PoseGraphOptimizer(backend="distributed", n_blocks=4, device="cpu")
+    jg = JaxGraph(backend="distributed", n_blocks=4)
+    calls = {}
+    for name, g in (("port", port), ("jax", jg)):
+        def spy(n_vars, _orig=g._solve_distributed, _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _orig(n_vars)
+        g._solve_distributed = spy
+    port._optimize = port._optimize_distributed_host
+    with jax.enable_x64():
+        _line(jg, *LINES[case])
+    _line(port, *LINES[case])
+    assert calls["port"] == calls["jax"] >= 1 and port.loop_closure_count == 1
+    got, want = port.get_all_optimized_poses(), jg.get_all_optimized_poses()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-9, rtol=0)
 
 
 def test_unknown_backend_is_refused():

@@ -5,10 +5,11 @@ tests/test_torch_sharded_map.py (CPU).
 Each rank runs in a fresh subprocess that joins a gloo group through a
 file under the test's tmp_path. The two layouts must agree: the psum and
 all_gather orders of ShardGroup, the keyframe updates, the PKO ICP
-(sharded_icp_optimize: T within 1e-6, the same success and count) and
-the rehash, with both maps' integer state identical and their float
-tables equal (every cross-shard sum is taken over gathered rows in shard
-order, so the layouts add the same numbers in the same order). A rank of
+(sharded_icp_optimize: T within 1e-6, the same success and count), the
+rehash, with both maps' integer state identical and their float tables
+equal (every cross-shard sum is taken over gathered rows in shard order,
+so the layouts add the same numbers in the same order), and the
+partitioned Schur solve of the pose graph (bit-equal). A rank of
 a multi-rank group refuses an Estimator with the loop worker
 (sync_loop=False)."""
 import os
@@ -24,6 +25,7 @@ import torch.distributed as dist
 from lidar_odometry_tpu_torch import convert
 from lidar_odometry_tpu_torch.config import SystemConfig
 from lidar_odometry_tpu_torch.ops import icp, pko
+from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
 from lidar_odometry_tpu_torch.parallel import mesh
 from lidar_odometry_tpu_torch.parallel import sharded_map as sm
 
@@ -31,9 +33,26 @@ ROOT = Path(__file__).resolve().parent.parent
 PKO_ARGS = (0.1, 10.0, 100, 10.0, "huber", 3, 100)
 
 
+def _schur_system():
+    """A 40-keyframe chain system with two loop edges (one to keyframe 0)
+    and separators in a multiple of 4 partitions."""
+    rng = np.random.default_rng(8)
+    n = 40
+    off = rng.standard_normal((n - 1, 6, 6)) * 0.3
+    diag = np.eye(6) * 8.0 + rng.standard_normal((n, 6, 6)) * 0.1
+    diag = (diag + diag.swapaxes(1, 2)) / 2
+    b = rng.standard_normal((n, 6))
+    loops = [(0, 30), (12, 30)]
+    blocks = [(np.eye(6) * 2.0, -np.eye(6), np.eye(6) * 2.0)] * 2
+    seps = dpgo.plan_partition(n, 6, loops)
+    while len(seps) % 4:
+        seps = dpgo.plan_partition(n, len(seps) + 1, loops)
+    return diag, off, b, seps, loops, blocks
+
+
 def _run_layout(inp: dict, group) -> dict:
-    """Update, PKO ICP and rehash on `group`; the maps gathered in global
-    shard order."""
+    """Update, PKO ICP and rehash on `group`, the maps gathered in global
+    shard order; and a partitioned Schur solve over the group."""
     t = torch.as_tensor
     st = sm.sharded_empty_map(0, int(inp["c1_total"]), group)
     for i in range(inp["upd_pts"].shape[0]):
@@ -45,7 +64,8 @@ def _run_layout(inp: dict, group) -> dict:
                                        pko.make_pko_constants(*PKO_ARGS, device="cpu"))
     st2 = sm.sharded_transform_and_rehash(st, t(inp["corr"]), group, voxel_size=0.5,
                                           planarity_threshold=0.1)
-    out = dict(T=T.numpy(), ok=ok.numpy(), n=n.numpy())
+    out = dict(T=T.numpy(), ok=ok.numpy(), n=n.numpy(),
+               schur_x=dpgo.schur_partitioned_solve(*_schur_system(), group=group))
     out.update({"built_" + k: v for k, v in
                 convert.sharded_map_to_numpy(sm.gather_state(st, group)).items()})
     out.update({"rehash_" + k: v for k, v in
@@ -138,6 +158,19 @@ def test_two_ranks_icp_matches_one_rank(layouts):
     for ro in ranks:
         assert bool(ro["ok"]) and int(ro["n"]) == int(one["n"])
         np.testing.assert_allclose(ro["T"], one["T"], atol=1e-6, rtol=0)
+
+
+def test_two_ranks_schur_solve_equals_one_rank(layouts):
+    """Each rank eliminates its shards' partitions and gathers the rest:
+    the solve is bit-equal to one rank x 4 shards and within 1e-10 of the
+    dense solve."""
+    one, ranks = layouts
+    diag, off, b, seps, loops, blocks = _schur_system()
+    assert len(seps) % 4 == 0 and 0 in seps
+    for ro in ranks:
+        np.testing.assert_array_equal(ro["schur_x"], one["schur_x"])
+    np.testing.assert_allclose(one["schur_x"], dpgo.dense_solve(diag, off, b, loops, blocks),
+                               atol=1e-10, rtol=0)
 
 
 def test_multi_rank_refuses_the_loop_worker(layouts):

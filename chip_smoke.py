@@ -12,14 +12,18 @@ Phases, each of which exits nonzero on failure:
      (sm_90a, one process per source, in parallel) into build/kernels/;
   3. every kernel against its plain PyTorch twin on the card, at its path's
      shapes, with max abs error against a stated tolerance, kernel and plain
-     times by CUDA events, the time of one PyTorch library call that
-     computes the same function where there is one, and the least time the
+     times by CUDA events (as launched, and on the device with the host's
+     launch cost taken out), the time of one PyTorch library call that
+     computes the same function where there is one (the same two ways),
+     and the least time the
      card could take (bytes over 3.35 TB/s or fp32 operations over
      67 TFLOP/s, whichever is larger):
        - the surfel-path kernels (K1-K4c) at the JAX bench's shapes
          (131072-point synthetic KITTI-like scans strided by 8, scan
          capacity 14336, a map of 65536 parents built by the port's own
-         first keyframes);
+         first keyframes); K1 also on voxel runs that cross its 512-entry
+         tiles, one run longer than a tile, at two caps, against the twin
+         on the card and on the CPU, two calls bit-equal;
        - the KD-tree kernels (K5a grid_knn, K5b plane_fit_5nn) at the mid360
          shapes (scan capacity 16384, 0.4 m voxels, radius 2, a map of 65536
          parents built without surfels by the mid360 path's first keyframes);
@@ -39,9 +43,11 @@ Phases, each of which exits nonzero on failure:
          edges: make_pgo_graph), each fed the first GN iteration's inputs
          of its twin: at most 1e-10 of each output's largest magnitude,
          1e-9 on the retracted poses, and for K10c's solve of a system of
-         kappa ~5e9 its normwise backward error at most 1e-13; their
-         bounds count f64 operations at 67 TFLOP/s (the host solvers' K12a
-         and K12b, on the same graph, are held in phase 7b);
+         kappa ~5e9 its normwise backward error at most 1e-13, two calls
+         bit-equal, and the same on a synthetic D = 200 separator system;
+         its cluster size and panel width are printed; their bounds count
+         f64 operations at 67 TFLOP/s (the host solvers' K12a and K12b, on
+         the same graph, are held in phase 7b);
        - the sharded map's kernels (K11a shard_own, K11b
          shard_alpha_normal_eq, K11c shard_sample, K11d shard_gn_select)
          at kitti.yaml's width (16384 features of a dense loop frame, 101
@@ -262,13 +268,18 @@ def device_ms_once(fn):
     return start.elapsed_time(end) if ahead else None
 
 
-def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms=None, note="",
-           ops_per_s=FP32_OPS_PER_S):
+def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library=None, note="",
+           ops_per_s=FP32_OPS_PER_S, library_reps=30):
     """Time one kernel (`kernel` is a call of its wrapper: CUDA events over
-    30 calls as launched, and device_ms), print its comparison with its
-    plain version, fail if it is out of tolerance, and keep its numbers in
-    rows[name]."""
+    30 calls as launched, and device_ms) and its library call (`library`,
+    the same two ways, so that device times are compared with device
+    times), print its comparison with its plain version, fail if it is out
+    of tolerance, and keep its numbers in rows[name]."""
     ms, dev_ms = time_ms(kernel), device_ms(kernel)
+    library_ms = library_dev = None
+    if library is not None:
+        library_ms = time_ms(library, library_reps)
+        library_dev = device_ms(library, library_reps)
     b, by = bound_ms(nbytes, ops, ops_per_s)
     ok = err <= tol
     print(f"  {name:22s} max_abs_err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}"
@@ -276,11 +287,12 @@ def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms=None,
           + (f" (device {dev_ms:.4f} ms)" if dev_ms is not None else "")
           + f", plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by})"
           + (f", library {library_ms:.4f} ms" if library_ms is not None else "")
+          + (f" (device {library_dev:.4f} ms)" if library_dev is not None else "")
           + (f" | {note}" if note else ""), flush=True)
     if not ok:
         fail(f"kernel {name} disagrees with its plain version: {err} > {tol}")
     rows[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b,
-                      bound_by=by, library_ms=library_ms)
+                      bound_by=by, library_ms=library_ms, library_device_ms=library_dev)
 
 
 def make_scans(n_frames: int, seed: int = 11):
@@ -437,8 +449,9 @@ def check_kernels(scans_np, cfg, consts, kw):
         lambda: vf.voxel_segments(key_s, perm, raw, SCAN_CAP, inv, vox),
         time_ms(lambda: vf.voxel_segments_plain(key_s, perm, raw, SCAN_CAP, inv, vox)),
         n * (8 + 8 + 12) + SCAN_CAP * 13 + 4, n * 10,
-        library_ms=time_ms(lambda: lib_out.index_add_(0, seg_c, p_rel)),
+        library=lambda: lib_out.index_add_(0, seg_c, p_rel),
         note=f"{nv} voxels from {int(valid.sum())} points")
+    check_voxel_edges()
 
     # ---- K2a correspondences, K3 PKO, K2b normal equations ----
     feat, mask, _ = vf.voxel_filter(raw, n, voxel_size=0.5, stride=1,
@@ -534,7 +547,7 @@ def check_kernels(scans_np, cfg, consts, kw):
         lambda: vm.map_scatter_add(l0k, world, s_idx, firstk, valid_s, tgt),
         time_ms(lambda: vm.map_scatter_add_plain(l0p, world, s_idx, firstk, valid_s, tgt)),
         N * (12 + 8 + 1 + 1 + 8) + int(lead.sum()) * 32, N * 4,
-        library_ms=time_ms(lambda: l0_lib.index_add_(0, tgt_pt, data4)),
+        library=lambda: l0_lib.index_add_(0, tgt_pt, data4),
         note=f"{int(lead.sum())} voxel rows")
 
     # ---- K4c surfel recompute of every parent with enough children ----
@@ -567,6 +580,44 @@ def check_kernels(scans_np, cfg, consts, kw):
         note=f"{n_live} parents, {int((~well[:n_live]).sum())} with an ill-conditioned "
              f"normal left out of the normal comparison")
     return rows, state
+
+
+def check_voxel_edges():
+    """K1 on the tests' edge case: runs of 3 sorted entries that cross its
+    512-entry tiles, one run of 1500 (longer than a tile) and 7 invalid
+    rows (n = 3607, not a multiple of the tile), at SCAN_CAP and at a cap
+    below the voxel count: within 1e-5 of the plain twin, mask and count
+    equal, two calls bit-equal."""
+    import torch
+    from lidar_odometry_tpu_torch.io import synthetic
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf
+    from lidar_odometry_tpu_torch.utils import keys as K
+    counts = [3] * 700 + [1500]
+    raw = torch.tensor(synthetic.voxel_runs(counts, 7, seed=3), device=DEVICE)
+    key, ok = K.compact_key(torch.floor(torch.nan_to_num(raw, 0.0, 0.0, 0.0) * 2.0)
+                            .to(torch.int32))
+    key = torch.where(ok & torch.all(torch.isfinite(raw), -1), key, K.INVALID_SORT_KEY)
+    key_s, perm = torch.sort(key, stable=True)
+    err = err_cpu = 0.0
+    for cap in (SCAN_CAP, 500):
+        c_k, m_k, n_k = vf.voxel_segments(key_s, perm, raw, cap, 2.0, 0.5)
+        c_2, m_2, n_2 = vf.voxel_segments(key_s, perm, raw, cap, 2.0, 0.5)
+        c_p, m_p, n_p = vf.voxel_segments_plain(key_s, perm, raw, cap, 2.0, 0.5)
+        c_c = vf.voxel_segments_plain(key_s.cpu(), perm.cpu(), raw.cpu(), cap, 2.0, 0.5)[0]
+        if not (int(n_k) == int(n_p) == len(counts) and torch.equal(m_k, m_p)):
+            fail(f"voxel_filter edges: mask or count differs from the plain version (cap {cap})")
+        if not (torch.equal(c_k, c_2) and torch.equal(m_k, m_2) and torch.equal(n_k, n_2)):
+            fail(f"voxel_filter edges: two calls differ (cap {cap})")
+        err = max(err, float((c_k - c_p).abs().max()))
+        err_cpu = max(err_cpu, float((c_k.cpu() - c_c).abs().max()))
+    if max(err, err_cpu) > 1e-5:
+        fail(f"voxel_filter edges disagree with the plain version: {err}, {err_cpu} > 1e-5")
+    # the twin's index_add_ adds with atomics on the card, in no fixed order,
+    # and in index order (the kernel's) on the CPU
+    print(f"  voxel_filter edges: {len(counts)} voxels in runs crossing 512-entry tiles, one "
+          f"run of 1500, n {raw.shape[0]}, caps {SCAN_CAP} and 500: max_abs_err {err:.3e} "
+          f"from the twin on the card, {err_cpu:.3e} from the twin on the CPU (tol 1e-05) ok, "
+          f"two calls bit-equal", flush=True)
 
 
 def check_kd_kernels(scans, sysc):
@@ -777,7 +828,8 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     rows["icp_normal_eq"] = dict(rows_in["icp_normal_eq"],
                                  weight_residual=dict(max_abs_err=err, ms=ms_k, device_ms=dev_k,
                                                       plain_ms=ms_p, bound_ms=b, bound_by=by,
-                                                      library_ms=None))
+                                                      library_ms=None,
+                                                      library_device_ms=None))
 
     # ---- K8a iris_image, K8b iris_encode (a drain batch of 16 keyframes) ----
     clouds = torch.stack([feats(i)[0] for i in range(0, 32, 2)]).contiguous()
@@ -801,7 +853,7 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
         lambda: iris.gabor_product(spec, filters),
         time_ms(lambda: iris.gabor_product_plain(spec, filters)),
         spec.numel() * 8 + filters.numel() * 4 + gk.numel() * 8, gk.numel() * 2,
-        library_ms=time_ms(lambda: torch.mul(spec[:, None], filt_c)),
+        library=lambda: torch.mul(spec[:, None], filt_c),
         note="16 keyframes x 80 x 360 row spectra x 4 log-Gabor scales; library: one "
              "broadcast torch.mul")
     resp = iris._responses(bk.to(torch.float32), filters).contiguous()
@@ -902,7 +954,7 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
                                                 plan.counts, plan.centroids,
                                                 plan.fresh.l1_index)),
         n_rec * (8 + 8 + 1) + n_live * 16 + n_merged * (128 + 16) + 8, n_live * 8,
-        library_ms=time_ms(lambda: l0_lib.index_add_(0, rec_row, data4)),
+        library=lambda: l0_lib.index_add_(0, rec_row, data4),
         note=f"{n_live} live records, {n_merged} merged voxels, placed/dropped "
              f"{a_k.tolist()}; err is relative")
     return rows
@@ -943,14 +995,18 @@ def check_pgo_kernels(graph):
     print(f"  pgo graph: {PGO_N} keyframes padded to {n_pad}, {M_v} between factors "
           f"({M_v - PGO_N + 1} loops), D = {D} partitions, max_m = {max_m} rows, "
           f"{n_rows} interior rows, reduced system {6 * D} x {6 * D}", flush=True)
+    shape = dpgo.reduced_solve_shape()
+    print(f"  pgo_reduced_solve launch: a cluster of {shape['cluster']} CTAs x "
+          f"{shape['threads']} threads, {shape['smem_bytes']} B of shared memory each, "
+          f"panels of {shape['panel']} columns", flush=True)
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max()), float((a - b).abs().max())
 
-    def row(name, errs, tol, kernel, plain_ms, nbytes, ops, library_ms=None, note=""):
+    def row(name, errs, tol, kernel, plain_ms, nbytes, ops, library=None, note=""):
         """errs: (compared error, max abs error) of each output."""
         err = max(e[0] for e in errs)
-        record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms, note,
+        record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library, note,
                ops_per_s=FP64_OPS_PER_S)
         rows[name].update(max_abs_err=max(e[1] for e in errs), compared_err=err)
 
@@ -996,11 +1052,15 @@ def check_pgo_kernels(graph):
         time_ms(lambda: dpgo.reduced_solve_plain(diag, off, b, lb, S, r, *red)),
         D * (288 + 4 * 288 + 96 + 48 + 48) + n_adj * 288 + L * 300,
         N ** 3 / 3 + 2 * N ** 2 + 4 * N ** 2,
-        library_ms=time_ms(lambda: torch.linalg.solve(Hs, bs)),
+        library=lambda: torch.linalg.solve(Hs, bs),
         note=f"xs of the {N} x {N} separator system (kappa {kappa:.3e}); err = normwise "
              f"backward error; xs differs from the twin's by {forward:.3e} of max|xs|; "
              f"library: torch.linalg.solve on the assembled Hs")
     rows["pgo_reduced_solve"].update(forward_rel_err=forward, kappa=kappa)
+    xs_2 = dpgo.reduced_solve(g, diag, off, b, lb, S, r)
+    if not torch.equal(xs_k, xs_2):
+        fail("pgo_reduced_solve: two calls differ")
+    check_reduced_second_size()
 
     F, G, gv = el_p[2:]
     back = [g[k] for k in dpgo.BACK_KEYS]
@@ -1025,6 +1085,34 @@ def check_pgo_kernels(graph):
     return rows
 
 
+def check_reduced_second_size(D: int = 200):
+    """K10c on the tests' second size: a synthetic separator system of D =
+    200 (a 1200 x 1200 system, 11.5 MB, larger than the cluster's shared
+    memory; synthetic.separator_system, 6 loop blocks), held to the same
+    backward error, 1e-13, and two calls bit-equal."""
+    import torch
+    from lidar_odometry_tpu_torch.io import synthetic
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    c = {k: torch.tensor(v, device=DEVICE)
+         for k, v in synthetic.separator_system(D, 6, seed=D).items()}
+    g = {k: c[k] for k in dpgo.RED_KEYS}
+    g["st"] = torch.tensor([0.0, 0.0, 1.0, 1.0], dtype=torch.float64, device=DEVICE)
+    args = [c[k] for k in ("diag", "off", "b", "lb", "S", "r")]
+    xs_k = dpgo.reduced_solve(g, *args)
+    xs_2 = dpgo.reduced_solve(g, *args)
+    xs_p, Hs, bs = dpgo.reduced_solve_plain(*args, *[g[k] for k in dpgo.RED_KEYS])
+    x = xs_k.reshape(-1)
+    backward = float((Hs @ x - bs).abs().max() / (Hs.abs().sum(1).max() * x.abs().max()))
+    forward = float((xs_k - xs_p).abs().max() / xs_p.abs().max())
+    ok = backward <= 1e-13 and torch.equal(xs_k, xs_2)
+    print(f"  pgo_reduced_solve at D = {D}: backward error {backward:.3e} (tol 1e-13), "
+          f"{forward:.3e} of max|xs| from the twin, two calls bit-equal: "
+          f"{'yes' if torch.equal(xs_k, xs_2) else 'no'} | kernel "
+          f"{time_ms(lambda: dpgo.reduced_solve(g, *args), reps=10):.4f} ms", flush=True)
+    if not ok:
+        fail(f"pgo_reduced_solve at D = {D}: backward error {backward} or calls differ")
+
+
 def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
     """K1, K2a, K3 and K2b at B = LANES on the first frame of each lane after
     a boot chunk of the blocked runner: each against its plain version (per
@@ -1045,8 +1133,8 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
     one = lambda t, b: t[b].contiguous()
     sub = {}
 
-    def lane_row(name, err, tol, kernel, plain_ms, nbytes, ops, note, library_ms=None):
-        record(sub, name, err, tol, kernel, plain_ms, nbytes, ops, library_ms, note)
+    def lane_row(name, err, tol, kernel, plain_ms, nbytes, ops, note, library=None):
+        record(sub, name, err, tol, kernel, plain_ms, nbytes, ops, library, note)
         rows[name]["lanes4"] = sub[name]
 
     def same(name, a, b, lane):
@@ -1089,7 +1177,7 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
              lambda: vf.voxel_segments(key_s, perm, raw, SCAN_CAP, inv, vox), time_ms(plain),
              LANES * (n * (8 + 8 + 12) + SCAN_CAP * 13 + 4), LANES * n * 10,
              note=f"B = {LANES}: {nk.tolist()} voxels; each lane bit-equal to a one-lane launch",
-             library_ms=time_ms(lambda: lib_out.index_add_(0, seg, p_rel)))
+             library=lambda: lib_out.index_add_(0, seg, p_rel))
 
     # ---- K2a ----
     feat, mask, _ = vf.voxel_filter(raw, n, voxel_size=0.5, stride=1, out_capacity=SCAN_CAP,
@@ -1565,11 +1653,9 @@ def schur_path(graph, pgo, group):
     xp = dpgo.block_tridiag_solve_plain(dd, oo, bb)
     err, err_abs = rel(xk, xp)
     Hc = dense_system(dd, oo)
-    lib_ms = time_ms(lambda: torch.linalg.solve(Hc, bb.reshape(-1)), reps=3)
     xd = torch.linalg.solve(Hc, bb.reshape(-1)).reshape(n, 6)
     vs_dense = rel(xk, xd)[0]
     bwd_chain = backward_error(Hc, xk, bb)
-    del Hc
     d32, o32, b32 = dd.float(), oo.float(), bb.float()
     xk32 = dpgo.block_tridiag_solve(d32, o32, b32)
     xp32 = dpgo.block_tridiag_solve_plain(d32, o32, b32)
@@ -1588,10 +1674,12 @@ def schur_path(graph, pgo, group):
            time_ms(lambda: dpgo.block_tridiag_solve_plain(dd, oo, bb), reps=3),
            n * 288 + (n - 1) * 288 + n * 48 + n * 48,
            n * (2 * 216 + 2 * 36 + 125 + 7 * 30 + 7 * 36) + n * 72,
-           library_ms=lib_ms, ops_per_s=FP64_OPS_PER_S,
+           library=lambda: torch.linalg.solve(Hc, bb.reshape(-1)), library_reps=3,
+           ops_per_s=FP64_OPS_PER_S,
            note=f"x of the {N} x {N} chain system, float64; err relative to max|x|; "
                 f"{vs_dense:.3e} of max|x| from torch.linalg.solve on the dense matrix "
                 f"(library), backward error {bwd_chain:.3e}; float32 {err32:.3e} from its twin")
+    del Hc
     rows["pgo_block_thomas"].update(max_abs_err=err_abs, compared_err=err, float32_err=err32,
                                     float32_from_float64=f32_from_f64, dense_rel=vs_dense,
                                     backward_error=bwd_chain)
@@ -2088,10 +2176,9 @@ def check_shard_kernels(frames, cfg, rows):
         an = nrm @ Rm
         J = torch.cat([an, torch.linalg.cross(p_own, an)], -1)
         Z = torch.cat([(J[..., :, None] * J[..., None, :]).flatten(-2), J * r[..., None]], -1)
-        lib = time_ms(lambda: torch.bmm(W, Z))
         record(rows, "shard_alpha_normal_eq", err_ne, 1e-5 * scale_ne, ne_k, time_ms(ne_p, reps=5),
                g_inst * (12 + 12 + 4 + 1) + s * ld * 4 + 64, sum(rows_n) * n_alpha * 2 * 27,
-               library_ms=lib, note=f"A {n_alpha}, {sum(rows_n)} valid of {g_inst}; library: "
+               library=lambda: torch.bmm(W, Z), note=f"A {n_alpha}, {sum(rows_n)} valid of {g_inst}; library: "
                                     f"torch.bmm of the materialised (S, A, cap) weights by Z")
         record(rows, "shard_sample", err_smp, 0.0, sample_k, time_ms(sample_p, reps=5),
                g_inst * (4 + 1) + s * 2 * s * q * 4 + s * 12, 0.0, note=f"quota {q}")

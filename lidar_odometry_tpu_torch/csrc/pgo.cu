@@ -18,11 +18,13 @@
 //    13 right-hand columns [U | E | b], one column a lane) and the backward
 //    chain F, G, g, and writes the Schur blocks. C, E and d go to global
 //    scratch (the chain is max_m long and does not fit in shared memory).
-//  * K10c lo_pgo_reduced_solve — the separator system (:625-647): one block
-//    assembles Hs ((6D)^2, in global memory: 1.5 MB at D = 73, beyond an
-//    SM's shared memory, and D is not capped) and bs in the order of the
-//    JAX scatter-adds, factors Hs in place by a right-looking Cholesky in
-//    6-column panels, and solves the two triangular systems.
+//  * K10c lo_pgo_reduced_solve — the separator system (:625-647): a cluster
+//    of 8 CTAs assembles Hs ((6D)^2, in global memory: 1.5 MB at D = 73,
+//    beyond an SM's shared memory, and D is not capped) and bs in the order
+//    of the JAX scatter-adds, factors Hs in place by a right-looking
+//    Cholesky in 24-column panels whose trailing updates run on the fp64
+//    tensor cores, with bs as one more row (the forward solve), and solves
+//    L^T x = y (the design is at the kernel).
 //  * K10d lo_pgo_backsub_retract — :649-686: one thread a padded pose
 //    computes its dx; block partials of |dx|^2 and of non-finite entries go
 //    to scratch; the last block to finish (a threadfence + a ticket counter
@@ -44,9 +46,11 @@
 // a 438 x 438 system: 28 MFLOP, ~0.4 us at 67 TFLOP/s f64), so each is
 // bound by its sequential depth and launch cost, not by the card: K10b is
 // a chain of max_m dependent 6x6 steps in each partition, K10c a chain of
-// D dependent panels on one SM. Simple and right first; the designs keep
+// ceil(D / 4) dependent panels, each a warp's 24-column factor, a row
+// solve, a tensor-core update and two cluster barriers. The designs keep
 // the summation order fixed, which makes two calls bit-equal.
 #include "common.cuh"
+#include <cooperative_groups.h>
 #include <math.h>
 
 namespace {
@@ -54,7 +58,6 @@ namespace {
 constexpr double LIE_EPS = 1e-10;        // reference kEpsLie
 constexpr int FAC_THREADS = 128;
 constexpr int ASM_THREADS = 256;
-constexpr int RED_THREADS = 1024;
 constexpr int BACKSUB_THREADS = 256;     // distributed_pgo.py _BACKSUB_THREADS
 
 __device__ __forceinline__ double clip1(double x) {  // jnp.clip, NaN kept
@@ -516,144 +519,329 @@ eliminate_kernel(const double* __restrict__ diag, const double* __restrict__ off
 // ---------------------------------------------------------------------------
 // K10c
 // ---------------------------------------------------------------------------
+//
+// One thread-block cluster of RED_CLUSTER CTAs (the cluster makes them
+// co-resident and gives the hardware barrier that orders the steps; no
+// other CTA runs the solve). The working matrix A, (NR x NR) doubles with
+// NR = N + 1 rounded up to 8, lives in global memory (1.5 MB at D = 73, in
+// L2; D is not capped): its lower triangle holds (Hs + Hs^T) / 2, row N
+// holds bs (so the forward solve rides along as one more row of the
+// factorisation and row N ends as y = L^-1 bs), rows past N are zero.
+//
+//  1. Assembly, over the cluster: every lower entry from the separators'
+//     diagonal blocks, the Schur blocks and the adjacent couplings, each
+//     entry's terms in the order of the JAX scatter-adds, averaged with its
+//     transpose; then (after a cluster barrier) the loop blocks' entries
+//     recomputed with every loop's term added in loop order.
+//  2. Right-looking blocked Cholesky in panels of PW = 24 columns (four
+//     separators). A panel's 24 x 24 diagonal block is factored by warp 0
+//     of every CTA alike (a row a lane, in registers, pivots broadcast by
+//     shuffles; the column is scaled by the pivot's reciprocal square root,
+//     as LAPACK's dpotf2 scales by a reciprocal); a non-positive or NaN
+//     pivot gives NaN. The rows below it are
+//     spread over the cluster by 8-row tile rows (tile row I belongs to CTA
+//     I mod RED_CLUSTER), one thread a row solving x L11^T = a. A cluster
+//     barrier publishes the panel; each CTA copies it into shared memory
+//     (up to CH tile rows at once) and updates its own tile rows' part of
+//     the trailing lower triangle, A[I][J] -= P_I P_J^T, on the fp64 tensor
+//     cores (mma.sync m8n8k4 f64: a warp a tile row by 4 tile columns, 6
+//     k-steps). Tiles whose panel rows are all exactly zero are skipped (the
+//     update would add only zeros; the sums that are made keep their
+//     order). A second barrier ends the step.
+//  3. The backward solve L^T x = y by CTA 0 alone, panel by panel from the
+//     last: warp 0 solves the 24 x 24 triangle with shuffles, the other
+//     warps update y for the columns before the panel.
+//
+// Every sum has a fixed order and no double is added atomically, so two
+// calls give bit-equal results.
 
-__global__ void __launch_bounds__(RED_THREADS)
+constexpr int RED_CLUSTER = 8;                 // CTAs of the cluster (portable size)
+constexpr int RED_THREADS = 512;
+constexpr int RED_WARPS = RED_THREADS / 32;
+constexpr int PW = 24;                         // panel width
+constexpr int RS = 28;                         // doubles a panel row in shared memory
+constexpr int CH = 64;                         // panel tile rows in shared memory at once
+constexpr int RED_SMEM = (CH * 8 * RS + PW * PW + PW) * 8 + CH * 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+// H[row][col] of the assembled separator system before the loop blocks
+// (the JAX scatter-adds' order within each entry).
+__device__ __forceinline__ double h_base(const double* __restrict__ diag,
+                                         const double* __restrict__ off,
+                                         const double* __restrict__ S,
+                                         const int* __restrict__ seps,
+                                         const int* __restrict__ adj_mask,
+                                         const int* __restrict__ adj_off, int D, int row,
+                                         int col) {
+  const int I = row / 6, i = row % 6, J = col / 6, j = col % 6;
+  double v = 0.0;
+  if (I == J) {
+    v = diag[36 * (size_t)seps[I] + 6 * i + j] + S[144 * (size_t)I + 108 + 6 * i + j];
+    if (I + 1 < D) v += S[144 * (size_t)(I + 1) + 6 * i + j];            // S_ll of I+1
+  } else if (J == I + 1) {
+    v = S[144 * (size_t)J + 36 + 6 * i + j];                             // S_lr of J
+    if (adj_mask[I]) v += off[36 * (size_t)adj_off[I] + 6 * i + j];
+  } else if (I == J + 1) {
+    v = S[144 * (size_t)I + 72 + 6 * i + j];                             // S_rl of I
+    if (adj_mask[J]) v += off[36 * (size_t)adj_off[J] + 6 * j + i];
+  }
+  return v;
+}
+
+// The entry (row, col) and its transpose with the loop blocks added: every
+// loop (a, b) adds its block at (a, b) in loop order, then every loop its
+// transpose at (b, a). hr and hc hold the two entries without them.
+__device__ __forceinline__ void h_loops(double& hr, double& hc, const double* __restrict__ lb,
+                                        const int* __restrict__ loop_a,
+                                        const int* __restrict__ loop_b,
+                                        const int* __restrict__ loop_valid, int L, int row,
+                                        int col) {
+  const int I = row / 6, i = row % 6, J = col / 6, j = col % 6;
+  for (int l = 0; l < L; ++l) {   // the first pass: blocks at (a, b)
+    if (!loop_valid[l]) continue;
+    if (loop_a[l] == I && loop_b[l] == J) hr += lb[36 * (size_t)l + 6 * i + j];
+    if (loop_a[l] == J && loop_b[l] == I) hc += lb[36 * (size_t)l + 6 * j + i];
+  }
+  for (int l = 0; l < L; ++l) {   // the second pass: transposes at (b, a)
+    if (!loop_valid[l]) continue;
+    if (loop_b[l] == I && loop_a[l] == J) hr += lb[36 * (size_t)l + 6 * j + i];
+    if (loop_b[l] == J && loop_a[l] == I) hc += lb[36 * (size_t)l + 6 * i + j];
+  }
+}
+
+// D += A B on the fp64 tensor cores: A 8x4 row-major (a = A[g][t]), B 4x8
+// column-major (b = B[t][g]), D 8x8 (d0, d1 = D[g][2t], D[g][2t+1]), with
+// g = lane / 4 and t = lane % 4.
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+__global__ void __launch_bounds__(RED_THREADS, 1)
 reduced_kernel(const double* __restrict__ diag, const double* __restrict__ off,
                const double* __restrict__ b, const double* __restrict__ lb,
                const double* __restrict__ S, const double* __restrict__ r,
                const int* __restrict__ seps, const int* __restrict__ adj_mask,
                const int* __restrict__ adj_off, const int* __restrict__ loop_a,
                const int* __restrict__ loop_b, const int* __restrict__ loop_valid, int D, int L,
-               const double* __restrict__ st, double* __restrict__ Hs, double* __restrict__ bs,
-               double* __restrict__ pan, double* __restrict__ xs) {
-  if (st[3] == 0.0) return;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int N = 6 * D;
-  __shared__ double Ld[6][6];
-  __shared__ double yv[6];
+               const double* __restrict__ st, double* __restrict__ A, double* __restrict__ xs) {
+  if (st[3] == 0.0) return;   // every CTA alike, so no barrier is left waiting
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, ln = tid & 31, wid = tid >> 5;
+  const int N = 6 * D, NA = N + 1, NR = (NA + 7) & ~7, NT = NR / 8;
+  const int P = (N + PW - 1) / PW;
+  extern __shared__ double4 smem_raw[];
+  double* chunk = reinterpret_cast<double*>(smem_raw);   // CH * 8 rows x RS
+  double* L11t = chunk + CH * 8 * RS;                    // PW x PW, L11 transposed
+  double* rinv = L11t + PW * PW;                         // PW
+  int* nz = reinterpret_cast<int*>(rinv + PW);           // CH
 
-  // ---- assembly, each entry's terms in the order of the JAX scatter-adds ----
-  for (size_t e = tid; e < (size_t)N * N; e += nt) {
-    const int row = (int)(e / N), col = (int)(e % N);
-    const int I = row / 6, i = row % 6, J = col / 6, j = col % 6;
-    double v = 0.0;
-    if (I == J) {
-      v = diag[36 * (size_t)seps[I] + 6 * i + j] + S[144 * (size_t)I + 108 + 6 * i + j];
-      if (I + 1 < D) v += S[144 * (size_t)(I + 1) + 6 * i + j];            // S_ll of I+1
-    } else if (J == I + 1) {
-      v = S[144 * (size_t)J + 36 + 6 * i + j];                             // S_lr of J
-      if (adj_mask[I]) v += off[36 * (size_t)adj_off[I] + 6 * i + j];
-    } else if (I == J + 1) {
-      v = S[144 * (size_t)I + 72 + 6 * i + j];                             // S_rl of I
-      if (adj_mask[J]) v += off[36 * (size_t)adj_off[J] + 6 * j + i];
+  // ---- 1. assembly: a warp a row, its lower part ----
+  const int gw = rank * RED_WARPS + wid, nw = RED_CLUSTER * RED_WARPS;
+  for (int row = gw; row < NR; row += nw) {
+    const int band = 6 * (row / 6 - 1);   // the first column of the blocks next to row's
+    for (int col = ln; col <= row; col += 32) {
+      double v = 0.0;
+      if (row < N) {
+        if (col >= band) {
+          v = h_base(diag, off, S, seps, adj_mask, adj_off, D, row, col);
+          if (col < row) v = (v + h_base(diag, off, S, seps, adj_mask, adj_off, D, col, row)) * 0.5;
+        }
+      } else if (row == N && col < N) {
+        const int I = col / 6, i = col % 6;
+        v = b[6 * (size_t)seps[I] + i] + r[12 * (size_t)I + 6 + i];
+        if (I + 1 < D) v += r[12 * (size_t)(I + 1) + i];                 // r_l of I+1
+      }
+      __stcg(A + (size_t)row * NR + col, v);
     }
-    Hs[e] = v;
   }
-  for (int row = tid; row < N; row += nt) {
-    const int I = row / 6, i = row % 6;
-    double v = b[6 * (size_t)seps[I] + i] + r[12 * (size_t)I + 6 + i];
-    if (I + 1 < D) v += r[12 * (size_t)(I + 1) + i];                       // r_l of I+1
-    bs[row] = v;
+  cluster.sync();
+  const int gt = rank * RED_THREADS + tid, gn = RED_CLUSTER * RED_THREADS;
+  for (int e = gt; e < 36 * L; e += gn) {   // loop blocks, each once
+    const int l = e / 36, i = (e % 36) / 6, j = e % 6;
+    if (!loop_valid[l]) continue;
+    const int la = loop_a[l], lbb = loop_b[l];
+    bool seen = false;
+    for (int q = 0; q < l; ++q)
+      seen |= loop_valid[q] && ((loop_a[q] == la && loop_b[q] == lbb) ||
+                                (loop_a[q] == lbb && loop_b[q] == la));
+    if (seen) continue;
+    const int row = 6 * max(la, lbb) + i, col = 6 * min(la, lbb) + j;
+    if (col > row) continue;
+    double hr = h_base(diag, off, S, seps, adj_mask, adj_off, D, row, col);
+    double hc = h_base(diag, off, S, seps, adj_mask, adj_off, D, col, row);
+    h_loops(hr, hc, lb, loop_a, loop_b, loop_valid, L, row, col);
+    __stcg(A + (size_t)row * NR + col, col < row ? (hr + hc) * 0.5 : hr);
   }
-  __syncthreads();
-  if (tid < 36) {   // loop blocks (a < b) in loop order, then their transposes
-    const int i = tid / 6, j = tid % 6;
-    for (int l = 0; l < L; ++l)
-      if (loop_valid[l])
-        Hs[(size_t)(6 * loop_a[l] + i) * N + 6 * loop_b[l] + j] += lb[36 * (size_t)l + 6 * i + j];
-    for (int l = 0; l < L; ++l)
-      if (loop_valid[l])
-        Hs[(size_t)(6 * loop_b[l] + i) * N + 6 * loop_a[l] + j] += lb[36 * (size_t)l + 6 * j + i];
-  }
-  __syncthreads();
-  // the lower triangle becomes (Hs + Hs^T) / 2
-  for (size_t e = tid; e < (size_t)N * N; e += nt) {
-    const int row = (int)(e / N), col = (int)(e % N);
-    if (col < row) Hs[e] = (Hs[e] + Hs[(size_t)col * N + row]) * 0.5;
-  }
-  __syncthreads();
+  cluster.sync();
 
-  // ---- right-looking Cholesky in 6-column panels, in place (lower) ----
-  for (int J = 0; J < D; ++J) {
-    const int j0 = 6 * J;
-    if (tid == 0) {
-      for (int j = 0; j < 6; ++j) {
-        double s = Hs[(size_t)(j0 + j) * N + j0 + j];
-        for (int q = 0; q < j; ++q) s -= Ld[j][q] * Ld[j][q];
-        const double ljj = s > 0.0 ? sqrt(s) : NAN;
-        Ld[j][j] = ljj;
-        for (int i = j + 1; i < 6; ++i) {
-          double v = Hs[(size_t)(j0 + i) * N + j0 + j];
-          for (int q = 0; q < j; ++q) v -= Ld[i][q] * Ld[j][q];
-          Ld[i][j] = v / ljj;
+  // ---- 2. blocked Cholesky, y = L^-1 bs in row N ----
+  for (int p = 0; p < P; ++p) {
+    const int c0 = p * PW, w = min(PW, N - c0), c1 = c0 + w;
+    if (wid == 0) {   // the diagonal block, a row a lane
+      double a[PW];
+#pragma unroll
+      for (int j = 0; j < PW; ++j)
+        a[j] = ln < w && j <= ln ? __ldcg(A + (size_t)(c0 + ln) * NR + c0 + j) : 0.0;
+#pragma unroll
+      for (int j = 0; j < PW; ++j) {
+        if (j < w) {
+          const double piv = __shfl_sync(FULL, a[j], j);
+          const double ri = piv > 0.0 ? rsqrt(piv) : NAN;
+          const double l = ln == j ? piv * ri : a[j] * ri;
+          if (ln >= j) a[j] = l;
+#pragma unroll
+          for (int k = j + 1; k < PW; ++k) {
+            const double lk = __shfl_sync(FULL, l, k);
+            if (k < w && ln >= k) a[k] -= l * lk;
+          }
+          if (ln == 0) rinv[j] = ri;
         }
       }
-      for (int i = 0; i < 6; ++i)
-        for (int j = 0; j <= i; ++j) Hs[(size_t)(j0 + i) * N + j0 + j] = Ld[i][j];
+#pragma unroll
+      for (int j = 0; j < PW; ++j)
+        if (ln < w && j <= ln) L11t[j * PW + ln] = a[j];
     }
     __syncthreads();
-    // the panel below: L[i, j0:j0+6] = A[i, j0:j0+6] Ld^-T
-    for (int i = j0 + 6 + tid; i < N; i += nt) {
-      double x[6];
-      for (int c = 0; c < 6; ++c) {
-        double v = Hs[(size_t)i * N + j0 + c];
-        for (int q = 0; q < c; ++q) v -= x[q] * Ld[c][q];
-        x[c] = v / Ld[c][c];
+    // the panel below: this CTA's rows in [c1, NA), x = a L11^-T a row a thread
+    const int tr = c1 / 8;
+    const int I0 = tr + ((rank - tr % RED_CLUSTER) % RED_CLUSTER + RED_CLUSTER) % RED_CLUSTER;
+    for (int q = tid;; q += RED_THREADS) {
+      const int row = 8 * (I0 + RED_CLUSTER * (q / 8)) + q % 8;
+      if (row >= NA) break;
+      if (row < c1) continue;
+      double* arow = A + (size_t)row * NR + c0;
+      double x[PW];
+#pragma unroll
+      for (int c = 0; c < PW; ++c) x[c] = c < w ? __ldcg(arow + c) : 0.0;
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        if (c < w) {
+          x[c] *= rinv[c];
+#pragma unroll
+          for (int k = c + 1; k < PW; ++k)
+            if (k < w) x[k] -= x[c] * L11t[c * PW + k];
+        }
+#pragma unroll
+      for (int c = 0; c < PW; ++c)
+        if (c < w) __stcg(arow + c, x[c]);
+    }
+    cluster.sync();
+    // L11 into A once every CTA has read the block (CTA 0's copy, for step 3)
+    if (rank == 0 && tid < w)
+      for (int j = 0; j <= tid; ++j) __stcg(A + (size_t)(c0 + tid) * NR + c0 + j, L11t[j * PW + tid]);
+    if (p + 1 == P) break;
+    // the trailing update of this CTA's tile rows, P_J from shared memory
+    const int g = ln >> 2, t = ln & 3;
+    for (int J0 = tr; J0 < NT; J0 += CH) {
+      const int J1 = min(NT, J0 + CH);
+      if (tid < CH) nz[tid] = 0;
+      __syncthreads();
+      for (int e = tid; e < 8 * (J1 - J0) * (PW / 2); e += RED_THREADS) {
+        const int rr = e / (PW / 2), cc = 2 * (e % (PW / 2));
+        const double2 v = __ldcg(reinterpret_cast<const double2*>(
+            A + (size_t)(8 * J0 + rr) * NR + c0 + cc));
+        *reinterpret_cast<double2*>(chunk + rr * RS + cc) = v;
+        if (v.x != 0.0 || v.y != 0.0) nz[rr / 8] = 1;
       }
-      for (int c = 0; c < 6; ++c) {
-        Hs[(size_t)i * N + j0 + c] = x[c];
-        pan[6 * (size_t)i + c] = x[c];
+      __syncthreads();
+      // tasks: (tile row I of this CTA, I >= J0) x (4 tile columns J in [J0, min(I + 1, J1)))
+      const int Ia = J0 + ((rank - J0 % RED_CLUSTER) % RED_CLUSTER + RED_CLUSTER) % RED_CLUSTER;
+      int task = wid, before = 0;
+      for (int I = Ia; I < NT; I += RED_CLUSTER) {
+        const bool in_chunk = I < J1;
+        const int nj = min(I + 1, J1) - J0;
+        const int ng = (!in_chunk || nz[I - J0]) ? (nj + 3) / 4 : 0;
+        for (; task < before + ng; task += RED_WARPS) {
+          const int jb = J0 + 4 * (task - before);
+          double av[PW / 4];   // -P_I[g][4kk + t]
+          if (in_chunk) {
+            const double* ar = chunk + ((I - J0) * 8 + g) * RS + t;
+#pragma unroll
+            for (int kk = 0; kk < PW / 4; ++kk) av[kk] = -ar[4 * kk];
+          } else {
+            const double* ar = A + (size_t)(8 * I + g) * NR + c0 + t;
+#pragma unroll
+            for (int kk = 0; kk < PW / 4; ++kk) av[kk] = -__ldcg(ar + 4 * kk);
+          }
+          double2 cv[4];
+          bool on[4];
+          double* crow = A + (size_t)(8 * I + g) * NR + 2 * t;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            on[jj] = jb + jj - J0 < nj && nz[jb + jj - J0];
+            if (on[jj]) cv[jj] = __ldcg(reinterpret_cast<const double2*>(crow + 8 * (jb + jj)));
+          }
+#pragma unroll
+          for (int kk = 0; kk < PW / 4; ++kk)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              if (on[jj])
+                dmma(cv[jj].x, cv[jj].y, av[kk],
+                     chunk[((jb + jj - J0) * 8 + g) * RS + 4 * kk + t]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (on[jj]) __stcg(reinterpret_cast<double2*>(crow + 8 * (jb + jj)), cv[jj]);
+        }
+        before += ng;
       }
+      __syncthreads();
     }
-    __syncthreads();
-    // trailing update of the lower triangle: A[i][c] -= sum_q L[i][q] L[c][q]
-    const int R = N - j0 - 6;
-    for (size_t e = tid; e < (size_t)R * R; e += nt) {
-      const int i = j0 + 6 + (int)(e / R), c = j0 + 6 + (int)(e % R);
-      if (c > i) continue;
-      double acc = 0.0;
-      for (int q = 0; q < 6; ++q) acc += pan[6 * (size_t)i + q] * pan[6 * (size_t)c + q];
-      Hs[(size_t)i * N + c] -= acc;
-    }
-    __syncthreads();
+    cluster.sync();
   }
+  if (rank != 0) return;
 
-  // ---- L y = bs, then L^T x = y, in 6-row steps (bs holds y, then x) ----
-  for (int J = 0; J < D; ++J) {
-    const int j0 = 6 * J;
-    if (tid == 0)
-      for (int c = 0; c < 6; ++c) {
-        double v = bs[j0 + c];
-        for (int q = 0; q < c; ++q) v -= Hs[(size_t)(j0 + c) * N + j0 + q] * yv[q];
-        yv[c] = v / Hs[(size_t)(j0 + c) * N + j0 + c];
-        bs[j0 + c] = yv[c];
+  // ---- 3. L^T x = y, panel by panel from the last; y updated in row N ----
+  double* y = A + (size_t)N * NR;
+  double* xp = chunk;   // the panel's x
+  for (int p = P - 1; p >= 0; --p) {
+    const int c0 = p * PW, w = min(PW, N - c0);
+    // warps 1..: the first of their columns before the panel, loaded before x is known
+    const int c = tid - 32;
+    const bool mine = c >= 0 && c < c0;
+    double lv[PW], yc = 0.0;
+    if (mine) {
+#pragma unroll
+      for (int q = 0; q < PW; ++q) lv[q] = q < w ? __ldcg(A + (size_t)(c0 + q) * NR + c) : 0.0;
+      yc = __ldcg(y + c);
+    }
+    if (wid == 0) {
+      double lc[PW];   // lane i: L[c0 + j][c0 + i] for j > i
+#pragma unroll
+      for (int j = 0; j < PW; ++j)
+        lc[j] = ln < w && j > ln && j < w ? __ldcg(A + (size_t)(c0 + j) * NR + c0 + ln) : 0.0;
+      const double ri = ln < w ? 1.0 / __ldcg(A + (size_t)(c0 + ln) * NR + c0 + ln) : 0.0;
+      double yi = ln < w ? __ldcg(y + c0 + ln) : 0.0, xi = 0.0;
+#pragma unroll
+      for (int j = PW - 1; j >= 0; --j)
+        if (j < w) {
+          const double xj = __shfl_sync(FULL, yi * ri, j);
+          if (ln == j) xi = xj;
+          if (ln < j) yi -= lc[j] * xj;
+        }
+      if (ln < w) {
+        xp[ln] = xi;
+        xs[c0 + ln] = xi;
       }
+    }
     __syncthreads();
-    for (int i = j0 + 6 + tid; i < N; i += nt) {
+    if (mine) {
       double acc = 0.0;
-      for (int q = 0; q < 6; ++q) acc += Hs[(size_t)i * N + j0 + q] * yv[q];
-      bs[i] -= acc;
+#pragma unroll
+      for (int q = 0; q < PW; ++q)
+        if (q < w) acc += lv[q] * xp[q];
+      __stcg(y + c, yc - acc);
+    }
+    for (int cc = c + RED_THREADS - 32; c >= 0 && cc < c0; cc += RED_THREADS - 32) {
+      double acc = 0.0;
+      for (int q = 0; q < w; ++q) acc += __ldcg(A + (size_t)(c0 + q) * NR + cc) * xp[q];
+      __stcg(y + cc, __ldcg(y + cc) - acc);
     }
     __syncthreads();
   }
-  for (int J = D - 1; J >= 0; --J) {
-    const int j0 = 6 * J;
-    if (tid == 0)
-      for (int c = 5; c >= 0; --c) {
-        double v = bs[j0 + c];
-        for (int q = c + 1; q < 6; ++q) v -= Hs[(size_t)(j0 + q) * N + j0 + c] * yv[q];
-        yv[c] = v / Hs[(size_t)(j0 + c) * N + j0 + c];
-        bs[j0 + c] = yv[c];
-      }
-    __syncthreads();
-    for (int i = tid; i < j0; i += nt) {
-      double acc = 0.0;
-      for (int q = 0; q < 6; ++q) acc += Hs[(size_t)(j0 + q) * N + i] * yv[q];
-      bs[i] -= acc;
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < N; e += nt) xs[e] = bs[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -793,16 +981,42 @@ LO_EXPORT int lo_pgo_eliminate(const double* diag, const double* off, const doub
   return (int)cudaGetLastError();
 }
 
+// A: (NR, NR) doubles of scratch, NR = 6 D + 1 rounded up to 8. One
+// cluster of RED_CLUSTER CTAs, launched with its cluster dimension.
 LO_EXPORT int lo_pgo_reduced_solve(const double* diag, const double* off, const double* b,
                                    const double* lb, const double* S, const double* r,
                                    const int* seps, const int* adj_mask, const int* adj_off,
                                    const int* loop_a, const int* loop_b, const int* loop_valid,
-                                   int D, int L, const double* st, double* Hs, double* bs,
-                                   double* pan, double* xs, void* stream) {
-  reduced_kernel<<<1, RED_THREADS, 0, (cudaStream_t)stream>>>(
-      diag, off, b, lb, S, r, seps, adj_mask, adj_off, loop_a, loop_b, loop_valid, D, L, st,
-      Hs, bs, pan, xs);
+                                   int D, int L, const double* st, double* A, double* xs,
+                                   void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(reduced_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       RED_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(RED_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(RED_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = RED_SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = RED_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, reduced_kernel, diag, off, b, lb, S, r, seps, adj_mask, adj_off,
+                         loop_a, loop_b, loop_valid, D, L, st, A, xs);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// K10c's launch shape: cluster CTAs, panel width, threads a CTA, dynamic
+// shared memory a CTA (bytes).
+LO_EXPORT void lo_pgo_reduced_solve_shape(int* out) {
+  out[0] = RED_CLUSTER;
+  out[1] = PW;
+  out[2] = RED_THREADS;
+  out[3] = RED_SMEM;
 }
 
 LO_EXPORT int lo_pgo_backsub_retract(const double* xs, const double* F, const double* G,

@@ -473,3 +473,61 @@ def revisit_pose_graph(n: int, n_loops: int, seed: int = 0, *, length: float = 2
         betweens.append((i, j, np.linalg.inv(true[i]) @ true[j], sq_between))
     priors = [(0, true[0].copy(), np.eye(6) / 1e-2)]
     return np.stack(init), priors, betweens, true
+
+
+def voxel_runs(counts, n_invalid: int = 0, seed: int = 0, voxel: float = 0.5) -> np.ndarray:
+    """Points that fill one distinct voxel cell each per entry of `counts`
+    (that many points in the cell, inside it by at least 5 % of the voxel
+    on every axis), plus n_invalid NaN rows, shuffled: (sum(counts) +
+    n_invalid, 3) float32. Sorted by their voxel key, the points form runs
+    of exactly those lengths, in an order set by the cells, then the
+    invalid rows; the cells lie within +-400 voxels of the origin, inside
+    the compact key's envelope."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    flat = rng.choice(800 ** 3, size=len(counts), replace=False)
+    cells = np.stack([flat // 800 ** 2, flat // 800 % 800, flat % 800], -1) - 400
+    pts = np.repeat(cells, counts, axis=0) + rng.uniform(0.05, 0.95, (int(counts.sum()), 3))
+    pts = np.concatenate([pts * voxel, np.full((n_invalid, 3), np.nan)]).astype(np.float32)
+    return pts[rng.permutation(len(pts))]
+
+
+def separator_system(D: int, n_loops: int, seed: int = 0, spd: bool = True):
+    """Inputs of the separator solve (K10c) for D separators with no
+    partitioned graph behind them: separator I is pose I of D + 1 padded
+    poses, coupled to I + 1 by off[I]; diag blocks SPD with 30 on the
+    diagonal, the Schur blocks S (D, 4, 6, 6) (S_ll and S_rr symmetric,
+    S_rl = S_lr^T, as an elimination gives them) and r (D, 2, 6) and the
+    couplings below 0.5 in magnitude, so the assembled system is symmetric,
+    diagonally dominant and SPD. n_loops loop blocks join random separator pairs at
+    least two apart (D >= 3), the first pair twice, the last loop invalid.
+    With spd=False separator D // 2's diagonal block is negated (not
+    positive definite). Returns a dict of float64 and int32 arrays: diag,
+    off, b, lb, S, r and the plan's seps, adj_mask, adj_off, loop_a,
+    loop_b, loop_valid."""
+    rng = np.random.default_rng(seed)
+    n_pad = D + 1
+    small = lambda *shape: rng.uniform(-0.5, 0.5, shape)
+    diag = small(n_pad, 6, 6)
+    diag = 0.5 * (diag + diag.transpose(0, 2, 1)) + 30.0 * np.eye(6)
+    if not spd:
+        diag[D // 2] *= -1.0
+    pairs = []
+    for _ in range(n_loops if D >= 3 else 0):
+        a = int(rng.integers(0, D - 2))
+        pairs.append((a, int(rng.integers(a + 2, D))))
+    if pairs:
+        pairs.append(pairs[0])
+    L = len(pairs)
+    S = 0.1 * small(D, 4, 6, 6)
+    S[:, 0] = 0.5 * (S[:, 0] + S[:, 0].transpose(0, 2, 1))
+    S[:, 3] = 0.5 * (S[:, 3] + S[:, 3].transpose(0, 2, 1))
+    S[:, 2] = S[:, 1].transpose(0, 2, 1)
+    return dict(
+        diag=diag, off=small(n_pad - 1, 6, 6), b=rng.normal(0.0, 1.0, (n_pad, 6)),
+        lb=0.25 * small(L, 6, 6), S=S, r=small(D, 2, 6),
+        seps=np.arange(D, dtype=np.int32), adj_mask=(np.arange(D) < D - 1).astype(np.int32),
+        adj_off=np.minimum(np.arange(D), n_pad - 2).astype(np.int32),
+        loop_a=np.array([p[0] for p in pairs], np.int32).reshape(L),
+        loop_b=np.array([p[1] for p in pairs], np.int32).reshape(L),
+        loop_valid=(np.arange(L) < L - 1).astype(np.int32))

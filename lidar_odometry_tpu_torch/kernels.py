@@ -18,7 +18,9 @@ raises on a nonzero return and adds one to `Kernel.launches`, a plain
 integer that shows which kernels a run went through. The loop-closure worker launches from its own thread and
 stream while the main thread runs chunks: the build, the library loads and
 the counts are taken under one lock, and a launch goes to the calling
-thread's current stream. No wrapper keeps scratch memory between calls.
+thread's current stream. Only K1's wrapper keeps scratch memory between
+calls: one zeroed buffer per device and stream, which each launch leaves
+zeroed; the others allocate theirs per call.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "reset_counts", "counts", "check",
+__all__ = ["Kernel", "KERNELS", "build", "library", "reset_counts", "counts", "check",
            "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -115,7 +117,8 @@ def _build() -> dict:
     return took
 
 
-def _lib(src: str):
+def library(src: str):
+    """The loaded library of csrc/<src>.cu, built first if needed."""
     with _lock:
         if src not in _libs:
             _build()
@@ -137,7 +140,7 @@ class Kernel:
 
     def launch(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(_lib(self.source), f"lo_{self.name}")
+            fn = getattr(library(self.source), f"lo_{self.name}")
             fn.argtypes = self.argtypes + [_P]
             fn.restype = _I
             self._fn = fn
@@ -151,7 +154,7 @@ class Kernel:
 
 KERNELS = {k.name: k for k in [
     Kernel("voxel_filter", "voxel_filter",
-           [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
+           [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
            REF + "/ops/voxel_filter.py:50"),
     Kernel("icp_correspond", "icp",
            [_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _F, _P, _P, _P],
@@ -219,7 +222,7 @@ KERNELS = {k.name: k for k in [
            [_P] * 12 + [_I] * 3 + [_P] * 9,
            REF + "/parallel/distributed_pgo.py:450"),
     Kernel("pgo_reduced_solve", "pgo",
-           [_P] * 12 + [_I] * 2 + [_P] * 5,
+           [_P] * 12 + [_I] * 2 + [_P] * 3,
            REF + "/parallel/distributed_pgo.py:625"),
     Kernel("pgo_backsub_retract", "pgo",
            [_P] * 8 + [_I] * 3 + [_D] + [_P] * 5,

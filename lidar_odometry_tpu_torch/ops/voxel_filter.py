@@ -2,10 +2,13 @@
 (counterpart of the JAX package's ops/voxel_filter.py).
 
 Points are keyed, sorted by key (torch.sort, stable, on int64) and reduced
-per voxel. The reduction is kernel K1 (csrc/voxel_filter.cu): one block
-marks segment starts, numbers them by a block scan, and walks each
-segment's run to its exact count and its sum of voxel-corner-relative
-coordinates, then writes the padded centroids, the mask and the count.
+per voxel. The reduction is kernel K1 (csrc/voxel_filter.cu): a grid of
+CTAs over the sorted keys marks segment starts, numbers them by a
+single-pass scan across the grid (decoupled look-back over tile
+descriptors in a scratch buffer that each launch leaves zeroed), and walks
+each segment's run to its exact count and its sum of
+voxel-corner-relative coordinates, then writes the padded centroids, the
+mask and the count.
 The JAX program took the per-voxel sums as prefix-sum differences; the
 port sums each voxel directly, so its centroids carry no prefix-sum error
 and segments past `out_capacity` are dropped instead of folded into the
@@ -15,7 +18,7 @@ Lanes: a (B, N, 3) stack of B independent scans (the blocked
 multi-sequence runner; the JAX filter under vmap) is keyed elementwise,
 sorted along its last axis (stable, so each lane's order is its one-scan
 order, which PKO's stratified sample depends on), and reduced by one K1
-launch with one block per lane.
+launch with a row of CTAs per lane.
 
 With `compact_keys` the key is the 10-bit-per-axis compact key (x-major;
 points outside +-512 voxels are dropped like non-finite ones), which fixes
@@ -23,6 +26,8 @@ the feature order the rest of the pipeline sees. The generic path sorts
 by the map key (z-major).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -62,6 +67,24 @@ def voxel_filter(points: torch.Tensor, n_points: int, *, voxel_size: float,
                           K.f32(voxel_size))
 
 
+_TILE = 512   # csrc/voxel_filter.cu THREADS: sorted entries a CTA takes at once
+# One zeroed int64 scratch buffer per (device, stream): K1's tile
+# descriptors and tickets, which every launch sets back to zero before it
+# ends. A stream runs its launches in order, so they can share one buffer.
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def _k1_scratch(device, words: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream().cuda_stream)
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros((max(words, 256),), dtype=torch.int64, device=device)
+            _scratch[key] = buf
+        return buf
+
+
 def voxel_segments(key_s, perm, pts, cap: int, inv: float, voxel: float):
     """K1's wrapper: per-voxel centroids of the key-sorted points. key_s,
     perm (n,) or (B, n) with pts (n, 3) or (B, n, 3) (perm indexes each
@@ -84,9 +107,11 @@ def voxel_segments(key_s, perm, pts, cap: int, inv: float, voxel: float):
     cent = torch.empty(lead + (cap, 3), dtype=torch.float32, device=pts.device)
     mask = torch.empty(lead + (cap,), dtype=torch.bool, device=pts.device)
     n_vox = torch.empty(lead, dtype=torch.int32, device=pts.device)
+    tiles = max(1, -(-n // _TILE))
+    scratch = _k1_scratch(pts.device, lanes * tiles + lanes + 1)
     kernels.KERNELS["voxel_filter"].launch(
         key_s.data_ptr(), perm.data_ptr(), pts.data_ptr(), n, lanes, cap, inv, voxel,
-        cent.data_ptr(), mask.data_ptr(), n_vox.data_ptr())
+        cent.data_ptr(), mask.data_ptr(), n_vox.data_ptr(), scratch.data_ptr())
     return cent, mask, n_vox
 
 

@@ -60,7 +60,8 @@ from .. import kernels
 
 __all__ = ["plan_partition", "dense_solve", "make_plan", "pack_graph", "upload",
            "gn_optimize_device", "linearize", "linearize_plain", "eliminate",
-           "eliminate_plain", "reduced_solve", "reduced_solve_plain", "backsub_retract",
+           "eliminate_plain", "reduced_solve", "reduced_solve_plain", "reduced_solve_shape",
+           "backsub_retract",
            "backsub_retract_plain", "gn_iterations", "LIN_KEYS", "PLAN_KEYS",
            "RED_KEYS", "BACK_KEYS", "block_tridiag_solve", "block_tridiag_solve_plain",
            "pack_interiors", "eliminate_interior_lu", "eliminate_interior_lu_plain",
@@ -668,8 +669,9 @@ RED_KEYS = ("seps", "adj_mask", "adj_off", "loop_a", "loop_b", "loop_valid")
 
 
 def reduced_solve(g: Dict[str, torch.Tensor], diag, off, b, lb, S, r):
-    """K10c's wrapper: xs (D,6) of reduced_solve_plain; one thread block
-    assembles, factors and solves in global memory on a card."""
+    """K10c's wrapper: xs (D,6) of reduced_solve_plain; on a card one
+    cluster of CTAs assembles the system in global memory, factors it with
+    the forward solve riding along and solves L^T x = y."""
     if not diag.is_cuda:
         return reduced_solve_plain(diag, off, b, lb, S, r, *[g[k] for k in RED_KEYS])[0]
     D, L, n_pad = g["seps"].numel(), g["loop_a"].numel(), diag.shape[0]
@@ -681,16 +683,33 @@ def reduced_solve(g: Dict[str, torch.Tensor], diag, off, b, lb, S, r):
     kernels.check(r, "r", _F64, (D, 2, 6))
     for k in RED_KEYS:
         kernels.check(g[k], k, torch.int32)
-    dev = diag.device
-    Hs = torch.empty((D * 6, D * 6), dtype=_F64, device=dev)
-    bs = torch.empty((D * 6,), dtype=_F64, device=dev)
-    pan = torch.empty((D * 6, 6), dtype=_F64, device=dev)
-    xs = torch.empty((D, 6), dtype=_F64, device=dev)
+    xs = torch.empty((D, 6), dtype=_F64, device=diag.device)
+    _reduced_launch(g, diag, off, b, lb, S, r, xs)
+    return xs
+
+
+def _reduced_launch(g, diag, off, b, lb, S, r, xs) -> None:
+    """One K10c launch into xs, its inputs checked by the caller. The
+    working matrix, (6D + 1 rounded up to 8)^2 doubles, is scratch: the
+    system's lower triangle with bs as its last row."""
+    D, L = g["seps"].numel(), g["loop_a"].numel()
+    nr = (6 * D + 8) // 8 * 8
+    work = torch.empty((nr * nr,), dtype=_F64, device=diag.device)
     kernels.KERNELS["pgo_reduced_solve"].launch(
         diag.data_ptr(), off.data_ptr(), b.data_ptr(), lb.data_ptr(), S.data_ptr(),
         r.data_ptr(), *[g[k].data_ptr() for k in RED_KEYS], D, L, g["st"].data_ptr(),
-        Hs.data_ptr(), bs.data_ptr(), pan.data_ptr(), xs.data_ptr())
-    return xs
+        work.data_ptr(), xs.data_ptr())
+
+
+def reduced_solve_shape() -> Dict[str, int]:
+    """K10c's launch shape as built: cluster CTAs, panel width, threads a
+    CTA, shared memory a CTA (bytes). Builds the kernels if needed."""
+    import ctypes
+    fn = kernels.library("pgo").lo_pgo_reduced_solve_shape
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    out = (ctypes.c_int * 4)()
+    fn(out)
+    return dict(zip(("cluster", "panel", "threads", "smem_bytes"), list(out)))
 
 
 # ---------------------------------------------------------------------------

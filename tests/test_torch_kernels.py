@@ -181,6 +181,93 @@ def test_kd_tree_icp_on_the_card(scene):
     assert float((Tk.cpu() - Tp)[:3, 3].abs().max()) <= 1e-3
 
 
+def _k1_keys(raw):
+    """The filter's compact keys of raw (..., n, 3) at voxel 0.5, sorted:
+    (key_s, perm)."""
+    coords = torch.floor(torch.nan_to_num(raw, 0.0, 0.0, 0.0) * 2.0).to(torch.int32)
+    key, ok = K.compact_key(coords)
+    key = torch.where(ok & torch.all(torch.isfinite(raw), -1), key, K.INVALID_SORT_KEY)
+    return torch.sort(key, dim=-1, stable=True)
+
+
+# K1's edges (its tile is 512 sorted entries): (run lengths, invalid rows, cap)
+K1_CASES = {
+    "runs_cross_tile_boundaries": ([3] * 700, 0, 8192),
+    "run_longer_than_a_tile": ([2] * 300 + [1500] + [1] * 200, 0, 8192),
+    "n_not_a_multiple_of_the_tile": ([1, 2, 5] * 333, 7, 8192),
+    "all_keys_invalid": ([], 1000, 256),
+    "more_voxels_than_cap": ([2] * 900 + [1] * 900, 0, 1000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_voxel_filter_kernel_edges(dev, case):
+    """K1 on sorted runs of known lengths: centroids within 1e-5 of the
+    plain twin, mask and count equal (the count reports every voxel, past
+    cap too), and a second call bit-equal to the first (each launch leaves
+    its look-back scratch zeroed for the next)."""
+    counts, n_invalid, cap = K1_CASES[case]
+    raw = torch.tensor(synthetic.voxel_runs(counts, n_invalid, seed=len(counts)), device=dev)
+    key_s, perm = _k1_keys(raw)
+    n0 = kernels.KERNELS["voxel_filter"].launches
+    ck, mk, nk = vf.voxel_segments(key_s, perm, raw, cap, 2.0, 0.5)
+    ck2, mk2, nk2 = vf.voxel_segments(key_s, perm, raw, cap, 2.0, 0.5)
+    cp, mp, n_p = vf.voxel_segments_plain(key_s, perm, raw, cap, 2.0, 0.5)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["voxel_filter"].launches == n0 + 2
+    assert int(nk) == int(n_p) == len(counts) and torch.equal(mk, mp)
+    assert float((ck - cp).abs().max()) <= 1e-5
+    assert torch.equal(ck, ck2) and torch.equal(mk, mk2) and torch.equal(nk, nk2)
+
+
+def test_voxel_filter_kernel_edges_as_lanes(dev):
+    """The first four edge cases as the B = 4 lanes of one launch (padded
+    with NaN rows to one n): each lane bit-equal to a one-lane launch on
+    its inputs and within 1e-5 of the plain twin."""
+    cases = [K1_CASES[c] for c in sorted(K1_CASES)][:4]
+    pts = [synthetic.voxel_runs(c, i, seed=len(c)) for c, i, _ in cases]
+    n = max(len(p) for p in pts)
+    raw = np.full((4, n, 3), np.nan, np.float32)
+    for lane, p in enumerate(pts):
+        raw[lane, :len(p)] = p
+    raw = torch.tensor(raw, device=dev)
+    key_s, perm = _k1_keys(raw)
+    ck, mk, nk = vf.voxel_segments(key_s, perm, raw, 4096, 2.0, 0.5)
+    for lane in range(4):
+        one = [t[lane].contiguous() for t in (key_s, perm, raw)]
+        c1, m1, n1 = vf.voxel_segments(*one, 4096, 2.0, 0.5)
+        assert torch.equal(ck[lane], c1) and torch.equal(mk[lane], m1)
+        assert torch.equal(nk[lane], n1)
+        cp, mp, n_p = vf.voxel_segments_plain(*one, 4096, 2.0, 0.5)
+        assert int(nk[lane]) == int(n_p) == len(cases[lane][0]) and torch.equal(mk[lane], mp)
+        assert float((ck[lane] - cp).abs().max()) <= 1e-5
+
+
+def test_voxel_filter_kernel_with_more_ctas_than_the_card_holds(dev):
+    """Four lanes of 160000 sorted entries: 313 tiles a lane, 1252 CTAs,
+    more than twice the 528 that an H100 holds at once at 512 threads, so
+    a look-back waits on tiles whose CTAs started earlier while later ones
+    have not started. Each lane equals a one-lane launch bit for bit and
+    the plain twin within 1e-5."""
+    raw = np.full((4, 160000, 3), np.nan, np.float32)
+    for lane in range(4):
+        counts = np.random.default_rng(lane).integers(1, 4, 90000)
+        counts = counts[np.cumsum(counts) <= 160000 - 50 * lane]
+        p = synthetic.voxel_runs(counts, 0, seed=lane)
+        raw[lane, :len(p)] = p
+    raw = torch.tensor(raw, device=dev)
+    key_s, perm = _k1_keys(raw)
+    ck, mk, nk = vf.voxel_segments(key_s, perm, raw, 90000, 2.0, 0.5)
+    for lane in range(4):
+        one = [t[lane].contiguous() for t in (key_s, perm, raw)]
+        c1, m1, n1 = vf.voxel_segments(*one, 90000, 2.0, 0.5)
+        assert torch.equal(ck[lane], c1) and torch.equal(mk[lane], m1)
+        assert torch.equal(nk[lane], n1)
+        cp, mp, n_p = vf.voxel_segments_plain(*one, 90000, 2.0, 0.5)
+        assert int(nk[lane]) == int(n_p) and torch.equal(mk[lane], mp)
+        assert float((ck[lane] - cp).abs().max()) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # lanes: K1, K2a, K3 and K2b with B = 4 (the blocked runner's launches)
 # ---------------------------------------------------------------------------
@@ -578,6 +665,58 @@ def test_pgo_kernels_raise_and_do_not_fall_back(dev):
     g["st"] = g["st"].float()
     with pytest.raises(ValueError, match="st"):
         dpgo.linearize(g, g["poses"])
+
+
+def _separator_case(D, seed, dev, spd=True):
+    """K10c's inputs for D separators (synthetic.separator_system, 6 loop
+    blocks), an active loop state in g["st"]."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    c = {k: torch.tensor(v, device=dev)
+         for k, v in synthetic.separator_system(D, 6, seed, spd).items()}
+    g = {k: c[k] for k in dpgo.RED_KEYS}
+    g["st"] = torch.tensor([0.0, 0.0, 1.0, 1.0], dtype=torch.float64, device=dev)
+    return g, [c[k] for k in ("diag", "off", "b", "lb", "S", "r")]
+
+
+@pytest.mark.parametrize("D", [1, 5, 7, 200])
+def test_reduced_solve_kernel_sizes(dev, D):
+    """K10c against its plain twin at D = 1, at D not a multiple of its
+    4-separator panel, and at D = 200, whose 1200 x 1200 system (11.5 MB)
+    is larger than the cluster's shared memory: normwise backward error in
+    the twin's system at most 1e-13, xs within 1e-10 of the twin's (these
+    systems are well conditioned), two calls bit-equal."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    g, args = _separator_case(D, D, dev)
+    n0 = kernels.KERNELS["pgo_reduced_solve"].launches
+    xs_k = dpgo.reduced_solve(g, *args)
+    xs_k2 = dpgo.reduced_solve(g, *args)
+    xs_p, Hs, bs = dpgo.reduced_solve_plain(*args, *[g[k] for k in dpgo.RED_KEYS])
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["pgo_reduced_solve"].launches == n0 + 2
+    x = xs_k.reshape(-1)
+    backward = float((Hs @ x - bs).abs().max() / (Hs.abs().sum(1).max() * x.abs().max()))
+    assert backward <= 1e-13
+    assert _rel(xs_k, xs_p) <= 1e-10
+    assert torch.equal(xs_k, xs_k2)
+    shape = dpgo.reduced_solve_shape()
+    assert shape["cluster"] >= 8 and shape["panel"] == 24
+
+
+def test_reduced_solve_kernel_inactive_and_not_spd(dev):
+    """With the loop state inactive K10c writes nothing (xs keeps what it
+    held); a system that is not positive definite gives NaN in every entry
+    of xs, as the twin does."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    g, args = _separator_case(9, 3, dev)
+    g["st"][3] = 0.0
+    xs = torch.full((9, 6), 7.0, dtype=torch.float64, device=dev)
+    dpgo._reduced_launch(g, *args, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, torch.full_like(xs, 7.0))
+    g, args = _separator_case(9, 3, dev, spd=False)
+    xs_k = dpgo.reduced_solve(g, *args)
+    xs_p = dpgo.reduced_solve_plain(*args, *[g[k] for k in dpgo.RED_KEYS])[0]
+    assert bool(torch.isnan(xs_k).all()) and bool(torch.isnan(xs_p).all())
 
 
 def _chain_system(n, seed):

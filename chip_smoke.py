@@ -18,7 +18,8 @@ Phases, each of which exits nonzero on failure:
      and the least time the
      card could take (bytes over 3.35 TB/s or fp32 operations over
      67 TFLOP/s, whichever is larger):
-       - the surfel-path kernels (K1-K4c) at the JAX bench's shapes
+       - the surfel-path kernels (K1-K4c; K3 with the k-means and EM
+         rounds of its input's plain fit) at the JAX bench's shapes
          (131072-point synthetic KITTI-like scans strided by 8, scan
          capacity 14336, a map of 65536 parents built by the port's own
          first keyframes); K1 also on voxel runs that cross its 512-entry
@@ -34,7 +35,7 @@ Phases, each of which exits nonzero on failure:
          candidates, the rehash of a 65536-parent map): K6a point_grid, K6b
          point_knn (k = 5) and point_nn1 (k = 1), K7 bev_raster, K7c
          cross_power (the Iris query's 64 spectra, and the prealign's),
-         K8a iris_image, K8g gabor_product, K8b iris_encode, K8c
+         K8a iris_image, K8g gabor_product (also at b = 1), K8b iris_encode, K8c
          iris_hamming, K9a map_bulk_index, K9b map_bulk_merge, and K2b with
          the loop's weight residual;
        - the pose-graph kernels (K10a pgo_linearize, K10b pgo_eliminate,
@@ -295,6 +296,15 @@ def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library=None, no
                       bound_by=by, library_ms=library_ms, library_device_ms=library_dev)
 
 
+def gmm_rounds(r, valid, scale, consts):
+    """The (k-means, EM) rounds of the plain GMM fit that K3 runs on these
+    residuals at this scale."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import pko
+    samples = pko.stratified_sample(r.abs() / torch.clamp(scale, min=1e-6), valid, consts.u)
+    return list(pko.fit_gmm(samples, consts.pick, rounds=True)[3])
+
+
 def make_scans(n_frames: int, seed: int = 11):
     """The bench's world and trajectory: 131072-point scans, 80 m range,
     strided by 8 at decode, NaN-padded."""
@@ -484,11 +494,14 @@ def check_kernels(scans_np, cfg, consts, kw):
              f"{int(a_p)} / {int(c_p2)}")
     err = float((s_k.reshape(()) - s_p).abs()) / max(float(s_p), 1e-12)
     n_a, n_g = consts.Q.shape
+    rounds = gmm_rounds(r_k, v_k, s_p, consts)
     row("pko_alpha", err, 1e-5,
         lambda: pko.pko_alpha_index(r_k, v_k, flags, scale, True, consts),
         time_ms(lambda: pko.pko_alpha_index_plain(r_k, v_k, scale.reshape(()), True, consts)),
         N * 5 + n_a * n_g * 4 + (n_a + n_g + 100) * 4 + 12, N * 4 + n_a * n_g * 12,
-        note=f"alpha index {int(aux_k[1])}; err is relative, of the scale")
+        note=f"alpha index {int(aux_k[1])}; its fit: {rounds[0]} k-means and {rounds[1]} EM "
+             f"rounds; err is relative, of the scale")
+    rows["pko_alpha"]["gmm_rounds"] = rounds
 
     Tk, fk, hgk = icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k, consts, cfg)
     Tp, fp_, hgp = icp.icp_normal_eq_plain(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k,
@@ -856,6 +869,17 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
         library=lambda: torch.mul(spec[:, None], filt_c),
         note="16 keyframes x 80 x 360 row spectra x 4 log-Gabor scales; library: one "
              "broadcast torch.mul")
+    spec1 = spec[:1].contiguous()   # b = 1: one keyframe's image, as the loops path runs it
+    one = {}
+    record(one, "gabor_product",
+           float((iris.gabor_product(spec1, filters)
+                  - iris.gabor_product_plain(spec1, filters)).abs().max()), 0.0,
+           lambda: iris.gabor_product(spec1, filters),
+           time_ms(lambda: iris.gabor_product_plain(spec1, filters)),
+           spec1.numel() * 8 + filters.numel() * 4 + 4 * spec1.numel() * 8, 4 * spec1.numel() * 2,
+           library=lambda: torch.mul(spec1[:, None], filt_c),
+           note="b = 1, the loops path's shape")
+    rows["gabor_product"]["b1"] = one["gabor_product"]
     resp = iris._responses(bk.to(torch.float32), filters).contiguous()
     Tk8, Mk8 = iris.iris_encode(resp)
     Tp8, Mp8 = iris.iris_encode_plain(resp)
@@ -1052,10 +1076,10 @@ def check_pgo_kernels(graph):
         time_ms(lambda: dpgo.reduced_solve_plain(diag, off, b, lb, S, r, *red)),
         D * (288 + 4 * 288 + 96 + 48 + 48) + n_adj * 288 + L * 300,
         N ** 3 / 3 + 2 * N ** 2 + 4 * N ** 2,
-        library=lambda: torch.linalg.solve(Hs, bs),
+        library=lambda: torch.linalg.solve_ex(Hs, bs, check_errors=False),
         note=f"xs of the {N} x {N} separator system (kappa {kappa:.3e}); err = normwise "
              f"backward error; xs differs from the twin's by {forward:.3e} of max|xs|; "
-             f"library: torch.linalg.solve on the assembled Hs")
+             f"library: torch.linalg.solve_ex on the assembled Hs, no error check")
     rows["pgo_reduced_solve"].update(forward_rel_err=forward, kappa=kappa)
     xs_2 = dpgo.reduced_solve(g, diag, off, b, lb, S, r)
     if not torch.equal(xs_k, xs_2):
@@ -1216,7 +1240,7 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
     # ---- K3 ----
     scale = torch.ones((LANES, 1), device=dev)
     aux, s_k = pko.pko_alpha_index(r, v, flags, scale, True, consts)
-    err = 0.0
+    err, rounds = 0.0, []
     for b in range(LANES):
         outs = pko.pko_alpha_index(one(r, b), one(v, b), one(flags, b), one(scale, b), True,
                                    consts)
@@ -1226,6 +1250,7 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
         if int(aux[b, 1]) != int(a_p) or int(aux[b, 0]) != int(c_p):
             fail(f"pko_alpha: lane {b}'s alpha index / count differ from the plain version")
         err = max(err, float((s_k[b, 0] - s_p).abs()) / max(float(s_p), 1e-12))
+        rounds.append(gmm_rounds(r[b], v[b], s_p, consts))
     n_a, n_g = consts.Q.shape
     lane_row("pko_alpha", err, 1e-5,
              lambda: pko.pko_alpha_index(r, v, flags, scale, True, consts),
@@ -1233,8 +1258,9 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
                                                         consts) for b in range(LANES)]),
              LANES * (N * 5 + 12 + 12) + n_a * n_g * 4 + (n_a + n_g + 100) * 4,
              LANES * (N * 4 + n_a * n_g * 12),
-             note=f"B = {LANES}: alpha indices {aux[:, 1].tolist()}; err is relative, of the "
-                  f"scale")
+             note=f"B = {LANES}: alpha indices {aux[:, 1].tolist()}, (k-means, EM) rounds "
+                  f"{rounds}; err is relative, of the scale")
+    rows["pko_alpha"]["lanes4"]["gmm_rounds"] = rounds
 
     # ---- K2b ----
     Tk, fk, hk = icp.icp_normal_eq(feat, nrm, r, v, T, s_k, flags, aux, consts, cfg)
@@ -1674,11 +1700,13 @@ def schur_path(graph, pgo, group):
            time_ms(lambda: dpgo.block_tridiag_solve_plain(dd, oo, bb), reps=3),
            n * 288 + (n - 1) * 288 + n * 48 + n * 48,
            n * (2 * 216 + 2 * 36 + 125 + 7 * 30 + 7 * 36) + n * 72,
-           library=lambda: torch.linalg.solve(Hc, bb.reshape(-1)), library_reps=3,
+           library=lambda: torch.linalg.solve_ex(Hc, bb.reshape(-1), check_errors=False),
+           library_reps=3,
            ops_per_s=FP64_OPS_PER_S,
            note=f"x of the {N} x {N} chain system, float64; err relative to max|x|; "
                 f"{vs_dense:.3e} of max|x| from torch.linalg.solve on the dense matrix "
-                f"(library), backward error {bwd_chain:.3e}; float32 {err32:.3e} from its twin")
+                f"(library: torch.linalg.solve_ex of it, no error check), backward error "
+                f"{bwd_chain:.3e}; float32 {err32:.3e} from its twin")
     del Hc
     rows["pgo_block_thomas"].update(max_abs_err=err_abs, compared_err=err, float32_err=err32,
                                     float32_from_float64=f32_from_f64, dense_rel=vs_dense,

@@ -19,9 +19,15 @@
 //    zeroes): the JAX (80, 360, 8) count volume is never built.
 //  * gabor_product reads the 80 x 360 complex row spectra of a keyframe
 //    (230 KB) and the 4 x 360 filters, and writes 4 x 80 x 360 complex
-//    products (0.92 MB): ~0.34 us, bytes bound it. Design: one thread per
-//    output element, re and im each times the real filter value (the
-//    products PyTorch's complex x real-valued complex multiply rounds to).
+//    products (0.92 MB): ~0.34 us, bytes bound it. Design: a block takes
+//    GABOR_ROWS spectrum rows of one keyframe and stages the 4 x 360
+//    filters in shared memory; each thread takes a pair of neighbouring
+//    spectrum elements (neighbouring threads on neighbouring columns),
+//    reads them once as 16 bytes, and writes their products for the 4
+//    scales as 16 bytes each, coalesced across the warp. Index arithmetic
+//    is 32-bit, divisions by compile-time constants. Each product is re
+//    and im times the real filter value (the products PyTorch's complex x
+//    real-valued complex multiply rounds to).
 //  * iris_encode reads the 4 x 80 x 360 complex responses (0.9 MB a
 //    keyframe) and writes 2 x 20 x 360 words (57.6 KB): ~0.3 us, bytes
 //    bound it. Design: one thread per output word column reads the 32
@@ -88,18 +94,41 @@ iris_encode_kernel(const float2* __restrict__ resp, int b, float scale, int* __r
 }
 
 // spec: (B, ROWS, COLS) complex64; filt: (NSCALE, COLS) f32; out: (B,
-// NSCALE, ROWS, COLS) complex64.
+// NSCALE, ROWS, COLS) complex64. Block (row group g, keyframe k).
+constexpr int GABOR_ROWS = 4;                            // spectrum rows a block
+constexpr int GABOR_PAIRS = GABOR_ROWS * COLS / 2;       // element pairs a block
+constexpr int GABOR_PER = (GABOR_PAIRS + THREADS - 1) / THREADS;
+
 __global__ void __launch_bounds__(THREADS)
-gabor_product_kernel(const float2* __restrict__ spec, const float* __restrict__ filt, int b,
-                     float2* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)b * NSCALE * ROWS * COLS) return;
-  const int c = (int)(i % COLS), r = (int)((i / COLS) % ROWS);
-  const int s = (int)((i / (ROWS * COLS)) % NSCALE);
-  const long long k = i / ((long long)NSCALE * ROWS * COLS);
-  const float2 z = spec[(k * ROWS + r) * COLS + c];
-  const float f = filt[s * COLS + c];
-  out[i] = make_float2(__fmul_rn(z.x, f), __fmul_rn(z.y, f));
+gabor_product_kernel(const float4* __restrict__ spec, const float* __restrict__ filt,
+                     float4* __restrict__ out) {
+  __shared__ float2 fs[NSCALE * COLS / 2];
+  const int k = blockIdx.y, r0 = blockIdx.x * GABOR_ROWS;
+  // this block's spectrum pairs, read before the filters are staged
+  const float4* src = spec + ((size_t)k * ROWS + r0) * (COLS / 2);
+  float4 z[GABOR_PER];
+#pragma unroll
+  for (int j = 0; j < GABOR_PER; ++j) {
+    const int p = threadIdx.x + j * THREADS;
+    if (p < GABOR_PAIRS) z[j] = src[p];
+  }
+  const float2* f2 = reinterpret_cast<const float2*>(filt);
+  for (int i = threadIdx.x; i < NSCALE * COLS / 2; i += THREADS) fs[i] = f2[i];
+  __syncthreads();
+  float4* dst = out + ((size_t)k * NSCALE * ROWS + r0) * (COLS / 2);
+#pragma unroll
+  for (int j = 0; j < GABOR_PER; ++j) {
+    const int p = threadIdx.x + j * THREADS;
+    if (p >= GABOR_PAIRS) break;
+    const int cp = p % (COLS / 2);
+#pragma unroll
+    for (int s = 0; s < NSCALE; ++s) {
+      const float2 f = fs[s * (COLS / 2) + cp];
+      dst[s * ROWS * (COLS / 2) + p] =
+          make_float4(__fmul_rn(z[j].x, f.x), __fmul_rn(z[j].y, f.x), __fmul_rn(z[j].z, f.y),
+                      __fmul_rn(z[j].w, f.y));
+    }
+  }
 }
 
 __device__ __forceinline__ int wrap(int c) { return ((c % COLS) + COLS) % COLS; }
@@ -175,8 +204,12 @@ LO_EXPORT int lo_iris_image(const float* pts, const bool* mask, int b, int n, fl
 
 LO_EXPORT int lo_gabor_product(const float* spec, const float* filt, int b, float* out,
                                void* stream) {
-  gabor_product_kernel<<<max(1, blocks((long long)b * NSCALE * ROWS * COLS)), THREADS, 0,
-                         (cudaStream_t)stream>>>((const float2*)spec, filt, b, (float2*)out);
+  if (b <= 0) return 0;
+  if (b > 65535) return (int)cudaErrorInvalidValue;   // gridDim.y
+  if ((((uintptr_t)spec | (uintptr_t)out) & 15) || ((uintptr_t)filt & 7))
+    return (int)cudaErrorMisalignedAddress;           // 16-byte pairs, 8-byte filter pairs
+  gabor_product_kernel<<<dim3(ROWS / GABOR_ROWS, b), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)spec, filt, (float4*)out);
   return (int)cudaGetLastError();
 }
 

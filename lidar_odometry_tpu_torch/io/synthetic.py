@@ -531,3 +531,27 @@ def separator_system(D: int, n_loops: int, seed: int = 0, spd: bool = True):
         loop_a=np.array([p[0] for p in pairs], np.int32).reshape(L),
         loop_b=np.array([p[1] for p in pairs], np.int32).reshape(L),
         loop_valid=(np.arange(L) < L - 1).astype(np.int32))
+
+
+def pko_residuals(n: int, kind: str = "wide", seed: int = 0, n_valid: int = None):
+    """Signed point-to-plane-like residuals and their valid flags, the PKO
+    edge cases' input: (n,) float32 and (n,) bool. kind "tight" (sigma
+    0.01), "wide" (0.3) or "mixture" (3/4 inliers of sigma 0.02, 1/4 an
+    outlier mode at 0.5 of sigma 0.2); about 80 % valid, or exactly n_valid
+    entries at random places."""
+    rng = np.random.default_rng(seed)
+    if kind == "tight":
+        r = rng.standard_normal(n) * 0.01
+    elif kind == "wide":
+        r = rng.standard_normal(n) * 0.3
+    else:
+        r = np.concatenate([rng.standard_normal(n * 3 // 4) * 0.02,
+                            0.5 + rng.standard_normal(n - n * 3 // 4) * 0.2])
+        rng.shuffle(r)
+    r *= rng.choice([-1.0, 1.0], n)
+    if n_valid is None:
+        valid = rng.random(n) > 0.2
+    else:
+        valid = np.zeros(n, bool)
+        valid[rng.choice(n, n_valid, replace=False)] = True
+    return r.astype(np.float32), valid

@@ -8,8 +8,9 @@ pinned at 0, then EM), evaluate it on the residual grid, and return the
 index of the alpha whose kernel distribution Q is nearest in
 Jensen-Shannon divergence (index 0 skipped).
 
-Kernel K3 (csrc/pko.cu) does all of that in one single-block launch and
-leaves the alpha index on the device for the ICP normal-equation kernel.
+Kernel K3 (csrc/pko.cu) does all of that in one launch, one block a lane,
+and leaves the alpha index on the device for the ICP normal-equation
+kernel.
 Lanes (the blocked multi-sequence runner) add a leading B to the
 residuals, flags, scale and results: one launch, one block per lane, and
 every lane takes the same draws, as JAX's fixed key does under vmap.
@@ -288,10 +289,12 @@ def _gaussian_pdf(x, mean, var):
     return torch.exp(-0.5 * d * d / var) / torch.sqrt(2.0 * math.pi * var)
 
 
-def fit_gmm(samples: torch.Tensor, pick: torch.Tensor, kk: int = GMM_COMPONENTS):
+def fit_gmm(samples: torch.Tensor, pick: torch.Tensor, kk: int = GMM_COMPONENTS,
+            rounds: bool = False):
     """k-means start (component 0 pinned at 0), then EM. Python loops with
     the JAX stop rules: k-means while changed and it < 100, EM while
-    change >= 1e-6 and it < 100."""
+    change >= 1e-6 and it < 100. Returns (weights, means, variances), and
+    with rounds=True also the (k-means, EM) round counts."""
     n = samples.shape[0]
     means = samples[pick.to(torch.int64)].clone()
     means[0] = 0.0
@@ -305,6 +308,7 @@ def fit_gmm(samples: torch.Tensor, pick: torch.Tensor, kk: int = GMM_COMPONENTS)
         new[0] = 0.0
         changed = bool(torch.any(new != means))
         means, it = new, it + 1
+    km_rounds = it
     data_mean = samples.mean()
     variances = torch.full((kk,), float(torch.mean((samples - data_mean) ** 2)),
                            dtype=samples.dtype, device=samples.device)
@@ -324,6 +328,8 @@ def fit_gmm(samples: torch.Tensor, pick: torch.Tensor, kk: int = GMM_COMPONENTS)
         new_var = torch.clamp((resp * diff * diff).sum(0) / Nk, min=1e-6)
         change = float(torch.sum(torch.abs(new_mu[1:] - means[1:])))
         weights, means, variances, it = new_w, new_mu, new_var, it + 1
+    if rounds:
+        return weights, means, variances, (km_rounds, it)
     return weights, means, variances
 
 

@@ -16,14 +16,33 @@ loop block given twice and an invalid loop: the twin's xs against a numpy
 float64 assembly of the same blocks (scatter-adds, then (H + H^T) / 2)
 solved by numpy at 1e-10 of max|xs|, its backward error at most 1e-13, and
 NaN everywhere for a system that is not positive definite.
+
+K3: residual sets (synthetic.pko_residuals) with n not a multiple of the
+kernel's 32-entry tiles, fewer than 100 valid, one valid, none valid, one
+whose EM stops before its 100-round cap and one that runs to it: the
+twin's count, alpha index and iteration-0 scale against the JAX program
+(norm scale, stratified sample, GMM and JS argmin) on the same input, the
+scale at 1e-6 relative (the sums differ in order), the rest exactly; and
+the twin's alpha index over K11d's 104 merged samples (8 shards) against
+JAX's with its own k-means draw over 104.
+
+K8g: the twin's products at b = 1, 5 and 16 against a numpy float32
+product of re and im by the filter, and against JAX's broadcast complex
+product with subnormals flushed as XLA on the CPU flushes them, exactly.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+from lidar_odometry_tpu.ops import icp as jicp
+from lidar_odometry_tpu.ops import iris as jiris
+from lidar_odometry_tpu.ops import pko as jpko
 from lidar_odometry_tpu.ops import voxel_filter as jvf
 from lidar_odometry_tpu_torch.io import synthetic
+from lidar_odometry_tpu_torch.ops import iris as tiris
+from lidar_odometry_tpu_torch.ops import pko as tpko
 from lidar_odometry_tpu_torch.ops import voxel_filter as tvf
 from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
 
@@ -115,3 +134,82 @@ def test_separator_solve_twin_on_kernel_edges(D):
 def test_separator_solve_twin_not_positive_definite():
     xs = _twin(synthetic.separator_system(9, 3, seed=3, spd=False))[0]
     assert bool(torch.isnan(xs).all())
+
+
+# the card tests' K3 cases: (n, kind, seed, n_valid or None for ~80 %)
+K3_CASES = {
+    "n_not_a_multiple_of_32": (14339, "mixture", 2, None),
+    "fewer_than_100_valid": (14336, "wide", 3, 37),
+    "one_valid": (14336, "wide", 4, 1),
+    "none_valid": (14336, "wide", 5, 0),
+    "em_stops_early": (14336, "mixture", 1, None),
+    "em_runs_to_the_cap": (14336, "mixture", 0, None),
+}
+PKO_ARGS = (0.1, 10.0, 100, 10.0, "huber", 3, 100)
+
+
+@pytest.fixture(scope="module")
+def pko_consts():
+    return jpko.make_pko_constants(*PKO_ARGS), tpko.make_pko_constants(*PKO_ARGS, device="cpu")
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_pko_twin_on_kernel_edges(pko_consts, case):
+    jc, tc = pko_consts
+    n, kind, seed, n_valid = K3_CASES[case]
+    r, valid = synthetic.pko_residuals(n, kind, seed, n_valid)
+    key = jax.random.PRNGKey(42)
+    r_abs = jnp.abs(jnp.asarray(r))
+    scale = jicp._norm_scale_from(r_abs, jnp.asarray(valid))
+    samples, _ = jpko.stratified_sample(r_abs / jnp.maximum(scale, 1e-6), jnp.asarray(valid),
+                                        100, key)
+    ref = int(jpko.pko_alpha_index_from_samples(samples, jc, key=key))
+
+    aux, s = tpko.pko_alpha_index(torch.as_tensor(r), torch.as_tensor(valid),
+                                  torch.zeros((3,), dtype=torch.int32), torch.ones((1,)), True, tc)
+    assert aux.tolist() == [int(valid.sum()), ref]
+    np.testing.assert_allclose(float(s[0]), float(scale), rtol=1e-6)
+    t_samples = tpko.stratified_sample(torch.as_tensor(np.abs(r)) / torch.clamp(s[0], min=1e-6),
+                                       torch.as_tensor(valid), tc.u)
+    *_, (km, em) = tpko.fit_gmm(t_samples, tc.pick, rounds=True)
+    assert 1 <= km <= 100
+    if case == "em_stops_early":
+        assert em < 100
+    if case == "em_runs_to_the_cap":
+        assert em == 100
+
+
+def test_pko_twin_over_the_merged_samples_of_8_shards(pko_consts):
+    jc, tc = pko_consts
+    _, pick = tpko.shard_draws(8)
+    r, valid = synthetic.pko_residuals(104 * 3, "mixture", 8)
+    samples = (np.abs(r[valid][:104]) / 0.05).astype(np.float32)
+    assert samples.shape == (104,)
+    ref = int(jpko.pko_alpha_index_from_samples(jnp.asarray(samples), jc,
+                                                key=jax.random.PRNGKey(42)))
+    got = tpko.alpha_index_from_samples(torch.as_tensor(samples), tc, torch.as_tensor(pick))
+    assert int(got) == ref
+
+
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_gabor_product_twin(b):
+    rng = np.random.default_rng(b)
+    spec = (rng.standard_normal((b, 80, 360)) + 1j * rng.standard_normal((b, 80, 360))
+            ).astype(np.complex64)
+    filt = tiris.log_gabor_filters().astype(np.float32)
+    got = tiris.gabor_product_plain(torch.as_tensor(spec), torch.as_tensor(filt)).numpy()
+    assert got.shape == (b, 4, 80, 360) and got.dtype == np.complex64
+    f = filt[None, :, None, :]
+    np.testing.assert_array_equal(got.real, spec.real[:, None] * f)
+    np.testing.assert_array_equal(got.imag, spec.imag[:, None] * f)
+    # XLA on the CPU reads subnormal filter values as zero and flushes
+    # subnormal products to zero (the filters' tails reach 1e-45); the twin,
+    # numpy and the card keep both. Otherwise JAX's products are the twin's.
+    ref = np.asarray(jnp.asarray(spec)[:, None]
+                     * jnp.asarray(filt).astype(jnp.complex64)[None, :, None, :])
+    tiny = np.finfo(np.float32).tiny
+    flush = lambda a: np.where(np.abs(a) < tiny, np.float32(0), a)
+    fz = flush(f)
+    np.testing.assert_array_equal(ref.real, flush(spec.real[:, None] * fz))
+    np.testing.assert_array_equal(ref.imag, flush(spec.imag[:, None] * fz))
+    np.testing.assert_array_equal(filt, np.asarray(jiris._filters()))

@@ -968,3 +968,146 @@ def test_shard_kernels_lanes(scene):
                                      consts, pick, cfg, n_alpha=101, quota=q, use_pko=True)
             assert all(torch.equal(x[lane], y[0]) for x, y in zip(sk, one))
     torch.cuda.synchronize()
+
+
+# K3's edge cases (tests/test_torch_kernel_edges.py holds the twin on the
+# same inputs against JAX): (n, kind, seed, n_valid or None for ~80 %)
+K3_CASES = {
+    "n_not_a_multiple_of_32": (14339, "mixture", 2, None),
+    "fewer_than_100_valid": (14336, "wide", 3, 37),
+    "one_valid": (14336, "wide", 4, 1),
+    "none_valid": (14336, "wide", 5, 0),
+    "em_stops_early": (14336, "mixture", 1, None),
+    "em_runs_to_the_cap": (14336, "mixture", 0, None),
+}
+
+
+def _k3_case(case, dev):
+    r, valid = synthetic.pko_residuals(*K3_CASES[case])
+    return torch.as_tensor(r, device=dev), torch.as_tensor(valid, device=dev)
+
+
+def _em_rounds(r, valid, consts_cpu):
+    """The plain fit's EM rounds on the CPU for these residuals (iteration 0)."""
+    r, valid = r.cpu(), valid.cpu()
+    s = pko.norm_scale_from(r.abs(), valid)
+    smp = pko.stratified_sample(r.abs() / torch.clamp(s, min=1e-6), valid, consts_cpu.u)
+    return pko.fit_gmm(smp, consts_cpu.pick, rounds=True)[3][1]
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_pko_kernel_edges(dev, case):
+    """K3 against its twin on the card, at iteration 0 (the scale taken
+    here) and at a later iteration (the scale given): the count and alpha
+    index exactly, the scale within 1e-5 relative."""
+    consts = pko.make_pko_constants(*ARGS, device=dev)
+    r, valid = _k3_case(case, dev)
+    flags = torch.zeros((3,), dtype=torch.int32, device=dev)
+    for first, scale in ((True, torch.ones((1,), device=dev)),
+                         (False, torch.full((1,), 0.05, device=dev))):
+        aux, s = pko.pko_alpha_index(r, valid, flags, scale, first, consts)
+        a_p, c_p, s_p = pko.pko_alpha_index_plain(r, valid, scale.reshape(()), first, consts)
+        assert int(aux[0]) == int(c_p) == int(valid.sum())
+        assert int(aux[1]) == int(a_p)
+        assert abs(float(s[0]) - float(s_p)) <= 1e-5 * abs(float(s_p))
+    em = _em_rounds(r, valid, pko.make_pko_constants(*ARGS, device="cpu"))
+    if case == "em_stops_early":
+        assert em < 100
+    if case == "em_runs_to_the_cap":
+        assert em == 100
+    torch.cuda.synchronize()
+
+
+def test_pko_kernel_done_lane_and_lanes(dev):
+    """A done lane writes its scale through with a zero count and index;
+    4 lanes (one done) each bit-equal to a one-lane launch, the live ones
+    equal to the twin."""
+    consts = pko.make_pko_constants(*ARGS, device=dev)
+    cases = ("fewer_than_100_valid", "em_stops_early", "em_runs_to_the_cap", "one_valid")
+    r, valid = (torch.stack(x).contiguous() for x in zip(*[_k3_case(c, dev) for c in cases]))
+    flags = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    flags[1] = torch.tensor([1, 0, 50], dtype=torch.int32, device=dev)
+    for first in (True, False):
+        scale = torch.tensor([[1.0], [0.25], [0.05], [0.5]], device=dev)
+        aux, s = pko.pko_alpha_index(r, valid, flags, scale, first, consts)
+        assert aux[1].tolist() == [0, 0] and float(s[1, 0]) == 0.25
+        for b in range(4):
+            one = pko.pko_alpha_index(r[b], valid[b], flags[b], scale[b], first, consts)
+            assert torch.equal(aux[b], one[0]) and torch.equal(s[b], one[1])
+            if b == 1:
+                continue
+            a_p, c_p, s_p = pko.pko_alpha_index_plain(r[b], valid[b], scale[b].reshape(()),
+                                                      first, consts)
+            assert aux[b].tolist() == [int(c_p), int(a_p)]
+            assert abs(float(s[b, 0]) - float(s_p)) <= 1e-5 * abs(float(s_p))
+    torch.cuda.synchronize()
+
+
+def test_shard_select_kernel_over_104_merged_samples(dev):
+    """K11d at 8 shards (m = 8 x 13 = 104 samples, two slots empty and
+    filled with the mean) on synthetic per-alpha systems: alpha index,
+    count and flags exactly, T within 1e-6 of the twin; 2 lanes, the
+    second done, each bit-equal to a one-lane launch."""
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    consts = pko.make_pko_constants(*ARGS, device=dev)
+    cfg = icp.ICPConfig()
+    s, n_alpha = 8, 101
+    u, pick = pko.shard_draws(s)
+    q = u.shape[1]
+    m, ld = s * q, so.buffer_width(n_alpha, s, q)
+    off_s, off_o = n_alpha * 42, n_alpha * 42 + m
+    rng = np.random.default_rng(104)
+    A = rng.standard_normal((6, 6))
+    H = (A @ A.T + 6 * np.eye(6))[None] * (1.0 + np.arange(n_alpha) / 100.0)[:, None, None]
+    g = rng.standard_normal((n_alpha, 6)) * 0.1
+    systems = np.concatenate([H.reshape(n_alpha, 36), g], 1)
+    share = rng.dirichlet(np.ones(s))
+    rows = np.zeros((s, ld), np.float32)
+    rows[:, :off_s] = (share[:, None, None] * systems[None]).reshape(s, -1)
+    r, valid = synthetic.pko_residuals(400, "mixture", 104)
+    samples = np.abs(r[valid][:m]) / 0.05
+    for j in range(m):
+        if j in (5, 77):
+            continue
+        rows[j // q, off_s + j] = samples[j]
+        rows[j // q, off_o + j] = 1.0
+    rows[:, ld - 1] = 60.0
+    buf = torch.as_tensor(rows, device=dev)[None].contiguous()
+    T = torch.eye(4, device=dev).reshape(1, 16).contiguous()
+    flags = torch.zeros((1, 3), dtype=torch.int32, device=dev)
+    pick_t = torch.as_tensor(pick, device=dev)
+    sk = so.shard_gn_select(buf, T, flags, consts, pick_t, cfg, n_alpha=n_alpha, quota=q,
+                            use_pko=True)
+    sp = so.shard_gn_select_plain(buf, T, flags, consts, pick_t, cfg, n_alpha=n_alpha, quota=q,
+                                  use_pko=True)
+    assert torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2])
+    assert int(sk[2][0, 1]) == 480
+    assert float((sk[0] - sp[0]).abs().max()) <= 1e-6
+    flags2 = torch.tensor([[0, 0, 0], [1, 0, 9]], dtype=torch.int32, device=dev)
+    two = so.shard_gn_select(torch.cat([buf, buf]).contiguous(), torch.cat([T, T]), flags2,
+                             consts, pick_t, cfg, n_alpha=n_alpha, quota=q, use_pko=True)
+    for lane in range(2):
+        one = so.shard_gn_select(buf, T, flags2[lane:lane + 1].contiguous(), consts, pick_t, cfg,
+                                 n_alpha=n_alpha, quota=q, use_pko=True)
+        assert all(torch.equal(x[lane], y[0]) for x, y in zip(two, one))
+    assert all(torch.equal(x[0], y[0]) for x, y in zip(two, sk))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_gabor_product_kernel(dev, b):
+    """K8g bit-equal to its twin at b = 1 (the loops path), an odd b and
+    b = 16 (phase 3's shape); a misaligned spectrum is refused."""
+    from lidar_odometry_tpu_torch.ops import iris
+    g = torch.Generator(device=dev).manual_seed(b)
+    spec = torch.randn((b, 80, 360), dtype=torch.complex64, device=dev, generator=g)
+    filters = torch.as_tensor(iris.log_gabor_filters(), device=dev)
+    got = iris.gabor_product(spec, filters)
+    assert got.shape == (b, 4, 80, 360)
+    assert torch.equal(got, iris.gabor_product_plain(spec, filters))
+    flat = torch.zeros((b * 80 * 360 + 1,), dtype=torch.complex64, device=dev)
+    shifted = flat[1:].view(b, 80, 360)
+    shifted.copy_(spec)
+    with pytest.raises(RuntimeError):
+        iris.gabor_product(shifted, filters)
+    torch.cuda.synchronize()

@@ -46,7 +46,10 @@ Phases, each of which exits nonzero on failure:
          1e-9 on the retracted poses, and for K10c's solve of a system of
          kappa ~5e9 its normwise backward error at most 1e-13, two calls
          bit-equal, and the same on a synthetic D = 200 separator system;
-         its cluster size and panel width are printed; their bounds count
+         its cluster size and panel width are printed; K10b also two
+         calls bit-equal, its longest partition longer than its staging
+         ring, and an input that is not positive definite ending in NaN
+         and ok false (check_eliminate_edges); their bounds count
          f64 operations at 67 TFLOP/s (the host solvers' K12a and K12b, on
          the same graph, are held in phase 7b);
        - the sharded map's kernels (K11a shard_own, K11b
@@ -56,7 +59,9 @@ Phases, each of which exits nonzero on failure:
          the earlier dense frames) at 1, 2, 4 and 8 shards: K11a and K11c
          exactly, K11b within 1e-5 of its largest entry, K11d the same
          alpha and T within 1e-6, each shard of a launch bit-equal to a
-         one-shard launch; times at 4 shards;
+         one-shard launch, and K2a's one launch over every shard (and over
+         2 lanes x 4 shards) bit-equal to its per-instance launches; times
+         at 4 shards;
   4. the surfel path: make_chunk_runner over chunks of 20 frames; scans/s
      after the first chunk, ATE against the synthetic ground truth (must
      stay below 0.5 m), keyframes, map size;
@@ -119,9 +124,10 @@ not launch), the PGO path K10a-K10d, the Schur path K12a and K12b and no
 K10 kernel, the blocked path the surfel path's
 kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
 the loops path's kernels, K10a-d and K11a-d, the step path K11a-d, K1,
-K2a and K4a-c. `--profile` also profiles 20 frames of the sharded path. Lanes 1-3's
-scans are made in spawned worker processes while the parent makes the
-other scans.
+K2a and K4a-c; on both, K2a once an ICP iteration (as many launches as
+K11d's), one launch for every lane and shard. `--profile` also profiles
+20 frames of the sharded path. Lanes 1-3's scans are made in spawned
+worker processes while the parent makes the other scans.
 
 It imports nothing of JAX. It needs torch with CUDA and a CUDA toolkit.
 """
@@ -1053,7 +1059,10 @@ def check_pgo_kernels(graph):
         time_ms(lambda: dpgo.eliminate_plain(diag, off, b, *plan), reps=3),
         n_rows * (288 + 48 + 288) + D * (2 * 288 + 4 * 288 + 96)
         + D * max_m * (2 * 288 + 48) + D * max_m * 4 * 8, n_rows * 2900,
-        note=f"{D} partitions x {max_m} rows, {n_rows} valid; S, r, F, G, g; err relative")
+        note=f"{D} partitions x {max_m} rows, {n_rows} valid; S, r, F, G, g; err relative; "
+             f"the earlier one-warp kernel: 4.2299 ms on the device (H100 80GB HBM3, "
+             f"700.00 W)")
+    check_eliminate_edges(g, lin_p, poses, el_k)
 
     S, r = el_p[0], el_p[1]
     red = [g[k] for k in dpgo.RED_KEYS]
@@ -1107,6 +1116,55 @@ def check_pgo_kernels(graph):
         n_rows * 156 + n_pad * 170,
         note=f"{n_pad} poses, |dx| {float(dxn):.4e}; err = max abs pose-entry difference")
     return rows
+
+
+def check_eliminate_edges(g, lin, poses, el_k):
+    """K10b beyond its twin comparison: a second call bit-equal to the
+    first; the longest partition (max_m rows) longer than the kernel's
+    staging ring; and an input that is not positive definite (one
+    interior diagonal block of the longest partition negated): NaN in
+    every one of that partition's outputs, as in the twin's, the other
+    partitions unchanged, and one whole GN iteration on it ending with ok
+    false and the poses left as they were."""
+    import torch
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+
+    diag, off, b, lb = lin
+    again = dpgo.eliminate(g, diag, off, b)
+    same = all(torch.equal(a, c) for a, c in zip(el_k, again))
+    D, max_m = g["int_idx"].shape
+    n_valid = g["valid"].sum(1)
+    k0 = int(n_valid.argmax())            # the longest partition; its rows are the last m
+    m0 = int(n_valid[k0])
+    at = max_m - 1 - m0 // 2
+    bad = diag.clone()
+    pose = int(g["int_idx"][k0, at])
+    bad[pose] = -bad[pose]
+    plan = [g[k] for k in dpgo.PLAN_KEYS]
+    st = torch.tensor(dpgo._state0(10, 1e-6), device=DEVICE)
+    g2 = dict(g, st=st)
+    S, r, F, G, gv = dpgo.eliminate(g2, bad, off, b)
+    S_p = dpgo.eliminate_plain(bad, off, b, *plan)[0]
+    nan0 = bool(torch.isnan(S[k0]).all() and torch.isnan(F[k0, max_m - m0:]).all()
+                and torch.isnan(S_p[k0]).all())
+    others = [j for j in range(D) if j != k0]
+    rest = bool(torch.equal(S[others], el_k[0][others])
+                and torch.equal(F[others], el_k[2][others]))
+    xs = dpgo.reduced_solve(g2, bad, off, b, lb, S, r)
+    p = poses.clone()
+    dpgo.backsub_retract(g2, p, xs, F, G, gv, 10, 1e-6)
+    it, _, ok, active = st.cpu().tolist()
+    kept = bool(torch.equal(p, poses))
+    ring = 16   # rows the kernel stages at once (csrc/pgo.cu EL_RING)
+    print(f"  pgo_eliminate edges: two calls bit-equal: {'yes' if same else 'no'}; the longest "
+          f"partition {max_m} rows against a staging ring of {ring}; not positive definite "
+          f"(partition {k0}, keyframe {pose}): NaN in all its outputs {'yes' if nan0 else 'no'}, "
+          f"the other partitions unchanged {'yes' if rest else 'no'}, after one GN iteration "
+          f"ok {bool(ok)}, active {bool(active)}, poses kept {'yes' if kept else 'no'}",
+          flush=True)
+    if not (same and nan0 and rest and not ok and not active and kept and max_m > ring):
+        fail("pgo_eliminate: calls differ, or a matrix that is not positive definite did not "
+             "end in NaN and ok false")
 
 
 def check_reduced_second_size(D: int = 200):
@@ -1362,8 +1420,10 @@ def mid360_path(scans, gt, sysc):
     est = player.estimator
     traj = est.trajectory()
     n = len(scans)
-    if res.frames_processed != n or traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
-        fail(f"mid360 path: {res.frames_processed} frames, poses of shape {traj.shape}")
+    if (res.frames_processed != n or res.frames_failed or traj.shape != (n, 4, 4)
+            or not np.all(np.isfinite(traj))):
+        fail(f"mid360 path: {res.frames_processed} frames ({res.frames_failed} failed), poses "
+             f"of shape {traj.shape}")
     tum = np.loadtxt(res.trajectory_path)
     if tum.shape != (n, 8):
         fail(f"mid360 path: the TUM trajectory has shape {tum.shape}")
@@ -1983,6 +2043,12 @@ def check_shard_lanes(frames, icfg, consts, st, g, inv):
     corr = [icp.icp_correspond(p_own[i], ok[i], T[i // s], live[i // s],
                                sm.local_view(st, i % s), icfg) for i in range(b * s)]
     nrm, r, valid = (torch.stack(c).contiguous() for c in zip(*corr))
+    # K2a's one launch over the b x s instances, the lanes sharing st's
+    # shards: bit-equal to the per-instance launches above
+    views = [[sm.local_view(st, k) for k in range(s)] for _ in range(b)]
+    batched = icp.icp_correspond_instances(p_own, ok, T, live, views, icfg)
+    if not all(torch.equal(x, y) for x, y in zip(batched, (nrm, r, valid))):
+        bad.append("K2a's batched launch differs from its per-instance launches")
     mk = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, live, None, None, icfg, n_local=s,
                                   moments=True)
     mp = so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, live, None, None, icfg,
@@ -2113,6 +2179,18 @@ def check_shard_kernels(frames, cfg, rows):
         corr = [icp.icp_correspond(p_own[k], ok[k], T1[0], flags[0], sm.local_view(st, k), icfg)
                 for k in range(s)]
         nrm, r, valid = (torch.stack(c).contiguous() for c in zip(*corr))
+        views = sm.local_views(st)
+        batched = icp.icp_correspond_instances(p_own, ok, T1, flags, views, icfg)
+        eq_k2a = all(torch.equal(x, y) for x, y in zip(batched, (nrm, r, valid)))
+        if s == SHARDS:
+            k2a_ms = (time_ms(lambda: icp.icp_correspond_instances(p_own, ok, T1, flags, views,
+                                                                   icfg)),
+                      device_ms(lambda: icp.icp_correspond_instances(p_own, ok, T1, flags,
+                                                                     views, icfg)),
+                      time_ms(lambda: icp.icp_correspond(p_own[0], ok[0], T1[0], flags[0],
+                                                         views[0][0], icfg)),
+                      device_ms(lambda: icp.icp_correspond(p_own[0], ok[0], T1[0], flags[0],
+                                                           views[0][0], icfg)))
         mk = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T1, flags, None, None, icfg,
                                       n_local=s, moments=True)
         mp = so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T1, flags, None, None, icfg,
@@ -2177,17 +2255,25 @@ def check_shard_kernels(frames, cfg, rows):
               f"K11c {err_smp:.1e} (exact), "
               f"K11d alpha {int(sk[2][0, 0])} vs {int(sp[2][0, 0])}, T {err_sel:.1e}; "
               f"instances bit-equal to one-instance launches: K11a {eq_own}, K11b/K11c "
-              f"{eq_rows}, K11d lanes {eq_sel}; {n_valid} valid correspondences", flush=True)
+              f"{eq_rows}, K11d lanes {eq_sel}, K2a's one launch over the {s} shards {eq_k2a}; "
+              f"{n_valid} valid correspondences", flush=True)
         if err_own != 0.0 or err_smp != 0.0:
             fail(f"shards S={s}: K11a or K11c differs from its plain version")
         if err_mom > 1e-5 or rel_h > 1e-5 or rel_g > 1e-5 or err_cnt != 0.0:
             fail(f"shards S={s}: K11b differs from its plain version")
         if not torch.equal(sk[2], sp[2]) or not torch.equal(sk[1], sp[1]) or err_sel > 1e-6:
             fail(f"shards S={s}: K11d differs from its plain version")
-        if not (eq_own and eq_rows and eq_sel):
+        if not (eq_own and eq_rows and eq_sel and eq_k2a):
             fail(f"shards S={s}: an instance differs from its one-instance launch")
         if s != SHARDS:
             continue
+        ms4, dev4, ms1, dev1 = k2a_ms
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
+        print(f"  icp_correspond over {s} shard instances in one launch: {ms4:.4f} ms "
+              f"(device {fmt(dev4)} ms) against one instance {ms1:.4f} ms (device {fmt(dev1)} "
+              f"ms)", flush=True)
+        rows["icp_correspond"].update(instances=s, instances_ms=ms4, instances_device_ms=dev4,
+                                      one_instance_ms=ms1, one_instance_device_ms=dev1)
         check_shard_lanes(frames, icfg, consts, st, g, inv)
         # times at the sharded path's count; bounds from this run's inputs
         g_inst = s * cap
@@ -2290,6 +2376,7 @@ def sharded_path(scans, gt, cfg, traj_dist, group):
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
     check_launches("sharded", launches, LOOPS_PATH_KERNELS + PGO_KERNELS + SHARD_KERNELS,
                    ("grid_knn",))
+    check_one_k2a_an_iteration("sharded", launches)
     if est.get_loop_closure_count() < 1:
         fail("the sharded path accepted no loop")
     if est.rehash_count < 1:
@@ -2379,6 +2466,7 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
     check_launches("step", launches, SHARD_KERNELS + ("voxel_filter", "icp_correspond",
                                                       "map_scatter_add"),
                    ("grid_knn", "plane_fit_5nn", "pko_alpha", "icp_normal_eq") + LOOP_KERNELS)
+    check_one_k2a_an_iteration("step", launches)
     bad = [i for i in range(b) if not ates[i] < 0.5]
     if bad:
         fail(f"step path: lanes {bad} have ATE >= 0.5 m ({ates})")
@@ -2386,6 +2474,16 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
         scans_per_s_aggregate=b * LANE_FRAMES / wall, ate_m=ates, blocked_ate_m=blocked_ates[:b],
         keyframes=n_kf, n_l0=n_l0, host_reads_per_frame=1)), flush=True)
     return launches
+
+
+def check_one_k2a_an_iteration(path: str, launches: dict) -> None:
+    """The sharded ICP launches K2a once an iteration for all its lanes and
+    shards: as many K2a launches as K11d's, one an iteration."""
+    k2a, k11d = launches["icp_correspond"], launches["shard_gn_select"]
+    print(f"{path} path: {k2a} K2a launches for {k11d} ICP iterations (K11d launches)",
+          flush=True)
+    if k2a != k11d:
+        fail(f"{path} path: {k2a} K2a launches for {k11d} ICP iterations (one each expected)")
 
 
 def count_syncs(fn) -> int:

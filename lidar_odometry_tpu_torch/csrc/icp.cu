@@ -10,11 +10,24 @@
 // Bounds on the H100 at N = 14336 features, c1 = 65536:
 //  * icp_correspond touches N x (12 + 1 + 128 + 32) B of input (points,
 //    mask, one 128-B bucket row, one 32-B surfel row) and writes N x 17 B:
-//    ~2.7 MB, ~0.8 us at 3.35 TB/s. The two dependent random reads per point
+//    ~2.7 MB, ~0.8 us at 3.35 TB/s. Its dependent random reads per point
 //    make it latency-bound at this size; in practice launch-bound. Design:
-//    one thread per point, T from the device (no host read), the bucket
-//    probe and the surfel read of common.cuh, no shared memory; 56 blocks
-//    of 256 threads keep every probe in flight at once.
+//    one thread per point, T from the device (no host read), no shared
+//    memory; 56 blocks of 256 threads keep every probe in flight at once.
+//    A thread's chain is three dependent rounds: the done flag, T (three
+//    16-byte loads) and the point, issued together; the bucket row as six
+//    16-byte loads (common.cuh's probe, the last matching cell winning);
+//    the 32-byte surfel row.
+//    Instances: one launch computes every (lane, shard) instance of an
+//    ICP iteration on blockIdx.y. Instance g has its own points, mask and
+//    outputs, takes lane g / per_lane's T and flags, and reads the map
+//    tables at lane x a lane stride + shard x a shard stride (shard = g
+//    mod per_lane): a rank's shards are equal row ranges of its tables
+//    (parallel/sharded_map.py local_view), the data x map step's lanes
+//    hold a map each, and the blocked runner's lanes share one map (lane
+//    strides 0, per_lane 1).
+//    A point's arithmetic does not depend on the instance, so each
+//    instance is bit-equal to a launch of its own.
 //  * icp_normal_eq reads N x 33 B (~0.5 MB, ~0.14 us) and does ~90 flops
 //    per point (~1.3 MFLOP, ~0.02 us at 67 TFLOP/s fp32): launch-bound.
 //    Design: a grid-stride loop accumulates the 27 sums per thread, warp
@@ -50,23 +63,34 @@ constexpr int NSUM = 27;   // 21 upper-triangle entries of H, then g
 
 __global__ void __launch_bounds__(THREADS)
 correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, int n,
-                  const float* __restrict__ T, const int* __restrict__ flags,
-                  const int* __restrict__ index, int n_buckets, const float* __restrict__ surfel,
-                  int c1, float inv, float max_dist, float* __restrict__ nrm,
-                  float* __restrict__ resid, bool* __restrict__ valid) {
-  const size_t lane_ix = blockIdx.y;
+                  int per_lane, const float* __restrict__ T, const int* __restrict__ flags,
+                  const int* __restrict__ index, long long index_lane, long long index_shard,
+                  int n_buckets, const float* __restrict__ surfel, long long surfel_lane,
+                  long long surfel_shard, int c1, float inv, float max_dist,
+                  float* __restrict__ nrm, float* __restrict__ resid, bool* __restrict__ valid) {
+  const size_t inst = blockIdx.y, lane_ix = inst / per_lane, shard = inst % per_lane;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
   T += 16 * lane_ix;
   flags += 3 * lane_ix;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || flags[0]) return;  // a done solve reads nothing more
-  pts += lane_ix * n * 3;
-  mask += lane_ix * n;
-  nrm += lane_ix * n * 3;
-  resid += lane_ix * n;
-  valid += lane_ix * n;
+  pts += inst * n * 3;
+  mask += inst * n;
+  nrm += inst * n * 3;
+  resid += inst * n;
+  valid += inst * n;
+  index += lane_ix * index_lane + shard * index_shard;
+  surfel += lane_ix * surfel_lane + shard * surfel_shard;
+  // the done flag, T, the point and its mask: independent loads, issued together
+  const int done = flags[0];
   float R[3][3], t[3];
-  lo::load_T(T, R, t);
+  const float4* T4 = reinterpret_cast<const float4*>(T);
+  const float4 r0 = T4[0], r1 = T4[1], r2 = T4[2];
+  R[0][0] = r0.x; R[0][1] = r0.y; R[0][2] = r0.z; t[0] = r0.w;
+  R[1][0] = r1.x; R[1][1] = r1.y; R[1][2] = r1.z; t[1] = r1.w;
+  R[2][0] = r2.x; R[2][1] = r2.y; R[2][2] = r2.z; t[2] = r2.w;
   const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
+  const bool m = mask[i];
+  if (done) return;  // a done solve writes nothing
   float w[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) w[r] = R[r][0] * px + R[r][1] * py + R[r][2] * pz + t[r];
@@ -82,7 +106,7 @@ correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, 
   nrm[3 * i + 1] = a.y;
   nrm[3 * i + 2] = a.z;
   resid[i] = r;
-  valid[i] = slot >= 0 && b.w > 0.5f && mask[i] && fabsf(r) <= max_dist;
+  valid[i] = slot >= 0 && b.w > 0.5f && m && fabsf(r) <= max_dist;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -207,14 +231,20 @@ inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
 
-LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, int lanes,
-                                const float* T, const int* flags, const int* index,
-                                int n_buckets, const float* surfel, int c1, float inv,
-                                float max_dist, float* nrm, float* resid, bool* valid,
-                                void* stream) {
-  const dim3 grid(max(1, blocks(n)), lanes);
+// One launch over `instances` (lane, shard) instances of n points each;
+// instance g = lane * per_lane + shard reads its lane's T and flags and
+// the map tables at lane * *_lane + shard * *_shard elements (int32 for
+// index, f32 for surfel). T, index and surfel must be 16-byte aligned.
+LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, int instances,
+                                int per_lane, const float* T, const int* flags, const int* index,
+                                long long index_lane, long long index_shard, int n_buckets,
+                                const float* surfel, long long surfel_lane,
+                                long long surfel_shard, int c1, float inv, float max_dist,
+                                float* nrm, float* resid, bool* valid, void* stream) {
+  const dim3 grid(max(1, blocks(n)), instances);
   correspond_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      pts, mask, n, T, flags, index, n_buckets, surfel, c1, inv, max_dist, nrm, resid, valid);
+      pts, mask, n, per_lane, T, flags, index, index_lane, index_shard, n_buckets, surfel,
+      surfel_lane, surfel_shard, c1, inv, max_dist, nrm, resid, valid);
   return (int)cudaGetLastError();
 }
 

@@ -12,12 +12,14 @@
 //    the order of the JAX scatter-adds, so with no atomics the sums are the
 //    same in every run. One more thread a loop edge gathers its block.
 //  * K10b lo_pgo_eliminate — _eliminate_interior_spd under vmap (:450) with
-//    _gn_device's interior packing (:610-619): one warp a partition packs its
-//    front-padded interior rows straight from the plan, then runs the
-//    forward chain (Dt = D_i - L_i C_prev, a register 6x6 Cholesky and the
-//    13 right-hand columns [U | E | b], one column a lane) and the backward
-//    chain F, G, g, and writes the Schur blocks. C, E and d go to global
-//    scratch (the chain is max_m long and does not fit in shared memory).
+//    _gn_device's interior packing (:610-619): a block of two warps a
+//    partition, one staging its interior rows straight from the plan into
+//    a shared-memory ring, the other running the forward chain (Dt = D_i -
+//    L_i C_prev, a 6x6 Cholesky with reciprocal pivots, the 13 right-hand
+//    columns [U | E | b], one column a lane) and the backward chain F, G,
+//    g, and writing the Schur blocks. C, E and d go to global scratch,
+//    staged back for the backward chain (the chain is max_m long and is
+//    not capped; the design is at the kernel).
 //  * K10c lo_pgo_reduced_solve — the separator system (:625-647): a cluster
 //    of 8 CTAs assembles Hs ((6D)^2, in global memory: 1.5 MB at D = 73,
 //    beyond an SM's shared memory, and D is not capped) and bs in the order
@@ -41,9 +43,10 @@
 //
 // Bounds on the H100 at the KITTI-00-sized graph (n_pad = 4096, M = 4096,
 // L = 32, D = 73, max_m = 395): every kernel moves a few MB at most
-// (K10b reads ~5 MB of blocks and writes ~17 MB of F, G, g and scratch:
-// ~7 us at 3.35 TB/s) and does a few hundred MFLOP (K10c's Cholesky of
-// a 438 x 438 system: 28 MFLOP, ~0.4 us at 67 TFLOP/s f64), so each is
+// (K10b reads ~5 MB of blocks and writes ~17 MB of F, G and g, and ~18 MB
+// of scratch it reads back: ~12 us at 3.35 TB/s) and does a few hundred
+// MFLOP (K10c's Cholesky of a 438 x 438 system: 28 MFLOP, ~0.4 us at 67
+// TFLOP/s f64), so each is
 // bound by its sequential depth and launch cost, not by the card: K10b is
 // a chain of max_m dependent 6x6 steps in each partition, K10c a chain of
 // ceil(D / 4) dependent panels, each a warp's 24-column factor, a row
@@ -122,36 +125,6 @@ __device__ void retract(double* T, const double xi[6]) {
     T[4 * i + 3] = R[i][0] * dt[0] + R[i][1] * dt[1] + R[i][2] * dt[2] + t[i];
   }
   T[12] = 0.0; T[13] = 0.0; T[14] = 0.0; T[15] = 1.0;
-}
-
-// ---- 6x6 Cholesky of (A + A^T) / 2 and its solve, in registers ----
-
-__device__ void chol6(const double* A, double Lc[6][6]) {
-  for (int j = 0; j < 6; ++j) {
-    double s = (A[6 * j + j] + A[6 * j + j]) * 0.5;
-    for (int q = 0; q < j; ++q) s -= Lc[j][q] * Lc[j][q];
-    const double ljj = s > 0.0 ? sqrt(s) : NAN;   // not positive definite: NaN
-    Lc[j][j] = ljj;
-    for (int i = j + 1; i < 6; ++i) {
-      double v = (A[6 * i + j] + A[6 * j + i]) * 0.5;
-      for (int q = 0; q < j; ++q) v -= Lc[i][q] * Lc[j][q];
-      Lc[i][j] = v / ljj;
-    }
-  }
-}
-
-// x <- A^-1 x given the factor Lc of A: forward, then backward substitution.
-__device__ void cho_solve6(const double Lc[6][6], double x[6]) {
-  for (int i = 0; i < 6; ++i) {
-    double v = x[i];
-    for (int q = 0; q < i; ++q) v -= Lc[i][q] * x[q];
-    x[i] = v / Lc[i][i];
-  }
-  for (int i = 5; i >= 0; --i) {
-    double v = x[i];
-    for (int q = i + 1; q < 6; ++q) v -= Lc[q][i] * x[q];
-    x[i] = v / Lc[i][i];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -314,206 +287,463 @@ assemble_kernel(const double* __restrict__ pad_reg, int n_pad, int P, int M,
 // ---------------------------------------------------------------------------
 // K10b
 // ---------------------------------------------------------------------------
+//
+// One block a partition: warp 0 walks the interior chain, warp 1 stages
+// its inputs. The chain is the whole cost (max_m dependent 6x6 steps), so
+// the design takes everything that does not depend on the recurrence off
+// the chain warp:
+//  * Staging (warp 1). It copies each row the chain will read into a ring
+//    of EL_RING rows in shared memory with cp.async, one commit group a
+//    row, and publishes a row (a release store of its sequence number)
+//    once the group EL_LAG rows later has been issued and the row's own
+//    has completed; it takes a slot again only once warp 0 has released
+//    it. Forward rows are [D_R | U_R | b_R] (U zero-filled where ovalid is
+//    0, by cp.async's source size), their plan indices from a window of 32
+//    rows each lane loads one window ahead; backward rows are the forward
+//    chain's [C | E | d | valid] from global scratch, staged once warp 0
+//    has finished the forward chain. Any max_m runs: the ring holds
+//    EL_RING rows, whatever the chain's length. Warp 1 also writes the
+//    front-padded rows of F, G and g (zeros) at the end.
+//  * One factor a row, no division (warp 0). Lane c < 6 holds column c of
+//    C, lanes 6..11 the columns of E and lane 12 d (the forward chain's 13
+//    right-hand columns [U | E | b]). Each lane forms its column of the
+//    next row's Dt = D - L C (lanes 0..5) or right-hand side (L E, L d)
+//    from its own column, so the only exchange a row is Dt through shared
+//    memory (double-buffered, one __syncwarp). Every lane then factors
+//    (Dt + Dt^T) / 2 itself with the pivots' reciprocal square roots, the
+//    hardware approximation refined by one third-order Newton step, and
+//    solves its column by multiplying by them: 6 reciprocal square roots
+//    a row and no IEEE division or square root on the chain. A
+//    non-positive or NaN pivot gives NaN, as jnp.linalg.cholesky does,
+//    and NaN spreads to every output. Lane roles are per-lane offsets, not
+//    branches; a row's inputs are loaded from the ring into registers
+//    while the row before it is factored; a lane writes its column to
+//    scratch as three 16-byte stores (the scratch row is lane-major:
+//    column c of C at 6c).
+//  * The backward chain needs no exchange at all: lanes 6..11 hold the
+//    columns of F (F_last = E_last), lanes 0..5 those of G (G_last =
+//    Dt_last^-1 U_right, solved with the last row's factor every lane
+//    still holds) and lane 12 g, each updated from its own column and the
+//    staged C_R. The Schur blocks come from the columns the lanes hold at
+//    the chain's two ends.
+//  * Front padding is skipped: the chain starts at the first valid row
+//    (rows before it are exactly zero in C, E, d, F, G and g), or at the
+//    last row when none is valid.
+// Every product is summed in the order of the JAX program's 6x6 products
+// (q = 0..5), no value is added atomically, so two calls are bit-equal.
+// The "// ---- " comments mark the phases for tools/k10b_phase_stamps.py.
 
-__global__ void __launch_bounds__(32)
+constexpr int EL_RING = 16;                // rows staged in shared memory
+constexpr int EL_LAG = 6;                  // groups issued after a row before it is published
+constexpr int EL_FREE = 4;                 // warp 0 releases slots every EL_FREE rows
+constexpr int EL_ROW = 80;                 // doubles a staged row (79 used)
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src, bool fill) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(fill ? 8 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n" : "=r"(v)
+               : "r"((unsigned)__cvta_generic_to_shared(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;\n" ::"r"((unsigned)__cvta_generic_to_shared(p)),
+               "r"(v) : "memory");
+}
+
+// 1/sqrt(s) of a Cholesky pivot: rsqrt.approx (~2^-22 relative) refined by
+// one third-order Newton step (error ~(5/16) e^3, below double's epsilon)
+// for normal s; NaN where s is not positive (or NaN).
+__device__ __forceinline__ double pivot_rsqrt(double s) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(s));
+  const double e = fma(-(s * y), y, 1.0);
+  y = fma(y * e, fma(0.375, e, 0.5), y);
+  return s > 0.0 ? y : NAN;
+}
+
+__global__ void __launch_bounds__(64)
 eliminate_kernel(const double* __restrict__ diag, const double* __restrict__ off,
                  const double* __restrict__ b, const int* __restrict__ int_idx,
                  const int* __restrict__ valid, const int* __restrict__ off_idx,
                  const int* __restrict__ ovalid, const int* __restrict__ has_left,
                  const int* __restrict__ left_off, const int* __restrict__ lsep_row,
                  const int* __restrict__ uright_off, const int* __restrict__ ur_valid,
-                 int max_m, int m_off, const double* __restrict__ st, double* __restrict__ Cs,
-                 double* __restrict__ Es, double* __restrict__ ds, double* __restrict__ F,
-                 double* __restrict__ G, double* __restrict__ g, double* __restrict__ S,
-                 double* __restrict__ r) {
+                 int max_m, int m_off, const double* __restrict__ st,
+                 double* __restrict__ scratch, double* __restrict__ F, double* __restrict__ G,
+                 double* __restrict__ g, double* __restrict__ S, double* __restrict__ r) {
   if (st[3] == 0.0) return;
-  const int k = blockIdx.x, lane = threadIdx.x;
-  __shared__ double sC[36], sE[36], sd[6];   // the previous row's C, E, d; later F, G, g
-  __shared__ double sL[36], sDt[36], sR[78];  // L_i, Dt and the 6 x 13 right-hand side
-  __shared__ double sLl[36], sUr[36];         // H[first, sep_l]^T and H[last, sep_r]
-  __shared__ double sF0[36], sG0[36], sg0[6];
+  const int k = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ __align__(16) double ring[EL_RING][EL_ROW];
+  __shared__ __align__(16) double sDt[2][36];
+  __shared__ __align__(16) double sLl[36];  // H[first, sep_l]^T
+  __shared__ __align__(16) double sUr[36];  // H[last, sep_r]
+  __shared__ __align__(16) double sZero[36];
+  __shared__ int ready, freed, fwd_done;    // warp 1 -> 0, warp 0 -> 1, warp 0 -> 1
   const int* vrow = valid + (size_t)k * max_m;
-  const int* irow = int_idx + (size_t)k * max_m;
-  const int* orow = off_idx + (size_t)k * m_off;
-  const int* ovrow = ovalid + (size_t)k * m_off;
   const size_t base = (size_t)k * max_m;
-  const int lrow = lsep_row[k];
-  int first = max_m;   // the first valid row (rows are front-padded)
-  for (int q = 0; q < max_m; ++q)
-    if (vrow[q]) { first = q; break; }
-  const bool any_valid = first < max_m;
-  if (first == max_m) first = 0;
-  for (int e = lane; e < 36; e += 32) {
-    const int i = e / 6, j = e % 6;
-    sC[e] = 0.0;
-    sE[e] = 0.0;
-    sLl[e] = has_left[k] ? off[36 * (size_t)left_off[k] + 6 * j + i] : 0.0;
-    sUr[e] = ur_valid[k] ? off[36 * (size_t)uright_off[k] + e] : 0.0;
-  }
-  if (lane < 6) sd[lane] = 0.0;
-  double Lc[6][6];
-  __syncthreads();
 
-  // ---- forward chain ----
-  for (int row = 0; row < max_m; ++row) {
-    const bool v = vrow[row] != 0;
-    const double* Di = diag + 36 * (size_t)irow[row];
-    const double* bi = b + 6 * (size_t)irow[row];
-    const bool has_u = row < max_m - 1 && ovrow[row];
-    const double* Ui = off + 36 * (size_t)orow[row < max_m - 1 ? row : 0];
-    const bool has_l = row > 0 && ovrow[row - 1];
-    const double* Li = off + 36 * (size_t)orow[row > 0 ? row - 1 : 0];
-    for (int e = lane; e < 36; e += 32) {   // L_i = Oint[row-1]^T
-      const int i = e / 6, j = e % 6;
-      sL[e] = has_l ? Li[6 * j + i] : 0.0;
+  // ---- prologue: first valid row, couplings ----
+  int first = max_m;   // each warp scans for itself
+  for (int q0 = 0; q0 < max_m && first == max_m; q0 += 128) {
+    int vv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int R = q0 + 32 * u + lane;
+      vv[u] = R < max_m ? vrow[R] : 0;
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned m = __ballot_sync(FULL, vv[u] != 0);
+      if (m && first == max_m) first = q0 + 32 * u + __ffs(m) - 1;
+    }
+  }
+  const bool any_valid = first < max_m;
+  const int s0 = any_valid ? first : max_m - 1;   // the chain's first row
+  const int n_fwd = max_m - s0 + 1;               // staged forward rows: s0 - 1 .. max_m - 1
+  const int n_seq = n_fwd + max_m - 1 - s0;       // then backward rows max_m - 2 .. s0
+  if (warp == 0) {
+    const bool hl = has_left[k] != 0, hu_r = ur_valid[k] != 0;
+    const int lo_ = left_off[k], ur_ = uright_off[k];
     for (int e = lane; e < 36; e += 32) {
       const int i = e / 6, j = e % 6;
-      double dt = i == j ? 1.0 : 0.0, rE = 0.0;
-      if (v) {
-        double lc = 0.0, le = 0.0;
-        for (int q = 0; q < 6; ++q) {
-          lc += sL[6 * i + q] * sC[6 * q + j];
-          le += sL[6 * i + q] * sE[6 * q + j];
+      sLl[e] = hl ? off[36 * (size_t)lo_ + 6 * j + i] : 0.0;
+      sUr[e] = hu_r ? off[36 * (size_t)ur_ + e] : 0.0;
+      sZero[e] = 0.0;
+    }
+    if (lane == 0) { ready = -1; freed = -1; fwd_done = 0; }
+  }
+  __syncthreads();
+
+  if (warp == 1) {
+    // ---- the staging warp ----
+    const int* irow = int_idx + (size_t)k * max_m;
+    const int* orow = off_idx + (size_t)k * m_off;
+    const int* ovrow = ovalid + (size_t)k * m_off;
+    // the plan window: lane l holds row wb + l's entries (c_*) and row
+    // wb + 32 + l's (n_*, loaded a window ahead; rows clamped into range)
+    int wb = ((s0 - 1) >> 5) << 5;   // floor to a multiple of 32 (s0 - 1 may be -1)
+    int c_ii, c_vv, c_oi, c_ov, n_ii, n_vv, n_oi, n_ov;
+    auto fetch = [&](int w0, int& ii, int& vv, int& oi, int& ov) {
+      const int R = min(max(w0 + lane, 0), max_m - 1);
+      const int Ro = min(R, m_off - 1);
+      ii = irow[R];
+      vv = vrow[R];
+      oi = orow[Ro];
+      ov = ovrow[Ro];
+    };
+    fetch(wb, c_ii, c_vv, c_oi, c_ov);
+    fetch(wb + 32, n_ii, n_vv, n_oi, n_ov);
+    int free_seen = -1;
+    for (int q = 0; q < n_seq; ++q) {
+      if (q >= EL_RING) {   // the slot's last row must be released
+        while (free_seen < q - EL_RING) free_seen = load_acquire(&freed);
+      }
+      double* slot = ring[q % EL_RING];
+      if (q < n_fwd) {
+        const int R = s0 - 1 + q;   // rows move one at a time: at most one window on
+        if (R >= wb + 32) {
+          c_ii = n_ii; c_vv = n_vv; c_oi = n_oi; c_ov = n_ov;
+          wb += 32;
+          fetch(wb + 32, n_ii, n_vv, n_oi, n_ov);
         }
-        dt = Di[e] - lc;
-        rE = (row == lrow ? sLl[e] : 0.0) - le;
-      }
-      sDt[e] = dt;
-      sR[13 * i + j] = has_u ? Ui[e] : 0.0;
-      sR[13 * i + 6 + j] = rE;
-    }
-    if (lane < 6) {
-      double rb = 0.0;
-      if (v) {
-        double ld = 0.0;
-        for (int q = 0; q < 6; ++q) ld += sL[6 * lane + q] * sd[q];
-        rb = bi[lane] - ld;
-      }
-      sR[13 * lane + 12] = rb;
-    }
-    __syncthreads();
-    if (lane < 13) {   // each lane factors Dt itself and solves its column
-      chol6(sDt, Lc);
-      double x[6];
-      for (int i = 0; i < 6; ++i) x[i] = sR[13 * i + lane];
-      cho_solve6(Lc, x);
-      for (int i = 0; i < 6; ++i) {
-        if (lane < 6) {
-          const double c = v ? x[i] : 0.0;
-          sC[6 * i + lane] = c;
-          Cs[36 * (base + row) + 6 * i + lane] = c;
-        } else if (lane < 12) {
-          sE[6 * i + lane - 6] = x[i];
-          Es[36 * (base + row) + 6 * i + lane - 6] = x[i];
-        } else {
-          sd[i] = x[i];
-          ds[6 * (base + row) + i] = x[i];
+        const int src = (R - wb) & 31;
+        const int ii = __shfl_sync(FULL, c_ii, src), vv = __shfl_sync(FULL, c_vv, src);
+        const int oi = __shfl_sync(FULL, c_oi, src), ov = __shfl_sync(FULL, c_ov, src);
+        const bool inr = R >= 0 && R < max_m;
+        const bool v = inr && vv != 0;
+        const bool hu = inr && R < max_m - 1 && ov != 0;
+        for (int e = lane; e < 78; e += 32) {
+          const bool is_u = e >= 36 && e < 72;
+          const double* p = e < 36 ? diag + 36 * (size_t)ii + e
+                          : (is_u ? off + 36 * (size_t)oi + (e - 36)
+                                  : b + 6 * (size_t)ii + (e - 72));
+          cp_async8(slot + e, p, is_u ? hu : v);
         }
+        if (lane == 0) slot[78] = v ? 1.0 : 0.0;
+      } else {
+        if (q == n_fwd) {   // the scratch rows: publish every forward row, then wait for them
+          cp_async_wait<0>();
+          __syncwarp();
+          if (lane == 0) store_release(&ready, q - 1);
+          while (!load_acquire(&fwd_done)) {}
+        }
+        const int R = max_m - 2 - (q - n_fwd);
+        const double* p = scratch + EL_ROW * (base + R);
+        for (int e = 2 * lane; e < EL_ROW; e += 64) cp_async16(slot + e, p + e);
+      }
+      cp_async_commit();
+      if (q >= EL_LAG) {
+        cp_async_wait<EL_LAG>();
+        __syncwarp();
+        if (lane == 0) store_release(&ready, q - EL_LAG);
       }
     }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncwarp();
+    if (lane == 0) store_release(&ready, n_seq - 1);
+    for (size_t e = lane; e < (size_t)s0 * 36; e += 32) {   // the padded rows: zeros
+      F[36 * base + e] = 0.0;
+      G[36 * base + e] = 0.0;
+    }
+    for (size_t e = lane; e < (size_t)s0 * 6; e += 32) g[6 * base + e] = 0.0;
+    return;
   }
 
-  // ---- the last row: F = E, G = Dt^-1 U_right, g = d ----
-  if (lane < 6) {   // lanes 0..5 hold the last row's factor in Lc
+  // ---- the chain warp ----
+  // lane roles: kind 0 (lanes 0..5) a column of C, then of G; kind 1 (6..11)
+  // a column of E, then of F; kind 2 (lane 12) d, then g; lanes 13..31
+  // compute lane 12's column and write nothing
+  const int kind = lane < 6 ? 0 : (lane < 12 ? 1 : 2);
+  const int col = lane < 6 ? lane : (lane < 12 ? lane - 6 : 0);
+  const bool writer = lane < 13;
+  const int lrow = lsep_row[k];
+  // the forward right-hand side X[a] = cur[xo + xs a] (kind 0: D_R's column,
+  // kind 2: b_R) or lx[xs a] (kind 1: Lleft's column at row lrow, else 0)
+  const int xo = kind == 0 ? col : 72, xs = kind == 2 ? 1 : 6;
+  const int uo = 36 + col;                       // kind 0's solve: U_R's column
+  const int so_ = kind == 2 ? 72 : 6 * (kind == 1 ? 6 + col : col);   // its scratch column
+  int known = -1;   // the last row warp 1 has published, as last read
+  auto wait_row = [&](int q) {
+    while (known < q) known = load_acquire(&ready);
+  };
+  // warp 1 may take the slots of rows up to q again. A relaxed store: the
+  // values every lane loaded from those slots have been used by the chain
+  // (a later row's products depend on them) before any lane gets here.
+  auto release = [&](int q) {
+    __syncwarp();
+    if (lane == 0) *(volatile int*)&freed = q;
+  };
+
+  // ---- forward chain ----
+  // A row's inputs are loaded from the ring into registers one row before
+  // they are used, so the chain itself reads only its Dt exchange: L
+  // (U_{R-1}, 36 values, every lane), X (6), the kind-0 lane's column of
+  // U_R (6) and the valid flag.
+  double Lr[36], Xr[6], Ur[6];
+  bool vr;
+  auto load_fwd = [&](int R, int q) {   // row R is sequence number q; q - 1 holds U_{R-1}
+    const double* cur = ring[q % EL_RING];
+    const double2* u2 = reinterpret_cast<const double2*>(ring[(q - 1) % EL_RING] + 36);
+#pragma unroll
+    for (int h = 0; h < 18; ++h) {
+      const double2 t = u2[h];
+      Lr[2 * h] = t.x;
+      Lr[2 * h + 1] = t.y;
+    }
+    const double* xp = kind == 1 ? (R == lrow ? sLl + col : sZero) : cur + xo;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      Xr[a] = xp[xs * a];
+      Ur[a] = cur[uo + 6 * a];
+    }
+    vr = cur[78] != 0.0;
+  };
+  double y[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};   // the lane's column of the last row
+  double Lc[6][6], inv[6];                         // the last row's factor
+  wait_row(1);
+  load_fwd(s0, 1);
+  for (int R = s0; R < max_m; ++R) {
+    const int q = R - s0 + 1;
+    // ---- fwd: Dt column and right-hand sides ----
+    const bool v = vr;
+    double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int qq = 0; qq < 6; ++qq)   // acc[a] += L_R[a][qq] y[qq] = U_{R-1}[qq][a] y[qq]
+#pragma unroll
+      for (int a = 0; a < 6; ++a) acc[a] += Lr[6 * qq + a] * y[qq];
+    double x[6], uc[6];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      x[a] = v ? Xr[a] - acc[a] : (kind == 0 && a == col ? 1.0 : 0.0);
+      uc[a] = Ur[a];
+    }
+    double* dt = sDt[R & 1];
+    if (kind == 0) {
+#pragma unroll
+      for (int a = 0; a < 6; ++a) dt[6 * a + col] = x[a];
+    }
+    __syncwarp();
+    if ((q & (EL_FREE - 1)) == 0 && lane == 0) *(volatile int*)&freed = q - 2;
+    // ---- fwd: the next row's inputs ----
+    if (R + 1 < max_m) {
+      wait_row(q + 1);
+      load_fwd(R + 1, q + 1);
+    }
+    // ---- fwd: factor ----
+    double A[36];
+#pragma unroll
+    for (int h = 0; h < 18; ++h) {
+      const double2 t = reinterpret_cast<const double2*>(dt)[h];
+      A[2 * h] = t.x;
+      A[2 * h + 1] = t.y;
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      double s = A[6 * j + j];
+#pragma unroll
+      for (int qq = 0; qq < j; ++qq) s -= Lc[j][qq] * Lc[j][qq];
+      inv[j] = pivot_rsqrt(s);
+#pragma unroll
+      for (int i = j + 1; i < 6; ++i) {
+        double w = (A[6 * i + j] + A[6 * j + i]) * 0.5;
+#pragma unroll
+        for (int qq = 0; qq < j; ++qq) w -= Lc[i][qq] * Lc[j][qq];
+        Lc[i][j] = w * inv[j];
+      }
+    }
+    // ---- fwd: solve ----
+    double z[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      double w = kind == 0 ? uc[i] : x[i];
+#pragma unroll
+      for (int qq = 0; qq < i; ++qq) w -= Lc[i][qq] * z[qq];
+      z[i] = w * inv[i];
+    }
+#pragma unroll
+    for (int i = 5; i >= 0; --i) {
+      double w = z[i];
+#pragma unroll
+      for (int qq = i + 1; qq < 6; ++qq) w -= Lc[qq][i] * z[qq];
+      z[i] = w * inv[i];
+    }
+    // ---- fwd: stores ----
+#pragma unroll
+    for (int a = 0; a < 6; ++a) y[a] = (kind == 0 && !v) ? 0.0 : z[a];
+    if (writer && R < max_m - 1) {
+      double2* out = reinterpret_cast<double2*>(scratch + EL_ROW * (base + R) + so_);
+      out[0] = make_double2(y[0], y[1]);
+      out[1] = make_double2(y[2], y[3]);
+      out[2] = make_double2(y[4], y[5]);
+      if (lane == 0) scratch[EL_ROW * (base + R) + 78] = v ? 1.0 : 0.0;
+    }
+  }
+  // the scratch rows are in place: warp 1 may stage them
+  __threadfence();
+  release(n_fwd - 1);
+  if (lane == 0) store_release(&fwd_done, 1);
+
+  // ---- the last row: F = E, G = Dt^-1 U_right, g = d; S_rl, S_rr, r_r ----
+  if (kind == 0) {
+    double z[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      double w = sUr[6 * i + col];
+#pragma unroll
+      for (int qq = 0; qq < i; ++qq) w -= Lc[i][qq] * z[qq];
+      z[i] = w * inv[i];
+    }
+#pragma unroll
+    for (int i = 5; i >= 0; --i) {
+      double w = z[i];
+#pragma unroll
+      for (int qq = i + 1; qq < 6; ++qq) w -= Lc[qq][i] * z[qq];
+      z[i] = w * inv[i];
+    }
+#pragma unroll
+    for (int a = 0; a < 6; ++a) y[a] = z[a];
+  }
+  // kind 0: a column of G, kind 1 of F, kind 2 g, from here on; a lane
+  // writes its column of row R at out + R * ostride, entry a at a * oa
+  double* const out_base = kind == 0 ? G + 36 * base + col
+                         : (kind == 1 ? F + 36 * base + col : g + 6 * base);
+  const int ostride = kind == 2 ? 6 : 36, oa = kind == 2 ? 1 : 6;
+  auto store_row = [&](int R) {
+    if (!writer) return;
+    double* o = out_base + (size_t)R * ostride;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) o[oa * a] = y[a];
+  };
+  // Schur blocks of one end: S_l* = -Lt X0 (M = sLl) or S_r* = -Ut Xm
+  // (M = sUr), each lane its column; r = -(M^T x) on lane 12
+  auto schur = [&](const double* M, int blk_f, int blk_g, int r_at) {
+    if (!writer) return;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      double acc = 0.0;
+      if (kind == 2) {
+#pragma unroll
+        for (int qq = 0; qq < 6; ++qq) acc += M[6 * qq + i] * y[qq];
+        r[12 * (size_t)k + r_at + i] = any_valid ? -acc : 0.0;
+      } else {
+#pragma unroll
+        for (int qq = 0; qq < 6; ++qq) acc += -(M[6 * qq + i]) * y[qq];
+        S[144 * (size_t)k + 36 * (kind == 1 ? blk_f : blk_g) + 6 * i + col] =
+            any_valid ? acc : 0.0;
+      }
+    }
+  };
+  store_row(max_m - 1);
+  schur(sUr, 2, 3, 6);
+
+  // ---- backward chain: F_R = E_R - C_R F, G_R = -C_R G, g_R = d_R - C_R g ----
+  // a row's C_R (columns), X (kind 1: E_R's column, kind 2: d_R; kind 0:
+  // zeros) and valid flag, loaded one row ahead as in the forward chain
+  const int bo = kind == 1 ? 36 + 6 * col : 72;
+  double Cr[36], Xb[6];
+  bool vb;
+  auto load_bwd = [&](int q) {
+    const double* cr = ring[q % EL_RING];   // C_R | E_R | d_R | valid
+    const double2* c2 = reinterpret_cast<const double2*>(cr);
+#pragma unroll
+    for (int h = 0; h < 18; ++h) {
+      const double2 t = c2[h];
+      Cr[2 * h] = t.x;
+      Cr[2 * h + 1] = t.y;
+    }
+#pragma unroll
+    for (int a = 0; a < 6; ++a) Xb[a] = kind == 0 ? 0.0 : cr[bo + a];
+    vb = cr[78] != 0.0;
+  };
+  if (max_m - 2 >= s0) {
+    wait_row(n_fwd);
+    load_bwd(n_fwd);
+  }
+  for (int R = max_m - 2; R >= s0; --R) {
+    const int q = n_fwd + (max_m - 2 - R);
+    // ---- bwd: F, G, g ----
+    double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int qq = 0; qq < 6; ++qq)   // acc[a] += C_R[a][qq] y[qq]
+#pragma unroll
+      for (int a = 0; a < 6; ++a) acc[a] += Cr[6 * qq + a] * y[qq];
     double x[6];
-    for (int i = 0; i < 6; ++i) x[i] = sUr[6 * i + lane];
-    cho_solve6(Lc, x);
-    for (int i = 0; i < 6; ++i) sDt[6 * i + lane] = x[i];   // G_last, kept in sDt
-  }
-  __syncthreads();
-  // F_next, G_next, g_next live in sC (F), sDt (G), sd (g) from here on
-  for (int e = lane; e < 36; e += 32) {
-    sC[e] = sE[e];
-    F[36 * (base + max_m - 1) + e] = sE[e];
-    G[36 * (base + max_m - 1) + e] = sDt[e];
-    if (first == max_m - 1) { sF0[e] = sE[e]; sG0[e] = sDt[e]; }
-  }
-  if (lane < 6) {
-    g[6 * (base + max_m - 1) + lane] = sd[lane];
-    if (first == max_m - 1) sg0[lane] = sd[lane];
-  }
-  __syncthreads();
-
-  // ---- backward chain: F_i = E_i - C_i F_next, G_i = -C_i G_next, g_i = d_i - C_i g_next ----
-  for (int row = max_m - 2; row >= 0; --row) {
-    const bool v = vrow[row] != 0;
-    for (int e = lane; e < 36; e += 32) sL[e] = Cs[36 * (base + row) + e];   // C_i
-    __syncthreads();
-    double out[3];
-    int n_out = 0;
-    for (int e = lane; e < 78; e += 32) {
-      double val = 0.0;
-      if (v) {
-        if (e < 36) {
-          const int i = e / 6, j = e % 6;
-          double acc = 0.0;
-          for (int q = 0; q < 6; ++q) acc += sL[6 * i + q] * sC[6 * q + j];
-          val = Es[36 * (base + row) + e] - acc;
-        } else if (e < 72) {
-          const int i = (e - 36) / 6, j = (e - 36) % 6;
-          double acc = 0.0;
-          for (int q = 0; q < 6; ++q) acc += -sL[6 * i + q] * sDt[6 * q + j];
-          val = acc;
-        } else {
-          const int i = e - 72;
-          double acc = 0.0;
-          for (int q = 0; q < 6; ++q) acc += sL[6 * i + q] * sd[q];
-          val = ds[6 * (base + row) + i] - acc;
-        }
-      }
-      out[n_out++] = val;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) x[a] = vb ? Xb[a] - acc[a] : 0.0;
+    // ---- bwd: the next row's inputs ----
+    if (R - 1 >= s0) {
+      wait_row(q + 1);
+      load_bwd(q + 1);
     }
-    __syncthreads();
-    n_out = 0;
-    for (int e = lane; e < 78; e += 32) {
-      const double val = out[n_out++];
-      if (e < 36) {
-        sC[e] = val;
-        F[36 * (base + row) + e] = val;
-        if (row == first) sF0[e] = val;
-      } else if (e < 72) {
-        sDt[e - 36] = val;
-        G[36 * (base + row) + e - 36] = val;
-        if (row == first) sG0[e - 36] = val;
-      } else {
-        sd[e - 72] = val;
-        g[6 * (base + row) + e - 72] = val;
-        if (row == first) sg0[e - 72] = val;
-      }
-    }
-    __syncthreads();
+    // ---- bwd: stores ----
+#pragma unroll
+    for (int a = 0; a < 6; ++a) y[a] = x[a];
+    store_row(R);
+    if ((q & (EL_FREE - 1)) == 0) release(q);
   }
-
-  // ---- Schur blocks: S_ll = -Lt F0, S_lr = -Lt G0, S_rl = -Ut Fm, S_rr = -Ut Gm,
-  //      r_l = -Lt g0, r_r = -Ut gm, with Lt = H[sep_l, first], Ut = H[sep_r, last] ----
-  // (Fm, Gm, gm are the last row's: rows max_m-1 of F, G, g in global memory)
-  for (int e = lane; e < 4 * 36 + 12; e += 32) {
-    double val = 0.0;
-    if (any_valid) {
-      if (e < 144) {
-        const int blk = e / 36, i = (e % 36) / 6, j = e % 6;
-        const bool left = blk < 2;
-        const double* X = blk == 0 ? sF0 : blk == 1 ? sG0
-                        : blk == 2 ? F + 36 * (base + max_m - 1) : G + 36 * (base + max_m - 1);
-        double acc = 0.0;
-        for (int q = 0; q < 6; ++q)
-          acc += -(left ? sLl[6 * q + i] : sUr[6 * q + i]) * X[6 * q + j];
-        val = acc;
-      } else {
-        const int i = (e - 144) % 6;
-        const bool left = e - 144 < 6;
-        const double* x = left ? sg0 : g + 6 * (base + max_m - 1);
-        double acc = 0.0;
-        for (int q = 0; q < 6; ++q) acc += (left ? sLl[6 * q + i] : sUr[6 * q + i]) * x[q];
-        val = -acc;
-      }
-    }
-    if (e < 144) S[144 * (size_t)k + e] = val;
-    else r[12 * (size_t)k + e - 144] = val;
-  }
+  // ---- Schur blocks of the first row: S_ll, S_lr, r_l ----
+  schur(sLl, 0, 1, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -968,16 +1198,18 @@ LO_EXPORT int lo_pgo_linearize(const double* poses, int n_pad, const double* pad
   return (int)cudaGetLastError();
 }
 
+// scratch: (D, max_m, 80) doubles, the forward chain's C, E, d (a column
+// at a time) and valid flag of each row for the backward chain.
 LO_EXPORT int lo_pgo_eliminate(const double* diag, const double* off, const double* b,
                                const int* int_idx, const int* valid, const int* off_idx,
                                const int* ovalid, const int* has_left, const int* left_off,
                                const int* lsep_row, const int* uright_off, const int* ur_valid,
-                               int D, int max_m, int m_off, const double* st, double* Cs,
-                               double* Es, double* ds, double* F, double* G, double* g,
-                               double* S, double* r, void* stream) {
-  eliminate_kernel<<<D, 32, 0, (cudaStream_t)stream>>>(
+                               int D, int max_m, int m_off, const double* st, double* scratch,
+                               double* F, double* G, double* g, double* S, double* r,
+                               void* stream) {
+  eliminate_kernel<<<D, 64, 0, (cudaStream_t)stream>>>(
       diag, off, b, int_idx, valid, off_idx, ovalid, has_left, left_off, lsep_row, uright_off,
-      ur_valid, max_m, m_off, st, Cs, Es, ds, F, G, g, S, r);
+      ur_valid, max_m, m_off, st, scratch, F, G, g, S, r);
   return (int)cudaGetLastError();
 }
 

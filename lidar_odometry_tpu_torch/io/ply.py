@@ -17,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import SystemConfig
 from ..models.estimator import Estimator
 from ..utils import logging_util as log
@@ -92,9 +93,17 @@ def frame_number(path: str) -> int:
     return int(m[-1]) if m else 0
 
 
+# what a player never skips: a kernel's build, launch or input fault and
+# torch's CUDA errors (out of memory, a failed CUDA call, a fault during a
+# kernel's run)
+DEVICE_FAULTS = (kernels.KernelError, torch.OutOfMemoryError, torch.AcceleratorError,
+                 torch.cuda.CudaError)
+
+
 @dataclass
 class PlyPlayerResult:
     frames_processed: int = 0
+    frames_failed: int = 0      # of frames_processed: process_frame raised
     total_time_s: float = 0.0
     fps: float = 0.0
     trajectory_path: str = ""
@@ -104,8 +113,13 @@ class PLYPlayer:
     """Runs the Estimator over a directory of .ply frames: in chunk mode
     (chunk_frames > 1) the full chunks go through process_chunk, fed by a
     ChunkFeeder, and the frames left over go through process_frame; else
-    every frame goes through process_frame. An error in a frame is
-    raised, not skipped; a file that fails to decode is skipped."""
+    every frame goes through process_frame. As the JAX player does, an
+    exception from process_frame is logged with the frame's index in the
+    run, the frame counts as processed (and failed) and the run goes on;
+    a kernel fault (kernels.KernelError, a wrapper's refusal of its
+    tensors included) or torch's CUDA error is raised all the same
+    (DEVICE_FAULTS), since skipping it would hide the device's failure.
+    An error in a chunk is raised. A file that fails to decode is skipped."""
 
     def __init__(self, config: SystemConfig, device="cuda"):
         self.cfg = config
@@ -161,8 +175,14 @@ class PLYPlayer:
         clouds = ReadAhead(rest, tail_load)
         try:
             for cloud in clouds:
-                if cloud is not None:
-                    self.estimator.process_frame(cloud)
+                try:
+                    if cloud is not None:
+                        self.estimator.process_frame(cloud)
+                except DEVICE_FAULTS:
+                    raise
+                except Exception as e:
+                    log.error("[PLYPlayer] frame {} failed: {}", frames_done, repr(e))
+                    result.frames_failed += 1
                 frames_done += 1
         finally:
             clouds.close()

@@ -533,6 +533,20 @@ def separator_system(D: int, n_loops: int, seed: int = 0, spd: bool = True):
         loop_valid=(np.arange(L) < L - 1).astype(np.int32))
 
 
+def chain_system(n_pad: int, seed: int = 0):
+    """A block-tridiagonal system of n_pad 6x6 blocks, the inputs of the
+    interior elimination (K10b) for any partition plan of n_pad poses:
+    diagonal blocks SPD with 8 on the diagonal, couplings off (n_pad - 1)
+    below 0.15 in magnitude, so the whole system is diagonally dominant
+    and every interior elimination step positive definite. Returns a
+    dict of float64 arrays: diag, off, b."""
+    rng = np.random.default_rng(seed)
+    diag = rng.uniform(-0.5, 0.5, (n_pad, 6, 6))
+    diag = 0.5 * (diag + diag.transpose(0, 2, 1)) + 8.0 * np.eye(6)
+    off = rng.uniform(-0.15, 0.15, (n_pad - 1, 6, 6))
+    return dict(diag=diag, off=off, b=rng.normal(0.0, 1.0, (n_pad, 6)))
+
+
 def pko_residuals(n: int, kind: str = "wide", seed: int = 0, n_valid: int = None):
     """Signed point-to-plane-like residuals and their valid flags, the PKO
     edge cases' input: (n,) float32 and (n,) bool. kind "tight" (sigma

@@ -9,15 +9,20 @@ their sources, so a process reuses an up-to-date build.
 
 Every C entry point takes its tensors as raw pointers, its sizes as int,
 and the stream last; it launches on that stream and returns
-cudaGetLastError(). The lane-batched kernels (K1, K2a, K2b, K3) take the
-lane count after the per-lane size and derive each lane's offsets from
-those two; the shard kernels (K11a-d) take the count of shard instances
-(lanes x local shards) the same way; the host solvers' kernels (K12a,
-K12b) take an f64 flag and run in float or double. `Kernel.launch`
-raises on a nonzero return and adds one to `Kernel.launches`, a plain
-integer that shows which kernels a run went through. The loop-closure worker launches from its own thread and
-stream while the main thread runs chunks: the build, the library loads and
-the counts are taken under one lock, and a launch goes to the calling
+cudaGetLastError(). The lane-batched kernels (K1, K2b, K3) take the lane
+count after the per-lane size and derive each lane's offsets from those
+two; K2a takes the count of (lane, shard) instances, the instances a lane
+holds, and each map table's lane and shard strides (lane strides 0 for
+lanes that share one map); the shard kernels (K11a-d) take the count of shard
+instances (lanes x local shards) the same way; the host solvers' kernels
+(K12a, K12b) take an f64 flag and run in float or double. `Kernel.launch`
+raises KernelError (a RuntimeError) on a nonzero return and adds one to
+`Kernel.launches`, a plain integer that shows which kernels a run went
+through; a wrapper refuses tensors it cannot launch on (device, dtype,
+layout, shape, alignment: `check`, `check_aligned`) with
+KernelInputError, a KernelError and a ValueError. The loop-closure worker launches from its own thread and stream
+while the main thread runs chunks: the build, the library loads and the
+counts are taken under one lock, and a launch goes to the calling
 thread's current stream. Only K1's wrapper keeps scratch memory between
 calls: one zeroed buffer per device and stream, which each launch leaves
 zeroed; the others allocate theirs per call.
@@ -35,8 +40,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "build", "library", "reset_counts", "counts", "check",
-           "BUILD_DIR"]
+__all__ = ["Kernel", "KernelError", "KernelInputError", "KERNELS", "build", "library",
+           "reset_counts", "counts", "check", "check_aligned", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -55,6 +60,20 @@ _P, _I, _F, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lo
 
 _libs: dict = {}
 _lock = threading.RLock()
+
+
+class KernelError(RuntimeError):
+    """A kernel that could not be built or launched: nvcc missing or
+    failing, or a launch refused (its cudaError). Callers that carry on
+    past a failing frame (the PLY player) re-raise it: a kernel fault is
+    never skipped."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A wrapper's refusal of the tensors it was given (device, dtype,
+    layout, shape or alignment): the kernel did not run. A KernelError, so
+    it is never skipped either, and a ValueError, as the wrong argument it
+    is."""
 
 
 def _digest(src: str) -> str:
@@ -76,14 +95,14 @@ def _nvcc() -> str:
     cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
 def build() -> dict:
     """Compile every source that has no up-to-date library, all nvcc
     processes at once. Returns {source: seconds} for the sources built;
-    raises with nvcc's output if any fails. The -Xptxas -v report of each
-    build is kept beside its library (.log)."""
+    raises KernelError with nvcc's output if any fails. The -Xptxas -v
+    report of each build is kept beside its library (.log)."""
     with _lock:
         return _build()
 
@@ -113,7 +132,7 @@ def _build() -> dict:
             continue
         os.replace(tmp, _lib_path(src))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return took
 
 
@@ -146,7 +165,7 @@ class Kernel:
             self._fn = fn
         err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"CUDA kernel {self.name} failed to launch "
+            raise KernelError(f"CUDA kernel {self.name} failed to launch "
                                f"(cudaError {err})")
         with _lock:
             self.launches += 1
@@ -157,7 +176,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
            REF + "/ops/voxel_filter.py:50"),
     Kernel("icp_correspond", "icp",
-           [_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _F, _F, _P, _P, _P],
+           [_P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _I, _P, _L, _L, _I, _F, _F, _P, _P, _P],
            REF + "/ops/icp.py:121"),
     Kernel("icp_normal_eq", "icp",
            [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _F,
@@ -219,7 +238,7 @@ KERNELS = {k.name: k for k in [
             _P, _P, _P, _P, _P, _P, _P],
            REF + "/parallel/distributed_pgo.py:521"),
     Kernel("pgo_eliminate", "pgo",
-           [_P] * 12 + [_I] * 3 + [_P] * 9,
+           [_P] * 12 + [_I] * 3 + [_P] * 7,
            REF + "/parallel/distributed_pgo.py:450"),
     Kernel("pgo_reduced_solve", "pgo",
            [_P] * 12 + [_I] * 2 + [_P] * 3,
@@ -260,14 +279,22 @@ def counts() -> dict:
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of the dtype (and shape)
-    the kernel takes."""
+    """Raise KernelInputError unless `t` is a contiguous CUDA tensor of the
+    dtype (and shape) the kernel takes."""
     if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor")
+        raise KernelInputError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        raise KernelInputError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+        raise KernelInputError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
+        raise KernelInputError(f"{name}: expected shape {tuple(shape)}, "
+                               f"got {tuple(t.shape)}")
+
+
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise KernelInputError unless `t` starts on a 16-byte boundary: the
+    kernels read its rows as 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise KernelInputError(f"{name}: the kernel reads 16-byte vectors; expected a "
+                               f"16-byte aligned tensor")

@@ -21,7 +21,10 @@ while_loop with early exit. Lanes (the blocked multi-sequence runner; JAX
 icp_optimize under vmap with the map shared): B solves against one map
 take one launch of each kernel, with a leading B on the points, poses,
 flags, scale and alpha index; each lane keeps its own done and failed
-flags, and a done lane stays frozen while the others iterate.
+flags, and a done lane stays frozen while the others iterate. The sharded
+ICP (parallel/sharded_map.py) takes one K2a launch an iteration for all
+its (lane, shard) instances (icp_correspond_instances), each against its
+shard's row range of the map's tables.
 
 KD-tree mode (use_surfel_correspondence=False) finds its correspondences
 in the L0 voxels instead of the surfels, in two launches in place of K2a:
@@ -59,7 +62,8 @@ from ..utils import lie
 from . import bev_align, knn, pko
 from . import voxel_map as vm
 
-__all__ = ["ICPConfig", "icp_optimize", "icp_correspond", "icp_correspond_plain",
+__all__ = ["ICPConfig", "icp_optimize", "icp_correspond", "icp_correspond_instances",
+           "icp_correspond_plain",
            "icp_normal_eq", "icp_normal_eq_plain", "robust_weights", "PlaneFit",
            "plane_fit_5nn", "plane_fit_5nn_plain", "icp_optimize_loop",
            "loop_solve", "loop_prealign", "loop_closure_solve", "POLISH_TOLERANCE"]
@@ -104,7 +108,7 @@ def _lanes(pts, name: str):
     """The leading lane shape of (N, 3) or (B, N, 3) points: () or (B,)."""
     lead = tuple(pts.shape[:-2])
     if len(lead) > 1:
-        raise ValueError(f"{name}: expected (N, 3) or (B, N, 3) points")
+        raise kernels.KernelInputError(f"{name}: expected (N, 3) or (B, N, 3) points")
     return lead
 
 
@@ -121,9 +125,10 @@ def icp_correspond(pts, mask, T, flags, map_state: vm.VoxelMapState, cfg: ICPCon
                    out=None):
     """K2a's wrapper. pts (N, 3) f32, mask (N,) bool, T (16,) f32 row-major,
     flags (3,) int32 [done, failed, n_corr]; for B lanes each with a
-    leading B. Returns (normals (N, 3), signed residual (N,), valid (N,)
-    bool), with the leading B for lanes, written into `out` (three
-    contiguous tensors of those shapes) when it is given."""
+    leading B, all against the one map. Returns (normals (N, 3), signed
+    residual (N,), valid (N,) bool), with the leading B for lanes, written
+    into `out` (three contiguous tensors of those shapes) when it is
+    given."""
     lead = _lanes(pts, "icp_correspond")
     if not pts.is_cuda:
         if lead:
@@ -131,32 +136,104 @@ def icp_correspond(pts, mask, T, flags, map_state: vm.VoxelMapState, cfg: ICPCon
                             pts, mask, T)
         else:
             res = icp_correspond_plain(pts, mask, T, map_state, cfg)
-        if out is None:
-            return res
-        for o, v in zip(out, res):
-            o.copy_(v)
-        return out
+        return _into(out, res)
     n = pts.shape[-2]
     kernels.check(pts, "pts", torch.float32, lead + (n, 3))
     kernels.check(mask, "mask", torch.bool, lead + (n,))
     kernels.check(T, "T", torch.float32, lead + (16,))
     kernels.check(flags, "flags", torch.int32, lead + (3,))
+    b = lead[0] if lead else 1
+    return _correspond_launch(pts.view(b, n, 3), mask.view(b, n), T.view(b, 16),
+                              flags.view(b, 3), map_state, (0, 0), (0, 0), 1, cfg, lead, out)
+
+
+def icp_correspond_instances(pts, mask, T, flags, maps, cfg: ICPConfig, out=None):
+    """K2a over every (lane, shard) instance of one sharded ICP iteration,
+    in one launch. pts (G, n, 3) f32 and mask (G, n) bool, instance g =
+    lane * n_local + k; T (L, 16), flags (L, 3) per lane; maps [L][n_local]
+    the instances' maps, shard k of lane l at l lane strides and k shard
+    strides from lane 0's shard 0 in one set of tables (parallel/
+    sharded_map.py local_views; lanes may share their maps). Returns (normals (G, n,
+    3), residual (G, n), valid (G, n)), written into `out` when it is
+    given. On CPU tensors the twin runs instance by instance."""
+    lanes, per_lane = len(maps), len(maps[0])
+    g_n = lanes * per_lane
+    if pts.shape[0] != g_n or T.shape[0] != lanes or flags.shape[0] != lanes:
+        raise kernels.KernelInputError(
+            f"icp_correspond_instances: {lanes} lanes x {per_lane} maps need {g_n} point "
+            f"sets and {lanes} poses, got {pts.shape[0]} and {T.shape[0]}")
+    flat = [m for row in maps for m in row]
+    if not pts.is_cuda:
+        res = [icp_correspond_plain(pts[g], mask[g], T[g // per_lane], flat[g], cfg)
+               for g in range(g_n)]
+        return _into(out, tuple(torch.stack(c) for c in zip(*res)))
+    index_strides = _instance_strides([m.l1_index for m in flat], per_lane, "l1_index")
+    surfel_strides = _instance_strides([m.l1_surfel for m in flat], per_lane, "l1_surfel")
+    return _correspond_launch(pts, mask, T, flags, flat[0], index_strides, surfel_strides,
+                              per_lane, cfg, (g_n,), out)
+
+
+def _into(out, res):
+    if out is None:
+        return res
+    for o, v in zip(out, res):
+        o.copy_(v)
+    return out
+
+
+def _instance_strides(tables, per_lane: int, name: str):
+    """(lane stride, shard stride) in elements between the instances'
+    tables (instance g = lane * per_lane + shard): every table must be
+    contiguous and 16-byte aligned, of the first one's device, dtype and
+    shape, and lie at lane * the lane stride + shard * the shard stride
+    from it."""
+    t0 = tables[0]
+    es = t0.element_size()
+    gap = lambda g: (tables[g].data_ptr() - t0.data_ptr()) // es
+    shard = gap(1) if per_lane > 1 else 0
+    lane = gap(per_lane) if len(tables) > per_lane else 0
+    for g, t in enumerate(tables):
+        if (t.device != t0.device or t.dtype != t0.dtype or t.shape != t0.shape
+                or not t.is_contiguous()):
+            raise kernels.KernelInputError(f"{name}: instance {g}'s table is not a contiguous "
+                                           f"table of instance 0's device, dtype and shape")
+        kernels.check_aligned(t, name)
+        want = (g // per_lane) * lane + (g % per_lane) * shard
+        if t.data_ptr() - t0.data_ptr() != want * es:
+            raise kernels.KernelInputError(f"{name}: instance {g}'s table is not at lane x "
+                                           f"{lane} + shard x {shard} elements from instance 0's")
+    return lane, shard
+
+
+def _correspond_launch(pts, mask, T, flags, map_state, index_strides, surfel_strides,
+                       per_lane, cfg, lead, out):
+    """One K2a launch over pts.shape[0] instances (pts (G, n, 3)) into
+    `out`, or into new tensors of lead + (n, ...); returns the outputs."""
+    g_n, n = pts.shape[0], pts.shape[1]
+    lanes = g_n // per_lane
+    kernels.check(pts, "pts", torch.float32, (g_n, n, 3))
+    kernels.check(mask, "mask", torch.bool, (g_n, n))
+    kernels.check(T, "T", torch.float32, (lanes, 16))
+    kernels.check(flags, "flags", torch.int32, (lanes, 3))
     kernels.check(map_state.l1_index, "l1_index", torch.int32)
     kernels.check(map_state.l1_surfel, "l1_surfel", torch.float32)
+    for t, name in ((T, "T"), (map_state.l1_index, "l1_index"),
+                    (map_state.l1_surfel, "l1_surfel")):
+        kernels.check_aligned(t, name)
     if out is None:
-        nrm = torch.empty(lead + (n, 3), dtype=torch.float32, device=pts.device)
-        r = torch.empty(lead + (n,), dtype=torch.float32, device=pts.device)
-        valid = torch.empty(lead + (n,), dtype=torch.bool, device=pts.device)
+        dev = pts.device
+        nrm = torch.empty(lead + (n, 3), dtype=torch.float32, device=dev)
+        r = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+        valid = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
     else:
         nrm, r, valid = out
         kernels.check(nrm, "nrm", torch.float32, lead + (n, 3))
         kernels.check(r, "r", torch.float32, lead + (n,))
         kernels.check(valid, "valid", torch.bool, lead + (n,))
     kernels.KERNELS["icp_correspond"].launch(
-        pts.data_ptr(), mask.data_ptr(), n, lead[0] if lead else 1, T.data_ptr(),
-        flags.data_ptr(),
-        map_state.l1_index.data_ptr(), map_state.n_buckets,
-        map_state.l1_surfel.data_ptr(), map_state.c1,
+        pts.data_ptr(), mask.data_ptr(), n, g_n, per_lane, T.data_ptr(), flags.data_ptr(),
+        map_state.l1_index.data_ptr(), *index_strides, map_state.n_buckets,
+        map_state.l1_surfel.data_ptr(), *surfel_strides, map_state.c1,
         vm.parent_inv(cfg.voxel_size, cfg.hierarchy_factor),
         K.f32(cfg.max_correspondence_distance), nrm.data_ptr(), r.data_ptr(),
         valid.data_ptr())

@@ -127,7 +127,7 @@ def knn_query(table: PointTable, queries, *, k: int = 5, radius: int = 1,
     if not queries.is_cuda:
         return knn_query_plain(table, queries, k=k, radius=radius, bucket_width=bucket_width)
     if k not in (1, 5):
-        raise ValueError(f"knn_query: the kernel takes k = 1 or 5, got {k}")
+        raise kernels.KernelInputError(f"knn_query: the kernel takes k = 1 or 5, got {k}")
     n, c = queries.shape[0], table.key.shape[0]
     kernels.check(queries, "queries", torch.float32, (n, 3))
     kernels.check(table.key, "key", torch.int64, (c,))

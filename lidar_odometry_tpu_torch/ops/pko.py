@@ -395,7 +395,7 @@ def pko_alpha_index(resid, valid, flags, scale, compute_scale: bool,
         return torch.stack([c, a]).to(torch.int32), s.reshape(1)
     lead = tuple(resid.shape[:-1])
     if len(lead) > 1:
-        raise ValueError("pko_alpha_index: expected (N,) or (B, N) residuals")
+        raise kernels.KernelInputError("pko_alpha_index: expected (N,) or (B, N) residuals")
     n = resid.shape[-1]
     kernels.check(resid, "resid", torch.float32, lead + (n,))
     kernels.check(valid, "valid", torch.bool, lead + (n,))

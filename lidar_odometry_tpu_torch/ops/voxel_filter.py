@@ -98,7 +98,7 @@ def voxel_segments(key_s, perm, pts, cap: int, inv: float, voxel: float):
         return tuple(torch.stack(c) for c in zip(*outs))
     lead = tuple(key_s.shape[:-1])
     if len(lead) > 1:
-        raise ValueError("voxel_segments: expected (n,) or (B, n) keys")
+        raise kernels.KernelInputError("voxel_segments: expected (n,) or (B, n) keys")
     n = key_s.shape[-1]
     lanes = lead[0] if lead else 1
     kernels.check(key_s, "key_s", torch.int64, lead + (n,))

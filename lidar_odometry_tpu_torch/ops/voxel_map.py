@@ -663,11 +663,13 @@ def grid_knn_neighbors(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: f
         return grid_knn_neighbors_plain(state, pts, voxel_size=voxel_size,
                                         hierarchy_factor=hierarchy_factor, radius=radius)
     if hierarchy_factor != 3 or radius not in (1, 2):
-        raise ValueError("grid_knn: the kernel takes radius 1 or 2 with hierarchy factor 3")
+        raise kernels.KernelInputError(
+            "grid_knn: the kernel takes radius 1 or 2 with hierarchy factor 3")
     n = pts.shape[0]
     m = (2 * radius + 1) ** 3
     kernels.check(pts, "pts", torch.float32, (n, 3))
     kernels.check(state.l1_index, "l1_index", torch.int32)
+    kernels.check_aligned(state.l1_index, "l1_index")
     kernels.check(state.l0_data, "l0_data", torch.float32)
     if flags is not None:
         kernels.check(flags, "flags", torch.int32, (3,))
@@ -764,6 +766,7 @@ def map_bulk_merge(l0_data, s_key, s_idx, first, counts, centroids, l1_index):
     kernels.check(counts, "counts", torch.float32, (m,))
     kernels.check(centroids, "centroids", torch.float32, (m, 3))
     kernels.check(l1_index, "l1_index", torch.int32)
+    kernels.check_aligned(l1_index, "l1_index")
     out = torch.zeros((2,), dtype=torch.int32, device=s_key.device)
     kernels.KERNELS["map_bulk_merge"].launch(
         s_key.data_ptr(), s_idx.data_ptr(), first.data_ptr(), counts.data_ptr(),
@@ -812,8 +815,8 @@ def map_bulk_index(b_s, i_s, hi, lo, l1_index, l1_meta, slot_from_top: int):
     kernels.check(l1_index, "l1_index", torch.int32)
     kernels.check(l1_meta, "l1_meta", torch.int32)
     if slot_from_top > l1_meta.shape[0] - 1:
-        raise ValueError(f"map_bulk_index: {slot_from_top} slots but {l1_meta.shape[0] - 1} "
-                         f"meta rows")
+        raise kernels.KernelInputError(
+            f"map_bulk_index: {slot_from_top} slots but {l1_meta.shape[0] - 1} meta rows")
     cp = torch.empty((n,), dtype=torch.int32, device=b_s.device)
     out = torch.empty((), dtype=torch.int32, device=b_s.device)
     kernels.KERNELS["map_bulk_index"].launch(

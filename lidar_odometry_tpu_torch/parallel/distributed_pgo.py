@@ -599,8 +599,11 @@ PLAN_KEYS = ("int_idx", "valid", "off_idx", "ovalid", "has_left", "left_off", "l
 
 
 def eliminate(g: Dict[str, torch.Tensor], diag, off, b):
-    """K10b's wrapper: (S, r, F, G, g) of eliminate_plain, one thread block
-    a partition on a card."""
+    """K10b's wrapper: (S, r, F, G, g) of eliminate_plain, a block of two
+    warps a partition on a card (one stages the rows through shared
+    memory, the other runs the chain; the forward chain's C, E and d are
+    kept in a scratch of (D, max_m, 80) doubles for the backward
+    chain)."""
     if not diag.is_cuda:
         return eliminate_plain(diag, off, b, *[g[k] for k in PLAN_KEYS])
     D, max_m = g["int_idx"].shape
@@ -616,13 +619,11 @@ def eliminate(g: Dict[str, torch.Tensor], diag, off, b):
     F = torch.empty((D, max_m, 6, 6), dtype=_F64, device=dev)
     G = torch.empty((D, max_m, 6, 6), dtype=_F64, device=dev)
     gv = torch.empty((D, max_m, 6), dtype=_F64, device=dev)
-    C = torch.empty((D, max_m, 36), dtype=_F64, device=dev)
-    E = torch.empty((D, max_m, 36), dtype=_F64, device=dev)
-    d = torch.empty((D, max_m, 6), dtype=_F64, device=dev)
+    scratch = torch.empty((D, max_m, 80), dtype=_F64, device=dev)
     kernels.KERNELS["pgo_eliminate"].launch(
         diag.data_ptr(), off.data_ptr(), b.data_ptr(), *[g[k].data_ptr() for k in PLAN_KEYS],
-        D, max_m, g["off_idx"].shape[1], g["st"].data_ptr(), C.data_ptr(), E.data_ptr(),
-        d.data_ptr(), F.data_ptr(), G.data_ptr(), gv.data_ptr(), S.data_ptr(), r.data_ptr())
+        D, max_m, g["off_idx"].shape[1], g["st"].data_ptr(), scratch.data_ptr(), F.data_ptr(),
+        G.data_ptr(), gv.data_ptr(), S.data_ptr(), r.data_ptr())
     return S, r, F, G, gv
 
 
@@ -891,7 +892,7 @@ def block_tridiag_solve(diag, off, b):
         return block_tridiag_solve_plain(diag, off, b)
     n, dt = diag.shape[0], diag.dtype
     if dt not in _FLOATS:
-        raise ValueError(f"diag: expected float32 or float64, got {dt}")
+        raise kernels.KernelInputError(f"diag: expected float32 or float64, got {dt}")
     kernels.check(diag, "diag", dt, (n, 6, 6))
     kernels.check(off, "off", dt, (max(n - 1, 0), 6, 6))
     kernels.check(b, "b", dt, (n, 6))
@@ -961,7 +962,7 @@ def eliminate_interior_lu(Dint, Oint, Bint, Lsep, Lleft, Uright, valid):
         return eliminate_interior_lu_plain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid)
     D, m, dt = Dint.shape[0], Dint.shape[1], Dint.dtype
     if dt not in _FLOATS:
-        raise ValueError(f"Dint: expected float32 or float64, got {dt}")
+        raise kernels.KernelInputError(f"Dint: expected float32 or float64, got {dt}")
     kernels.check(Dint, "Dint", dt, (D, m, 6, 6))
     kernels.check(Oint, "Oint", dt, (D, m - 1, 6, 6))
     kernels.check(Bint, "Bint", dt, (D, m, 6))

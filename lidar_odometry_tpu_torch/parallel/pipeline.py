@@ -4,8 +4,8 @@ each against its own map sharded over the group's S shards (the map
 axis).
 
 One step = the distributed robust ICP of every lane (sharded_map
-robust_icp_loop: K11a once, then K2a per lane and shard, K11b, K11c and
-one all_gather of the rows, K11d per iteration) -> the pose's rotation
+robust_icp_loop: K11a once, then one K2a launch over every lane and
+shard, K11b, K11c and one all_gather of the rows, K11d per iteration) -> the pose's rotation
 projected onto SO(3) -> a masked shard-local keyframe update of every
 lane's map on its owned subset of the scan (K11a, then K4a-c per lane and
 shard). A lane that is not a keyframe inserts nothing and evicts nothing

@@ -197,7 +197,8 @@ def shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, *, n
         kernels.check(out, "out", torch.float32)
         a = alphas.shape[0]
         if out.shape[0] != g or out.shape[1] < a * 42 + 1:
-            raise ValueError(f"shard_alpha_normal_eq: out of shape {tuple(out.shape)}")
+            raise kernels.KernelInputError(
+                f"shard_alpha_normal_eq: out of shape {tuple(out.shape)}")
     kernels.KERNELS["shard_alpha_normal_eq"].launch(
         p_own.data_ptr(), nrm.data_ptr(), r.data_ptr(), valid.data_ptr(), n, g, n_local,
         T.data_ptr(), flags.data_ptr(), None if moments else mom.data_ptr(), n_shards,
@@ -259,7 +260,7 @@ def shard_sample(r, valid, flags, mom, u, *, first: int, n_local: int, off: int,
     kernels.check(u, "u", torch.float32, (n_shards, q))
     kernels.check(out, "out", torch.float32)
     if out.shape[0] != g or out.shape[1] < off + 2 * n_shards * q:
-        raise ValueError(f"shard_sample: out of shape {tuple(out.shape)}")
+        raise kernels.KernelInputError(f"shard_sample: out of shape {tuple(out.shape)}")
     kernels.KERNELS["shard_sample"].launch(
         r.data_ptr(), valid.data_ptr(), n, g, n_local, first, flags.data_ptr(), mom.data_ptr(),
         n_shards, u.data_ptr(), q, off, out.shape[1], out.data_ptr())
@@ -302,7 +303,8 @@ def shard_gn_select(buf, T, flags, consts, pick, cfg, *, n_alpha: int, quota: in
     kernels.check(T, "T", torch.float32, (lanes, 16))
     kernels.check(flags, "flags", torch.int32, (lanes, 3))
     if ld != buffer_width(n_alpha, n_shards, quota if use_pko else 0):
-        raise ValueError(f"shard_gn_select: rows of {ld} floats for {n_alpha} alphas")
+        raise kernels.KernelInputError(
+            f"shard_gn_select: rows of {ld} floats for {n_alpha} alphas")
     if use_pko:
         kernels.check(pick, "pick", torch.int32, (3,))
         kernels.check(consts.Q, "Q", torch.float32, (n_alpha, consts.r_grid.shape[0]))

@@ -17,10 +17,10 @@ as views, so the single-device update writes them in place.
   * lookup: replicated queries, each shard answers the keys it owns and
     misses the rest; a psum combines.
   * ICP (robust_icp_loop): owned points compacted once at the guess
-    (K11a); each iteration K2a per shard, K11b's per-alpha systems and
-    K11c's sample into one row per shard, an all_gather of the rows (the
-    JAX program's one fused psum), and K11d's replicated select, solve
-    and retract. Iteration 0 gathers the raw moments first (K11b) for
+    (K11a); each iteration one K2a launch over every lane and shard,
+    K11b's per-alpha systems and K11c's sample into one row per shard, an
+    all_gather of the rows (the JAX program's one fused psum), and K11d's
+    replicated select, solve and retract. Iteration 0 gathers the raw moments first (K11b) for
     the std / 6 scale.
   * rehash (a loop correction): every shard's live (centroid, count)
     records moved by T and all_gathered in shard order; each shard
@@ -28,7 +28,7 @@ as views, so the single-device update writes them in place.
     keeps its own n_dropped.
 
 Everything stays on the device: no host read on any of these paths. The
-local shards are a Python loop for K2a and the map update (K4a-c, K9a/b).
+local shards are a Python loop for the map update (K4a-c, K9a/b).
 """
 from __future__ import annotations
 
@@ -174,16 +174,6 @@ def sharded_lookup_surfels(state: vm.VoxelMapState, pts, group: ShardGroup, *,
 # ICP
 # ---------------------------------------------------------------------------
 
-def _correspond(views, p_own, ok, T, flags, cfg, bufs):
-    """K2a on every instance's owned points against its shard's map."""
-    nrm, r, valid = bufs
-    n_local = len(views[0])
-    for g in range(p_own.shape[0]):
-        lane, k = divmod(g, n_local)
-        icp_ops.icp_correspond(p_own[g], ok[g], T[lane], flags[lane], views[lane][k], cfg,
-                               out=(nrm[g], r[g], valid[g]))
-
-
 def robust_icp_loop(views, group: ShardGroup, pts, mask, T0, cfg: icp_ops.ICPConfig,
                     pko_consts=None):
     """The distributed scan-to-map ICP of L lanes with the single-device
@@ -225,7 +215,7 @@ def robust_icp_loop(views, group: ShardGroup, pts, mask, T0, cfg: icp_ops.ICPCon
     T, flags = T0f, torch.zeros((lanes, 3), dtype=torch.int32, device=dev)
     mom = None
     for i in range(cfg.max_iterations):
-        _correspond(views, p_own, ok, T, flags, cfg, bufs)
+        icp_ops.icp_correspond_instances(p_own, ok, T, flags, views, cfg, out=bufs)
         nrm, r, valid = bufs
         if i == 0:
             m = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, None, None, cfg,
@@ -277,7 +267,8 @@ def sharded_icp_step(state: vm.VoxelMapState, pts, mask, T, group: ShardGroup,
     bufs = (torch.empty((group.n_local, cap, 3), dtype=torch.float32, device=dev),
             torch.empty((group.n_local, cap), dtype=torch.float32, device=dev),
             torch.empty((group.n_local, cap), dtype=torch.bool, device=dev))
-    _correspond(local_views(state), p_own, ok, T16, flags, ucfg, bufs)
+    icp_ops.icp_correspond_instances(p_own, ok, T16, flags, local_views(state), ucfg,
+                                     out=bufs)
     ld = so.buffer_width(1, group.n_shards, 0)
     row = torch.empty((group.n_local, ld), dtype=torch.float32, device=dev)
     mom = torch.zeros((1, group.n_shards, 3), dtype=torch.float32, device=dev)

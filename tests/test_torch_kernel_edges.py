@@ -17,6 +17,14 @@ float64 assembly of the same blocks (scatter-adds, then (H + H^T) / 2)
 solved by numpy at 1e-10 of max|xs|, its backward error at most 1e-13, and
 NaN everywhere for a system that is not positive definite.
 
+K10b: interior eliminations over partition plans (dpgo.make_plan) of
+block-tridiagonal systems (synthetic.chain_system) whose partitions have
+one valid row, no valid row, the left coupling at the first valid row,
+no left separator (has_left false) or no interior (ur_valid false), and
+chains longer than the kernel's 16-row staging ring: the twin's S, r, F,
+G and g against JAX's vmapped _eliminate_interior_spd under x64 at 1e-10
+of each output's largest magnitude.
+
 K3: residual sets (synthetic.pko_residuals) with n not a multiple of the
 kernel's 32-entry tiles, fewer than 100 valid, one valid, none valid, one
 whose EM stops before its 100-round cap and one that runs to it: the
@@ -40,6 +48,7 @@ from lidar_odometry_tpu.ops import icp as jicp
 from lidar_odometry_tpu.ops import iris as jiris
 from lidar_odometry_tpu.ops import pko as jpko
 from lidar_odometry_tpu.ops import voxel_filter as jvf
+from lidar_odometry_tpu.parallel import distributed_pgo as jdpgo
 from lidar_odometry_tpu_torch.io import synthetic
 from lidar_odometry_tpu_torch.ops import iris as tiris
 from lidar_odometry_tpu_torch.ops import pko as tpko
@@ -134,6 +143,60 @@ def test_separator_solve_twin_on_kernel_edges(D):
 def test_separator_solve_twin_not_positive_definite():
     xs = _twin(synthetic.separator_system(9, 3, seed=3, spd=False))[0]
     assert bool(torch.isnan(xs).all())
+
+
+# the card tests' K10b cases: (n_pad, separators); partitions' valid rows:
+#   one_row_each: 1, 0, 1, 0, 1 (max_m = 1)
+#   edges: 3 (no left separator), 0, 1, 23, 0, 31 (max_m 31, past the ring)
+#   long_chain: 200, 54
+K10B_CASES = {
+    "one_row_each": (8, [1, 2, 4, 5, 7]),
+    "edges": (64, [3, 4, 6, 30, 31, 63]),
+    "long_chain": (256, [200, 255]),
+}
+
+
+def _jax_eliminate(plan, diag, off, b):
+    """JAX _gn_device's interior packing of the plan, then the vmapped
+    _eliminate_interior_spd, under x64: (S, r, F, G, g) as numpy."""
+    p = {k: (plan[k].astype(bool) if k in ("valid", "ovalid", "has_left", "ur_valid")
+             else plan[k]) for k in dpgo.PLAN_KEYS}
+    max_m = p["int_idx"].shape[1]
+    Dint = np.where(p["valid"][..., None, None], diag[p["int_idx"]], np.eye(6))
+    Oint = np.where(p["ovalid"][..., None, None], off[p["off_idx"]], 0.0)
+    if max_m == 1:
+        Oint = Oint[:, :0]
+    Bint = np.where(p["valid"][..., None], b[p["int_idx"]], 0.0)
+    Lleft = np.where(p["has_left"][:, None, None], np.swapaxes(off[p["left_off"]], -1, -2), 0.0)
+    Lsep = np.eye(max_m)[p["lsep_row"]][..., None, None] * Lleft[:, None]
+    Uright = np.where(p["ur_valid"][:, None, None], off[p["uright_off"]], 0.0)
+    with jax.enable_x64():
+        (s_ll, s_lr, s_rl, s_rr, r_l, r_r), (F, G, g) = jax.vmap(jdpgo._eliminate_interior_spd)(
+            *map(jnp.asarray, (Dint, Oint, Bint, Lsep, Lleft, Uright, p["valid"])))
+        return (np.stack([np.asarray(x) for x in (s_ll, s_lr, s_rl, s_rr)], 1),
+                np.stack([np.asarray(r_l), np.asarray(r_r)], 1), np.asarray(F), np.asarray(G),
+                np.asarray(g))
+
+
+@pytest.mark.parametrize("case", sorted(K10B_CASES))
+def test_eliminate_twin_on_kernel_edges(case):
+    n_pad, seps = K10B_CASES[case]
+    c = synthetic.chain_system(n_pad, seed=n_pad)
+    plan = dpgo.make_plan(n_pad, seps)
+    valid = plan["valid"].sum(1)
+    assert plan["max_m"] == {"one_row_each": 1, "edges": 31, "long_chain": 200}[case]
+    if case == "edges":
+        assert valid.tolist() == [3, 0, 1, 23, 0, 31]
+        assert not plan["has_left"][0] and not plan["ur_valid"][1]
+    assert np.all(plan["lsep_row"][plan["has_left"]]
+                  == plan["max_m"] - valid[plan["has_left"]])   # at the first valid row
+    g = {k: torch.as_tensor(plan[k].astype(np.int32)) for k in dpgo.PLAN_KEYS}
+    got = dpgo.eliminate(g, *(torch.as_tensor(c[k]) for k in ("diag", "off", "b")))
+    ref = _jax_eliminate(plan, c["diag"], c["off"], c["b"])
+    for name, o, r in zip(("S", "r", "F", "G", "g"), got, ref):
+        assert o.shape == r.shape, name
+        np.testing.assert_allclose(o.numpy(), r, rtol=0, atol=1e-10 * np.abs(r).max(),
+                                   err_msg=name)
 
 
 # the card tests' K3 cases: (n, kind, seed, n_valid or None for ~80 %)

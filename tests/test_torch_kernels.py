@@ -667,6 +667,39 @@ def test_pgo_kernels_raise_and_do_not_fall_back(dev):
         dpgo.linearize(g, g["poses"])
 
 
+# tests/test_torch_kernel_edges.py's K10b plans: (n_pad, separators)
+K10B_CASES = {
+    "one_row_each": (8, [1, 2, 4, 5, 7]),
+    "edges": (64, [3, 4, 6, 30, 31, 63]),
+    "long_chain": (256, [200, 255]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K10B_CASES))
+def test_eliminate_kernel_edges(dev, case):
+    """K10b against its plain twin at 1e-10 of each output's largest
+    magnitude, two calls bit-equal, on plans whose partitions have one
+    valid row, none, no left separator, and chains longer than the
+    kernel's 16-row staging ring."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    n_pad, seps = K10B_CASES[case]
+    c = {k: torch.tensor(v, device=dev)
+         for k, v in synthetic.chain_system(n_pad, seed=n_pad).items()}
+    plan = dpgo.make_plan(n_pad, seps)
+    g = {k: torch.tensor(plan[k].astype(np.int32), device=dev) for k in dpgo.PLAN_KEYS}
+    g["st"] = torch.tensor([0.0, 0.0, 1.0, 1.0], dtype=torch.float64, device=dev)
+    args = [c[k] for k in ("diag", "off", "b")]
+    n0 = kernels.KERNELS["pgo_eliminate"].launches
+    got = dpgo.eliminate(g, *args)
+    again = dpgo.eliminate(g, *args)
+    ref = dpgo.eliminate_plain(*args, *[g[k] for k in dpgo.PLAN_KEYS])
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["pgo_eliminate"].launches == n0 + 2
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert _rel(a, r) <= 1e-10
+
+
 def _separator_case(D, seed, dev, spd=True):
     """K10c's inputs for D separators (synthetic.separator_system, 6 loop
     blocks), an active loop state in g["st"]."""
@@ -1111,3 +1144,58 @@ def test_gabor_product_kernel(dev, b):
     with pytest.raises(RuntimeError):
         iris.gabor_product(shifted, filters)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K2a's instance axis
+# ---------------------------------------------------------------------------
+
+def test_correspond_instances_equal_per_instance_launches(dev):
+    """One K2a launch over 1 lane x 4 shards, over 2 lanes x 4 shards (each
+    lane its own sharded map, the data x map step's batched state) and over
+    2 lanes sharing one map is bit-equal to one launch an instance; a lane
+    whose solve is done leaves its instances' outputs unwritten."""
+    from lidar_odometry_tpu_torch.parallel import mesh
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    from lidar_odometry_tpu_torch.parallel import sharded_map as sm
+    world = synthetic.make_world(seed=4, extent=40.0, n_buildings=8)
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 1.8
+    pts = synthetic.sample_scan(world, pose, 6000, np.random.default_rng(4), max_range=40.0,
+                                noise=0.01).astype(np.float32)
+    grp = mesh.make_group(4, device=dev)
+    maps = []
+    for shift in (0.0, 0.7):
+        st = sm.sharded_empty_map(0, 4096, grp)
+        moved = torch.tensor(pts + np.float32([shift, 0.0, 0.0]), device=dev)
+        sm.sharded_update_map(st, moved, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                              torch.zeros(3, device=dev), 100.0, grp, voxel_size=0.5,
+                              planarity_threshold=0.1)
+        maps.append(st)
+    batched = vm.VoxelMapState(*[torch.stack([a, b]) for a, b in zip(*maps)])
+    cfg = icp.ICPConfig()
+    n, s = 2000, 4
+    for lanes, views in ((1, sm.local_views(maps[0])), (2, sm.local_views(batched, 2)),
+                         (2, sm.local_views(maps[0]) * 2)):
+        T = torch.eye(4, device=dev).expand(lanes, 4, 4).reshape(lanes, 16).contiguous()
+        T[:, 3] += 0.05
+        scan = torch.tensor(pts[:n], device=dev).expand(lanes, n, 3).contiguous()
+        ok0 = torch.ones((lanes, n), dtype=torch.bool, device=dev)
+        p_own, ok, _, _ = so.shard_own(scan, ok0, T, s, 0, s, so.owned_cap(n, s),
+                                       so.owner_inv(0.5, 3))
+        for done in ((None,) if lanes == 1 else (None, 1)):
+            flags = torch.zeros((lanes, 3), dtype=torch.int32, device=dev)
+            if done is not None:
+                flags[done, 0] = 1
+            n0 = kernels.KERNELS["icp_correspond"].launches
+            out = tuple(torch.full_like(x, 7) for x in (p_own, p_own[..., 0], ok))
+            icp.icp_correspond_instances(p_own, ok, T, flags, views, cfg, out=out)
+            assert kernels.KERNELS["icp_correspond"].launches == n0 + 1
+            for g in range(lanes * s):
+                one = tuple(torch.full_like(x[g], 7) for x in out)
+                icp.icp_correspond(p_own[g], ok[g], T[g // s], flags[g // s],
+                                   views[g // s][g % s], cfg, out=one)
+                assert all(torch.equal(a[g], b) for a, b in zip(out, one))
+                if g // s == done:
+                    assert bool((out[1][g] == 7).all())
+            assert int(out[2].sum()) > 100

@@ -174,3 +174,72 @@ def test_ply_player_warms_the_loop_programs(dataset, monkeypatch, loops, chunk):
     res = ply.PLYPlayer(cfg, device="cpu").run(chunk_frames=chunk, end=4, sync_loop=True)
     assert res.frames_processed == 4
     assert calls == ([0] if loops and chunk else [])
+
+
+class _FailingEstimator:
+    """Stands in for the Estimator in both players: process_frame raises
+    `error` on the frame `bad` (counted from 0) and records the others."""
+    error, bad = None, 2
+
+    def __init__(self, cfg, sync_loop=False, device=None):
+        self.frames = []
+
+    def process_frame(self, cloud):
+        if len(self.frames) == self.bad and self.error is not None:
+            self.frames.append(None)
+            raise self.error
+        self.frames.append(len(cloud))
+        return True
+
+    def finalize_loops(self):
+        pass
+
+    def trajectory(self):
+        return np.tile(np.eye(4), (len(self.frames), 1, 1))
+
+    def shutdown(self):
+        pass
+
+
+def _player_cfg(d, cfg_mod):
+    return cfg_mod.load_config(str(ROOT / "config" / "mid360.yaml")).replace(
+        data_directory=str(d), output_directory="", enable_loop_detection=False,
+        enable_console_statistics=False)
+
+
+def test_ply_player_logs_a_failing_frame_and_goes_on_as_jax_does(dataset, monkeypatch, capsys):
+    """A frame whose process_frame raises is logged with its index, counts
+    as processed, and the run goes on over the rest: the port's player and
+    the JAX player (io/ply.py:177-181) alike, frame by frame."""
+    d, _, _ = dataset
+    monkeypatch.setattr(_FailingEstimator, "error", ValueError("bad frame"))
+    monkeypatch.setattr(ply, "Estimator", _FailingEstimator)
+    monkeypatch.setattr(jply, "Estimator", _FailingEstimator)
+    res = ply.PLYPlayer(_player_cfg(d, tconfig), device="cpu").run(chunk_frames=0, end=6)
+    port_log = capsys.readouterr().err
+    jres = jply.PLYPlayer(_player_cfg(d, jconfig)).run(chunk_frames=0, end=6, prefetch=False)
+    jax_log = capsys.readouterr().err
+    assert res.frames_processed == jres.frames_processed == 6
+    assert res.frames_failed == 1
+    for text in (port_log, jax_log):
+        assert "[PLYPlayer] frame 2 failed: ValueError('bad frame')" in text
+
+
+@pytest.mark.parametrize("fault", ["kernel", "cuda", "input"])
+def test_ply_player_raises_kernel_and_cuda_faults(dataset, monkeypatch, fault):
+    """A kernel's fault (kernels.KernelError, a RuntimeError), torch's
+    CUDA error or a wrapper's refusal of its tensors (kernels.
+    KernelInputError, a ValueError) in a frame is not skipped: the player
+    raises it by its class."""
+    from lidar_odometry_tpu_torch import kernels
+    d, _, _ = dataset
+    err = {"kernel": kernels.KernelError("CUDA kernel icp_correspond failed to launch "
+                                         "(cudaError 9)"),
+           "cuda": torch.AcceleratorError("CUDA error: an illegal memory access"),
+           "input": kernels.KernelInputError("l1_index: expected a 16-byte aligned tensor")}[fault]
+    assert isinstance(err, RuntimeError if fault != "input" else ValueError)
+    monkeypatch.setattr(_FailingEstimator, "error", err)
+    monkeypatch.setattr(ply, "Estimator", _FailingEstimator)
+    with pytest.raises(type(err)) as raised:
+        ply.PLYPlayer(_player_cfg(d, tconfig), device="cpu").run(chunk_frames=0, end=6)
+    assert raised.value is err

@@ -16,7 +16,11 @@ package's parallel/sharded_map.py and ops/pko.py on the same numpy inputs.
   * K11d: the same alpha as pko_alpha_index_from_samples on the merged
     samples, T within 1e-6 of the JAX solve and retract, the flag rules;
   * ShardGroup at one rank: all_gather is the identity, psum adds the
-    shards in order (the gloo ranks are in test_torch_sharded_ranks.py).
+    shards in order (the gloo ranks are in test_torch_sharded_ranks.py);
+  * K2a's instance axis: icp_correspond_instances over 1 lane x 4 shards
+    and 2 lanes x 4 shards (each lane its own sharded map) equals the
+    per-instance calls, and its lane and shard strides are read from the
+    map views (lanes may share a map; a view off the grid is refused).
 """
 import jax
 import jax.numpy as jnp
@@ -28,10 +32,13 @@ from lidar_odometry_tpu.ops import icp as jicp
 from lidar_odometry_tpu.ops import pko as jpko
 from lidar_odometry_tpu.parallel import sharded_map as jsm
 from lidar_odometry_tpu.utils import lie as jlie
+from lidar_odometry_tpu_torch import kernels
 from lidar_odometry_tpu_torch.io import synthetic
 from lidar_odometry_tpu_torch.ops import icp, pko
+from lidar_odometry_tpu_torch.ops import voxel_map as vm
 from lidar_odometry_tpu_torch.parallel import mesh
 from lidar_odometry_tpu_torch.parallel import shard_ops as so
+from lidar_odometry_tpu_torch.parallel import sharded_map as sm
 
 PKO_ARGS = (0.1, 10.0, 100, 10.0, "huber", 3, 100)
 INV = so.owner_inv(0.5, 3)
@@ -328,3 +335,66 @@ def test_twins_lane_axis():
                                      flags[lane:lane + 1], consts, pick, cfg, n_alpha=101,
                                      quota=q, use_pko=True)
             assert all(torch.equal(x[lane], y[0]) for x, y in zip(sel, one))
+
+
+@pytest.fixture(scope="module")
+def lane_maps(cloud):
+    """Two sharded maps of 4 shards (4096 parents), each built by the
+    sharded update from the cloud (lane 1's moved 0.7 m), and the two
+    stacked as the data x map step's batched state."""
+    pts, mask = cloud
+    g = mesh.make_group(4, device="cpu")
+    maps = []
+    for shift in (0.0, 0.7):
+        st = sm.sharded_empty_map(0, 4096, g)
+        moved = torch.as_tensor(pts + np.float32([shift, 0.0, 0.0]))
+        sm.sharded_update_map(st, moved, torch.as_tensor(mask), torch.zeros(3), 100.0, g,
+                              voxel_size=0.5, planarity_threshold=0.1)
+        maps.append(st)
+    batched = vm.VoxelMapState(*[torch.stack([a, b]) for a, b in zip(*maps)])
+    return maps[0], batched
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_correspond_instances_equal_per_instance_calls(cloud, lane_maps, lanes):
+    pts, mask = cloud
+    single, batched = lane_maps
+    maps = sm.local_views(single) if lanes == 1 else sm.local_views(batched, lanes)
+    s, n = 4, 2000
+    T = torch.as_tensor(np.stack([_pose(), np.eye(4, dtype=np.float32)])[:lanes]).reshape(
+        lanes, 16)
+    T[:, 3] += 0.05
+    scan = torch.as_tensor(pts[:n]).expand(lanes, n, 3).contiguous()
+    p_own, ok, _, _ = so.shard_own(scan, torch.as_tensor(mask[:n]).expand(lanes, n).contiguous(),
+                                   T, s, 0, s, so.owned_cap(n, s), INV)
+    flags = torch.zeros((lanes, 3), dtype=torch.int32)
+    cfg = icp.ICPConfig()
+    got = icp.icp_correspond_instances(p_own, ok, T, flags, maps, cfg)
+    out = tuple(torch.full_like(x, 7) for x in got)
+    icp.icp_correspond_instances(p_own, ok, T, flags, maps, cfg, out=out)
+    for g in range(lanes * s):
+        one = icp.icp_correspond(p_own[g], ok[g], T[g // s], flags[g // s], maps[g // s][g % s],
+                                 cfg)
+        for a, b, c in zip(got, out, one):
+            assert torch.equal(a[g], c) and torch.equal(b[g], c)
+    assert int(got[2].sum()) > 100
+
+
+def test_correspond_instance_strides(lane_maps):
+    single, batched = lane_maps
+    one, two = sm.local_views(single), sm.local_views(batched, 2)
+    idx = lambda maps: [m.l1_index for row in maps for m in row]
+    step = one[0][0].l1_index.numel()
+    assert icp._instance_strides(idx(one), 4, "l1_index") == (0, step)
+    assert icp._instance_strides(idx(two), 4, "l1_index") == (4 * step, step)
+    assert icp._instance_strides(idx([one[0], one[0]]), 4, "l1_index") == (0, step)
+    sf = one[0][0].l1_surfel.numel()
+    assert icp._instance_strides([m.l1_surfel for row in two for m in row], 4,
+                                 "l1_surfel") == (4 * sf, sf)
+    off_grid = [one[0][0], one[0][1], two[1][2], one[0][3]]
+    with pytest.raises(ValueError, match="not at lane"):
+        icp._instance_strides([m.l1_index for m in off_grid], 4, "l1_index")
+    flat = torch.zeros(step + 1, dtype=torch.int32)
+    shifted = flat[1:].view(one[0][0].l1_index.shape)     # 4 bytes off a 16-byte boundary
+    with pytest.raises(kernels.KernelInputError, match="16-byte"):
+        icp._instance_strides([shifted], 1, "l1_index")

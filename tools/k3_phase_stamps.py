@@ -1,17 +1,15 @@
 """Phase split of K3 pko_alpha on the card, from clock64 stamps.
 
-Copies csrc/pko.cu and csrc/*.cuh of a source tree (this checkout's
-lidar_odometry_tpu_torch/, or --src DIR, for example an older commit
-unpacked with `git archive` into a directory that .gitignore lists) into
-build/k3_stamps/<tag>/ and inserts a stamp, taken by thread 0 of block 0,
-before every phase comment ("// ---- name") of the kernel in pko.cu and of
-the GMM fit in gmm.cuh, and one before the kernel's closing brace. A
-gmm.cuh without phase comments gets a stamp "EM" before the first
-`float sum = 0.f;` line of the fit. It builds that copy with the port's
-nvcc flags, launches it on chip_smoke.py's phase-3 K3 input (a boot chunk
-of 20 bench frames, then frame 20's correspondences, at the iteration-0
-scale) and prints each phase's cycles and share of the last launch, the
-launch's device time from CUDA events (200 launches queued behind a
+Copies csrc/ of a source tree (this checkout's lidar_odometry_tpu_torch/,
+or --src DIR, for example an older commit unpacked with `git archive` into
+a directory that .gitignore lists) into build/k3_stamps/<tag>/ with a
+stamp (tools/phase_stamps.py) before every phase comment ("// ---- name")
+of the kernel in pko.cu and of the GMM fit in gmm.cuh, and one before the
+kernel's closing brace, taken in block 0. It builds that copy with the
+port's nvcc flags, launches it on chip_smoke.py's phase-3 K3 input (a boot
+chunk of 20 bench frames, then frame 20's correspondences, at the
+iteration-0 scale) and prints each phase's cycles and share of one launch,
+the launch's device time from CUDA events (200 launches queued behind a
 spin, so that the host's cost of issuing them is hidden), and the plain
 fit's k-means and EM round counts on the same samples.
 
@@ -23,89 +21,25 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-MARK = re.compile(r"^\s*// ---- (.+?)(?: ----)?\s*$")
-PRELUDE = """#include <cuda_runtime.h>
-__device__ long long lo_stamp_buf[32];
-#define LO_STAMP(k) \\
-  do { if (threadIdx.x == 0 && blockIdx.x == 0) lo_stamp_buf[k] = clock64(); } while (0)
-"""
-EPILOGUE = """
-LO_EXPORT int lo_read_stamps(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, lo_stamp_buf, sizeof(lo_stamp_buf));
-}
-"""
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import phase_stamps as ps  # noqa: E402
+
+ROOT = ps.ROOT
 
 
 def stamp_sources(src: Path, out: Path) -> list:
     """Write the stamped copy of src's pko.cu and headers to out; return
-    the stamp labels by stamp index (not in the order they run)."""
-    out.mkdir(parents=True, exist_ok=True)
-    labels = []
-
-    def stamp(label, indent):
-        labels.append(label)
-        return f"{indent}LO_STAMP({len(labels) - 1});"
-
-    gmm = (src / "gmm.cuh").read_text().splitlines()
-    g_out, in_fit, fallback = [], False, not any(MARK.match(l) for l in gmm)
-    for line in gmm:
-        if "gmm_fit_warp(" in line:
-            in_fit = True
-        elif in_fit and line.startswith("}"):
-            in_fit = False
-        m = MARK.match(line)
-        if in_fit and m:
-            g_out.append(stamp(m.group(1), " " * (len(line) - len(line.lstrip()))))
-        elif in_fit and fallback and line.strip() == "float sum = 0.f;":
-            g_out.append(stamp("EM", "  "))
-            fallback = False
-        g_out.append(line)
-    pko = (src / "pko.cu").read_text().splitlines()
-    p_out, in_kernel, last_brace = [], False, None
-    for line in pko:
-        if line.startswith("pko_kernel(") or re.match(r"^__global__.*pko_kernel\(", line):
-            in_kernel = True
-        m = MARK.match(line)
-        if in_kernel and m:
-            p_out.append(stamp(m.group(1), " " * (len(line) - len(line.lstrip()))))
-        if in_kernel and line == "}":
-            in_kernel = False
-            last_brace = len(p_out)
-        p_out.append(line)
-    if last_brace is None or not labels:
-        raise SystemExit(f"no K3 kernel or phase comments found under {src}")
-    labels.append("end")
-    p_out.insert(last_brace, f"  LO_STAMP({len(labels) - 1});")
-    for h in src.glob("*.cuh"):
-        if h.name != "gmm.cuh":
-            (out / h.name).write_text(h.read_text())
-    (out / "gmm.cuh").write_text("\n".join(g_out) + "\n")
-    (out / "pko.cu").write_text(PRELUDE + "\n".join(p_out) + "\n" + EPILOGUE)
-    return labels
-
-
-def build_pko(csrc: Path, lib_path: Path):
-    """csrc/pko.cu built with the port's nvcc flags into lib_path, loaded,
-    its ptxas report printed; lo_pko_alpha's argument types set."""
-    from lidar_odometry_tpu_torch import kernels
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o",
-                          str(lib_path), str(csrc / "pko.cu")], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise SystemExit(f"nvcc failed:\n{res.stdout}{res.stderr}")
-    for line in (res.stdout + res.stderr).splitlines():
-        if "pko" in line or "registers" in line or "stack" in line:
-            print(f"ptxas: {line.strip()}")
-    lib = ctypes.CDLL(str(lib_path))
-    lib.lo_pko_alpha.argtypes = kernels.KERNELS["pko_alpha"].argtypes + [ctypes.c_void_p]
-    lib.lo_pko_alpha.restype = ctypes.c_int
-    return lib
+    the stamp labels by stamp index."""
+    stamps = ps.Stamps()
+    texts = {"pko.cu": stamps.function((src / "pko.cu").read_text().splitlines(),
+                                       r"^pko_kernel\(", last="end"),
+             "gmm.cuh": stamps.function((src / "gmm.cuh").read_text().splitlines(),
+                                        r"^__device__.*\bgmm_fit_warp\(")}
+    ps.copy_sources(src, out, "pko", texts)
+    return stamps.labels
 
 
 def k3_input():
@@ -138,16 +72,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("k3_phase_stamps: needs a CUDA device")
     sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
     from lidar_odometry_tpu_torch import kernels
     from lidar_odometry_tpu_torch.ops import pko
     tree = (args.src or ROOT).resolve()
     tag = "checkout" if args.src is None else tree.name
     out = kernels.BUILD_DIR.parent / "k3_stamps" / tag
     labels = stamp_sources(tree / "lidar_odometry_tpu_torch" / "csrc", out)
-    lib = build_pko(out, out / "libpko_stamped.so")
+    lib = ps.build(out, "pko", out / "libpko_stamped.so", 0, "pko")
     fn = lib.lo_pko_alpha
-    lib.lo_read_stamps.argtypes = [ctypes.c_void_p]
-    lib.lo_read_stamps.restype = ctypes.c_int
+    fn.argtypes = kernels.KERNELS["pko_alpha"].argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
     r, v, flags, scale, consts = k3_input()
     n_alpha, n_grid = consts.Q.shape
@@ -164,33 +99,19 @@ def main() -> None:
 
     for _ in range(30):
         launch()
+    ms = cs.device_ms(launch, 200)
+    ps.clear(lib)
+    launch()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)   # the card waits while the host queues the launches
-    start.record()
-    for _ in range(200):
-        launch()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / 200
-    buf = (ctypes.c_longlong * 32)()
-    if lib.lo_read_stamps(ctypes.addressof(buf)):
-        raise SystemExit("reading the stamps failed")
-    # stamps in the order they ran (clock64 of one SM); a stamp left 0 did not run
-    st = sorted((c, lab) for c, lab in zip(list(buf), labels) if c)
-    total = st[-1][0] - st[0][0]
+    phases, total, n = ps.split(lib, labels)
     a_p, c_p, s_p = pko.pko_alpha_index_plain(r, v, scale.reshape(()), True, consts)
     samples = pko.stratified_sample(r.abs() / torch.clamp(s_p, min=1e-6), v, consts.u)
     *_, (km, em) = pko.fit_gmm(samples, consts.pick, rounds=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    print(f"K3 phase split ({tag}; {card}): {int(v.sum())} valid of {r.shape[0]}, alpha "
-          f"{int(aux[1])} (plain {int(a_p)}), {total} cycles stamped, {ms:.4f} ms a launch "
-          f"on the device (CUDA events, 200 launches), plain fit: {km} k-means and {em} EM rounds")
-    for (c0, label), (c1, _) in zip(st, st[1:]):
-        cyc = c1 - c0
-        print(f"  {label:50s} {cyc:8d} cycles {100.0 * cyc / total:6.2f} %  "
-              f"~{ms * 1e3 * cyc / total:8.2f} us")
+    print(f"K3 phase split ({tag}; {ps.card()}): {int(v.sum())} valid of {r.shape[0]}, alpha "
+          f"{int(aux[1])} (plain {int(a_p)}), {total} cycles stamped ({n} stamps), {ms:.4f} ms "
+          f"a launch on the device (CUDA events, 200 launches), plain fit: {km} k-means and "
+          f"{em} EM rounds")
+    ps.report(phases, total, ms * 1e3 / total)
 
 
 if __name__ == "__main__":

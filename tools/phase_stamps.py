@@ -1,0 +1,165 @@
+"""The clock64 phase stamps that tools/k3_phase_stamps.py and
+tools/k10b_phase_stamps.py take of one kernel on the card: stamping a copy
+of its sources at their phase comments, building the copy with the port's
+nvcc flags, and reading the stamps back, split by phase.
+
+A stamp is taken by thread 0 of block LO_STAMP_BLOCK (a define of the
+build) and appends (phase, clock64) to a log in device memory. Every
+stamped function counts its stamps in a register of its own and writes
+a region of the log of its own; the log is read back sorted by clock, so
+the stamps of a kernel and of the device functions it calls fall in the
+order they ran, and the cycles from one stamp to the next are its
+phase's. A phase that runs once a row is summed over the rows.
+
+It needs the card and nvcc; it imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "lidar_odometry_tpu_torch" / "csrc"
+MARK = re.compile(r"^\s*// ---- (.+?)(?: ----)?\s*$")
+REGION = 16384      # stamps a function keeps of one launch
+REGIONS = 4
+PRELUDE = f"""#include <cuda_runtime.h>
+__device__ long long lo_log_t[{REGIONS * REGION}];
+__device__ int lo_log_k[{REGIONS * REGION}];
+#define LO_STAMP(r, k) \\
+  do {{ const long long lo_c = clock64(); \\
+    if (threadIdx.x == 0 && blockIdx.x == LO_STAMP_BLOCK && lo_i < ((r) + 1) * {REGION}) {{ \\
+      lo_log_t[lo_i] = lo_c; lo_log_k[lo_i] = (k); }} \\
+    ++lo_i; }} while (0)
+"""
+EPILOGUE = f"""
+LO_EXPORT int lo_clear_log() {{
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, lo_log_t);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(long long) * {REGIONS * REGION});
+  return (int)e;
+}}
+LO_EXPORT int lo_read_log(long long* t, int* k) {{
+  cudaError_t e = cudaMemcpyFromSymbol(t, lo_log_t, sizeof(long long) * {REGIONS * REGION});
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(k, lo_log_k, sizeof(int) * {REGIONS * REGION});
+  return (int)e;
+}}
+"""
+
+
+class Stamps:
+    """The labels of a stamped copy's stamps, by stamp index."""
+
+    def __init__(self):
+        self.labels: list = []
+        self._regions = 0
+
+    def _stamp(self, region: int, label: str, indent: str) -> str:
+        self.labels.append(label)
+        return f"{indent}LO_STAMP({region}, {len(self.labels) - 1});"
+
+    def function(self, lines: list, start: str, first: str = None, last: str = None) -> list:
+        """`lines` with the function whose first line matches the regex
+        `start` stamped: a stamp before each phase comment ("// ---- name")
+        of its body, and, where given, one labelled `first` at the body's
+        start and one labelled `last` before its closing line "}"."""
+        region = self._regions
+        self._regions += 1
+        if region >= REGIONS:
+            raise SystemExit(f"more than {REGIONS} stamped functions")
+        head = next((i for i, l in enumerate(lines) if re.match(start, l)), None)
+        if head is None:
+            raise SystemExit(f"no function matching {start!r}")
+        body = next(i for i in range(head, len(lines)) if lines[i].rstrip().endswith("{"))
+        end = next(i for i in range(body + 1, len(lines)) if lines[i] == "}")
+        out = [f"  int lo_i = {region * REGION};"]
+        if first:
+            out.append(self._stamp(region, first, "  "))
+        marks = 0
+        for line in lines[body + 1:end]:
+            m = MARK.match(line)
+            if m:
+                out.append(self._stamp(region, m.group(1), line[:len(line) - len(line.lstrip())]))
+                marks += 1
+            out.append(line)
+        if not marks:
+            raise SystemExit(f"no phase comments ('// ---- name') in the function {start!r}")
+        if last:
+            out.append(self._stamp(region, last, "  "))
+        return lines[:body + 1] + out + lines[end:]
+
+
+def copy_sources(src: Path, out: Path, source: str, texts: dict) -> None:
+    """src's headers and <source>.cu copied to out, the files named in
+    `texts` ({file name: lines}) replaced by those lines; a stamped
+    <source>.cu gets the prelude and the log's readers."""
+    out.mkdir(parents=True, exist_ok=True)
+    for f in list(src.glob("*.cuh")) + [src / f"{source}.cu"]:
+        if f.name in texts:
+            text = "\n".join(texts[f.name]) + "\n"
+            if f.suffix == ".cu":
+                text = PRELUDE + text + EPILOGUE
+        else:
+            text = f.read_text()
+        (out / f.name).write_text(text)
+
+
+def build(csrc: Path, source: str, lib_path: Path, block: int, kernel: str):
+    """csrc/<source>.cu built with the port's nvcc flags (stamps taken in
+    block `block`) into lib_path and loaded; ptxas's lines for the
+    functions whose names hold `kernel` printed."""
+    from lidar_odometry_tpu_torch import kernels
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DLO_STAMP_BLOCK={block}",
+                          "-I", str(csrc), "-o", str(lib_path), str(csrc / f"{source}.cu")],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"nvcc failed:\n{res.stdout}{res.stderr}")
+    report = (res.stdout + res.stderr).splitlines()
+    for i, line in enumerate(report):
+        if kernel in line and "Compiling" in line:
+            for l in report[i:i + 4]:
+                print(f"ptxas: {l.strip()}")
+    return ctypes.CDLL(str(lib_path))
+
+
+def clear(lib) -> None:
+    """Empty the log: call before the launch whose stamps are read."""
+    if lib.lo_clear_log():
+        raise SystemExit("clearing the stamp log failed")
+
+
+def split(lib, labels: list):
+    """The log of the launches since clear(), in the order the stamps ran:
+    ({phase: (cycles to the next stamp, summed; stamps)}, total cycles from
+    the first stamp to the last, stamps read)."""
+    n = REGIONS * REGION
+    t = (ctypes.c_longlong * n)()
+    k = (ctypes.c_int * n)()
+    if lib.lo_read_log(ctypes.addressof(t), ctypes.addressof(k)):
+        raise SystemExit("reading the stamp log failed")
+    st = sorted((t[i], labels[k[i]]) for i in range(n) if t[i])
+    if len(st) < 2:
+        raise SystemExit("fewer than two stamps ran")
+    phases = {}
+    for (c0, label), (c1, _) in zip(st, st[1:]):
+        cyc, hits = phases.get(label, (0, 0))
+        phases[label] = (cyc + c1 - c0, hits + 1)
+    return phases, st[-1][0] - st[0][0], len(st)
+
+
+def report(phases: dict, total: int, us_per_cycle: float = None) -> None:
+    """Each phase's cycles, share, stamps and cycles a stamp, largest
+    first; with `us_per_cycle`, its share of the launch's device time."""
+    for label in sorted(phases, key=lambda x: -phases[x][0]):
+        cyc, hits = phases[label]
+        us = "" if us_per_cycle is None else f"  ~{cyc * us_per_cycle:8.2f} us"
+        print(f"  {label:52s} {cyc:10d} cycles {100.0 * cyc / total:6.2f} %  "
+              f"{hits:5d} x {cyc / hits:8.1f}{us}")
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()

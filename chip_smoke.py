@@ -114,7 +114,14 @@ Phases, each of which exits nonzero on failure:
  10. one JSON line of kernels, then the card line, then the result line.
 Phase 3 also holds K1, K2a, K3 and K2b at B = 4 (the first frame of each
 lane after a boot chunk) against their plain versions, and each lane
-bit for bit against a one-lane launch on its inputs.
+bit for bit against a one-lane launch on its inputs. K2b (B = 1, B = 4,
+the weight residual) and K11b (at each S) are also held to two calls
+bit-equal; for both, the cluster size they launch with, ptxas's stack
+frame (0 bytes, else the run fails) and one launch a call with no torch
+op that launches device work beside it (no zero fill, read from
+torch.profiler's op events) are printed and kept in
+the kernels line, with K11b's device and as-issued times and bound at
+every S.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
@@ -273,6 +280,49 @@ def device_ms_once(fn):
     ahead = not start.query()
     torch.cuda.synchronize()
     return start.elapsed_time(end) if ahead else None
+
+
+# torch ops a wrapper may run that launch nothing on the device
+NO_LAUNCH_OPS = ("aten::empty", "aten::slice", "aten::view", "aten::as_strided")
+
+
+def launches_of(fn, kernel: str):
+    """One call of fn: the launches of the port's kernel `kernel` (its
+    count) and the torch ops it ran that launch device work, from
+    torch.profiler's op events (a zero fill shows as aten::zeros, zero_
+    or fill_; allocation and views are NO_LAUNCH_OPS)."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidar_odometry_tpu_torch import kernels
+    fn()
+    sync()
+    n0 = kernels.KERNELS[kernel].launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        sync()
+    ops = sorted({e.name for e in prof.events()
+                  if e.name.startswith("aten::") and e.name not in NO_LAUNCH_OPS})
+    return kernels.KERNELS[kernel].launches - n0, ops
+
+
+def check_cluster_kernel(rows, name, src, kernel, shape, fns):
+    """A cluster kernel's build and launch: ptxas's report of `kernel`
+    (0 bytes of stack, else fail), its launch shape, and for each call in
+    `fns` one launch of the kernel `name` and no torch op that launches
+    device work (no zero fill), all kept in rows[name]."""
+    from lidar_odometry_tpu_torch import kernels
+    info = kernels.ptxas_info(src, kernel)
+    ran = [launches_of(fn, name) for fn in fns]
+    print(f"  {name}: a cluster of {shape['cluster']} CTAs x {shape['threads']} threads "
+          f"({shape}); ptxas {kernel}: {info['registers']} registers, {info['stack']} bytes "
+          f"of stack, spills {info['spill_stores']} / {info['spill_loads']} bytes; a call: "
+          f"{[n for n, _ in ran]} launches, torch ops that launch {[o for _, o in ran]}",
+          flush=True)
+    if info["stack"] != 0:
+        fail(f"{name}: ptxas reports {info['stack']} bytes of stack for {kernel}")
+    for n, ops in ran:
+        if n != 1 or ops:
+            fail(f"{name}: one call launched it {n} times beside the torch ops {ops}")
+    rows[name].update(launch_shape=shape, ptxas=info, launches_a_call=1)
 
 
 def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library=None, note="",
@@ -514,6 +564,9 @@ def check_kernels(scans_np, cfg, consts, kw):
                                            consts, cfg)
     if not torch.equal(fk, fp_):
         fail(f"icp_normal_eq: flags {fk.tolist()} vs plain {fp_.tolist()}")
+    again = icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k, consts, cfg)
+    if not all(torch.equal(a, b) for a, b in zip(again, (Tk, fk, hgk))):
+        fail("icp_normal_eq: two calls differ")
     hg_rel = float(((hgk - hgp).abs() / hgp.abs().clamp(min=1.0)).max())
     err = float((Tk - Tp).abs().max())
     nvld = int(v_k.sum())
@@ -523,7 +576,11 @@ def check_kernels(scans_np, cfg, consts, kw):
         time_ms(lambda: icp.icp_normal_eq_plain(feat, nrm_k, r_k, v_k, T, s_k, flags,
                                                 aux_k, consts, cfg)),
         N * (12 + 12 + 4 + 1) + 64 + 28 + 64 + 12 + 108, nvld * 90,
-        note=f"H,g relative err {hg_rel:.2e}")
+        note=f"H,g relative err {hg_rel:.2e}; two calls bit-equal")
+    check_cluster_kernel(rows, "icp_normal_eq", "icp", "normal_eq_kernel",
+                         icp.icp_normal_eq_shape(),
+                         [lambda: icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k,
+                                                    consts, cfg)])
 
     # ---- K4a evict scan (a 40 m radius, so that parents do evict) ----
     l0 = state.l0_data
@@ -826,10 +883,13 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
                                       torch.ones((1,), device=dev), True, consts, icfg)
     T16 = T_init.reshape(16).contiguous()
     args = (q_pts, fit.normal, r_nn, fit.valid, T16, scale, flags, aux, consts, icfg)
-    Tk, fk, _ = icp.icp_normal_eq(*args, rw=fit.dist)
+    Tk, fk, hk = icp.icp_normal_eq(*args, rw=fit.dist)
     Tp, fp_, _ = icp.icp_normal_eq_plain(*args, rw=fit.dist)
     if not torch.equal(fk, fp_):
         fail(f"icp_normal_eq (weight residual): flags {fk.tolist()} vs plain {fp_.tolist()}")
+    if not all(torch.equal(a, b) for a, b in zip(icp.icp_normal_eq(*args, rw=fit.dist),
+                                                 (Tk, fk, hk))):
+        fail("icp_normal_eq (weight residual): two calls differ")
     err = float((Tk - Tp).abs().max())
     ms_k = time_ms(lambda: icp.icp_normal_eq(*args, rw=fit.dist))
     dev_k = device_ms(lambda: icp.icp_normal_eq(*args, rw=fit.dist))
@@ -841,7 +901,7 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
           + (f" (device {dev_k:.4f} ms)" if dev_k is not None else "")
           + f", plain {ms_p:.4f} ms, "
           f"bound {b:.5f} ms ({by}) | the loop's coarse step: residual to the nearest "
-          f"neighbour, weights from the plane distance", flush=True)
+          f"neighbour, weights from the plane distance; two calls bit-equal", flush=True)
     if err > 1e-5:
         fail(f"icp_normal_eq with a weight residual disagrees with its plain version: {err}")
     rows["icp_normal_eq"] = dict(rows_in["icp_normal_eq"],
@@ -1322,6 +1382,9 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
 
     # ---- K2b ----
     Tk, fk, hk = icp.icp_normal_eq(feat, nrm, r, v, T, s_k, flags, aux, consts, cfg)
+    if not all(torch.equal(a, b) for a, b in zip(
+            icp.icp_normal_eq(feat, nrm, r, v, T, s_k, flags, aux, consts, cfg), (Tk, fk, hk))):
+        fail(f"icp_normal_eq: two B = {LANES} calls differ")
     err = 0.0
     for b in range(LANES):
         outs = icp.icp_normal_eq(one(feat, b), one(nrm, b), one(r, b), one(v, b), one(T, b),
@@ -1339,7 +1402,7 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
                                                       s_k[b], flags[b], aux[b], consts, cfg)
                               for b in range(LANES)]),
              LANES * (N * (12 + 12 + 4 + 1) + 64 + 28 + 64 + 12 + 108),
-             int(v.sum()) * 90, note=f"B = {LANES}: per-lane partials and counters")
+             int(v.sum()) * 90, note=f"B = {LANES}: a cluster a lane; two calls bit-equal")
 
 
 # ---------------------------------------------------------------------------
@@ -2160,6 +2223,7 @@ def check_shard_kernels(frames, cfg, rows):
     n = feat.shape[0]
     inv = so.owner_inv(cfg.map_voxel_size, 3)
     args = (feat[None].contiguous(), mask[None].contiguous(), T1)
+    by_shards = {}
     for s in SHARD_CHECK:
         g = mesh.make_group(s, device=dev)
         st = sm.sharded_empty_map(0, C1, g)
@@ -2219,6 +2283,9 @@ def check_shard_kernels(frames, cfg, rows):
                                          out=rp)
 
         ne_k(), ne_p(), sample_k(), sample_p()
+        first = rk.clone()
+        ne_k()
+        twice = torch.equal(first, rk)
         rel_h, rel_g, err_cnt = ne_errors(rk, rp, n_alpha)
         scale_ne = float(rp[:, :off].abs().max())
         err_ne = float((rk[:, :off] - rp[:, :off]).abs().max())
@@ -2243,14 +2310,22 @@ def check_shard_kernels(frames, cfg, rows):
 
         sk, sp = sel_k(), sel_p()
         err_sel = float((sk[0] - sp[0]).abs().max())
+        # K11b's time and bound at this S (the sharded path's is S = SHARDS)
+        n_valid = int(valid.sum())
+        b_ne = bound_ms(s * cap * (12 + 12 + 4 + 1) + s * ld * 4 + 64, n_valid * n_alpha * 54)
+        by_shards[s] = dict(ms=time_ms(ne_k), device_ms=device_ms(ne_k), bound_ms=b_ne[0],
+                            bound_by=b_ne[1], max_abs_err=err_ne, scale=scale_ne, rows=s * cap,
+                            valid_rows=n_valid, two_calls_bit_equal=twice)
         lanes2 = so.shard_gn_select(torch.cat([buf, buf]), torch.cat([T1, T1]),
                                     torch.cat([flags, flags]), consts, pick, icfg,
                                     n_alpha=n_alpha, quota=q, use_pko=True)
         eq_sel = all(torch.equal(a[1], b[0]) for a, b in zip(lanes2, sk))
         sync()
-        n_valid = int(valid.sum())
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
         print(f"  shards S={s}: K11a max_abs_err {err_own:.1e} (exact; over {own_k[3].tolist()}), "
-              f"K11b moments rel {err_mom:.1e}, systems {err_ne:.2e} of {scale_ne:.3e}: "
+              f"K11b {fmt(by_shards[s]['device_ms'])} ms on the device "
+              f"({by_shards[s]['ms']:.4f} as issued, bound {b_ne[0]:.5f}), two calls bit-equal "
+              f"{twice}, moments rel {err_mom:.1e}, systems {err_ne:.2e} of {scale_ne:.3e}: "
               f"J J^T block {rel_h:.1e} rel, J r block {rel_g:.1e} rel, count {err_cnt:.0e}, "
               f"K11c {err_smp:.1e} (exact), "
               f"K11d alpha {int(sk[2][0, 0])} vs {int(sp[2][0, 0])}, T {err_sel:.1e}; "
@@ -2265,10 +2340,11 @@ def check_shard_kernels(frames, cfg, rows):
             fail(f"shards S={s}: K11d differs from its plain version")
         if not (eq_own and eq_rows and eq_sel and eq_k2a):
             fail(f"shards S={s}: an instance differs from its one-instance launch")
+        if not twice:
+            fail(f"shards S={s}: two K11b calls differ")
         if s != SHARDS:
             continue
         ms4, dev4, ms1, dev1 = k2a_ms
-        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
         print(f"  icp_correspond over {s} shard instances in one launch: {ms4:.4f} ms "
               f"(device {fmt(dev4)} ms) against one instance {ms1:.4f} ms (device {fmt(dev1)} "
               f"ms)", flush=True)
@@ -2294,12 +2370,20 @@ def check_shard_kernels(frames, cfg, rows):
                g_inst * (12 + 12 + 4 + 1) + s * ld * 4 + 64, sum(rows_n) * n_alpha * 2 * 27,
                library=lambda: torch.bmm(W, Z), note=f"A {n_alpha}, {sum(rows_n)} valid of {g_inst}; library: "
                                     f"torch.bmm of the materialised (S, A, cap) weights by Z")
+        check_cluster_kernel(rows, "shard_alpha_normal_eq", "shard", "alpha_ne_kernel",
+                             so.shard_alpha_normal_eq_shape(), [ne_k])
+        n_mom, ops_mom = launches_of(lambda: so.shard_alpha_normal_eq(
+            p_own, nrm, r, valid, T1, flags, None, None, icfg, n_local=s, moments=True),
+            "shard_alpha_normal_eq")
+        if n_mom != 1 or ops_mom:
+            fail(f"shard_alpha_normal_eq (moments): {n_mom} launches beside {ops_mom}")
         record(rows, "shard_sample", err_smp, 0.0, sample_k, time_ms(sample_p, reps=5),
                g_inst * (4 + 1) + s * 2 * s * q * 4 + s * 12, 0.0, note=f"quota {q}")
         record(rows, "shard_gn_select", err_sel, 1e-6, sel_k, time_ms(sel_p, reps=3),
                s * ld * 4 + (n_alpha * 100 + 100) * 4 + 64 + 12, 0.0,
                note=f"alpha {int(sk[2][0, 0])} (plain {int(sp[2][0, 0])})")
         del st
+    rows["shard_alpha_normal_eq"]["by_shards"] = by_shards
     return rows
 
 
@@ -2518,7 +2602,8 @@ def profile_window(fn, label: str, prefix: str = "") -> None:
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events)
     launched = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cuLaunchKernelEx"))
+                                                         "cuLaunchKernelEx",
+                                                         "cudaLaunchKernelExC"))
     print(f"profile: {label}, wall {wall * 1e3:.3f} ms, "
           f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f} %), "
           f"{launched} kernel launches", flush=True)

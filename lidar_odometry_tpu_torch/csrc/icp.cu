@@ -29,37 +29,54 @@
 //    A point's arithmetic does not depend on the instance, so each
 //    instance is bit-equal to a launch of its own.
 //  * icp_normal_eq reads N x 33 B (~0.5 MB, ~0.14 us) and does ~90 flops
-//    per point (~1.3 MFLOP, ~0.02 us at 67 TFLOP/s fp32): launch-bound.
-//    Design: a grid-stride loop accumulates the 27 sums per thread, warp
-//    shuffles and shared memory reduce them per block, and the last block
-//    to finish (a threadfence + a ticket counter the wrapper zeroes) adds
-//    the block partials in block order, so the result is deterministic;
-//    its thread 0 then (gn.cuh, shared with the sharded ICP's K11d) solves
-//    the 6x6 system by Gaussian elimination with partial pivoting, retracts
-//    T <- T * (Exp(dw), dt) and updates done / failed / n_corr. The whole
-//    iteration tail stays in one launch with no host read.
+//    per point (~1.3 MFLOP, ~0.02 us at 67 TFLOP/s fp32): launch- and
+//    latency-bound. Design: one thread-block cluster of NE_CLUSTER = 8
+//    CTAs a lane (the portable size; its CTAs co-resident on one GPC,
+//    their shared memory one address space). A thread takes the points
+//    rank * NE_THREADS + tid + k * 8 * NE_THREADS, NE_UNROLL of them at a
+//    time; the lane's state (flags, T, scale, count, alpha index) and the
+//    first NE_UNROLL points come in one round of loads, before the done
+//    test (a load round costs ~1 us on the H100). The thread accumulates
+//    the 27 sums (the robust weight from common.cuh's fast_div, IEEE's
+//    quotient for normal operands, without the slow-path call); a warp
+//    reduce-scatter (31 shuffles) and shared memory reduce them per CTA
+//    in warp order; each CTA stores its 27
+//    partials into rank 0's shared memory, and after one cluster barrier
+//    rank 0 adds them in rank order: a fixed order that depends on n
+//    alone, with no global partials, fence or ticket. Its thread 0 then
+//    (gn.cuh, shared with the sharded ICP's K11d) solves the 6x6 system by
+//    Gaussian elimination with partial pivoting in registers, retracts
+//    T <- T * (Exp(dw), dt) and updates done / failed / n_corr. The
+//    whole iteration tail stays in one launch with no host read and no
+//    scratch memory. The "// ---- " comments mark the kernel's phases for
+//    tools/k2b_phase_stamps.py.
 //  * Lanes: B independent solves against one shared map (the blocked
 //    multi-sequence runner, JAX icp_optimize under vmap) run in one launch
 //    of each kernel, lane b on blockIdx.y = b with its own points, pose,
-//    flags, scale and alpha index. icp_normal_eq gives each lane its own
-//    partials region and its own ticket counter (the wrapper zeroes the
-//    counters on the launch's stream), so the last block of lane b sums
-//    only lane b's partials. A lane's grid-stride partition and
-//    block-order sum depend on n alone, never on B, so lane b of a B-lane
-//    launch is bit-identical to a one-lane launch on lane b's inputs. A lane whose solve is done
-//    returns at once while the others iterate (the vmapped while_loop's
+//    flags, scale and alpha index; icp_normal_eq gives each lane a
+//    cluster of its own. A lane's partition and rank-order sum depend on
+//    n alone, never on B, so lane b of a B-lane launch is bit-identical
+//    to a one-lane launch on lane b's inputs. A lane whose solve is done
+//    returns at once (every CTA of its cluster alike, so no barrier is
+//    left waiting) while the others iterate (the vmapped while_loop's
 //    frozen lanes). The single-stream and loop solves are B = 1.
 //    An optional weight residual `rw` sets the robust weights in place of
 //    |r|: the loop-closure ICP (ops/icp.py:258 icp_optimize_loop) weights
 //    each point by its centroid-plane distance while its residual is taken
 //    against the nearest neighbour. Without it (nullptr) the arithmetic is
 //    the odometry path's, unchanged.
+#include <cooperative_groups.h>
+
 #include "gn.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int NSUM = 27;   // 21 upper-triangle entries of H, then g
+constexpr int NE_CLUSTER = 8;    // CTAs of a lane's cluster (the portable size)
+constexpr int NE_THREADS = 512;
+constexpr int NE_WARPS = NE_THREADS / 32;
+constexpr int NE_UNROLL = 4;     // points a thread loads at once
 
 __global__ void __launch_bounds__(THREADS)
 correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, int n,
@@ -109,13 +126,7 @@ correspond_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, 
   valid[i] = slot >= 0 && b.w > 0.5f && m && fabsf(r) <= max_dist;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(NE_CLUSTER, 1, 1) __launch_bounds__(NE_THREADS)
 normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                  const float* __restrict__ resid, const float* __restrict__ rw,
                  const bool* __restrict__ valid, int n,
@@ -123,11 +134,11 @@ normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                  const int* __restrict__ flags, const int* __restrict__ aux,
                  const float* __restrict__ alphas, int use_pko, float fixed_delta, int robust,
                  int cauchy, int min_corr, float tol_t, float tol_r,
-                 float* __restrict__ partials, unsigned int* __restrict__ counter,
                  float* __restrict__ T_out, int* __restrict__ flags_out, float* __restrict__ hg) {
-  __shared__ float red[NSUM][THREADS / 32];
+  namespace cg = cooperative_groups;
+  __shared__ float red[NSUM][NE_WARPS];
+  __shared__ float part[NE_CLUSTER][NSUM];   // rank 0's: every CTA's partial sums
   __shared__ float sums[NSUM];
-  __shared__ bool last;
   const size_t lane_ix = blockIdx.y;
   pts += lane_ix * n * 3;
   nrm += lane_ix * n * 3;
@@ -138,93 +149,141 @@ normal_eq_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   scale += lane_ix;
   flags += 3 * lane_ix;
   aux += 2 * lane_ix;
-  partials += lane_ix * gridDim.x * NSUM;
-  counter += lane_ix;
   T_out += 16 * lane_ix;
   flags_out += 3 * lane_ix;
   hg += NSUM * lane_ix;
   const int tid = threadIdx.x;
-  if (flags[0]) {  // done: pass the state through
-    if (blockIdx.x == 0 && tid < 16) T_out[tid] = T[tid];
-    if (blockIdx.x == 0 && tid < 3) flags_out[tid] = flags[tid];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  // the lane's state, one round of independent loads: the flags, T, the
+  // scale, the count and the alpha index
+  const int done = flags[0], failed = flags[1], n_corr = flags[2];
+  float Tin[16], R[3][3];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) Tin[k] = T[k];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) R[i][j] = Tin[4 * i + j];
+  const float denom = fmaxf(scale[0], 1e-6f);
+  const int count = aux[0], a_ix = aux[1];
+  // and the thread's first NE_UNROLL points, in the same round
+  constexpr int stride = NE_CLUSTER * NE_THREADS;
+  const int first = rank * NE_THREADS + tid;
+  bool v[NE_UNROLL];
+  float r[NE_UNROLL], ra[NE_UNROLL], nn[NE_UNROLL][3], pp[NE_UNROLL][3];
+  auto load_points = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < NE_UNROLL; ++u) {
+      const int i = i0 + u * stride;
+      v[u] = false;
+      if (i < n) {
+        v[u] = valid[i];
+        r[u] = resid[i];
+        ra[u] = rw != nullptr ? rw[i] : r[u];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          nn[u][j] = nrm[3 * i + j];
+          pp[u][j] = pts[3 * i + j];
+        }
+      }
+    }
+  };
+  load_points(first);
+  if (done) {  // done: pass the state through (every CTA of the cluster returns)
+    if (rank == 0 && tid == 0) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) T_out[k] = Tin[k];
+      flags_out[0] = done;
+      flags_out[1] = failed;
+      flags_out[2] = n_corr;
+    }
     return;
   }
-  float R[3][3], t[3];
-  lo::load_T(T, R, t);
-  const float delta = use_pko ? alphas[aux[1]] : fixed_delta;
-  const float denom = fmaxf(scale[0], 1e-6f);
+  // every CTA of the cluster has started before any writes into rank 0's
+  // shared memory: arrive now, wait just before the writes
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const float delta = use_pko ? alphas[a_ix] : fixed_delta;
 
+  // ---- per-point sums
   float acc[NSUM];
 #pragma unroll
   for (int k = 0; k < NSUM; ++k) acc[k] = 0.f;
-  for (int i = blockIdx.x * blockDim.x + tid; i < n; i += gridDim.x * blockDim.x) {
-    if (!valid[i]) continue;
-    const float r = resid[i];
-    const float rn = fabsf(rw != nullptr ? rw[i] : r) / denom;
-    float w = 1.0f;
-    if (robust) {
-      if (cauchy) {
-        const float q = rn / delta;
-        w = 1.0f / (1.0f + q * q);
-      } else {
-        w = rn > delta ? delta / fmaxf(rn, 1e-30f) : 1.0f;
+  for (int i0 = first; i0 < n; i0 += NE_UNROLL * stride) {
+#pragma unroll
+    for (int u = 0; u < NE_UNROLL; ++u) {
+      if (!v[u]) continue;
+      const float rn = lo::fast_div(fabsf(ra[u]), denom);
+      float w = 1.0f;
+      if (robust) {
+        if (cauchy) {
+          const float q = lo::fast_div(rn, delta);
+          w = lo::fast_div(1.0f, 1.0f + q * q);
+        } else {
+          w = rn > delta ? lo::fast_div(delta, fmaxf(rn, 1e-30f)) : 1.0f;
+        }
       }
+      float J[6];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        J[j] = nn[u][0] * R[0][j] + nn[u][1] * R[1][j] + nn[u][2] * R[2][j];
+      J[3] = pp[u][1] * J[2] - pp[u][2] * J[1];
+      J[4] = pp[u][2] * J[0] - pp[u][0] * J[2];
+      J[5] = pp[u][0] * J[1] - pp[u][1] * J[0];
+      int k = 0;
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int b = a; b < 6; ++b) acc[k++] += J[a] * (J[b] * w);
+      const float wr = w * r[u];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) acc[21 + a] += J[a] * wr;
     }
-    const float n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
-    const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
-    float J[6];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) J[j] = n0 * R[0][j] + n1 * R[1][j] + n2 * R[2][j];
-    J[3] = p1 * J[2] - p2 * J[1];
-    J[4] = p2 * J[0] - p0 * J[2];
-    J[5] = p0 * J[1] - p1 * J[0];
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 6; ++a)
-#pragma unroll
-      for (int b = a; b < 6; ++b) acc[k++] += J[a] * (J[b] * w);
-    const float wr = w * r;
-#pragma unroll
-    for (int a = 0; a < 6; ++a) acc[21 + a] += J[a] * wr;
+    if (i0 + NE_UNROLL * stride < n) load_points(i0 + NE_UNROLL * stride);
   }
-  const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int k = 0; k < NSUM; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) red[k][warp] = v;
-  }
-  __syncthreads();
-  if (tid < NSUM) {
-    float s = 0.f;
-    for (int wi = 0; wi < THREADS / 32; ++wi) s += red[tid][wi];
-    partials[blockIdx.x * NSUM + tid] = s;
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
 
-  // ---- last block: sum the partials in block order, solve, retract ----
+  // ---- block reduce: lane k of each warp holds the warp's sum k
+  const float mine = lo::warp_reduce_scatter(acc);
+  const int warp = tid / 32, wl = tid % 32;
+  if (wl < NSUM) red[wl][warp] = mine;
+  __syncthreads();
+
+  // ---- cluster reduce: the CTAs' partials into rank 0, added in rank order
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
   if (tid < NSUM) {
     float s = 0.f;
-    for (int b = 0; b < gridDim.x; ++b) s += __ldcg(partials + b * NSUM + tid);
+#pragma unroll
+    for (int wi = 0; wi < NE_WARPS; ++wi) s += red[tid][wi];
+    cluster.map_shared_rank(&part[0][0], 0)[rank * NSUM + tid] = s;
+  }
+  cluster.sync();
+  if (rank != 0) return;
+  if (tid < NSUM) {
+    float s = part[0][tid];
+#pragma unroll
+    for (int c = 1; c < NE_CLUSTER; ++c) s += part[c][tid];
     sums[tid] = s;
     hg[tid] = s;
   }
   __syncthreads();
   if (tid != 0) return;
+
+  // ---- solve6
   float x[6];
   lo::solve6(sums, x);
+
+  // ---- gn_retract
   float Tn[16];
-  const bool conv = lo::gn_retract(T, x, tol_t, tol_r, Tn);
-  const int count = aux[0];
+  const bool conv = lo::gn_retract(Tin, x, tol_t, tol_r, Tn);
+
+  // ---- outputs
   const bool insufficient = count < min_corr;
   const bool step = !insufficient;   // not done here
-  for (int k = 0; k < 16; ++k) T_out[k] = step ? Tn[k] : T[k];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) T_out[k] = step ? Tn[k] : Tin[k];
   flags_out[0] = insufficient || (step && conv);
-  flags_out[1] = flags[1] || insufficient;
-  flags_out[2] = step ? count : flags[2];
+  flags_out[1] = failed || insufficient;
+  flags_out[2] = step ? count : n_corr;
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
@@ -250,16 +309,22 @@ LO_EXPORT int lo_icp_correspond(const float* pts, const bool* mask, int n, int i
 
 LO_EXPORT int lo_icp_normal_eq(const float* pts, const float* nrm, const float* resid,
                                const float* rw, const bool* valid, int n, int lanes,
-                               const float* T,
-                               const float* scale,
-                               const int* flags, const int* aux, const float* alphas,
-                               int use_pko, float fixed_delta, int robust, int cauchy,
-                               int min_corr, float tol_t, float tol_r, float* partials,
-                               unsigned int* counter, float* T_out, int* flags_out, float* hg,
-                               void* stream) {
-  const dim3 grid(max(1, min(128, blocks(n))), lanes);
-  normal_eq_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+                               const float* T, const float* scale, const int* flags,
+                               const int* aux, const float* alphas, int use_pko,
+                               float fixed_delta, int robust, int cauchy, int min_corr,
+                               float tol_t, float tol_r, float* T_out, int* flags_out,
+                               float* hg, void* stream) {
+  const dim3 grid(NE_CLUSTER, lanes);   // a cluster a lane (__cluster_dims__)
+  normal_eq_kernel<<<grid, NE_THREADS, 0, (cudaStream_t)stream>>>(
       pts, nrm, resid, rw, valid, n, T, scale, flags, aux, alphas, use_pko, fixed_delta, robust,
-      cauchy, min_corr, tol_t, tol_r, partials, counter, T_out, flags_out, hg);
+      cauchy, min_corr, tol_t, tol_r, T_out, flags_out, hg);
   return (int)cudaGetLastError();
+}
+
+// K2b's launch shape: CTAs a lane's cluster, threads a CTA, points a
+// thread loads at once.
+LO_EXPORT void lo_icp_normal_eq_shape(int* out) {
+  out[0] = NE_CLUSTER;
+  out[1] = NE_THREADS;
+  out[2] = NE_UNROLL;
 }

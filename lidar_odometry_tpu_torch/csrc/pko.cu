@@ -138,7 +138,7 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
     }
   }
   if (lane == 0) wcnt[warp] = c;
-  s = lo::gmm_warp_sum(s);
+  s = lo::warp_sum(s);
   if (lane == 0) wsum[warp] = s;
   __syncthreads();
   int nv = 0;
@@ -151,7 +151,7 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
   float scale;
   if (compute_scale) {
     const float nf = fmaxf((float)nv, 1.0f);
-    const float mean = lo::gmm_div(tot, nf);
+    const float mean = lo::fast_div(tot, nf);
     float s2 = 0.f;
     for (int b0 = tile0; b0 < tile1; b0 += BATCH) {
       bool v[BATCH];
@@ -169,14 +169,14 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
         s2 += v[j] ? d * d : 0.f;
       }
     }
-    s2 = lo::gmm_warp_sum(s2);
+    s2 = lo::warp_sum(s2);
     __syncthreads();   // every thread has read wsum
     if (lane == 0) wsum[warp] = s2;
     __syncthreads();
     float var = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) var += wsum[w];
-    scale = lo::gmm_div(lo::gmm_sqrt(lo::gmm_div(var, nf)), 6.0f);
+    scale = lo::fast_div(lo::fast_sqrt(lo::fast_div(var, nf)), 6.0f);
   } else {
     scale = scale_in[0];
   }
@@ -185,7 +185,7 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
   // ---- stratified ranks -> indices ----
   if (t < M) {
     const int k = (int)floorf(
-        lo::gmm_div(__fmul_rn(__fadd_rn((float)t, u[t]), (float)nv), (float)M));
+        lo::fast_div(__fmul_rn(__fadd_rn((float)t, u[t]), (float)nv), (float)M));
     // strata past the valid count take rank 0's entry (index 0 if none)
     const int rank = t < nv ? min(max(k, 0), nv - 1) : 0;
     int idx = 0;
@@ -205,7 +205,7 @@ pko_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int 
       const unsigned mask = tmask[lo_t];
       idx = lo_t * 32 + nth_set_bit(mask, r - (tcount[lo_t] - __popc(mask)));
     }
-    samp[t] = lo::gmm_div(fabsf(resid[idx]), denom);
+    samp[t] = lo::fast_div(fabsf(resid[idx]), denom);
   }
   __syncthreads();
 

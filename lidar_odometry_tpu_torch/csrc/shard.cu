@@ -34,22 +34,46 @@
 //  * K11b needs 54 flops per valid owned point per alpha, the 27
 //    multiply-adds of the 21 upper entries of J J^T and the 6 of J r
 //    (~0.15 GFLOP for the four shards, ~2 us at 67 TFLOP/s fp32), on ~1 MB
-//    of inputs: bound by operations. One block per (alpha, instance) recomputes J from
-//    the point's normal and the pose (cheaper than holding 42 floats a
-//    point), accumulates the 21 + 6 sums in registers in a fixed stride
-//    order and reduces with shuffles and shared memory in a fixed order.
+//    of inputs: bound by operations. It is the product W (A, n) @ Z (n,
+//    27) of sharded_map.py:318-330, and the design follows: a thread-block
+//    cluster of 8 CTAs (the portable size) for each (group of 32 alphas,
+//    instance), whose 64 warps take the instance's rows in 16-row blocks
+//    (block b to warp b mod 64, so the owned rows at the front spread
+//    evenly over them all). The lane's state and each warp's first
+//    chunk come in one round of loads. A warp reads its chunk once, a row
+//    a lane (the next chunk's loads in flight meanwhile), and computes each
+//    valid row's J, its 27 alpha-free products and rn = |r| / scale (one
+//    division a row, common.cuh's fast_div; for Huber its reciprocal)
+//    into shared memory; then lane l, holding the 27 sums of alpha 32 g +
+//    l in registers, walks the chunk's valid rows (a ballot) two at a
+//    time, their products read as broadcast 16-byte loads, and adds its
+//    weight (Huber delta / rn, Cauchy 1 / (1 + (rn / delta)^2) with 1 /
+//    delta taken once) times each product. The warps' sums are added in a
+//    fixed order, warp order in a CTA then rank order over the cluster
+//    through distributed shared memory (each CTA sends each rank its
+//    share of the outputs, and after one cluster barrier each rank adds
+//    its eighth), so the result depends on n alone. The moments
+//    (iteration 0) are one CTA an instance.
 //  * K11c reads each instance's residuals and flags (~40 KB) once: one
 //    block per instance as in K3's sample step, latency-bound.
 //  * K11d is one block per lane over a few KB: K3's GMM fit and JS argmin
 //    (gmm.cuh) and K2b's solve and retract (gn.cuh); latency-bound.
+#include <cooperative_groups.h>
+
 #include "gmm.cuh"
 #include "gn.cuh"
 
 namespace {
 
 constexpr int OWN_THREADS = 1024;   // a power of two: block_inclusive_scan
+constexpr int NE_CLUSTER = 8;       // CTAs of an (alpha group, instance)'s cluster
 constexpr int NE_THREADS = 256;
-constexpr int NE_SUM = 28;          // 21 upper entries of J J^T, J r (6), count
+constexpr int NE_WARPS = NE_THREADS / 32;
+constexpr int NE_Z = 27;            // 21 upper entries of J J^T, then J r (6)
+constexpr int NE_ROW = 28;          // a row in shared memory: its 27 products, rn
+constexpr int NE_OUT = NE_Z * 32;   // a cluster's sums: 27 for each of its 32 alphas
+constexpr int NE_DEPTH = 2;         // chunks a warp has in flight
+constexpr int MOM_THREADS = 256;
 constexpr int SAMPLE_THREADS = 1024;
 constexpr int SELECT_THREADS = 1024;
 constexpr int MAX_Q = 100;          // samples a shard draws
@@ -159,105 +183,239 @@ __device__ __forceinline__ float scale_from_moments(const float* mom, int n_shar
   return __fdiv_rn(__fsqrt_rn(var), 6.0f);
 }
 
-__device__ __forceinline__ float warp_down_sum(float v) {
+// K11b, moments mode: one block per instance, the raw moments [sum w |
+// sum |r| w | sum r^2 w] at out[0..2], zero for a done lane.
+__global__ void __launch_bounds__(MOM_THREADS)
+moments_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int n,
+               int n_local, const int* __restrict__ flags, int ld, float* __restrict__ out) {
+  __shared__ float red[3][MOM_THREADS / 32];
+  const int g = blockIdx.x, lane = g / n_local, tid = threadIdx.x;
+  resid += (size_t)g * n;
+  valid += (size_t)g * n;
+  out += (size_t)g * ld;
+  float acc[3] = {0.f, 0.f, 0.f};
+  if (!flags[3 * lane]) {
+    for (int i0 = tid; i0 < n; i0 += 4 * MOM_THREADS) {
+      bool v[4];
+      float ra[4];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * MOM_THREADS;
+        v[u] = i < n && valid[i];
+        ra[u] = i < n ? fabsf(resid[i]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!v[u]) continue;
+        acc[0] += 1.f;
+        acc[1] += ra[u];
+        acc[2] += ra[u] * ra[u];
+      }
+    }
+  }
+  lo::warp_sums(acc);
+  if (tid % 32 == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) red[k][tid / 32] = acc[k];
+  }
+  __syncthreads();
+  if (tid < 3) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < MOM_THREADS / 32; ++w) s += red[tid][w];
+    out[tid] = s;
+  }
 }
 
-// K11b: one block per (alpha, instance). moments = 1: grid.x = 1 and the
-// three raw moments at out[0..2]. Else out[a * 42 + (0..35)] = sum of
-// w_a vec(J J^T), out[a * 42 + 36 + (0..5)] = sum of w_a J r, and block
-// a = 0 writes the count at out[ld - 1].
-__global__ void __launch_bounds__(NE_THREADS)
+// K11b: one cluster of NE_CLUSTER CTAs per (alpha group, instance) =
+// (blockIdx.y, blockIdx.z); lane l of every warp sums alpha 32 y + l.
+// out[a * 42 + (0..35)] = sum of w_a vec(J J^T), out[a * 42 + 36 + (0..5)]
+// = sum of w_a J r, and out[ld - 1] the count (group 0 writes it).
+__global__ void __cluster_dims__(NE_CLUSTER, 1, 1) __launch_bounds__(NE_THREADS, 2)
 alpha_ne_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                 const float* __restrict__ resid, const bool* __restrict__ valid, int n,
                 int n_local, const float* __restrict__ T, const int* __restrict__ flags,
                 const float* __restrict__ mom, int n_shards, const float* __restrict__ alphas,
-                int robust, int cauchy, int moments, int ld, float* __restrict__ out) {
-  __shared__ float red[NE_SUM][NE_THREADS / 32];
-  const int a = blockIdx.x, g = blockIdx.y, lane = g / n_local;
-  if (flags[3 * lane]) return;
+                int n_alpha, int robust, int cauchy, int ld, float* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  // a warp's chunk: 32 rows of NE_ROW floats; after the walk, the warps' sums
+  __shared__ __align__(16) float zs[NE_WARPS * 32 * NE_ROW];
+  __shared__ float inbox[NE_OUT + NE_CLUSTER];   // every CTA's sums of this rank's outputs
+  __shared__ int cnt[NE_WARPS];
+  const int g = blockIdx.z, lane = g / n_local;
   pts += (size_t)g * n * 3;
   nrm += (size_t)g * n * 3;
   resid += (size_t)g * n;
   valid += (size_t)g * n;
   out += (size_t)g * ld;
-  const int tid = threadIdx.x;
-  float acc[NE_SUM];
+  mom += (size_t)lane * n_shards * 3;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
+  // Rows in 16-row blocks, block b to warp b mod W of the W = 64 warps of
+  // the cluster; a warp's chunk k is its blocks 2k and 2k + 1 (a half-warp
+  // each), so the owned rows at the front spread evenly over the warps.
+  constexpr int n_warps = NE_CLUSTER * NE_WARPS;
+  const int wc = rank * NE_WARPS + warp;
+  const int chunks = (n + 32 * n_warps - 1) / (32 * n_warps);
+  auto load = [&](int k, float (&x)[8]) {
+    const int i = 16 * (wc + n_warps * (2 * k + wl / 16)) + wl % 16;
+    const bool in = k < chunks && i < n;
+    x[0] = in && valid[i] ? 1.f : 0.f;
+    x[1] = in ? resid[i] : 0.f;
 #pragma unroll
-  for (int k = 0; k < NE_SUM; ++k) acc[k] = 0.f;
-  if (moments) {
-    for (int i = tid; i < n; i += NE_THREADS) {
-      if (!valid[i]) continue;
-      const float ra = fabsf(resid[i]);
-      acc[0] += 1.f;
-      acc[1] += ra;
-      acc[2] += ra * ra;
+    for (int j = 0; j < 3; ++j) {
+      x[2 + j] = in ? nrm[3 * i + j] : 0.f;
+      x[5 + j] = in ? pts[3 * i + j] : 0.f;
     }
-  } else {
-    float R[3][3], t[3];
-    lo::load_T(T + 16 * lane, R, t);
-    const float denom = fmaxf(scale_from_moments(mom + (size_t)lane * n_shards * 3, n_shards),
-                              1e-6f);
-    const float delta = alphas[a];
-    for (int i = tid; i < n; i += NE_THREADS) {
-      if (!valid[i]) continue;
-      const float r = resid[i];
-      const float rn = __fdiv_rn(fabsf(r), denom);
-      float w = 1.0f;
-      if (robust) {
-        if (cauchy) {
-          const float q = rn / delta;
-          w = 1.0f / (1.0f + q * q);
-        } else {
-          w = rn > delta ? delta / fmaxf(rn, 1e-30f) : 1.0f;
+  };
+  // one round of loads: the lane's flag, pose, moments and this lane's
+  // alpha, and the warp's first NE_DEPTH chunks (a load round costs ~1 us
+  // on the H100, longer than a chunk's walk)
+  const int done = flags[3 * lane];
+  float R[3][3], t[3];
+  lo::load_T(T + 16 * lane, R, t);
+  const int alpha = min((int)blockIdx.y * 32 + wl, n_alpha - 1);
+  const float delta = alphas[alpha];
+  float buf[NE_DEPTH][8];
+#pragma unroll
+  for (int u = 0; u < NE_DEPTH; ++u) load(u, buf[u]);
+  if (done) return;                      // every CTA of the cluster alike
+  // every CTA of the cluster has started before any writes into another's
+  // shared memory: arrive now, wait just before the writes
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const float denom = fmaxf(scale_from_moments(mom, n_shards), 1e-6f);
+  const float inv_delta = lo::fast_rcp(delta);
+  const bool huber = robust && !cauchy;
+  float acc[NE_Z];
+#pragma unroll
+  for (int k = 0; k < NE_Z; ++k) acc[k] = 0.f;
+  int count = 0;
+  float* zw = zs + warp * 32 * NE_ROW;
+  for (int kb = 0; kb < chunks; kb += NE_DEPTH) {
+#pragma unroll
+    for (int u = 0; u < NE_DEPTH; ++u) {
+      if (kb + u >= chunks) break;
+      float* cur = buf[u];
+      // ---- a chunk's rows: J, the 27 products and rn, a row a lane
+      const bool v = cur[0] != 0.f;
+      if (v) {
+        const float r = cur[1];
+        const float n0 = cur[2], n1 = cur[3], n2 = cur[4];
+        const float p0 = cur[5], p1 = cur[6], p2 = cur[7];
+        float J[6];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) J[j] = n0 * R[0][j] + n1 * R[1][j] + n2 * R[2][j];
+        J[3] = p1 * J[2] - p2 * J[1];
+        J[4] = p2 * J[0] - p0 * J[2];
+        J[5] = p0 * J[1] - p1 * J[0];
+        float z[NE_ROW];
+        int k = 0;
+#pragma unroll
+        for (int x = 0; x < 6; ++x)
+#pragma unroll
+          for (int y = x; y < 6; ++y) z[k++] = J[x] * J[y];
+#pragma unroll
+        for (int x = 0; x < 6; ++x) z[21 + x] = J[x] * r;
+        // Huber takes 1 / rn (rn > delta as 1 / rn < 1 / delta), Cauchy rn
+        const float rn = lo::fast_div(fabsf(r), denom);
+        z[27] = huber ? lo::fast_rcp(fmaxf(rn, 1e-30f)) : rn;
+        float4* row = reinterpret_cast<float4*>(zw + wl * NE_ROW);
+#pragma unroll
+        for (int q = 0; q < NE_ROW / 4; ++q)
+          row[q] = make_float4(z[4 * q], z[4 * q + 1], z[4 * q + 2], z[4 * q + 3]);
+      }
+      load(kb + u + NE_DEPTH, buf[u]);   // this slot's next chunk
+      unsigned mask = __ballot_sync(0xffffffffu, v);
+      count += __popc(mask);
+      __syncwarp();
+      // ---- the walk: the valid rows' weighted products into the lane's alpha, two at a time
+      while (mask) {
+        const int j0 = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const bool two = mask != 0;
+        const int j1 = two ? __ffs(mask) - 1 : j0;
+        mask &= mask - 1;
+        float z[2][NE_ROW];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4* row = reinterpret_cast<const float4*>(zw + (h ? j1 : j0) * NE_ROW);
+#pragma unroll
+          for (int q = 0; q < NE_ROW / 4; ++q) {
+            const float4 f = row[q];
+            z[h][4 * q] = f.x; z[h][4 * q + 1] = f.y; z[h][4 * q + 2] = f.z; z[h][4 * q + 3] = f.w;
+          }
+        }
+        float w[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x = z[h][27];
+          w[h] = 1.0f;
+          if (huber) {
+            w[h] = x < inv_delta ? delta * x : 1.0f;
+          } else if (robust) {
+            const float q = x * inv_delta;
+            w[h] = lo::fast_rcp(1.0f + q * q);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < NE_Z; ++k) acc[k] += w[0] * z[0][k];
+        if (two) {
+#pragma unroll
+          for (int k = 0; k < NE_Z; ++k) acc[k] += w[1] * z[1][k];
         }
       }
-      const float n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
-      const float p0 = pts[3 * i], p1 = pts[3 * i + 1], p2 = pts[3 * i + 2];
-      float J[6];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) J[j] = n0 * R[0][j] + n1 * R[1][j] + n2 * R[2][j];
-      J[3] = p1 * J[2] - p2 * J[1];
-      J[4] = p2 * J[0] - p0 * J[2];
-      J[5] = p0 * J[1] - p1 * J[0];
-      int k = 0;
-#pragma unroll
-      for (int x = 0; x < 6; ++x)
-#pragma unroll
-        for (int y = x; y < 6; ++y) acc[k++] += w * (J[x] * J[y]);
-#pragma unroll
-      for (int x = 0; x < 6; ++x) acc[21 + x] += w * (J[x] * r);
-      acc[27] += 1.f;
+      __syncwarp();
     }
   }
-  const int warp = tid / 32, wl = tid % 32;
-  const int nsum = moments ? 3 : NE_SUM;
-  for (int k = 0; k < nsum; ++k) {
-    const float v = warp_down_sum(acc[k]);
-    if (wl == 0) red[k][warp] = v;
-  }
+
+  // ---- the CTA's sums, in warp order, sent to the rank that writes them
   __syncthreads();
-  __shared__ float sums[NE_SUM];
-  if (tid < nsum) {
+#pragma unroll
+  for (int k = 0; k < NE_Z; ++k) zs[(warp * NE_Z + k) * 32 + wl] = acc[k];
+  if (wl == 0) cnt[warp] = count;
+  __syncthreads();
+  constexpr int per = NE_OUT / NE_CLUSTER;   // outputs a rank writes
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  for (int o = tid; o < NE_OUT; o += NE_THREADS) {
     float s = 0.f;
-    for (int wi = 0; wi < NE_THREADS / 32; ++wi) s += red[tid][wi];
-    if (moments) out[tid] = s;
-    sums[tid] = s;
+#pragma unroll
+    for (int w = 0; w < NE_WARPS; ++w) s += zs[w * NE_OUT + o];
+    cluster.map_shared_rank(inbox, o / per)[rank * per + o % per] = s;
   }
-  __syncthreads();
-  if (moments || tid != 0) return;
-  float* o = out + (size_t)a * 42;
-  int k = 0;
-  for (int x = 0; x < 6; ++x)
-    for (int y = x; y < 6; ++y) {
-      o[x * 6 + y] = sums[k];
-      o[y * 6 + x] = sums[k];
-      ++k;
+  if (tid == 0) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < NE_WARPS; ++w) c += cnt[w];
+    cluster.map_shared_rank(inbox, 0)[NE_OUT + rank] = (float)c;
+  }
+
+  // ---- the cluster's sums, in rank order: each rank writes 1 / 8 of the outputs
+  cluster.sync();
+  if (tid < per) {
+    const int o = rank * per + tid, z = o / 32, a = blockIdx.y * 32 + o % 32;
+    float s = inbox[tid];
+#pragma unroll
+    for (int q = 1; q < NE_CLUSTER; ++q) s += inbox[q * per + tid];
+    if (a < n_alpha) {
+      float* oa = out + (size_t)a * 42;
+      if (z < 21) {
+        int x = 0, base = 0;
+        while (z >= base + 6 - x) { base += 6 - x; ++x; }
+        const int y = x + z - base;
+        oa[x * 6 + y] = s;
+        oa[y * 6 + x] = s;
+      } else {
+        oa[36 + z - 21] = s;
+      }
     }
-  for (int x = 0; x < 6; ++x) o[36 + x] = sums[21 + x];
-  if (a == 0) out[ld - 1] = sums[27];
+  }
+  if (tid == per && rank == 0 && blockIdx.y == 0) {
+    float c = inbox[NE_OUT];
+#pragma unroll
+    for (int q = 1; q < NE_CLUSTER; ++q) c += inbox[NE_OUT + q];
+    out[ld - 1] = c;
+  }
 }
 
 // K11c: one block per instance. Draws q samples of |r| / scale over the
@@ -325,6 +483,16 @@ sample_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, i
     out[me * q + t] = __fmul_rn(v, okf);
     out[m + me * q + t] = okf;
   }
+}
+
+// K11d's solve and retract on thread 0, out of line: inlined into the
+// 1024-thread kernel (64 registers a thread) the unrolled 6x6 elimination
+// costs the kernel's other phases their register allocation.
+__device__ __noinline__ bool select_tail(const float* h, const float* T, float tol_t,
+                                         float tol_r, float* Tn) {
+  float dx[6];
+  lo::solve6(h, dx);
+  return lo::gn_retract(T, dx, tol_t, tol_r, Tn);
 }
 
 // K11d: one block per lane over the gathered (n_shards, ld) buffer.
@@ -402,10 +570,8 @@ gn_select_kernel(const float* __restrict__ buf, int n_shards, int ld, int n_alph
   for (int x = 0; x < 6; ++x)
     for (int y = x; y < 6; ++y) h[k++] = hg[x * 6 + y];
   for (int x = 0; x < 6; ++x) h[21 + x] = hg[36 + x];
-  float dx[6];
-  lo::solve6(h, dx);
   float Tn[16];
-  const bool conv = lo::gn_retract(T, dx, tol_t, tol_r, Tn);
+  const bool conv = select_tail(h, T, tol_t, tol_r, Tn);
   const bool insufficient = count < (float)min_corr;
   const bool step = !insufficient;   // not done here
   const int n_corr = (int)rintf(count);
@@ -441,11 +607,24 @@ LO_EXPORT int lo_shard_alpha_normal_eq(const float* pts, const float* nrm, const
                                        int n_shards, const float* alphas, int n_alpha,
                                        int robust, int cauchy, int moments, int ld, float* out,
                                        void* stream) {
-  const dim3 grid(moments ? 1 : n_alpha, instances);
-  alpha_ne_kernel<<<grid, NE_THREADS, 0, (cudaStream_t)stream>>>(
-      pts, nrm, resid, valid, n, n_local, T, flags, mom, n_shards, alphas, robust, cauchy,
-      moments, ld, out);
+  if (moments) {
+    moments_kernel<<<instances, MOM_THREADS, 0, (cudaStream_t)stream>>>(resid, valid, n, n_local,
+                                                                         flags, ld, out);
+  } else {
+    if (n_alpha < 1 || ld < n_alpha * 42 + 1) return (int)cudaErrorInvalidValue;
+    const dim3 grid(NE_CLUSTER, (n_alpha + 31) / 32, instances);   // __cluster_dims__
+    alpha_ne_kernel<<<grid, NE_THREADS, 0, (cudaStream_t)stream>>>(
+        pts, nrm, resid, valid, n, n_local, T, flags, mom, n_shards, alphas, n_alpha, robust,
+        cauchy, ld, out);
+  }
   return (int)cudaGetLastError();
+}
+
+// K11b's launch shape: CTAs a cluster, threads a CTA, alphas a cluster.
+LO_EXPORT void lo_shard_alpha_normal_eq_shape(int* out) {
+  out[0] = NE_CLUSTER;
+  out[1] = NE_THREADS;
+  out[2] = 32;
 }
 
 LO_EXPORT int lo_shard_sample(const float* resid, const bool* valid, int n, int instances,

@@ -569,3 +569,66 @@ def pko_residuals(n: int, kind: str = "wide", seed: int = 0, n_valid: int = None
         valid = np.zeros(n, bool)
         valid[rng.choice(n, n_valid, replace=False)] = True
     return r.astype(np.float32), valid
+
+
+def normal_eq_rows(n: int, seed: int = 0, *, g: int = None, n_valid: int = None, step=None,
+                   flat_x: bool = False, nan_residual: bool = False):
+    """Correspondence rows for the Gauss-Newton normal equations' edge cases
+    (K2b, K11b): body points (n, 3) float32 at 1-8 m, unit normals (n, 3),
+    or with flat_x normals with no x component on points 20-30 m down the
+    x axis (whose H makes partial pivoting swap rows), signed residuals (n,) float32 (3/4 of
+    sigma 0.02, 1/4 an outlier mode at 0.4 of sigma 0.2; or, with `step`
+    (6,) = [dt | dw], exactly J step in float64 with J = [R^T n, p x R^T n],
+    so that one unweighted GN step returns about -step), valid flags (n,)
+    bool (about 85 %, or exactly n_valid at random places), and a pose T
+    (4, 4) float32 (0.3 rad about z and a translation; the identity rotation
+    with flat_x). A leading g stacks g such sets under the one pose.
+    nan_residual puts NaN in the first valid row's residual."""
+    rng = np.random.default_rng(seed)
+    lead = () if g is None else (g,)
+    d = rng.standard_normal(lead + (n, 3))
+    p = (d / np.linalg.norm(d, axis=-1, keepdims=True) * rng.uniform(1.0, 8.0, lead + (n, 1)))
+    if flat_x:
+        p = rng.uniform((20.0, -5.0, -2.0), (30.0, 5.0, 2.0), lead + (n, 3))
+    nrm = rng.standard_normal(lead + (n, 3))
+    if flat_x:
+        nrm[..., 0] = 0.0
+    nrm = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).astype(np.float32)
+    p = p.astype(np.float32)
+    a = 0.0 if flat_x else 0.3
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]]
+    T[:3, 3] = (1.3, -0.4, 0.2)
+    if step is None:
+        r = np.where(rng.random(lead + (n,)) < 0.75, rng.standard_normal(lead + (n,)) * 0.02,
+                     0.4 + rng.standard_normal(lead + (n,)) * 0.2)
+    else:
+        an = nrm.astype(np.float64) @ T[:3, :3].astype(np.float64)
+        J = np.concatenate([an, np.cross(p.astype(np.float64), an)], -1)
+        r = J @ np.asarray(step, np.float64)
+    r = r.astype(np.float32)
+    if n_valid is None:
+        valid = rng.random(lead + (n,)) > 0.15
+    else:
+        valid = np.zeros(lead + (n,), bool)
+        for v in valid.reshape(-1, n):
+            v[rng.choice(n, n_valid, replace=False)] = True
+    if nan_residual:
+        for rr, v in zip(r.reshape(-1, n), valid.reshape(-1, n)):
+            rr[np.argmax(v)] = np.nan
+    return p, nrm, r, valid, T
+
+
+def normal_eq_shards(lanes: int, shards: int, n: int, seed: int = 0, empty: int = None):
+    """K11b's edge-case input: normal_eq_rows for lanes x shards instances
+    (instance g = lane * shards + k) of n rows under one pose, instance
+    `empty` with no valid row, and each lane's gathered moments [sum w,
+    sum |r| w, sum r^2 w] (lanes, shards, 3) float32. Returns (p, nrm, r,
+    valid, T, mom)."""
+    p, nrm, r, valid, T = normal_eq_rows(n, seed, g=lanes * shards)
+    if empty is not None:
+        valid[empty] = False
+    w = valid.astype(np.float32)
+    ra = np.abs(r)
+    mom = np.stack([w.sum(1), (ra * w).sum(1), (ra * ra * w).sum(1)], 1)
+    return p, nrm, r, valid, T, mom.reshape(lanes, shards, 3).astype(np.float32)

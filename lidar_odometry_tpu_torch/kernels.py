@@ -25,13 +25,15 @@ while the main thread runs chunks: the build, the library loads and the
 counts are taken under one lock, and a launch goes to the calling
 thread's current stream. Only K1's wrapper keeps scratch memory between
 calls: one zeroed buffer per device and stream, which each launch leaves
-zeroed; the others allocate theirs per call.
+zeroed; the others allocate theirs per call (K2b and K11b, whose sums
+meet in a thread-block cluster's shared memory, need none).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,7 +43,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "KernelError", "KernelInputError", "KERNELS", "build", "library",
-           "reset_counts", "counts", "check", "check_aligned", "BUILD_DIR"]
+           "ptxas_info", "reset_counts", "counts", "check", "check_aligned", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -136,6 +138,27 @@ def _build() -> dict:
     return took
 
 
+def ptxas_info(src: str, kernel: str) -> dict:
+    """ptxas's -v report of the entry function of csrc/<src>.cu whose
+    (mangled) name holds `kernel`, read from its build's log: registers,
+    and the stack frame, spill stores and spill loads in bytes. Builds the
+    kernels if needed."""
+    with _lock:
+        _build()
+    lines = _lib_path(src).with_suffix(".log").read_text().splitlines()
+    head = next((i for i, l in enumerate(lines)
+                 if "Compiling entry function" in l and kernel in l), None)
+    if head is None:
+        raise KernelError(f"no entry function {kernel!r} in the build log of csrc/{src}.cu")
+    end = next((i for i in range(head + 1, len(lines)) if "Compiling entry function" in lines[i]),
+               len(lines))
+    text = " ".join(lines[head:end])
+    grab = lambda pat: int(re.search(pat, text).group(1))
+    return dict(registers=grab(r"Used (\d+) registers"), stack=grab(r"(\d+) bytes stack frame"),
+                spill_stores=grab(r"(\d+) bytes spill stores"),
+                spill_loads=grab(r"(\d+) bytes spill loads"))
+
+
 def library(src: str):
     """The loaded library of csrc/<src>.cu, built first if needed."""
     with _lock:
@@ -179,8 +202,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _I, _P, _L, _L, _I, _F, _F, _P, _P, _P],
            REF + "/ops/icp.py:121"),
     Kernel("icp_normal_eq", "icp",
-           [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _F,
-            _F, _P, _P, _P, _P, _P],
+           [_P] * 5 + [_I] * 2 + [_P] * 5 + [_I, _F, _I, _I, _I, _F, _F] + [_P] * 3,
            REF + "/ops/icp.py:91"),
     Kernel("pko_alpha", "pko",
            [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],

@@ -10,9 +10,9 @@ intermediate on the device and no host read:
       the normal and the gated validity;
   K3  pko_alpha (ops/pko.py): count, iteration-0 scale, the alpha index;
   K2b icp_normal_eq (csrc/icp.cu): robust weights, J = [R^T n, p x R^T n],
-      the 21 + 6 sums of J^T W J and J^T W r reduced across blocks, and in
-      the last block the 6x6 solve (+1e-8 I), the retract T * (Exp(dw), dt)
-      and the done / failed / n_corr update.
+      the 21 + 6 sums of J^T W J and J^T W r reduced over a thread-block
+      cluster a lane, and in its rank-0 CTA the 6x6 solve (+1e-8 I), the
+      retract T * (Exp(dw), dt) and the done / failed / n_corr update.
 K3 needs every normalised residual before any weight exists, hence two
 ICP launches and not one. The loop always runs max_iterations launches;
 once the solve is done (converged or failed) the kernels return at once
@@ -64,12 +64,10 @@ from . import voxel_map as vm
 
 __all__ = ["ICPConfig", "icp_optimize", "icp_correspond", "icp_correspond_instances",
            "icp_correspond_plain",
-           "icp_normal_eq", "icp_normal_eq_plain", "robust_weights", "PlaneFit",
+           "icp_normal_eq", "icp_normal_eq_plain", "icp_normal_eq_shape", "robust_weights",
+           "PlaneFit",
            "plane_fit_5nn", "plane_fit_5nn_plain", "icp_optimize_loop",
            "loop_solve", "loop_prealign", "loop_closure_solve", "POLISH_TOLERANCE"]
-
-NE_THREADS = 256
-NE_MAX_BLOCKS = 128
 
 
 @dataclass(frozen=True)
@@ -283,12 +281,12 @@ def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConf
     kernels.check(aux, "aux", torch.int32, lead + (2,))
     dev = pts.device
     lanes = lead[0] if lead else 1
-    grid = max(1, min(NE_MAX_BLOCKS, (n + NE_THREADS - 1) // NE_THREADS))
-    counter = torch.zeros((lanes,), dtype=torch.int32, device=dev)   # blocks done, per lane
-    partials = torch.empty((lanes, grid, 27), dtype=torch.float32, device=dev)
-    T_out = torch.empty(lead + (16,), dtype=torch.float32, device=dev)
+    # T_out and hg share one allocation (T_out first, so 16-byte aligned as
+    # K2a reads it); the kernel needs no scratch and nothing zeroed
+    out = torch.empty((lanes * (16 + 27),), dtype=torch.float32, device=dev)
+    T_out = out[:lanes * 16].view(lead + (16,))
+    hg = out[lanes * 16:].view(lead + (27,))
     flags_out = torch.empty(lead + (3,), dtype=torch.int32, device=dev)
-    hg = torch.empty(lead + (27,), dtype=torch.float32, device=dev)
     kernels.KERNELS["icp_normal_eq"].launch(
         pts.data_ptr(), nrm.data_ptr(), r.data_ptr(),
         None if rw is None else rw.data_ptr(), valid.data_ptr(), n, lanes,
@@ -297,9 +295,19 @@ def icp_normal_eq(pts, nrm, r, valid, T, scale, flags, aux, consts, cfg: ICPConf
         K.f32(cfg.robust_loss_delta), int(cfg.use_robust_loss),
         int(cfg.loss_type == "cauchy"), cfg.min_correspondence_points,
         K.f32(cfg.translation_tolerance), K.f32(cfg.rotation_tolerance),
-        partials.data_ptr(), counter.data_ptr(), T_out.data_ptr(),
-        flags_out.data_ptr(), hg.data_ptr())
+        T_out.data_ptr(), flags_out.data_ptr(), hg.data_ptr())
     return T_out, flags_out, hg
+
+
+def icp_normal_eq_shape() -> dict:
+    """K2b's launch shape as built: CTAs a lane's cluster, threads a CTA,
+    points a thread loads at once. Builds the kernels if needed."""
+    import ctypes
+    fn = kernels.library("icp").lo_icp_normal_eq_shape
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    out = (ctypes.c_int * 3)()
+    fn(out)
+    return dict(zip(("cluster", "threads", "unroll"), list(out)))
 
 
 _TRIU = [(a, b) for a in range(6) for b in range(a, 6)]

@@ -17,7 +17,8 @@ rows (ShardGroup.all_gather, (L, S, ...)) and add them in shard order.
       (the rehash).
   K11b shard_alpha_normal_eq: from K2a's per-shard correspondences, J =
       [R^T n, p x R^T n] and Z = [vec(J J^T) | J r]; for each of A robust
-      deltas the weighted sum of Z (A, 42) and the count; or the raw
+      deltas the weighted sum of Z (A, 42) and the count, the product W @ Z
+      on a thread-block cluster an (instance, 32 alphas); or the raw
       moments [sum w, sum |r| w, sum r^2 w] of iteration 0.
   K11c shard_sample: one draw per stratum of the valid ranks of |r| /
       scale with the shard's uniforms, into the shard's slice of the
@@ -48,7 +49,8 @@ from ..utils import lie
 
 __all__ = ["owned_cap", "owner_inv", "shard_own", "shard_own_plain", "shard_owner",
            "shard_owner_plain", "scale_from_moments", "shard_alpha_normal_eq",
-           "shard_alpha_normal_eq_plain", "shard_sample", "shard_sample_plain",
+           "shard_alpha_normal_eq_plain", "shard_alpha_normal_eq_shape", "shard_sample",
+           "shard_sample_plain",
            "shard_gn_select", "shard_gn_select_plain", "buffer_width"]
 
 
@@ -188,7 +190,7 @@ def shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, *, n
     kernels.check(T, "T", torch.float32, (lanes, 16))
     kernels.check(flags, "flags", torch.int32, (lanes, 3))
     if moments:
-        out = torch.zeros((g, 3), dtype=torch.float32, device=r.device)
+        out = torch.empty((g, 3), dtype=torch.float32, device=r.device)   # all written
         n_shards, a = 1, 1
     else:
         n_shards = mom.shape[1]
@@ -286,6 +288,17 @@ def shard_sample_plain(r, valid, flags, mom, u, *, first: int, n_local: int, off
 # ---------------------------------------------------------------------------
 # K11d: select, solve, retract
 # ---------------------------------------------------------------------------
+
+def shard_alpha_normal_eq_shape() -> dict:
+    """K11b's launch shape as built: CTAs a cluster, threads a CTA, alphas
+    a cluster. Builds the kernels if needed."""
+    import ctypes
+    fn = kernels.library("shard").lo_shard_alpha_normal_eq_shape
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    out = (ctypes.c_int * 3)()
+    fn(out)
+    return dict(zip(("cluster", "threads", "alphas"), list(out)))
+
 
 def shard_gn_select(buf, T, flags, consts, pick, cfg, *, n_alpha: int, quota: int,
                     use_pko: bool):

@@ -37,6 +37,22 @@ JAX's with its own k-means draw over 104.
 K8g: the twin's products at b = 1, 5 and 16 against a numpy float32
 product of re and im by the filter, and against JAX's broadcast complex
 product with subnormals flushed as XLA on the CPU flushes them, exactly.
+
+K2b: correspondence rows (synthetic.normal_eq_rows) with n not a multiple
+of the kernel's cluster of 8 x 512 threads, n below a warp, no valid row,
+fewer valid rows than min_correspondence_points, normals with no x
+component (the elimination swaps rows), steps just below and above the
+1e-6 small-angle threshold, a NaN residual (a non-finite step, which
+leaves T as it was) and the Cauchy loss: the twin's T against JAX's
+_robust_weights and _gn_step at tests/test_torch_icp.py's tolerances
+(translation 1e-4, rotation 1e-4 rad), its H (with the 1e-8 floor) at 1e-5
+of the largest entry, its flags exactly.
+
+K11b: shard rows with a row count that is not a multiple of the kernel's
+32-row chunk, A = 1 (no PKO) and A = 101, a shard with no valid row, a
+done lane and the robust loss off: the twin's (A, 42) systems against
+JAX's W @ Z as sharded_map.py:318-330 writes it at 1e-5 of the largest
+entry, the count exactly, a done lane's rows unwritten.
 """
 import numpy as np
 import jax
@@ -49,11 +65,14 @@ from lidar_odometry_tpu.ops import iris as jiris
 from lidar_odometry_tpu.ops import pko as jpko
 from lidar_odometry_tpu.ops import voxel_filter as jvf
 from lidar_odometry_tpu.parallel import distributed_pgo as jdpgo
+from lidar_odometry_tpu.utils import lie as jlie
 from lidar_odometry_tpu_torch.io import synthetic
+from lidar_odometry_tpu_torch.ops import icp as ticp
 from lidar_odometry_tpu_torch.ops import iris as tiris
 from lidar_odometry_tpu_torch.ops import pko as tpko
 from lidar_odometry_tpu_torch.ops import voxel_filter as tvf
 from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+from lidar_odometry_tpu_torch.parallel import shard_ops as so
 
 # the card tests' K1 cases: (run lengths, invalid rows, cap)
 K1_CASES = {
@@ -276,3 +295,152 @@ def test_gabor_product_twin(b):
     np.testing.assert_array_equal(ref.real, flush(spec.real[:, None] * fz))
     np.testing.assert_array_equal(ref.imag, flush(spec.imag[:, None] * fz))
     np.testing.assert_array_equal(filt, np.asarray(jiris._filters()))
+
+
+# the card tests' K2b cases: synthetic.normal_eq_rows arguments, with the
+# loss and min_correspondence_points where they differ from ICPConfig's
+K2B_CASES = {
+    "n_not_a_multiple_of_the_cluster": dict(n=14339, seed=1),
+    "n_below_a_warp": dict(n=20, seed=2, min_corr=5),
+    "no_valid_point": dict(n=1000, seed=3, n_valid=0),
+    "count_below_min": dict(n=1000, seed=4, n_valid=30),
+    "pivot_rows_swap": dict(n=2000, seed=5, flat_x=True),
+    "step_below_small_angle": dict(n=3000, seed=6, step=(1e-6, -5e-7, 2e-7, 2e-7, -1.5e-7, 1e-7)),
+    "step_above_small_angle": dict(n=3000, seed=7, step=(2e-4, -1e-4, 5e-5, 2e-6, -1.5e-6, 1e-6)),
+    "non_finite_step": dict(n=3000, seed=8, nan_residual=True),
+    "cauchy": dict(n=5000, seed=9, loss="cauchy"),
+}
+K2B_SCALE, K2B_ALPHA = 0.05, 40
+
+
+def _k2b_case(case):
+    kw = dict(K2B_CASES[case])
+    loss, min_corr = kw.pop("loss", "huber"), kw.pop("min_corr", 50)
+    return synthetic.normal_eq_rows(**kw), loss, min_corr
+
+
+def _pivot_swaps(H):
+    """Whether Gaussian elimination with partial pivoting on H swaps rows."""
+    A = np.array(H, np.float64)
+    for c in range(6):
+        p = c + int(np.argmax(np.abs(A[c:, c])))
+        if abs(A[p, c]) > abs(A[c, c]):
+            return True
+        A[c + 1:] -= np.outer(A[c + 1:, c] / A[c, c], A[c])
+    return False
+
+
+@pytest.mark.parametrize("case", sorted(K2B_CASES))
+def test_normal_eq_twin_on_kernel_edges(pko_consts, case):
+    jc, tc = pko_consts
+    (p, nrm, r, valid, T), loss, min_corr = _k2b_case(case)
+    tcfg = ticp.ICPConfig(loss_type=loss, min_correspondence_points=min_corr)
+    jcfg = jicp.ICPConfig(loss_type=loss, min_correspondence_points=min_corr)
+    count = int(valid.sum())
+    tt = torch.as_tensor
+    T_out, flags, hg = ticp.icp_normal_eq(
+        tt(p), tt(nrm), tt(r), tt(valid), tt(T).reshape(16), torch.full((1,), K2B_SCALE),
+        torch.zeros((3,), dtype=torch.int32), torch.tensor([count, K2B_ALPHA], dtype=torch.int32),
+        tc, tcfg)
+    # JAX: the residual from a target q on the plane's side at distance r
+    pw = p @ T[:3, :3].T + T[:3, 3]
+    q = (pw - nrm * r[:, None]).astype(np.float32)
+    norm_resid = np.abs(r) / np.float32(max(K2B_SCALE, 1e-6))
+    jT, dt_n, dw_n = jicp._gn_step(jnp.asarray(T), jnp.asarray(p), jnp.asarray(nrm),
+                                   jnp.asarray(q), jnp.asarray(valid), jnp.asarray(norm_resid),
+                                   jc.alphas[K2B_ALPHA], jcfg)
+    insufficient = count < min_corr
+    tol = (jcfg.translation_tolerance, jcfg.rotation_tolerance)
+    conv = float(dt_n) < tol[0] and float(dw_n) < tol[1]
+    # the flags turn on the norms: no case sits within 1 % of a tolerance
+    assert all(abs(float(v) - t) > 1e-2 * t for v, t in zip((dt_n, dw_n), tol))
+    ref_T = T if insufficient else np.asarray(jT)
+    assert flags.tolist() == [int(insufficient or conv), int(insufficient),
+                              0 if insufficient else count]
+    got = T_out.numpy().reshape(4, 4)
+    np.testing.assert_allclose(got[:3, 3], ref_T[:3, 3], atol=1e-4)
+    Rd = got[:3, :3].astype(np.float64).T @ ref_T[:3, :3].astype(np.float64)
+    w = np.array([Rd[2, 1] - Rd[1, 2], Rd[0, 2] - Rd[2, 0], Rd[1, 0] - Rd[0, 1]]) / 2
+    assert float(np.linalg.norm(w)) < 1e-4
+    # H from the twin's 21 upper entries, against JAX's normal equations
+    a = nrm @ T[:3, :3]
+    J = np.concatenate([a, np.cross(p, a)], 1).astype(np.float64)
+    wr = np.asarray(jicp._robust_weights(jnp.asarray(norm_resid), jc.alphas[K2B_ALPHA], loss))
+    Hj = J.T @ (J * (wr * valid)[:, None]) + np.eye(6) * 1e-8   # the floor _gn_step adds
+    H = np.zeros((6, 6))
+    H[np.triu_indices(6)] = hg.numpy()[:21]
+    H = H + np.triu(H, 1).T
+    assert np.abs(H - Hj).max() <= 1e-5 * max(np.abs(Hj).max(), 1e-8)
+    if case == "pivot_rows_swap":
+        assert _pivot_swaps(Hj)
+    if case == "non_finite_step":
+        assert not np.isfinite(hg.numpy()[21:]).all() and np.array_equal(got, T)
+    if case.startswith("step_"):
+        theta = float(np.linalg.norm(np.asarray(K2B_CASES[case]["step"][3:])))
+        assert (theta < 1e-6) == (case == "step_below_small_angle")
+
+
+# the card tests' K11b cases: lanes x shards an instance set, rows a shard,
+# alphas, loss, robust loss, a shard of lane 0 with no valid row, a done lane
+K11B_CASES = {
+    "rows_not_a_multiple_of_the_chunk": dict(lanes=1, shards=4, n=1013, n_alpha=101),
+    "one_alpha": dict(lanes=1, shards=4, n=700, n_alpha=1),
+    "alphas_101_cauchy": dict(lanes=1, shards=4, n=2048, n_alpha=101, loss="cauchy"),
+    "a_shard_without_valid_rows": dict(lanes=1, shards=4, n=700, n_alpha=101, empty=2),
+    "done_lane": dict(lanes=2, shards=2, n=700, n_alpha=101, done=1),
+    "robust_loss_off": dict(lanes=1, shards=4, n=700, n_alpha=101, robust=False),
+}
+
+
+def _k11b_case(case):
+    """A K11b case's wrapper arguments (p, nrm, r, valid, T, flags, mom,
+    alphas), config and shards a lane."""
+    c = K11B_CASES[case]
+    p, nrm, r, valid, T, mom = synthetic.normal_eq_shards(c["lanes"], c["shards"], c["n"],
+                                                          seed=len(case), empty=c.get("empty"))
+    cfg = ticp.ICPConfig(loss_type=c.get("loss", "huber"), use_robust_loss=c.get("robust", True))
+    flags = torch.zeros((c["lanes"], 3), dtype=torch.int32)
+    if "done" in c:
+        flags[c["done"]] = torch.tensor([1, 0, 77], dtype=torch.int32)
+    alphas = (tpko.make_pko_constants(*PKO_ARGS, device="cpu").alphas if c["n_alpha"] > 1
+              else torch.full((1,), cfg.robust_loss_delta))
+    T16 = torch.as_tensor(T).reshape(1, 16).repeat(c["lanes"], 1).contiguous()
+    tt = torch.as_tensor
+    return (tt(p), tt(nrm), tt(r), tt(valid), T16, flags, tt(mom), alphas), cfg, c["shards"]
+
+
+@pytest.mark.parametrize("case", sorted(K11B_CASES))
+def test_alpha_normal_eq_twin_on_kernel_edges(case):
+    args, cfg, n_local = _k11b_case(case)
+    p, nrm, r, valid, T16, flags, mom, alphas = args
+    g, a = p.shape[0], alphas.shape[0]
+    out = torch.full((g, so.buffer_width(a, n_local, 25)), -7.0)
+    so.shard_alpha_normal_eq(*args, cfg, n_local=n_local, out=out)
+    for i in range(g):
+        lane = i // n_local
+        if bool(flags[lane, 0]):
+            assert bool((out[i] == -7.0).all())
+            continue
+        # JAX: the lane's moments -> scale (sharded_map.py:380-386), then W @ Z
+        m = jnp.sum(jnp.asarray(mom[lane].numpy()), axis=0)
+        n0 = jnp.maximum(m[0], 1.0)
+        mean = m[1] / n0
+        scale = jnp.sqrt(jnp.maximum(m[2] / n0 - mean * mean, 0.0)) / 6.0
+        Rj = jnp.asarray(T16[lane].view(4, 4)[:3, :3].numpy())
+        an = jnp.asarray(nrm[i].numpy()) @ Rj
+        J = jnp.concatenate([an, jnp.cross(jnp.asarray(p[i].numpy()), an)], axis=-1)
+        Z = jnp.concatenate([(J[:, :, None] * J[:, None, :]).reshape(-1, 36),
+                             J * jnp.asarray(r[i].numpy())[:, None]], axis=1)
+        w = jnp.asarray(valid[i].numpy()).astype(jnp.float32)
+        if cfg.use_robust_loss:
+            nr = jnp.abs(jnp.asarray(r[i].numpy())) / jnp.maximum(scale, 1e-6)
+            W = jicp._robust_weights(nr[None, :], jnp.asarray(alphas.numpy())[:, None],
+                                     cfg.loss_type) * w[None, :]
+        else:
+            W = jnp.broadcast_to(w, (a, w.shape[0]))
+        ref = np.asarray(W @ Z).reshape(-1)
+        got = out[i, :a * 42].numpy()
+        assert np.abs(got - ref).max() <= 1e-5 * max(np.abs(ref).max(), 1e-30)
+        assert float(out[i, -1]) == float(valid[i].sum())
+    if case == "a_shard_without_valid_rows":
+        assert bool((out[2, :a * 42] == 0.0).all()) and float(out[2, -1]) == 0.0

@@ -4,12 +4,22 @@ of its sources at their phase comments, building the copy with the port's
 nvcc flags, and reading the stamps back, split by phase.
 
 A stamp is taken by thread 0 of block LO_STAMP_BLOCK (a define of the
-build) and appends (phase, clock64) to a log in device memory. Every
+build; blockIdx.y and .z 0) and appends (phase, clock64) to a log in device memory. Every
 stamped function counts its stamps in a register of its own and writes
 a region of the log of its own; the log is read back sorted by clock, so
 the stamps of a kernel and of the device functions it calls fall in the
 order they ran, and the cycles from one stamp to the next are its
 phase's. A phase that runs once a row is summed over the rows.
+
+With LO_STAMP_BLOCK -1 thread 0 of every block (blockIdx.x) stamps, into
+EVERY slots of the region of its own; split(..., every=EVERY) then reads
+each block's stamps apart (clock64 counts on each SM, so stamps of two
+blocks are never compared). A kernel whose tail runs in whichever block
+finishes last (a ticket) is read from the block that stamped the tail.
+
+A kernel without phase comments (an older tree's) is stamped at anchors:
+(regex, label) pairs, a phase mark put before the first line of the body
+that matches each regex, in order.
 
 It needs the card and nvcc; it imports nothing of JAX.
 """
@@ -25,13 +35,21 @@ CSRC = ROOT / "lidar_odometry_tpu_torch" / "csrc"
 MARK = re.compile(r"^\s*// ---- (.+?)(?: ----)?\s*$")
 REGION = 16384      # stamps a function keeps of one launch
 REGIONS = 4
+EVERY = 64          # stamps a block keeps when every block stamps
 PRELUDE = f"""#include <cuda_runtime.h>
 __device__ long long lo_log_t[{REGIONS * REGION}];
 __device__ int lo_log_k[{REGIONS * REGION}];
+#if LO_STAMP_BLOCK < 0
+#define LO_STAMP_AT(r) (lo_i + (int)blockIdx.x * {EVERY})
+#define LO_STAMP_OK(r) (lo_i < (r) * {REGION} + {EVERY} && LO_STAMP_AT(r) < ((r) + 1) * {REGION})
+#else
+#define LO_STAMP_AT(r) lo_i
+#define LO_STAMP_OK(r) (blockIdx.x == LO_STAMP_BLOCK && lo_i < ((r) + 1) * {REGION})
+#endif
 #define LO_STAMP(r, k) \\
   do {{ const long long lo_c = clock64(); \\
-    if (threadIdx.x == 0 && blockIdx.x == LO_STAMP_BLOCK && lo_i < ((r) + 1) * {REGION}) {{ \\
-      lo_log_t[lo_i] = lo_c; lo_log_k[lo_i] = (k); }} \\
+    if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && LO_STAMP_OK(r)) {{ \\
+      lo_log_t[LO_STAMP_AT(r)] = lo_c; lo_log_k[LO_STAMP_AT(r)] = (k); }} \\
     ++lo_i; }} while (0)
 """
 EPILOGUE = f"""
@@ -60,11 +78,13 @@ class Stamps:
         self.labels.append(label)
         return f"{indent}LO_STAMP({region}, {len(self.labels) - 1});"
 
-    def function(self, lines: list, start: str, first: str = None, last: str = None) -> list:
+    def function(self, lines: list, start: str, first: str = None, last: str = None,
+                 anchors=()) -> list:
         """`lines` with the function whose first line matches the regex
         `start` stamped: a stamp before each phase comment ("// ---- name")
-        of its body, and, where given, one labelled `first` at the body's
-        start and one labelled `last` before its closing line "}"."""
+        of its body (and before each anchor's line, for a body without
+        them), and, where given, one labelled `first` at the body's start
+        and one labelled `last` before its closing line "}"."""
         region = self._regions
         self._regions += 1
         if region >= REGIONS:
@@ -78,12 +98,19 @@ class Stamps:
         if first:
             out.append(self._stamp(region, first, "  "))
         marks = 0
+        todo = list(anchors)
         for line in lines[body + 1:end]:
             m = MARK.match(line)
+            if todo and re.search(todo[0][0], line):
+                out.append(self._stamp(region, todo.pop(0)[1],
+                                       line[:len(line) - len(line.lstrip())]))
+                marks += 1
             if m:
                 out.append(self._stamp(region, m.group(1), line[:len(line) - len(line.lstrip())]))
                 marks += 1
             out.append(line)
+        if todo:
+            raise SystemExit(f"anchor {todo[0][0]!r} not found in the function {start!r}")
         if not marks:
             raise SystemExit(f"no phase comments ('// ---- name') in the function {start!r}")
         if last:
@@ -131,16 +158,26 @@ def clear(lib) -> None:
         raise SystemExit("clearing the stamp log failed")
 
 
-def split(lib, labels: list):
+def split(lib, labels: list, every: bool = False):
     """The log of the launches since clear(), in the order the stamps ran:
     ({phase: (cycles to the next stamp, summed; stamps)}, total cycles from
-    the first stamp to the last, stamps read)."""
+    the first stamp to the last, stamps read). With `every` (a build with
+    LO_STAMP_BLOCK -1), {block: that triple} for each block that stamped."""
     n = REGIONS * REGION
     t = (ctypes.c_longlong * n)()
     k = (ctypes.c_int * n)()
     if lib.lo_read_log(ctypes.addressof(t), ctypes.addressof(k)):
         raise SystemExit("reading the stamp log failed")
-    st = sorted((t[i], labels[k[i]]) for i in range(n) if t[i])
+    if every:
+        blocks = {}
+        for i in range(n):
+            if t[i]:
+                blocks.setdefault((i % REGION) // EVERY, []).append((t[i], labels[k[i]]))
+        return {b: _phases(sorted(st)) for b, st in sorted(blocks.items())}
+    return _phases(sorted((t[i], labels[k[i]]) for i in range(n) if t[i]))
+
+
+def _phases(st: list):
     if len(st) < 2:
         raise SystemExit("fewer than two stamps ran")
     phases = {}

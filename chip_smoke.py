@@ -24,7 +24,10 @@ Phases, each of which exits nonzero on failure:
          capacity 14336, a map of 65536 parents built by the port's own
          first keyframes); K1 also on voxel runs that cross its 512-entry
          tiles, one run longer than a tile, at two caps, against the twin
-         on the card and on the CPU, two calls bit-equal;
+         on the card and on the CPU, two calls bit-equal; K4c also at the
+         rehash's shape (every one of the 65536 slots), its live-child
+         masks equal to the twin's and no non-planar verdict different
+         outside a 1e-5 band around the threshold at either shape;
        - the KD-tree kernels (K5a grid_knn, K5b plane_fit_5nn) at the mid360
          shapes (scan capacity 16384, 0.4 m voxels, radius 2, a map of 65536
          parents built without surfels by the mid360 path's first keyframes);
@@ -61,7 +64,8 @@ Phases, each of which exits nonzero on failure:
          alpha and T within 1e-6, each shard of a launch bit-equal to a
          one-shard launch, and K2a's one launch over every shard (and over
          2 lanes x 4 shards) bit-equal to its per-instance launches; times
-         at 4 shards;
+         at 4 shards, K11a's device times at every S and at the step
+         path's 2 lanes x 4 shards (with and without the lanes' poses);
   4. the surfel path: make_chunk_runner over chunks of 20 frames; scans/s
      after the first chunk, ATE against the synthetic ground truth (must
      stay below 0.5 m), keyframes, map size;
@@ -116,10 +120,10 @@ Phase 3 also holds K1, K2a, K3 and K2b at B = 4 (the first frame of each
 lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs. K2b (B = 1, B = 4,
 the weight residual) and K11b (at each S) are also held to two calls
-bit-equal; for both, the cluster size they launch with, ptxas's stack
-frame (0 bytes, else the run fails) and one launch a call with no torch
-op that launches device work beside it (no zero fill, read from
-torch.profiler's op events) are printed and kept in
+bit-equal; for both, the cluster size they launch with, and for them,
+K4c and K11a ptxas's stack frame (0 bytes, else the run fails) and one
+launch a call with no torch op that launches device work beside it (no
+zero fill, read from torch.profiler's op events) are printed and kept in
 the kernels line, with K11b's device and as-issued times and bound at
 every S.
 Each path is run with every kernel's launch count set to 0 just before it
@@ -133,8 +137,9 @@ kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
 the loops path's kernels, K10a-d and K11a-d, the step path K11a-d, K1,
 K2a and K4a-c; on both, K2a once an ICP iteration (as many launches as
 K11d's), one launch for every lane and shard. `--profile` also profiles
-20 frames of the sharded path. Lanes 1-3's scans are made in spawned
-worker processes while the parent makes the other scans.
+20 frames of the sharded path and of the step path. Lanes 1-3's scans
+are made in spawned worker processes while the parent makes the other
+scans.
 
 It imports nothing of JAX. It needs torch with CUDA and a CUDA toolkit.
 """
@@ -304,25 +309,28 @@ def launches_of(fn, kernel: str):
     return kernels.KERNELS[kernel].launches - n0, ops
 
 
-def check_cluster_kernel(rows, name, src, kernel, shape, fns):
-    """A cluster kernel's build and launch: ptxas's report of `kernel`
-    (0 bytes of stack, else fail), its launch shape, and for each call in
-    `fns` one launch of the kernel `name` and no torch op that launches
-    device work (no zero fill), all kept in rows[name]."""
+def check_one_launch(rows, name, src, kernel, fns, shape=None):
+    """A kernel's build and launch: ptxas's report of `kernel` (0 bytes of
+    stack, else fail), its launch shape where given (a cluster kernel's),
+    and for each call in `fns` one launch of the kernel `name` and no torch
+    op that launches device work (no zero fill), all kept in rows[name]."""
     from lidar_odometry_tpu_torch import kernels
     info = kernels.ptxas_info(src, kernel)
     ran = [launches_of(fn, name) for fn in fns]
-    print(f"  {name}: a cluster of {shape['cluster']} CTAs x {shape['threads']} threads "
-          f"({shape}); ptxas {kernel}: {info['registers']} registers, {info['stack']} bytes "
-          f"of stack, spills {info['spill_stores']} / {info['spill_loads']} bytes; a call: "
-          f"{[n for n, _ in ran]} launches, torch ops that launch {[o for _, o in ran]}",
+    what = ("" if shape is None else
+            f"a cluster of {shape['cluster']} CTAs x {shape['threads']} threads ({shape}); ")
+    print(f"  {name}: {what}ptxas {kernel}: {info['registers']} registers, {info['stack']} "
+          f"bytes of stack, spills {info['spill_stores']} / {info['spill_loads']} bytes; a "
+          f"call: {[n for n, _ in ran]} launches, torch ops that launch {[o for _, o in ran]}",
           flush=True)
     if info["stack"] != 0:
         fail(f"{name}: ptxas reports {info['stack']} bytes of stack for {kernel}")
     for n, ops in ran:
         if n != 1 or ops:
             fail(f"{name}: one call launched it {n} times beside the torch ops {ops}")
-    rows[name].update(launch_shape=shape, ptxas=info, launches_a_call=1)
+    rows[name].update(ptxas=info, launches_a_call=1)
+    if shape is not None:
+        rows[name].update(launch_shape=shape)
 
 
 def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library=None, note="",
@@ -475,6 +483,65 @@ def setup():
 # phase 3: each kernel against its plain twin
 # ---------------------------------------------------------------------------
 
+def k4c_gaps(kernel_out, twin_out, l0, r_slot, c1: int, thr: float) -> dict:
+    """K4c's outputs (srows, non_planar, kidmask) against its plain twin's
+    on one input: the live-child masks that differ (kid); the largest gap
+    (err) of the means and flags of every row, and of the planarities and
+    normals of the rows the map can use (at least MIN_OCCUPIED_CHILDREN
+    live children), the normals where the two smallest eigenvalues of the
+    covariance are apart (float64); err split into the normals'
+    (err_normal, with (lambda_1 - lambda_0) / lambda_2 of its row, sep)
+    and the rest (err_rest); the non-planar verdicts that differ inside
+    the 1e-5 band around the threshold and outside it; the rows with an
+    ill-conditioned normal and those with a live child; and the planarity
+    gap of the other rows (plan_few). Their smallest eigenvalue is ~0 (3
+    live children are coplanar), which the float32 closed form does not
+    resolve: their planarity is rounding noise (~2e-4 from the twin, the
+    old kernel's too) and their normal may point anywhere (the twin itself
+    up to ~1 from float64); no surfel of theirs is used (PERF.md §6)."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import voxel_map as vm
+    (sk, nk, kk), (sp, np_, kp) = kernel_out, twin_out
+    rows_ix = (torch.clamp(r_slot, 0, c1 - 1)[:, None] * 27
+               + torch.arange(27, device=l0.device)[None, :]).reshape(-1)
+    blk = torch.where((r_slot >= 0)[:, None, None], l0[rows_ix].view(-1, 27, 4), 0.0)
+    _c, _m, cov, kids = vm._block_stats(blk)
+    # on the host: cuSOLVER's batched eigvalsh refuses a batch of 65536
+    lam = torch.linalg.eigvalsh(cov.double().cpu()).to(cov.device)
+    used = kids.sum(1) >= vm.MIN_OCCUPIED_CHILDREN
+    well = ((lam[:, 1] - lam[:, 0]) > 1e-4 * (lam[:, 2] + 1e-6)) & used
+    gap = (sk - sp).abs()
+    top = lambda x: float(x.max()) if x.numel() else 0.0
+    normal = torch.where(well, gap[:, :3].max(1).values, 0.0)
+    err_normal = float(normal.max())
+    # the relative gap of the two smallest eigenvalues at the largest normal gap
+    at = int(normal.argmax())
+    sep = float((lam[at, 1] - lam[at, 0]) / (lam[at, 2] + 1e-6))
+    err_rest = max(top(gap[:, [3, 4, 5, 7]]), top(gap[used, 6]))
+    near = (sp[:, 6] - thr).abs() < 1e-5
+    flips = nk != np_
+    return dict(err=max(err_rest, err_normal), err_normal=err_normal, err_rest=err_rest,
+                sep=sep, kid=int((kk != kp).sum()),
+                flips_in=int((flips & near).sum()), flips_out=int((flips & ~near).sum()),
+                ill=int((~well & used).sum()), live=int((kp != 0).sum()),
+                plan_few=top(gap[~used, 6]))
+
+
+def k4c_agreement(l0, r_slot, c1: int, thr: float) -> dict:
+    """K4c against its plain twin on one input (k4c_gaps): fails unless
+    the live-child masks are equal and no verdict differs outside the
+    band."""
+    from lidar_odometry_tpu_torch.ops import voxel_map as vm
+    out = k4c_gaps(vm.map_surfel_recompute(l0, r_slot, c1, thr),
+                   vm.map_surfel_recompute_plain(l0, r_slot, c1, thr), l0, r_slot, c1, thr)
+    if out["kid"]:
+        fail(f"map_surfel_recompute: {out['kid']} live-child masks differ")
+    if out["flips_out"]:
+        fail(f"map_surfel_recompute: {out['flips_out']} non-planar verdicts differ outside "
+             f"the 1e-5 band")
+    return out
+
+
 def check_kernels(scans_np, cfg, consts, kw):
     import torch
     from lidar_odometry_tpu_torch.models import fast_pipeline as fp
@@ -577,10 +644,10 @@ def check_kernels(scans_np, cfg, consts, kw):
                                                 aux_k, consts, cfg)),
         N * (12 + 12 + 4 + 1) + 64 + 28 + 64 + 12 + 108, nvld * 90,
         note=f"H,g relative err {hg_rel:.2e}; two calls bit-equal")
-    check_cluster_kernel(rows, "icp_normal_eq", "icp", "normal_eq_kernel",
-                         icp.icp_normal_eq_shape(),
-                         [lambda: icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k,
-                                                    consts, cfg)])
+    check_one_launch(rows, "icp_normal_eq", "icp", "normal_eq_kernel",
+                     [lambda: icp.icp_normal_eq(feat, nrm_k, r_k, v_k, T, s_k, flags, aux_k,
+                                                consts, cfg)],
+                     icp.icp_normal_eq_shape())
 
     # ---- K4a evict scan (a 40 m radius, so that parents do evict) ----
     l0 = state.l0_data
@@ -631,30 +698,36 @@ def check_kernels(scans_np, cfg, consts, kw):
     live_par = torch.nonzero(state.l1_meta[:C1, 2] >= vm.MIN_OCCUPIED_CHILDREN).flatten()[:r_n]
     r_slot = torch.full((r_n,), -1, dtype=torch.int64, device=dev)
     r_slot[:live_par.numel()] = live_par
-    sk, nk, kk = vm.map_surfel_recompute(l0, r_slot, C1, K.f32(0.1))
-    sp, np_, kp = vm.map_surfel_recompute_plain(l0, r_slot, C1, K.f32(0.1))
-    if not torch.equal(kk, kp):
-        fail("map_surfel_recompute: live-child masks differ")
-    # normals are defined only where the two smallest eigenvalues are apart
-    rows_ix = (torch.clamp(r_slot, 0, C1 - 1)[:, None] * 27
-               + torch.arange(27, device=dev)[None, :]).reshape(-1)
-    blk = torch.where((r_slot >= 0)[:, None, None], l0[rows_ix].view(-1, 27, 4), 0.0)
-    _c, _m, cov, _ok = vm._block_stats(blk)
-    lam = torch.linalg.eigvalsh(cov.double())
-    well = (lam[:, 1] - lam[:, 0]) > 1e-4 * (lam[:, 2] + 1e-6)
-    err = max(float((sk[:, 3:] - sp[:, 3:]).abs().max()),
-              float((sk[well, :3] - sp[well, :3]).abs().max()))
-    near = (sp[:, 6] - 0.1).abs() < 1e-5
-    flips = int(((nk != np_) & ~near).sum())
-    if flips:
-        fail(f"map_surfel_recompute: {flips} non-planar verdicts differ")
+    thr = K.f32(0.1)
+    agree = k4c_agreement(l0, r_slot, C1, thr)
     n_live = int(live_par.numel())
-    row("map_surfel_recompute", err, 1e-4,
-        lambda: vm.map_surfel_recompute(l0, r_slot, C1, K.f32(0.1)),
-        time_ms(lambda: vm.map_surfel_recompute_plain(l0, r_slot, C1, K.f32(0.1))),
+    row("map_surfel_recompute", agree["err"], 1e-4,
+        lambda: vm.map_surfel_recompute(l0, r_slot, C1, thr),
+        time_ms(lambda: vm.map_surfel_recompute_plain(l0, r_slot, C1, thr)),
         r_n * 8 + n_live * 27 * 16 + r_n * (32 + 1 + 4), n_live * (27 * 30 + 200),
-        note=f"{n_live} parents, {int((~well[:n_live]).sum())} with an ill-conditioned "
-             f"normal left out of the normal comparison")
+        note=f"{n_live} parents, {agree['ill']} with an ill-conditioned normal left out of "
+             f"the normal comparison, {agree['flips_in']} verdicts flipped inside the 1e-5 band")
+    # the rehash's shape (bulk_build): every slot of the map, R = c1
+    every = torch.arange(C1, device=dev)
+    agree_r = k4c_agreement(l0, every, C1, thr)
+    n_occ = agree_r["live"]
+    b_r = bound_ms(C1 * 8 + C1 * 27 * 16 + C1 * (32 + 1 + 4), n_occ * (27 * 30 + 200))
+    recompute_all = lambda: vm.map_surfel_recompute(l0, every, C1, thr)
+    rehash = dict(rehash_ms=time_ms(recompute_all), rehash_device_ms=device_ms(recompute_all),
+                  rehash_bound_ms=b_r[0], rehash_bound_by=b_r[1],
+                  rehash_max_abs_err=agree_r["err"], rehash_parents=n_occ)
+    rows["map_surfel_recompute"].update(rehash)
+    dev_r = rehash["rehash_device_ms"]
+    print(f"  map_surfel_recompute at the rehash's shape (R = c1 = {C1}, {n_occ} parents with a "
+          f"live child): max_abs_err {agree_r['err']:.3e} (tol 1e-04; the planarity of parents "
+          f"with fewer than {vm.MIN_OCCUPIED_CHILDREN}, unused: {agree_r['plan_few']:.1e}) | "
+          f"kernel {rehash['rehash_ms']:.4f} ms (device "
+          + ("n/a" if dev_r is None else f"{dev_r:.4f}")
+          + f" ms), bound {b_r[0]:.5f} ms ({b_r[1]})", flush=True)
+    if agree_r["err"] > 1e-4:
+        fail(f"map_surfel_recompute at R = c1: {agree_r['err']} > 1e-4")
+    check_one_launch(rows, "map_surfel_recompute", "voxel_map", "surfel_recompute_kernel",
+                     [lambda: vm.map_surfel_recompute(l0, r_slot, C1, thr)])
     return rows, state
 
 
@@ -2101,6 +2174,14 @@ def check_shard_lanes(frames, icfg, consts, st, g, inv):
                                None if Tx is None else Tx[lane:lane + 1], s, 0, s, cap, inv)
             if not all(torch.equal(inst(x, lane), y) for x, y in zip(own_k, one)):
                 bad.append(f"K11a lane {lane}{'' if Tx is None else ' at a pose'}")
+    # K11a's times at the step path's shape (one cluster a lane)
+    own_lanes = dict(
+        lanes_ms=time_ms(lambda: so.shard_own(pts, mask, T, s, 0, s, cap, inv)),
+        lanes_device_ms=device_ms(lambda: so.shard_own(pts, mask, T, s, 0, s, cap, inv)),
+        lanes_device_ms_without_T=device_ms(lambda: so.shard_own(pts, mask, None, s, 0, s, cap,
+                                                                 inv)),
+        lanes_bound_ms=bound_ms(b * (n * 13 + 64) + b * s * (cap * 17 + 4), 0.0)[0],
+        lanes_shape=f"{b} lanes x {s} shards, N {n}, cap {cap}")
     p_own, ok = so.shard_own(pts, mask, T, s, 0, s, cap, inv)[:2]
     live = torch.zeros((b, 3), dtype=torch.int32, device=dev)
     corr = [icp.icp_correspond(p_own[i], ok[i], T[i // s], live[i // s],
@@ -2185,6 +2266,13 @@ def check_shard_lanes(frames, icfg, consts, st, g, inv):
     if (err["own"] != 0.0 or err["sample"] != 0.0 or err["count"] != 0.0 or err["mom"] > 1e-5
             or err["H"] > 1e-5 or err["g"] > 1e-5 or err["T"] > 1e-6):
         fail(f"shard lanes: a kernel differs from its plain version: {err}")
+    fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
+    print(f"  shard_own at the step path's shape ({own_lanes['lanes_shape']}): "
+          f"{own_lanes['lanes_ms']:.4f} ms as issued, "
+          f"{fmt(own_lanes['lanes_device_ms'])} on the device at the lanes' poses, "
+          f"{fmt(own_lanes['lanes_device_ms_without_T'])} without T, bound "
+          f"{own_lanes['lanes_bound_ms']:.5f} ms (bytes)", flush=True)
+    return own_lanes
 
 
 def check_shard_kernels(frames, cfg, rows):
@@ -2223,7 +2311,7 @@ def check_shard_kernels(frames, cfg, rows):
     n = feat.shape[0]
     inv = so.owner_inv(cfg.map_voxel_size, 3)
     args = (feat[None].contiguous(), mask[None].contiguous(), T1)
-    by_shards = {}
+    by_shards, own_by_shards = {}, {}
     for s in SHARD_CHECK:
         g = mesh.make_group(s, device=dev)
         st = sm.sharded_empty_map(0, C1, g)
@@ -2236,6 +2324,11 @@ def check_shard_kernels(frames, cfg, rows):
         own_k = so.shard_own(*args, s, 0, s, cap, inv)
         own_p = so.shard_own_plain(*args, s, 0, s, cap, inv)
         err_own = max(float((a.float() - b.float()).abs().max()) for a, b in zip(own_k, own_p))
+        own_by_shards[s] = dict(device_ms=device_ms(lambda: so.shard_own(*args, s, 0, s, cap,
+                                                                          inv)),
+                                device_ms_without_T=device_ms(lambda: so.shard_own(
+                                    *args[:2], None, s, 0, s, cap, inv)),
+                                cap=cap, over=own_k[3].tolist())
         ones = [so.shard_own(*args, s, k, 1, cap, inv) for k in range(s)]
         eq_own = all(torch.equal(a[0], b[k]) for k in range(s) for a, b in zip(ones[k], own_k))
         p_own, ok = own_k[0], own_k[1]
@@ -2322,7 +2415,9 @@ def check_shard_kernels(frames, cfg, rows):
         eq_sel = all(torch.equal(a[1], b[0]) for a, b in zip(lanes2, sk))
         sync()
         fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
-        print(f"  shards S={s}: K11a max_abs_err {err_own:.1e} (exact; over {own_k[3].tolist()}), "
+        print(f"  shards S={s}: K11a max_abs_err {err_own:.1e} (exact; over {own_k[3].tolist()}; "
+              f"{fmt(own_by_shards[s]['device_ms'])} ms on the device, "
+              f"{fmt(own_by_shards[s]['device_ms_without_T'])} without T), "
               f"K11b {fmt(by_shards[s]['device_ms'])} ms on the device "
               f"({by_shards[s]['ms']:.4f} as issued, bound {b_ne[0]:.5f}), two calls bit-equal "
               f"{twice}, moments rel {err_mom:.1e}, systems {err_ne:.2e} of {scale_ne:.3e}: "
@@ -2350,7 +2445,7 @@ def check_shard_kernels(frames, cfg, rows):
               f"ms)", flush=True)
         rows["icp_correspond"].update(instances=s, instances_ms=ms4, instances_device_ms=dev4,
                                       one_instance_ms=ms1, one_instance_device_ms=dev1)
-        check_shard_lanes(frames, icfg, consts, st, g, inv)
+        own_lanes = check_shard_lanes(frames, icfg, consts, st, g, inv)
         # times at the sharded path's count; bounds from this run's inputs
         g_inst = s * cap
         rows_n = [int(v) for v in valid.sum(1)]
@@ -2359,6 +2454,9 @@ def check_shard_kernels(frames, cfg, rows):
                time_ms(lambda: so.shard_own_plain(*args, s, 0, s, cap, inv), reps=5),
                pts_b + g_inst * (12 + 1 + 4) + 4 * s, 0.0,
                note=f"N {n}, S {s}, cap {cap}")
+        rows["shard_own"].update(own_lanes)
+        check_one_launch(rows, "shard_own", "shard", "own_compact_kernel",
+                         [lambda: so.shard_own(*args, s, 0, s, cap, inv)])
         W = torch.stack([icp.robust_weights(
             (r[k].abs() / torch.clamp(so.scale_from_moments(mom), min=1e-6))[None, :],
             consts.alphas[:, None], icfg.loss_type) * valid[k] for k in range(s)])
@@ -2370,8 +2468,8 @@ def check_shard_kernels(frames, cfg, rows):
                g_inst * (12 + 12 + 4 + 1) + s * ld * 4 + 64, sum(rows_n) * n_alpha * 2 * 27,
                library=lambda: torch.bmm(W, Z), note=f"A {n_alpha}, {sum(rows_n)} valid of {g_inst}; library: "
                                     f"torch.bmm of the materialised (S, A, cap) weights by Z")
-        check_cluster_kernel(rows, "shard_alpha_normal_eq", "shard", "alpha_ne_kernel",
-                             so.shard_alpha_normal_eq_shape(), [ne_k])
+        check_one_launch(rows, "shard_alpha_normal_eq", "shard", "alpha_ne_kernel", [ne_k],
+                         so.shard_alpha_normal_eq_shape())
         n_mom, ops_mom = launches_of(lambda: so.shard_alpha_normal_eq(
             p_own, nrm, r, valid, T1, flags, None, None, icfg, n_local=s, moments=True),
             "shard_alpha_normal_eq")
@@ -2384,6 +2482,7 @@ def check_shard_kernels(frames, cfg, rows):
                note=f"alpha {int(sk[2][0, 0])} (plain {int(sp[2][0, 0])})")
         del st
     rows["shard_alpha_normal_eq"]["by_shards"] = by_shards
+    rows["shard_own"]["by_shards"] = own_by_shards
     return rows
 
 
@@ -2505,38 +2604,50 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
     b = STEP_LANES
     step = pipeline.multichip_odometry_step(g, cfg, update_max_distance=120.0,
                                             planarity_threshold=0.1, pko_consts=consts)
-    state = pipeline.batched_sharded_map_state(b, 0, C1, g)
     scans = torch.as_tensor(lanes_np[:b], device=DEVICE)
-    T_prev = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
-    vel, last_kf = T_prev.copy(), T_prev.copy()
-    poses = np.zeros((b, LANE_FRAMES, 4, 4), np.float32)
-    n_kf = [0] * b
+
+    def drive(state, frames, host):
+        """The step over `frames`, the host's guesses and keyframe flags
+        carried in `host`; returns the map state."""
+        for f in frames:
+            feat, mask, _ = vf.voxel_filter(scans[:, f], scans.shape[2], voxel_size=0.5,
+                                            stride=1, out_capacity=SCAN_CAP,
+                                            compact_keys=vf.compact_keys_ok(0.5, 200.0))
+            T_prev, last_kf = host["T_prev"], host["last_kf"]
+            guess = T_prev @ host["vel"]
+            kf = []
+            for i in range(b):
+                d = float(np.linalg.norm(guess[i, :3, 3] - last_kf[i, :3, 3]))
+                c = np.clip((np.trace(last_kf[i, :3, :3].T @ guess[i, :3, :3]) - 1.0) * 0.5,
+                            -1, 1)
+                kf.append(f == 0 or d > 1.0 or float(np.arccos(c)) > 0.3)
+            T_new, state = step(state, feat, mask, torch.as_tensor(guess, device=DEVICE),
+                                torch.as_tensor(kf, device=DEVICE))
+            T_host = T_new.cpu().numpy()
+            host["vel"] = np.linalg.inv(T_prev) @ T_host
+            for i in range(b):
+                if kf[i]:
+                    last_kf[i] = T_host[i]
+                    host["n_kf"][i] += 1
+            host["T_prev"] = T_host
+            host["poses"][:, f] = T_host
+        return state
+
+    def fresh():
+        eye = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+        return dict(T_prev=eye, vel=eye.copy(), last_kf=eye.copy(), n_kf=[0] * b,
+                    poses=np.zeros((b, LANE_FRAMES, 4, 4), np.float32))
+
+    state = pipeline.batched_sharded_map_state(b, 0, C1, g)
+    host = fresh()
     sync()
     kernels.reset_counts()
     t0 = time.perf_counter()
-    for f in range(LANE_FRAMES):
-        feat, mask, _ = vf.voxel_filter(scans[:, f], scans.shape[2], voxel_size=0.5, stride=1,
-                                        out_capacity=SCAN_CAP,
-                                        compact_keys=vf.compact_keys_ok(0.5, 200.0))
-        guess = T_prev @ vel
-        kf = []
-        for i in range(b):
-            d = float(np.linalg.norm(guess[i, :3, 3] - last_kf[i, :3, 3]))
-            c = np.clip((np.trace(last_kf[i, :3, :3].T @ guess[i, :3, :3]) - 1.0) * 0.5, -1, 1)
-            kf.append(f == 0 or d > 1.0 or float(np.arccos(c)) > 0.3)
-        T_new, state = step(state, feat, mask, torch.as_tensor(guess, device=DEVICE),
-                            torch.as_tensor(kf, device=DEVICE))
-        T_host = T_new.cpu().numpy()
-        vel = np.linalg.inv(T_prev) @ T_host
-        for i in range(b):
-            if kf[i]:
-                last_kf[i] = T_host[i]
-                n_kf[i] += 1
-        T_prev = T_host
-        poses[:, f] = T_host
+    state = drive(state, range(LANE_FRAMES), host)
     sync()
     wall = time.perf_counter() - t0
     launches = kernels.counts()
+    poses, n_kf = host["poses"], host["n_kf"]
     if not np.all(np.isfinite(poses)):
         fail("step path: poses not all finite")
     ates = [ate_rmse(poses[i], lane_gt[i]) for i in range(b)]
@@ -2557,6 +2668,12 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
     print("step path summary: " + json.dumps(dict(
         scans_per_s_aggregate=b * LANE_FRAMES / wall, ate_m=ates, blocked_ate_m=blocked_ates[:b],
         keyframes=n_kf, n_l0=n_l0, host_reads_per_frame=1)), flush=True)
+    if PROFILE:
+        prof_host = fresh()
+        prof_state = drive(pipeline.batched_sharded_map_state(b, 0, C1, g), range(20),
+                           prof_host)
+        profile_window(lambda: drive(prof_state, range(20, 40), prof_host),
+                       f"the step path, 20 frames x {b} lanes", "step_")
     return launches
 
 

@@ -28,9 +28,24 @@
 // Bounds on the H100 at kitti.yaml's N = 16384 features over S = 4 shards
 // (cap = 7936 owned rows a shard), A = 101 alphas:
 //  * K11a reads N x 13 B and writes 4 x 7936 x 17 B (~0.75 MB, ~0.2 us at
-//    3.35 TB/s); one block per instance ranks its owned points by a block
-//    scan over contiguous chunks, so the kernel is latency-bound at a few
-//    microseconds. The owner-only mode is one thread a record.
+//    3.35 TB/s), so a launch is its dependent rounds: the points' load,
+//    the ranks' scans, the write. Design: one cluster of 8 CTAs a lane
+//    covers all n_local shards of the lane in one pass; the cluster takes
+//    the points in tiles of 8 x 2048, CTA r the r-th run of 2048 of each
+//    tile and each thread 4 consecutive points, whose owners it computes
+//    once (transform and hash as the twin rounds them). A point's rank in
+//    its shard is the count of the shard's points before it in index
+//    order (the JAX lax.sort's stable order): earlier tiles, earlier CTAs
+//    of the tile (their totals read through distributed shared memory
+//    after one cluster barrier), earlier warps (a scan of the warps'
+//    totals), earlier lanes (one shuffle scan of the counts of all 8
+//    shards packed 8 bits each in two words) and earlier points of the
+//    thread. Only the cluster's 8 SMs store the ~0.5 MB of outputs, so the
+//    stores are made wide: each CTA stages its owned points in shared
+//    memory by shard and rank and writes them in that order (a warp's rows
+//    are neighbours in the output), and the slots past a shard's total
+//    get row N - 1 as 16-byte stores spread over the cluster. The
+//    owner-only mode is one thread a record.
 //  * K11b needs 54 flops per valid owned point per alpha, the 27
 //    multiply-adds of the 21 upper entries of J J^T and the 6 of J r
 //    (~0.15 GFLOP for the four shards, ~2 us at 67 TFLOP/s fp32), on ~1 MB
@@ -65,7 +80,12 @@
 
 namespace {
 
-constexpr int OWN_THREADS = 1024;   // a power of two: block_inclusive_scan
+constexpr int OWN_CLUSTER = 8;      // CTAs of a lane's K11a cluster
+constexpr int OWN_THREADS = 512;
+constexpr int OWN_WARPS = OWN_THREADS / 32;
+constexpr int OWN_P = 4;            // consecutive points a thread takes of a tile
+constexpr int OWN_TILE = OWN_THREADS * OWN_P;   // points a CTA takes of a tile
+constexpr int OWN_MAX_LOCAL = 8;    // local shards a launch covers
 constexpr int NE_CLUSTER = 8;       // CTAs of an (alpha group, instance)'s cluster
 constexpr int NE_THREADS = 256;
 constexpr int NE_WARPS = NE_THREADS / 32;
@@ -104,60 +124,205 @@ __device__ __forceinline__ void transform(float R[3][3], const float t[3], float
                      t[r]);
 }
 
-__device__ __forceinline__ bool is_mine(const float* pts, const bool* mask, int i, bool xf,
-                                        float R[3][3], const float t[3], float inv,
-                                        uint32_t n_shards, int me) {
-  if (!mask[i]) return false;
-  float w[3] = {pts[3 * i], pts[3 * i + 1], pts[3 * i + 2]};
-  if (xf) transform(R, t, w[0], w[1], w[2], w);
-  return owner_of(w[0], w[1], w[2], inv, n_shards) == me;
+// The field k (8 bits at 8 (k % 4)) of a pair of packed counts.
+__device__ __forceinline__ int field8(unsigned lo4, unsigned hi4, int k) {
+  return (int)(((k < 4 ? lo4 : hi4) >> (8 * (k & 3))) & 0xffu);
 }
 
-// K11a, compaction mode: one block per instance.
-__global__ void __launch_bounds__(OWN_THREADS)
+// The field k (16 bits at 16 (k % 2)) of four words of packed counts.
+__device__ __forceinline__ int field16(const unsigned* w, int k) {
+  return (int)((w[k >> 1] >> (16 * (k & 1))) & 0xffffu);
+}
+
+// p[j] = v(j) for j in [j0, j1), element j by thread t of nt (the
+// cluster's threads): 16-byte stores where aligned, single elements at the
+// two ends. 32-bit indices: a per-element 64-bit modulo is a software loop.
+template <typename T, typename F>
+__device__ __forceinline__ void fill(T* p, int j0, int j1, int t, int nt, F v) {
+  constexpr int V = 16 / sizeof(T);
+  const int past = (int)(reinterpret_cast<uintptr_t>(p + j0) / sizeof(T) % V);
+  const int b0 = min(j1, j0 + (V - past) % V), nq = (j1 - b0) / V, b1 = b0 + nq * V;
+  for (int j = j0 + t; j < b0; j += nt) p[j] = v(j);
+  for (int j = b1 + t; j < j1; j += nt) p[j] = v(j);
+  uint4* q = reinterpret_cast<uint4*>(p + b0);
+  for (int i = t; i < nq; i += nt) {
+    union { T e[V]; uint4 u; } w;
+#pragma unroll
+    for (int c = 0; c < V; ++c) w.e[c] = v(b0 + i * V + c);
+    q[i] = w.u;
+  }
+}
+
+// K11a, compaction mode: one cluster of OWN_CLUSTER CTAs a lane
+// (blockIdx.y), covering the lane's n_local shards first .. first +
+// n_local - 1 (instances lane * n_local + k).
+__global__ void __cluster_dims__(OWN_CLUSTER, 1, 1) __launch_bounds__(OWN_THREADS)
 own_compact_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, int n,
                    const float* __restrict__ T, int n_shards, int first, int n_local, int cap,
                    float inv, float* __restrict__ p_own, bool* __restrict__ ok,
                    int* __restrict__ sel, int* __restrict__ over) {
-  __shared__ int scan[OWN_THREADS];
-  const int g = blockIdx.x;
-  const int lane = g / n_local;
-  const int me = first + g % n_local;
+  namespace cg = cooperative_groups;
+  // by tile parity, so that one tile's writes never meet the last one's reads
+  __shared__ unsigned wpk[2][OWN_WARPS][2];   // each warp's counts, 8 bits a shard
+  __shared__ unsigned wex[2][OWN_WARPS][4];   // earlier warps' counts, 16 bits a shard
+  __shared__ unsigned ctot[2][4];             // the CTA's counts, 16 bits a shard
+  __shared__ int base[2][OWN_MAX_LOCAL];      // ranks before the CTA's run
+  __shared__ int run[OWN_MAX_LOCAL];          // the shards' points in earlier tiles
+  __shared__ int coff[OWN_MAX_LOCAL + 1];     // the shards' first slots in the staging
+  __shared__ float stage_p[3 * OWN_TILE];     // the CTA's owned points, by shard then rank
+  __shared__ int stage_i[OWN_TILE];           // and their indices
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = blockIdx.y, tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   pts += (size_t)lane * n * 3;
   mask += (size_t)lane * n;
-  p_own += (size_t)g * cap * 3;
-  ok += (size_t)g * cap;
-  sel += (size_t)g * cap;
+  const size_t g0 = (size_t)lane * n_local;
   const bool xf = T != nullptr;
   float R[3][3] = {{1.f, 0.f, 0.f}, {0.f, 1.f, 0.f}, {0.f, 0.f, 1.f}}, t[3] = {0.f, 0.f, 0.f};
   if (xf) lo::load_T(T + 16 * lane, R, t);
   const uint32_t ns = (uint32_t)n_shards;
-  const int chunk = (n + OWN_THREADS - 1) / OWN_THREADS;
-  const int b0 = min(n, (int)threadIdx.x * chunk);
-  const int b1 = min(n, b0 + chunk);
-  int c = 0;
-  for (int i = b0; i < b1; ++i) c += is_mine(pts, mask, i, xf, R, t, inv, ns, me);
-  const int incl = lo::block_inclusive_scan(c, scan);
-  const int total = scan[OWN_THREADS - 1];
-  int pos = incl - c;
-  for (int i = b0; i < b1 && pos < cap; ++i) {
-    if (!is_mine(pts, mask, i, xf, R, t, inv, ns, me)) continue;
-    p_own[3 * pos] = pts[3 * i];
-    p_own[3 * pos + 1] = pts[3 * i + 1];
-    p_own[3 * pos + 2] = pts[3 * i + 2];
-    ok[pos] = true;
-    sel[pos] = i;
-    ++pos;
+  if (tid < OWN_MAX_LOCAL) run[tid] = 0;
+  const int tiles = (n + OWN_CLUSTER * OWN_TILE - 1) / (OWN_CLUSTER * OWN_TILE);
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int par = tile & 1;
+    const int i0 = (tile * OWN_CLUSTER + rank) * OWN_TILE + tid * OWN_P;
+    // ---- owners: each point's local shard once (-1: masked, or another rank's)
+    float x[OWN_P][3];
+    int own[OWN_P];
+#pragma unroll
+    for (int u = 0; u < OWN_P; ++u) {
+      const int i = i0 + u;
+      // the point's load does not wait for its mask's: one load round
+#pragma unroll
+      for (int j = 0; j < 3; ++j) x[u][j] = i < n ? pts[3 * i + j] : 0.f;
+      own[u] = -1;
+      if (i < n && mask[i]) {
+        float w[3] = {x[u][0], x[u][1], x[u][2]};
+        if (xf) transform(R, t, w[0], w[1], w[2], w);
+        const int k = owner_of(w[0], w[1], w[2], inv, ns) - first;
+        own[u] = (unsigned)k < (unsigned)n_local ? k : -1;
+      }
+    }
+    // ---- ranks in the warp: the 8 shards' counts packed in two words, one scan
+    unsigned lo4 = 0u, hi4 = 0u;
+#pragma unroll
+    for (int u = 0; u < OWN_P; ++u) {
+      const int k = own[u];
+      if (k >= 0) {
+        const unsigned one = 1u << (8 * (k & 3));
+        if (k < 4) lo4 += one; else hi4 += one;
+      }
+    }
+    unsigned ilo = lo4, ihi = hi4;   // inclusive: at most 32 x OWN_P = 128 a field
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned a = __shfl_up_sync(0xffffffffu, ilo, off);
+      const unsigned b = __shfl_up_sync(0xffffffffu, ihi, off);
+      if (wl >= off) { ilo += a; ihi += b; }
+    }
+    if (wl == 31) { wpk[par][warp][0] = ilo; wpk[par][warp][1] = ihi; }
+    __syncthreads();
+    // ---- ranks in the CTA: warp 0 scans the warps' counts, 16 bits a shard
+    if (warp == 0) {
+      unsigned v[4] = {0u, 0u, 0u, 0u};
+      if (wl < OWN_WARPS) {
+        const unsigned a = wpk[par][wl][0], b = wpk[par][wl][1];
+        v[0] = (a & 0xffu) | ((a & 0xff00u) << 8);
+        v[1] = ((a >> 16) & 0xffu) | ((a >> 24) << 16);
+        v[2] = (b & 0xffu) | ((b & 0xff00u) << 8);
+        v[3] = ((b >> 16) & 0xffu) | ((b >> 24) << 16);
+      }
+      unsigned inc[4] = {v[0], v[1], v[2], v[3]};   // at most OWN_TILE a field
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const unsigned a = __shfl_up_sync(0xffffffffu, inc[q], off);
+          if (wl >= off) inc[q] += a;
+        }
+      }
+      if (wl < OWN_WARPS) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wex[par][wl][q] = inc[q] - v[q];
+      }
+      if (wl == 31) {
+        int acc = 0;
+#pragma unroll
+        for (int k = 0; k < OWN_MAX_LOCAL; ++k) {
+          coff[k] = acc;
+          acc += field16(inc, k);
+        }
+        coff[OWN_MAX_LOCAL] = acc;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ctot[par][q] = inc[q];
+      }
+    }
+    __syncthreads();
+    // every CTA's counts are read after the cluster barrier; the staging
+    // needs none of them, so it runs while the barrier completes
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+    // ---- writes: each owned point into the staging, by shard then rank in the CTA
+    unsigned slo = ilo - lo4, shi = ihi - hi4;   // exclusive, then past each point
+#pragma unroll
+    for (int u = 0; u < OWN_P; ++u) {
+      const int k = own[u];
+      if (k < 0) continue;
+      const int j = coff[k] + field16(wex[par][warp], k) + field8(slo, shi, k);
+      const unsigned one = 1u << (8 * (k & 3));
+      if (k < 4) slo += one; else shi += one;
+      stage_p[3 * j] = x[u][0];
+      stage_p[3 * j + 1] = x[u][1];
+      stage_p[3 * j + 2] = x[u][2];
+      stage_i[j] = i0 + u;
+    }
+    // ---- ranks in the cluster: every CTA's counts through distributed shared memory
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    if (tid < n_local) {
+      const int k = tid;
+      int before = 0, all = 0;
+#pragma unroll
+      for (int q = 0; q < OWN_CLUSTER; ++q) {
+        const unsigned wq = cluster.map_shared_rank(&ctot[par][k >> 1], q)[0];
+        const int c = (int)((wq >> (16 * (k & 1))) & 0xffffu);
+        before += q < rank ? c : 0;
+        all += c;
+      }
+      base[par][k] = run[k] + before;
+      run[k] += all;
+    }
+    if (tile == tiles - 1)   // the last read of another CTA's shared memory
+      asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+    __syncthreads();
+    // ---- write-out: the staged rows in order, each below cap at its rank
+    for (int j = tid; j < coff[n_local]; j += OWN_THREADS) {
+      int k = 0;
+      while (j >= coff[k + 1]) ++k;
+      const int r = base[par][k] + j - coff[k];
+      if (r >= cap) continue;
+      const size_t at = (g0 + k) * (size_t)cap + r;
+      p_own[3 * at] = stage_p[3 * j];
+      p_own[3 * at + 1] = stage_p[3 * j + 1];
+      p_own[3 * at + 2] = stage_p[3 * j + 2];
+      sel[at] = stage_i[j];
+      ok[at] = true;
+    }
   }
-  // slots past the owned points hold row n - 1, as the clipped sort does
-  for (int j = total + threadIdx.x; j < cap; j += OWN_THREADS) {
-    p_own[3 * j] = pts[3 * (n - 1)];
-    p_own[3 * j + 1] = pts[3 * (n - 1) + 1];
-    p_own[3 * j + 2] = pts[3 * (n - 1) + 2];
-    ok[j] = false;
-    sel[j] = n - 1;
+  // ---- tail: slots past the owned points hold row n - 1, as the clipped sort does
+  const float lx = pts[3 * (n - 1)], ly = pts[3 * (n - 1) + 1], lz = pts[3 * (n - 1) + 2];
+  const int ct = rank * OWN_THREADS + tid, nct = OWN_CLUSTER * OWN_THREADS;
+  for (int k = 0; k < n_local; ++k) {
+    const size_t g = (g0 + k) * (size_t)cap;   // the instance's first row
+    const int t0 = min(run[k], cap);
+    fill(p_own + 3 * g, 3 * t0, 3 * cap, ct, nct, [=](int j) {
+      const unsigned c = (unsigned)j % 3u;
+      return c == 0u ? lx : (c == 1u ? ly : lz);
+    });
+    fill(ok + g, t0, cap, ct, nct, [](int) { return false; });
+    fill(sel + g, t0, cap, ct, nct, [=](int) { return n - 1; });
   }
-  if (threadIdx.x == 0) over[g] = max(total - cap, 0);
+  if (rank == 0 && tid < n_local) over[g0 + tid] = max(run[tid] - cap, 0);
+  // no CTA leaves while another may still read its shared memory
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 // K11a, owner-only mode: one thread a point.
@@ -594,8 +759,10 @@ LO_EXPORT int lo_shard_own(const float* pts, const bool* mask, int n, int lanes,
     own_ids_kernel<<<max(1, (total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
         pts, total, n_shards, inv, owner);
   } else {
-    if (n < 1 || cap < 1 || cap > n) return (int)cudaErrorInvalidValue;
-    own_compact_kernel<<<lanes * n_local, OWN_THREADS, 0, (cudaStream_t)stream>>>(
+    if (n < 1 || cap < 1 || cap > n || n_local < 1 || n_local > OWN_MAX_LOCAL || lanes < 1)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(OWN_CLUSTER, lanes);   // __cluster_dims__
+    own_compact_kernel<<<grid, OWN_THREADS, 0, (cudaStream_t)stream>>>(
         pts, mask, n, T, n_shards, first, n_local, cap, inv, p_own, ok, sel, over);
   }
   return (int)cudaGetLastError();

@@ -22,18 +22,29 @@
 //    one thread per run leader walks its run of equal keys in the sorted
 //    order, sums [count | xyz] in the order the JAX segment_sum does, and
 //    adds the total to its unique target row: no atomics, no second pass.
-//  * map_surfel_recompute reads 27 x 16 B per recomputed parent (at most
-//    p of them, ~6 MB at the bulk tier) and does ~300 flops each plus one
-//    eigh3: bytes bound it, random 432 B blocks at that. Design: one thread
-//    per parent reads its contiguous block twice (mean, then covariance;
-//    the second read hits L1), runs the closed-form eigh3 of common.cuh
-//    in registers and writes the 8-float surfel row, the verdict and a
-//    27-bit live-child mask that the deletion step uses.
+//  * map_surfel_recompute reads 27 x 16 B per live recomputed parent (at
+//    most p of them, ~6 MB at the bulk tier) and does ~300 flops each plus
+//    one eigh3: bytes bound it, in 432 B blocks at random slots, but at the
+//    sizes the update gives it (a few thousand live parents) a launch is a
+//    few dependent rounds: the slot, the block, the sums, the eigen-solve.
+//    Design: a warp a parent, a lane a child. The warp reads its slot,
+//    then the block in one coalesced round (lane k child k); one ballot
+//    gives the count and the live mask; each lane divides its own centroid
+//    (fast_div, IEEE's quotient); the mean and the 6 covariance entries are
+//    butterfly sums over the 32 lanes (lanes 27-31 add zeros), so the plain
+//    twin pads to 32 and halves 16, 8, 4, 2, 1 to sum in the same order.
+//    Lane 0 runs eigh3 in registers with the fast divisions and square
+//    roots (common.cuh, FAST) and writes the 8-float surfel row, the
+//    verdict and the 27-bit live-child mask that the deletion step uses. A
+//    dead row (slot < 0) or a parent without a live child writes the twin's
+//    constant row with no eigen-solve. Eight warps a block: R = 14336 is
+//    1792 blocks, R = 65536 8192, both many waves over the 132 SMs.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int SR_WARPS = THREADS / 32;   // K4c's parents a block
 
 __device__ __forceinline__ float d2cnt(float4 v, const float* s) {
   // |sum - cnt * s|^2, rounded as the JAX program rounds it
@@ -94,56 +105,66 @@ scatter_add_kernel(const float* __restrict__ pts, const long long* __restrict__ 
   l0[t] = r;
 }
 
+// K4c: a warp a parent (i = blockIdx.x * SR_WARPS + warp), a lane a child.
 __global__ void __launch_bounds__(THREADS)
 surfel_recompute_kernel(const float4* __restrict__ l0, const long long* __restrict__ r_slot,
                         int r_n, int c1, float thr, float* __restrict__ srow,
                         bool* __restrict__ non_planar, int* __restrict__ kidmask) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r_n) return;
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * SR_WARPS + threadIdx.x / 32;
+  if (i >= r_n) return;                 // the whole warp
+  // ---- load: the slot, then the parent's children, a lane each
   const long long s = r_slot[i];
   const bool ok = s >= 0;
-  const float4* rows = l0 + (size_t)min(max(s, 0LL), (long long)(c1 - 1)) * lo::NCH;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  // count, mean of the live children's centroids
-  int cnt = 0, mask = 0;
-  float mx = 0.f, my = 0.f, mz = 0.f;
-  for (int k = 0; k < lo::NCH; ++k) {
-    const float4 v = ok ? rows[k] : zero;
-    if (v.x > 0.f) {
-      const float d = fmaxf(v.x, 1.0f);
-      mx += v.y / d; my += v.z / d; mz += v.w / d;
-      ++cnt;
-      mask |= 1 << k;
+  const float4 v = ok && lane < lo::NCH
+                       ? l0[(size_t)min(s, (long long)(c1 - 1)) * lo::NCH + lane] : zero;
+  const bool live = v.x > 0.f;
+  const unsigned mask = __ballot_sync(0xffffffffu, live);
+  float4* o = reinterpret_cast<float4*>(srow + 8 * (size_t)i);
+  if (mask == 0u) {
+    // no live child: the twin's row of a zero covariance (eigh3 of 0 gives
+    // the normal (0, 0, 1) and planarity 0)
+    if (lane == 0) {
+      o[0] = make_float4(0.f, 0.f, 1.f, 0.f);
+      o[1] = make_float4(0.f, 0.f, 0.f, 1.f);
+      non_planar[i] = ok && 0.f > thr;
+      kidmask[i] = 0;
     }
+    return;
   }
-  const float denom = (float)max(cnt, 1);
-  mx /= denom; my /= denom; mz /= denom;
-  float A[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  for (int k = 0; k < lo::NCH; ++k) {
-    const float4 v = ok ? rows[k] : zero;
-    if (!(v.x > 0.f)) continue;
-    const float d = fmaxf(v.x, 1.0f);
-    const float e[3] = {v.y / d - mx, v.z / d - my, v.w / d - mz};
+  // ---- sums: the mean of the live centroids, then the covariance
+  const float w = live ? 1.f : 0.f;
+  const float d = fmaxf(v.x, 1.0f);
+  const float cen[3] = {lo::fast_div(v.y, d), lo::fast_div(v.z, d), lo::fast_div(v.w, d)};
+  float m[3] = {__fmul_rn(cen[0], w), __fmul_rn(cen[1], w), __fmul_rn(cen[2], w)};
+  lo::warp_sums(m);
+  const float denom = (float)__popc(mask);
+  float mean[3], e[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b) A[a][b] += e[a] * e[b];
+  for (int a = 0; a < 3; ++a) {
+    mean[a] = lo::fast_div(m[a], denom);
+    e[a] = __fmul_rn(__fsub_rn(cen[a], mean[a]), w);
   }
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) A[a][b] /= denom;
+  float c[6] = {__fmul_rn(e[0], e[0]), __fmul_rn(e[0], e[1]), __fmul_rn(e[0], e[2]),
+                __fmul_rn(e[1], e[1]), __fmul_rn(e[1], e[2]), __fmul_rn(e[2], e[2])};
+  lo::warp_sums(c);
+  if (lane != 0) return;
+  // ---- eigen-solve on lane 0
+  const float c00 = lo::fast_div(c[0], denom), c01 = lo::fast_div(c[1], denom);
+  const float c02 = lo::fast_div(c[2], denom), c11 = lo::fast_div(c[3], denom);
+  const float c12 = lo::fast_div(c[4], denom), c22 = lo::fast_div(c[5], denom);
+  const float A[3][3] = {{c00, c01, c02}, {c01, c11, c12}, {c02, c12, c22}};
   float lam[3], nrm[3];
-  lo::eigvals3(A, lam);
-  lo::eigvec_for(A, lam[0], nrm);
-  const float plan = lam[0] / (lam[2] + 1e-6f);
-  float* o = srow + 8 * (size_t)i;
-  o[0] = nrm[0]; o[1] = nrm[1]; o[2] = nrm[2];
-  o[3] = mx; o[4] = my; o[5] = mz;
-  o[6] = plan;
-  o[7] = 1.0f;
+  lo::eigvals3<true>(A, lam);
+  // ---- eigenvector
+  lo::eigvec_for<true>(A, lam[0], nrm);
+  // ---- outputs
+  const float plan = lo::fast_div(lam[0], lam[2] + 1e-6f);
+  o[0] = make_float4(nrm[0], nrm[1], nrm[2], mean[0]);
+  o[1] = make_float4(mean[1], mean[2], plan, 1.0f);
   non_planar[i] = ok && plan > thr;
-  kidmask[i] = mask;
+  kidmask[i] = (int)mask;
 }
 
 inline int blocks(long long n) { return (int)((n + THREADS - 1) / THREADS); }
@@ -168,7 +189,8 @@ LO_EXPORT int lo_map_scatter_add(const float* pts, const long long* s_idx, const
 LO_EXPORT int lo_map_surfel_recompute(const float* l0, const long long* r_slot, int r_n, int c1,
                                       float thr, float* srow, bool* non_planar, int* kidmask,
                                       void* stream) {
-  surfel_recompute_kernel<<<max(1, blocks(r_n)), THREADS, 0, (cudaStream_t)stream>>>(
+  surfel_recompute_kernel<<<max(1, (r_n + SR_WARPS - 1) / SR_WARPS), THREADS, 0,
+                            (cudaStream_t)stream>>>(
       (const float4*)l0, r_slot, r_n, c1, thr, srow, non_planar, kidmask);
   return (int)cudaGetLastError();
 }

@@ -632,3 +632,55 @@ def normal_eq_shards(lanes: int, shards: int, n: int, seed: int = 0, empty: int 
     ra = np.abs(r)
     mom = np.stack([w.sum(1), (ra * w).sum(1), (ra * ra * w).sum(1)], 1)
     return p, nrm, r, valid, T, mom.reshape(lanes, shards, 3).astype(np.float32)
+
+
+def surfel_blocks(children, seed: int = 0, lattice: bool = False) -> np.ndarray:
+    """K4c's edge-case input: a child table (len(children) * 27 + 1, 4)
+    float32 of [count | sum xyz] rows whose parent p has children[p] live
+    children (the other rows and the trailing sink row zero). The children
+    sit at distinct offsets among the parent's 3 x 3 x 3 cells of 0.5 m,
+    parent p at (4 (p % 64), 4 (p // 64 % 64), 4 (p // 4096)) m. By default
+    a child's count is 1-6 and its centroid lies near a tilted plane (1 cm
+    of noise); with `lattice`, every count is 4 and every centroid its
+    cell's centre, so 27 children give a covariance proportional to the
+    identity (three equal eigenvalues) and 9, the middle layer, a flat
+    square (the two largest equal)."""
+    rng = np.random.default_rng(seed)
+    children = np.asarray(children, np.int64)
+    l0 = np.zeros((len(children) * 27 + 1, 4), np.float32)
+    grid = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"), -1).reshape(27, 3)
+    for p, k in enumerate(children):
+        if k == 0:
+            continue
+        base = 4.0 * np.array([p % 64, p // 64 % 64, p // 4096], np.float64)
+        if lattice:
+            if k not in (9, 27):
+                raise ValueError("a lattice parent has 9 or 27 children")
+            offs = np.arange(27) if k == 27 else np.nonzero(grid[:, 2] == 1)[0]
+            cnt = np.full(k, 4.0)
+            cen = base + 0.5 * grid[offs] + 0.25
+        else:
+            offs = rng.choice(27, size=k, replace=False)
+            cnt = rng.integers(1, 7, k).astype(np.float64)
+            cen = base + 0.5 * grid[offs] + rng.uniform(0.05, 0.45, (k, 3))
+            cen[:, 2] = (base[2] + 0.6 + 0.3 * (cen[:, 0] - base[0]) - 0.2 * (cen[:, 1] - base[1])
+                         + rng.normal(0.0, 0.01, k))
+        rows = p * 27 + offs
+        l0[rows, 0] = cnt
+        l0[rows, 1:] = cen * cnt[:, None]
+    return l0
+
+
+def shard_points(lanes: int, n: int, seed: int = 0, one_cell: bool = False,
+                 masked: bool = False):
+    """K11a's edge-case input: (pts (lanes, n, 3) float32, mask (lanes, n)
+    bool) of points spread over a 60 m box with ~10 % masked off; with
+    `one_cell` every point inside one 1.5 m parent cell (so one shard owns
+    all of them), with `masked` every point masked off."""
+    rng = np.random.default_rng(seed)
+    if one_cell:
+        pts = rng.uniform(0.1, 1.4, (lanes, n, 3)) + np.array([3.0, -6.0, 1.5])
+    else:
+        pts = rng.uniform(-30.0, 30.0, (lanes, n, 3)) * np.array([1.0, 1.0, 0.1])
+    mask = np.zeros((lanes, n), bool) if masked else rng.random((lanes, n)) > 0.1
+    return pts.astype(np.float32), mask

@@ -26,7 +26,9 @@ Kernels (csrc/voxel_map.cu), each with its plain twin below:
   K4b map_scatter_add — per-voxel [count | sum xyz] totals of the
       key-sorted points, added at each voxel's leader row;
   K4c map_surfel_recompute — per recomputed parent: its 27-row block,
-      count, mean, covariance, eigh3, planarity and the non-planar verdict.
+      count, mean, covariance, eigh3, planarity and the non-planar verdict;
+      a warp a parent, its sums over the children in a fixed butterfly
+      order, which the twin repeats (_lane_sum).
   K5a grid_knn (csrc/grid_knn.cu) — the KD-tree mode's candidates: the L0
       centroids of each query's (2r+1)^3 voxel neighbourhood, found by
       probing the (2r//3 + 2)^3 distinct parents once each.
@@ -364,23 +366,25 @@ def map_surfel_recompute(l0_data, r_slot, c1: int, planarity_threshold: float):
     return srows, non_planar, kidmask
 
 
+def _lane_sum(x):
+    """Sum over dim 1 (the 27 children) in K4c's order: the children on 27
+    of a warp's 32 lanes, zeros on the rest, and a butterfly over the
+    lanes (halves of 16, 8, 4, 2, 1), whose sum every lane holds."""
+    x = torch.cat([x, x.new_zeros((x.shape[0], 32 - NCH) + x.shape[2:])], 1)
+    for h in (16, 8, 4, 2, 1):
+        x = x[:, :h] + x[:, h:2 * h]
+    return x[:, 0]
+
+
 def _block_stats(blk):
     ok = blk[..., 0] > 0.0
     cnt = torch.sum(ok.to(torch.int32), dim=1)
     cen = blk[..., 1:4] / torch.clamp(blk[..., 0:1], min=1.0)
     w = ok.to(torch.float32)[..., None]
     denom = torch.clamp(cnt, min=1)[:, None].to(torch.float32)
-    # sums taken child by child in order, as the kernel takes them
-    cw = cen * w
-    mean = cw[:, 0]
-    for k in range(1, NCH):
-        mean = mean + cw[:, k]
-    mean = mean / denom
+    mean = _lane_sum(cen * w) / denom
     d = (cen - mean[:, None, :]) * w
-    outer = d[:, :, :, None] * d[:, :, None, :]
-    cov = outer[:, 0]
-    for k in range(1, NCH):
-        cov = cov + outer[:, k]
+    cov = _lane_sum(d[:, :, :, None] * d[:, :, None, :])
     return cnt, mean, cov / denom[..., None], ok
 
 

@@ -13,8 +13,9 @@ rows (ShardGroup.all_gather, (L, S, ...)) and add them in shard order.
       compacts body points), and the order-preserving compaction of the
       masked owned points into `cap` rows an instance, padded with row
       N - 1 (the clipped sort's padding), with the count of owned points
-      past `cap` (dropped, as JAX drops them); or the owner ids alone
-      (the rehash).
+      past `cap` (dropped, as JAX drops them), on one thread-block cluster
+      a lane that ranks every point once for all of the lane's local
+      shards (at most 8); or the owner ids alone (the rehash).
   K11b shard_alpha_normal_eq: from K2a's per-shard correspondences, J =
       [R^T n, p x R^T n] and Z = [vec(J J^T) | J r]; for each of A robust
       deltas the weighted sum of Z (A, 42) and the count, the product W @ Z
@@ -52,6 +53,9 @@ __all__ = ["owned_cap", "owner_inv", "shard_own", "shard_own_plain", "shard_owne
            "shard_alpha_normal_eq_plain", "shard_alpha_normal_eq_shape", "shard_sample",
            "shard_sample_plain",
            "shard_gn_select", "shard_gn_select_plain", "buffer_width"]
+
+
+MAX_LOCAL_SHARDS = 8   # K11a's local shards a launch (pko.shard_draws' largest S)
 
 
 def owned_cap(n: int, n_shards: int) -> int:
@@ -106,6 +110,9 @@ def shard_own(pts, mask, T, n_shards: int, first: int, n_local: int, cap: int, i
     lanes, n = pts.shape[0], pts.shape[1]
     kernels.check(pts, "pts", torch.float32, (lanes, n, 3))
     kernels.check(mask, "mask", torch.bool, (lanes, n))
+    if not 1 <= n_local <= MAX_LOCAL_SHARDS:
+        raise kernels.KernelInputError(f"n_local: the kernel covers 1 to {MAX_LOCAL_SHARDS} "
+                                       f"local shards, got {n_local}")
     if T is not None:
         kernels.check(T, "T", torch.float32, (lanes, 16))
     g = lanes * n_local

@@ -53,6 +53,23 @@ K11b: shard rows with a row count that is not a multiple of the kernel's
 done lane and the robust loss off: the twin's (A, 42) systems against
 JAX's W @ Z as sharded_map.py:318-330 writes it at 1e-5 of the largest
 entry, the count exactly, a done lane's rows unwritten.
+
+K4c: child tables (synthetic.surfel_blocks) with every row dead, dead rows
+between live ones, parents of 1, 5 and 27 children, equal eigenvalues (a
+lattice of 27 children, and a flat square of 9), R not a multiple of the
+kernel's 8 parents a block and R = c1 (the rehash's every slot): the
+reordered twin (its sums in the kernel's butterfly order) against JAX's
+_block_stats, eigh3 and planarity verdict at tests/test_torch_voxel_map.py's
+tolerances (means and planarity 1e-4, normals 1e-4 where the two smallest
+eigenvalues are apart), the live-child masks exactly, the verdicts exactly
+outside a 1e-5 band around the threshold.
+
+K11a: points (synthetic.shard_points) all owned by one shard (over > 0),
+none owned, n not a multiple of the kernel's cluster tile of 16384, a rank
+holding shards 1-2 of 4 (first > 0, n_local < n_shards), S = 1 (cap = N),
+S = 8, and 2 lanes at two poses: the twin's (p_own, ok, sel, over) equal
+to JAX's _compact_owned of owner_of_points (of the points the twin hashes,
+moved in the twin's rounding where there is a pose).
 """
 import numpy as np
 import jax
@@ -64,13 +81,17 @@ from lidar_odometry_tpu.ops import icp as jicp
 from lidar_odometry_tpu.ops import iris as jiris
 from lidar_odometry_tpu.ops import pko as jpko
 from lidar_odometry_tpu.ops import voxel_filter as jvf
+from lidar_odometry_tpu.ops import voxel_map as jvm
 from lidar_odometry_tpu.parallel import distributed_pgo as jdpgo
+from lidar_odometry_tpu.parallel import sharded_map as jsm
+from lidar_odometry_tpu.utils import eigh3 as jeigh3
 from lidar_odometry_tpu.utils import lie as jlie
 from lidar_odometry_tpu_torch.io import synthetic
 from lidar_odometry_tpu_torch.ops import icp as ticp
 from lidar_odometry_tpu_torch.ops import iris as tiris
 from lidar_odometry_tpu_torch.ops import pko as tpko
 from lidar_odometry_tpu_torch.ops import voxel_filter as tvf
+from lidar_odometry_tpu_torch.ops import voxel_map as tvm
 from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
 from lidar_odometry_tpu_torch.parallel import shard_ops as so
 
@@ -444,3 +465,113 @@ def test_alpha_normal_eq_twin_on_kernel_edges(case):
         assert float(out[i, -1]) == float(valid[i].sum())
     if case == "a_shard_without_valid_rows":
         assert bool((out[2, :a * 42] == 0.0).all()) and float(out[2, -1]) == 0.0
+
+
+# the card tests' K4c cases: (children of each parent, lattice, rows)
+K4C_CASES = {
+    "all_rows_dead": ([8] * 64, False, "dead"),
+    "dead_rows_between_live": (list(range(5, 28)) * 26, False, "odd_dead"),
+    "children_1_5_27": ([1, 5, 27] * 200, False, "all"),
+    "equal_eigenvalues": ([27, 9] * 100, True, "all"),
+    "r_not_a_multiple_of_the_block": ([5 + i % 23 for i in range(1237)], False, "all"),
+    "rehash_every_slot": ([(7 * i) % 28 if i % 3 == 0 else 0 for i in range(4096)], False, "all"),
+}
+
+
+def _k4c_case(case):
+    """(l0 (c1 * 27 + 1, 4), r_slot (R,) int64, c1) of a K4c case."""
+    children, lattice, rows = K4C_CASES[case]
+    c1 = len(children)
+    l0 = torch.as_tensor(synthetic.surfel_blocks(children, seed=len(case), lattice=lattice))
+    slots = torch.arange(c1)
+    if rows == "dead":
+        slots = torch.full((1000,), -1, dtype=torch.int64)
+    elif rows == "odd_dead":
+        slots = torch.stack([slots, torch.full_like(slots, -1)], 1).reshape(-1)
+    return l0, slots, c1
+
+
+@pytest.mark.parametrize("case", sorted(K4C_CASES))
+def test_surfel_recompute_twin_on_kernel_edges(case):
+    l0, r_slot, c1 = _k4c_case(case)
+    thr = np.float32(0.1)
+    srows, non_planar, kidmask = tvm.map_surfel_recompute(l0, r_slot, c1, thr)
+    r_ok = r_slot.numpy() >= 0
+    rows = np.clip(r_slot.numpy(), 0, c1 - 1)[:, None] * 27 + np.arange(27)[None, :]
+    blk = np.where(r_ok[:, None, None], l0.numpy()[rows], 0.0).astype(np.float32)
+    _cnt, mean, cov, ok = jvm._block_stats(jnp.asarray(blk))
+    lam, normal = jeigh3.eigh3(cov)
+    plan = np.asarray(lam[:, 0] / (lam[:, 2] + 1e-6))
+    kid = (np.asarray(ok).astype(np.int64) << np.arange(27)).sum(1)
+    np.testing.assert_array_equal(kidmask.numpy(), kid)
+    np.testing.assert_allclose(srows[:, 3:6].numpy(), np.asarray(mean), atol=1e-4)
+    np.testing.assert_allclose(srows[:, 6].numpy(), plan, atol=1e-4)
+    assert bool((srows[:, 7] == 1.0).all())
+    ev = np.linalg.eigvalsh(np.asarray(cov, np.float64))
+    well = (ev[:, 1] - ev[:, 0]) > 1e-4 * (ev[:, 2] + 1e-6)
+    np.testing.assert_allclose(srows[well, :3].numpy(), np.asarray(normal)[well], atol=1e-4)
+    verdict = r_ok & (plan > thr)
+    band = np.abs(plan - thr) < 1e-5
+    assert not ((non_planar.numpy() != verdict) & ~band).any()
+    if case == "all_rows_dead":
+        assert bool((srows == torch.tensor([0.0, 0, 1, 0, 0, 0, 0, 1])).all())
+        assert not bool(non_planar.any()) and not bool(kidmask.any())
+    if case == "equal_eigenvalues":
+        assert not well[0::2].any() and well[1::2].all()   # 27: isotropic; 9: a flat square
+
+
+# the card tests' K11a cases: lanes, points a lane, shards, the rank's
+# first shard and local shards, a pose per lane, points
+K11A_CASES = {
+    "every_point_in_one_shard": dict(lanes=1, n=5000, shards=4, one_cell=True),
+    "no_point_owned": dict(lanes=1, n=5000, shards=4, masked=True),
+    "n_not_a_multiple_of_the_tile": dict(lanes=1, n=16384 + 1029, shards=2),
+    "shards_1_2_of_4": dict(lanes=1, n=9000, shards=4, first=1, n_local=2),
+    "one_shard": dict(lanes=1, n=7000, shards=1),
+    "eight_shards": dict(lanes=1, n=16384, shards=8),
+    "two_lanes_at_two_poses": dict(lanes=2, n=14336, shards=4, pose=True),
+}
+
+
+def _k11a_case(case):
+    """K11a's wrapper arguments (pts, mask, T, S, first, n_local, cap,
+    inv) of a case."""
+    c = K11A_CASES[case]
+    pts, mask = synthetic.shard_points(c["lanes"], c["n"], seed=len(case),
+                                       one_cell=c.get("one_cell", False),
+                                       masked=c.get("masked", False))
+    T = None
+    if c.get("pose"):
+        T = np.tile(np.eye(4, dtype=np.float32), (c["lanes"], 1, 1))
+        for lane in range(c["lanes"]):
+            a = 0.3 + 0.2 * lane
+            T[lane, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+            T[lane, :3, 3] = (1.3 - lane, -0.4, 0.2)
+        T = torch.as_tensor(T.reshape(c["lanes"], 16))
+    s = c["shards"]
+    return (torch.as_tensor(pts), torch.as_tensor(mask), T, s, c.get("first", 0),
+            c.get("n_local", s), so.owned_cap(c["n"], s), so.owner_inv(0.5, 3))
+
+
+@pytest.mark.parametrize("case", sorted(K11A_CASES))
+def test_shard_own_twin_on_kernel_edges(case):
+    args = _k11a_case(case)
+    pts, mask, T, s, first, n_local, cap, inv = args
+    p_own, ok, sel, over = so.shard_own(*args)
+    moved = pts if T is None else so._transform_plain(T, pts)
+    compact = jax.jit(jsm._compact_owned, static_argnums=4)
+    for lane in range(pts.shape[0]):
+        owner = jsm.owner_of_points(jnp.asarray(moved[lane].numpy()), s, voxel_size=0.5)
+        for k in range(n_local):
+            g, me = lane * n_local + k, first + k
+            jp, jok, jsel = compact(jnp.asarray(pts[lane].numpy()), jnp.asarray(mask[lane].numpy()),
+                                    owner, jnp.int32(me), cap)
+            np.testing.assert_array_equal(sel[g].numpy(), np.asarray(jsel))
+            np.testing.assert_array_equal(ok[g].numpy(), np.asarray(jok))
+            np.testing.assert_array_equal(p_own[g].numpy(), np.asarray(jp))
+            owned = int((mask[lane].numpy() & (np.asarray(owner) == me)).sum())
+            assert int(over[g]) == max(owned - cap, 0)
+    if case == "every_point_in_one_shard":
+        assert int(over.max()) > 0
+    if case == "no_point_owned":
+        assert not bool(ok.any()) and bool((sel == pts.shape[1] - 1).all())

@@ -1375,3 +1375,148 @@ def test_normal_eq_kernels_launch_once_without_a_stack(dev):
         assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
     for src, fn in (("icp", "normal_eq_kernel"), ("shard", "alpha_ne_kernel")):
         assert kernels.ptxas_info(src, fn)["stack"] == 0
+
+
+# K4c's edges (a warp a parent, 8 parents a block; tests/test_torch_kernel_edges.py
+# holds the twin on the same inputs against JAX): (children of each parent,
+# lattice, rows)
+K4C_CASES = {
+    "all_rows_dead": ([8] * 64, False, "dead"),
+    "dead_rows_between_live": (list(range(5, 28)) * 26, False, "odd_dead"),
+    "children_1_5_27": ([1, 5, 27] * 200, False, "all"),
+    "equal_eigenvalues": ([27, 9] * 100, True, "all"),
+    "r_not_a_multiple_of_the_block": ([5 + i % 23 for i in range(1237)], False, "all"),
+    "rehash_every_slot": ([(7 * i) % 28 if i % 3 == 0 else 0 for i in range(4096)], False, "all"),
+}
+
+
+def _k4c_case(case, dev):
+    """(l0 (c1 * 27 + 1, 4), r_slot (R,) int64, c1) of a K4c case on the card."""
+    children, lattice, rows = K4C_CASES[case]
+    c1 = len(children)
+    l0 = torch.as_tensor(synthetic.surfel_blocks(children, seed=len(case), lattice=lattice),
+                         device=dev)
+    slots = torch.arange(c1, device=dev)
+    if rows == "dead":
+        slots = torch.full((1000,), -1, dtype=torch.int64, device=dev)
+    elif rows == "odd_dead":
+        slots = torch.stack([slots, torch.full_like(slots, -1)], 1).reshape(-1)
+    return l0, slots, c1
+
+
+@pytest.mark.parametrize("case", sorted(K4C_CASES))
+def test_surfel_recompute_kernel_edges(dev, case):
+    """K4c against its twin on the card: live-child masks equal, means,
+    planarities and flags within 1e-4, normals within 1e-4 where the two
+    smallest eigenvalues are apart, no non-planar verdict different outside
+    the 1e-5 band around the threshold, a dead row the twin's constant row,
+    two calls bit-equal, one launch a call."""
+    l0, r_slot, c1 = _k4c_case(case, dev)
+    thr = 0.1
+    n0 = kernels.KERNELS["map_surfel_recompute"].launches
+    sk, nk, kk = vm.map_surfel_recompute(l0, r_slot, c1, thr)
+    again = vm.map_surfel_recompute(l0, r_slot, c1, thr)
+    sp, np_, kp = vm.map_surfel_recompute_plain(l0, r_slot, c1, thr)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["map_surfel_recompute"].launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(again, (sk, nk, kk)))
+    assert torch.equal(kk, kp)
+    assert float((sk[:, 3:] - sp[:, 3:]).abs().max()) <= 1e-4
+    rows = (torch.clamp(r_slot, 0, c1 - 1)[:, None] * 27
+            + torch.arange(27, device=dev)[None, :]).reshape(-1)
+    blk = torch.where((r_slot >= 0)[:, None, None], l0[rows].view(-1, 27, 4), 0.0)
+    lam = torch.linalg.eigvalsh(vm._block_stats(blk)[2].double())
+    well = (lam[:, 1] - lam[:, 0]) > 1e-4 * (lam[:, 2] + 1e-6)
+    if bool(well.any()):
+        assert float((sk[well, :3] - sp[well, :3]).abs().max()) <= 1e-4
+    band = (sp[:, 6] - thr).abs() < 1e-5
+    assert not bool(((nk != np_) & ~band).any())
+    dead = r_slot < 0
+    const = torch.tensor([0.0, 0, 1, 0, 0, 0, 0, 1], device=dev)
+    assert bool((sk[dead] == const).all()) and not bool(nk[dead].any())
+    assert not bool(kk[dead].any())
+
+
+K11A_CASES = {
+    "every_point_in_one_shard": dict(lanes=1, n=5000, shards=4, one_cell=True),
+    "no_point_owned": dict(lanes=1, n=5000, shards=4, masked=True),
+    "n_not_a_multiple_of_the_tile": dict(lanes=1, n=16384 + 1029, shards=2),
+    "shards_1_2_of_4": dict(lanes=1, n=9000, shards=4, first=1, n_local=2),
+    "one_shard": dict(lanes=1, n=7000, shards=1),
+    "eight_shards": dict(lanes=1, n=16384, shards=8),
+    "two_lanes_at_two_poses": dict(lanes=2, n=14336, shards=4, pose=True),
+}
+
+
+def _k11a_case(case, dev):
+    """K11a's wrapper arguments (pts, mask, T, S, first, n_local, cap,
+    inv) of a case on the card (its cluster covers 8 x 2048 points a
+    tile)."""
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    c = K11A_CASES[case]
+    pts, mask = synthetic.shard_points(c["lanes"], c["n"], seed=len(case),
+                                       one_cell=c.get("one_cell", False),
+                                       masked=c.get("masked", False))
+    T = None
+    if c.get("pose"):
+        T = np.tile(np.eye(4, dtype=np.float32), (c["lanes"], 1, 1))
+        for lane in range(c["lanes"]):
+            a = 0.3 + 0.2 * lane
+            T[lane, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+            T[lane, :3, 3] = (1.3 - lane, -0.4, 0.2)
+        T = torch.as_tensor(T.reshape(c["lanes"], 16), device=dev)
+    s = c["shards"]
+    return (torch.as_tensor(pts, device=dev), torch.as_tensor(mask, device=dev), T, s,
+            c.get("first", 0), c.get("n_local", s), so.owned_cap(c["n"], s),
+            so.owner_inv(0.5, 3))
+
+
+@pytest.mark.parametrize("case", sorted(K11A_CASES))
+def test_shard_own_kernel_edges(dev, case):
+    """K11a's four outputs equal to the twin's on the card; each local
+    shard of a launch bit-equal to a one-shard launch (first + k,
+    n_local 1) and each lane to a one-lane launch; the same without T."""
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    pts, mask, T, s, first, n_local, cap, inv = _k11a_case(case, dev)
+    lanes = pts.shape[0]
+    for Tx in ((T, None) if T is not None else (None,)):
+        got = so.shard_own(pts, mask, Tx, s, first, n_local, cap, inv)
+        ref = so.shard_own_plain(pts, mask, Tx, s, first, n_local, cap, inv)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        for lane in range(lanes):
+            Tl = None if Tx is None else Tx[lane:lane + 1]
+            one = so.shard_own(pts[lane:lane + 1], mask[lane:lane + 1], Tl, s, first, n_local,
+                               cap, inv)
+            assert all(torch.equal(a[lane * n_local:(lane + 1) * n_local], b)
+                       for a, b in zip(got, one))
+            for k in range(n_local):
+                single = so.shard_own(pts[lane:lane + 1], mask[lane:lane + 1], Tl, s, first + k,
+                                      1, cap, inv)
+                assert all(torch.equal(a[lane * n_local + k], b[0]) for a, b in zip(got, single))
+    if case == "every_point_in_one_shard":
+        assert int(got[3].max()) > 0
+    torch.cuda.synchronize()
+
+
+def test_map_and_shard_kernels_launch_once_without_a_stack(dev):
+    """K4c and K11a (compaction) launch their kernel once a call with no
+    torch op beside it that launches device work, and ptxas gave neither
+    kernel a stack frame."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    l0, r_slot, c1 = _k4c_case("children_1_5_27", dev)
+    own = _k11a_case("two_lanes_at_two_poses", dev)
+    calls = [("map_surfel_recompute", lambda: vm.map_surfel_recompute(l0, r_slot, c1, 0.1)),
+             ("shard_own", lambda: so.shard_own(*own))]
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        n0 = kernels.KERNELS[name].launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert kernels.KERNELS[name].launches == n0 + 1
+        ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
+    for src, fn in (("voxel_map", "surfel_recompute_kernel"), ("shard", "own_compact_kernel")):
+        assert kernels.ptxas_info(src, fn)["stack"] == 0

@@ -36,7 +36,13 @@ Phases, each of which exits nonzero on failure:
          capacity of 16384 features, so a loop query of 8192 valid rows
          against a 16384-row keyframe; a 16-keyframe Iris batch, 32
          candidates, the rehash of a 65536-parent map): K6a point_grid, K6b
-         point_knn (k = 5) and point_nn1 (k = 1), K7 bev_raster, K7c
+         point_knn (k = 5) and point_nn1 (k = 1) at the coarse shape (2 m
+         bins, r = 1, W = 8), point_knn also at the polish width (W = 4) on
+         that table and on the 0.5 m table (which does not fit the dense
+         window: the binary-search path) and at r = 2, W = 16 on the
+         0.5 m table, neighbours and flags equal to the twin's in every
+         slot, distances within 1e-5; K5b also at the loop shape (K6b's
+         coarse k = 5 output, 8192 rows, ungated), K7 bev_raster, K7c
          cross_power (the Iris query's 64 spectra, and the prealign's),
          K8a iris_image, K8g gabor_product (also at b = 1), K8b iris_encode, K8c
          iris_hamming, K9a map_bulk_index, K9b map_bulk_merge, and K2b with
@@ -121,11 +127,12 @@ lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs. K2b (B = 1, B = 4,
 the weight residual) and K11b (at each S) are also held to two calls
 bit-equal; for both, the cluster size they launch with, and for them,
-K4c and K11a ptxas's stack frame (0 bytes, else the run fails) and one
-launch a call with no torch op that launches device work beside it (no
-zero fill, read from torch.profiler's op events) are printed and kept in
-the kernels line, with K11b's device and as-issued times and bound at
-every S.
+K4c, K11a, K5b and K6b ptxas's stack frame of every instantiation (0
+bytes, else the run fails) and one launch a call with no torch op that
+launches device work beside it (no zero fill, read from torch.profiler's
+op events) are printed and kept in the kernels line, with K11b's device
+and as-issued times and bound at every S, K6b's at each of its shapes
+and K5b's at the loop shape.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
@@ -309,28 +316,53 @@ def launches_of(fn, kernel: str):
     return kernels.KERNELS[kernel].launches - n0, ops
 
 
-def check_one_launch(rows, name, src, kernel, fns, shape=None):
-    """A kernel's build and launch: ptxas's report of `kernel` (0 bytes of
-    stack, else fail), its launch shape where given (a cluster kernel's),
-    and for each call in `fns` one launch of the kernel `name` and no torch
-    op that launches device work (no zero fill), all kept in rows[name]."""
+def entry_name(mangled: str) -> str:
+    """`name<args>` of a mangled kernel name: the last component of its
+    nested name and its integer template arguments."""
+    import re
+    if not mangled.startswith("_ZN"):
+        return mangled
+    at, name = 3, mangled
+    while at < len(mangled) and mangled[at].isdigit():
+        digits = re.match(r"\d+", mangled[at:]).group()
+        name = mangled[at + len(digits):at + len(digits) + int(digits)]
+        at += len(digits) + int(digits)
+    rest = mangled[at:]
+    if not rest.startswith("I"):
+        return name
+    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', rest.split('EEv', 1)[0]))}>"
+
+
+def check_one_launch(rows, name, src, kernel, fns, shape=None, note=""):
+    """A kernel's build and launch: ptxas's report of every entry function
+    whose name holds `kernel` (each instantiation of a template; 0 bytes of
+    stack, else fail), its launch shape where given (a cluster kernel's) or
+    a `note` on it, and for each call in `fns` one launch of the kernel
+    `name` and no torch op that launches device work (no zero fill), all
+    kept in rows[name]."""
     from lidar_odometry_tpu_torch import kernels
-    info = kernels.ptxas_info(src, kernel)
+    entries = {entry_name(m): info for m, info in kernels.ptxas_entries(src, kernel).items()}
     ran = [launches_of(fn, name) for fn in fns]
     what = ("" if shape is None else
             f"a cluster of {shape['cluster']} CTAs x {shape['threads']} threads ({shape}); ")
-    print(f"  {name}: {what}ptxas {kernel}: {info['registers']} registers, {info['stack']} "
-          f"bytes of stack, spills {info['spill_stores']} / {info['spill_loads']} bytes; a "
-          f"call: {[n for n, _ in ran]} launches, torch ops that launch {[o for _, o in ran]}",
-          flush=True)
-    if info["stack"] != 0:
-        fail(f"{name}: ptxas reports {info['stack']} bytes of stack for {kernel}")
+    what += f"{note}; " if note else ""
+    report = "; ".join(f"ptxas {k}: {i['registers']} registers, {i['stack']} bytes of stack, "
+                       f"spills {i['spill_stores']} / {i['spill_loads']} bytes"
+                       for k, i in entries.items())
+    print(f"  {name}: {what}{report}; a call: {[n for n, _ in ran]} launches, torch ops that "
+          f"launch {[o for _, o in ran]}", flush=True)
+    for k, info in entries.items():
+        if info["stack"] != 0:
+            fail(f"{name}: ptxas reports {info['stack']} bytes of stack for {k}")
     for n, ops in ran:
         if n != 1 or ops:
             fail(f"{name}: one call launched it {n} times beside the torch ops {ops}")
-    rows[name].update(ptxas=info, launches_a_call=1)
+    rows[name].update(ptxas=next(iter(entries.values())) if len(entries) == 1 else entries,
+                      launches_a_call=1)
     if shape is not None:
         rows[name].update(launch_shape=shape)
+    if note:
+        rows[name].update(launch_note=note)
 
 
 def record(rows, name, err, tol, kernel, plain_ms, nbytes, ops, library=None, note="",
@@ -769,18 +801,54 @@ def check_voxel_edges():
           f"two calls bit-equal", flush=True)
 
 
-def check_kd_kernels(scans, sysc):
-    """K5a and K5b against their plain twins at the mid360 shapes, on a map
-    built without surfels by the mid360 path's first chunk of keyframes."""
+def k5b_bytes_ops(fit, cand_ok):
+    """The bytes K5b's function must move on these inputs, and its fp32
+    operations: every flag, the ok candidates' coordinates, the chosen
+    not-ok candidates' coordinates (a padded row's first 5), the points
+    and masks, and the outputs written once; ~9 operations an ok candidate
+    and ~400 a point (the fit)."""
+    import torch
+    n, m = cand_ok.shape
+    n_ok = int(cand_ok.sum())
+    sel_not_ok = int((~torch.gather(cand_ok, 1, fit.sel.long())).sum())
+    return (n * m + 12 * (n_ok + sel_not_ok) + n * 13 + n * (3 * 12 + 1 + 4 + 4 + 20),
+            n_ok * 9 + n * 400)
+
+
+def k5b_gaps(fk, fp_, cand, cand_ok) -> dict:
+    """K5b's outputs (a PlaneFit) against its twin's on the same inputs:
+    the rows whose selection differs; and on the rows whose 5 chosen
+    points' covariance keeps its two smallest eigenvalues more than 1e-2 of
+    the largest apart (float64; there the normal is fixed to ~1e-5) the
+    validity flags that differ and the largest gap of dist and resid.
+    `well` is that row mask."""
+    import torch
+    sel = fp_.sel.long()
+    nb = torch.gather(cand, 1, sel[..., None].expand(-1, -1, 3)).double()
+    w = torch.gather(cand_ok, 1, sel)[..., None].double()
+    cnt = w.sum(1).clamp(min=1.0)
+    d = (nb - ((nb * w).sum(1) / cnt)[:, None]) * w
+    lam = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", d, d) / cnt[..., None])
+    well = (lam[:, 1] - lam[:, 0]) > 1e-2 * (lam[:, 2] + 1e-6)
+    err = 0.0
+    if bool(well.any()):
+        err = max(float((fk.dist - fp_.dist)[well].abs().max()),
+                  float((fk.resid - fp_.resid)[well].abs().max()))
+    return dict(sel_rows=int((fk.sel != fp_.sel).any(1).sum()),
+                flips=int((fk.valid != fp_.valid)[well].sum()), err=err, well=well)
+
+
+def kd_inputs(scans, sysc):
+    """The mid360 shapes of K5a and K5b: the map built without surfels by
+    the mid360 path's first chunk of keyframes (its own estimator), and the
+    next frame's features moved by its pose guess. Returns (map state, ICP
+    config, p (N, 3), mask (N,)), on the card."""
     import numpy as np
     import torch
     from lidar_odometry_tpu_torch.models.estimator import Estimator
-    from lidar_odometry_tpu_torch.ops import icp, voxel_filter as vf, voxel_map as vm
-    from lidar_odometry_tpu_torch.utils import keys as K, lie
-
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf
+    from lidar_odometry_tpu_torch.utils import lie
     dev = DEVICE
-    rows = {}
-    row = functools.partial(record, rows)
     stride = sysc.point_stride
     padded = np.full((MID_CHUNK + 1, MID_RAW // stride, 3), np.nan, np.float32)
     for i in range(MID_CHUNK + 1):
@@ -788,12 +856,24 @@ def check_kd_kernels(scans, sysc):
         padded[i, :len(s)] = s
     est = Estimator(sysc.replace(point_stride=1), device=dev)
     est.process_chunk(padded[:MID_CHUNK])
-    state, cfg = est.map_state, est.icp_cfg
     raw = torch.as_tensor(padded[MID_CHUNK], device=dev)
     feat, mask, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=sysc.voxel_size, stride=1,
                                     out_capacity=sysc.scan_capacity, compact_keys=True)
     guess = torch.as_tensor(est._prev_pose @ est.velocity, device=dev)
-    p = lie.transform_points(guess, feat).contiguous()
+    return (est.map_state, est.icp_cfg, lie.transform_points(guess, feat).contiguous(), mask)
+
+
+def check_kd_kernels(scans, sysc):
+    """K5a and K5b against their plain twins at the mid360 shapes, on a map
+    built without surfels by the mid360 path's first chunk of keyframes."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import icp, voxel_map as vm
+    from lidar_odometry_tpu_torch.utils import keys as K
+
+    dev = DEVICE
+    rows = {}
+    row = functools.partial(record, rows)
+    state, cfg, p, mask = kd_inputs(scans, sysc)
     r, vox = cfg.grid_knn_radius, cfg.voxel_size
     n = p.shape[0]
 
@@ -825,30 +905,62 @@ def check_kd_kernels(scans, sysc):
     cand_ok = okk & mask[:, None]
     fk = icp.plane_fit_5nn(p, ck, cand_ok, mask, cfg, True)
     fp_ = icp.plane_fit_5nn_plain(p, ck, cand_ok, mask, cfg, True)
-    sel_diff = int((fk.sel != fp_.sel).any(1).sum())
-    if sel_diff:
-        fail(f"plane_fit_5nn: {sel_diff} rows chose other candidates than the plain version")
-    # the normal is fixed to ~1e-5 only where the two smallest eigenvalues of
-    # the 5 points' covariance are more than 1e-2 of the largest apart
-    nb = torch.gather(ck, 1, fp_.sel.long()[..., None].expand(-1, -1, 3)).double()
-    w = torch.gather(cand_ok, 1, fp_.sel.long())[..., None].double()
-    cnt = w.sum(1).clamp(min=1.0)
-    d = (nb - ((nb * w).sum(1) / cnt)[:, None]) * w
-    lam = torch.linalg.eigvalsh(torch.einsum("nki,nkj->nij", d, d) / cnt[..., None])
-    well = (lam[:, 1] - lam[:, 0]) > 1e-2 * (lam[:, 2] + 1e-6)
-    flips = int((fk.valid != fp_.valid)[well].sum())
-    if flips:
-        fail(f"plane_fit_5nn: {flips} validity flags differ from the plain version")
-    err = max(float((fk.dist - fp_.dist)[well].abs().max()),
-              float((fk.resid - fp_.resid)[well].abs().max()))
-    row("plane_fit_5nn", err, 1e-4,
+    gap = k5b_gaps(fk, fp_, ck, cand_ok)
+    if gap["sel_rows"]:
+        fail(f"plane_fit_5nn: {gap['sel_rows']} rows chose other candidates than the plain "
+             f"version")
+    if gap["flips"]:
+        fail(f"plane_fit_5nn: {gap['flips']} validity flags differ from the plain version")
+    row("plane_fit_5nn", gap["err"], 1e-4,
         lambda: icp.plane_fit_5nn(p, ck, cand_ok, mask, cfg, True),
         time_ms(lambda: icp.plane_fit_5nn_plain(p, ck, cand_ok, mask, cfg, True)),
-        n * m * 13 + n * 13 + n * (3 * 12 + 1 + 4 + 4 + 20), n * m * 9 + n * 400,
-        note=f"{int(fk.valid.sum())} valid of {int(mask.sum())} points; "
-             f"{int((~well & mask).sum())} masked-in rows with an ill-conditioned normal "
+        *k5b_bytes_ops(fk, cand_ok),
+        note=f"{int(fk.valid.sum())} valid of {int(mask.sum())} points, {int(cand_ok.sum())} ok "
+             f"candidates; "
+             f"{int((~gap['well'] & mask).sum())} masked-in rows with an ill-conditioned normal "
              f"left out of the comparison")
+    check_one_launch(rows, "plane_fit_5nn", "grid_knn", "plane_fit_kernel",
+                     [lambda: icp.plane_fit_5nn(p, ck, cand_ok, mask, cfg, True)],
+                     note=f"k = {m}: 16 lanes a point, 8 points a warp, 64 a block")
     return rows
+
+
+def loop_features(scans, cfg, i):
+    """Frame i's features (K1 at kitti.yaml's voxel and scan capacity) and
+    mask, on the card."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf
+    raw = torch.as_tensor(scans[i], device=DEVICE)
+    f, m, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=cfg.voxel_size, stride=1,
+                              out_capacity=cfg.scan_capacity, compact_keys=True)
+    return f, m
+
+
+def loop_query(scans, gt, cfg) -> dict:
+    """check_loop_kernels's loop query: frame LOOP_REVISIT's features, every
+    second, at its pose drifted by 2 degrees and (0.8, -0.5) m (q_pts,
+    q_mask, q_pose), against frame 0's keyframe (m_pts, m_mask, m_pose and
+    its world cloud m_world); with the drift (a numpy 4 x 4), the
+    estimator's ICP config and PKO constants (icfg, consts)."""
+    import math
+    import numpy as np
+    import torch
+    from lidar_odometry_tpu_torch.models.estimator import Estimator
+    from lidar_odometry_tpu_torch.utils import lie
+    dev = DEVICE
+    est = Estimator(cfg.replace(enable_loop_detection=False), device=dev)
+    m_pts, m_mask = loop_features(scans, cfg, 0)
+    q_full, q_mask_full = loop_features(scans, cfg, LOOP_REVISIT)
+    m_pose = torch.as_tensor(gt[0], device=dev)
+    drift = np.eye(4, dtype=np.float32)
+    a = math.radians(2.0)
+    drift[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+    drift[:3, 3] = (0.8, -0.5, 0.0)
+    return dict(q_pts=q_full[::2].contiguous(), q_mask=q_mask_full[::2].contiguous(),
+                q_pose=torch.as_tensor(drift @ gt[LOOP_REVISIT], device=dev),
+                m_pts=m_pts, m_mask=m_mask, m_pose=m_pose,
+                m_world=lie.transform_points(m_pose, m_pts).contiguous(),
+                icfg=est.icp_cfg, consts=est.pko_consts, drift=drift)
 
 
 def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
@@ -858,36 +970,19 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     batch of 16 keyframe clouds, 32 candidates, and the rehash of the
     surfel path's 65536-parent map. `scans` holds the densely scanned
     frames of make_dense_loop_frames."""
-    import math
-    import numpy as np
     import torch
-    from lidar_odometry_tpu_torch.models.estimator import Estimator
     from lidar_odometry_tpu_torch.ops import bev_align, icp, iris, knn
-    from lidar_odometry_tpu_torch.ops import voxel_filter as vf, voxel_map as vm
+    from lidar_odometry_tpu_torch.ops import voxel_map as vm
     from lidar_odometry_tpu_torch.utils import keys as K, lie
 
     dev = DEVICE
     rows = {}
     row = functools.partial(record, rows)
-    est = Estimator(cfg.replace(enable_loop_detection=False), device=dev)
-    icfg, consts = est.icp_cfg, est.pko_consts
-
-    def feats(i):
-        raw = torch.as_tensor(scans[i], device=dev)
-        f, m, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=cfg.voxel_size, stride=1,
-                                  out_capacity=cfg.scan_capacity, compact_keys=True)
-        return f, m
-
-    m_pts, m_mask = feats(0)
-    q_full, q_mask_full = feats(LOOP_REVISIT)
-    q_pts, q_mask = q_full[::2].contiguous(), q_mask_full[::2].contiguous()
-    m_pose = torch.as_tensor(gt[0], device=dev)
-    drift = np.eye(4, dtype=np.float32)
-    a = math.radians(2.0)
-    drift[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
-    drift[:3, 3] = (0.8, -0.5, 0.0)
-    q_pose = torch.as_tensor(drift @ gt[LOOP_REVISIT], device=dev)
-    m_world = lie.transform_points(m_pose, m_pts).contiguous()
+    lq = loop_query(scans, gt, cfg)
+    icfg, consts = lq["icfg"], lq["consts"]
+    feats = functools.partial(loop_features, scans, cfg)
+    q_pts, q_mask, q_pose = lq["q_pts"], lq["q_mask"], lq["q_pose"]
+    m_pts, m_mask, m_pose, m_world = lq["m_pts"], lq["m_mask"], lq["m_pose"], lq["m_world"]
     n_q, n_m = q_pts.shape[0], m_pts.shape[0]
     print(f"  loop query: {n_q} rows ({int(q_mask.sum())} valid) against a keyframe of {n_m} "
           f"rows ({int(m_mask.sum())} valid), scans of {DENSE_POINTS} returns", flush=True)
@@ -925,31 +1020,79 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
         note=f"{n_bins} occupied 2 m bins, fits={int(mk[3])}; err = differing grid entries")
     table = knn.PointTable(key=key_s, pts=pts_s, grid=gk, meta=mk, inv=inv)
 
-    # ---- K6b point_knn (k = 5, coarse r = 1, W = 8) and point_nn1 ----
+    # ---- K6b point_knn (k = 5) and point_nn1 (k = 1) ----
+    # (label, kernel, k, table, r, W): the coarse shape (each kernel's row),
+    # then point_knn at the polish width on the coarse table (which fits the
+    # dense window) and on the fine table of the polish phase, and at r = 2
+    # and the solve's default width on the fine table, which does not fit
     qw = lie.transform_points(T_init, q_pts).contiguous()
-    for name, k in (("point_knn", 5), ("point_nn1", 1)):
-        nk, ok_k, dk = knn.knn_query(table, qw, k=k, radius=1, bucket_width=8)
-        np_, ok_p, dp = knn.knn_query_plain(table, qw, k=k, radius=1, bucket_width=8)
-        if not (torch.equal(ok_k, ok_p) and torch.equal(nk[ok_k], np_[ok_p])):
-            fail(f"{name}: other neighbours than the plain version")
+    fine = knn.build_point_table(m_world, m_mask, bin_size=cfg.map_voxel_size)
+    if bool(fine.fits) or not bool(table.fits):
+        fail(f"point_knn: the {cfg.map_voxel_size * 4.0} m table fits={bool(table.fits)}, the "
+             f"{cfg.map_voxel_size} m table fits={bool(fine.fits)}: the shapes need the first "
+             f"to fit the dense window and the second not")
+    shapes = [("coarse", "point_knn", 5, table, 1, 8), ("coarse", "point_nn1", 1, table, 1, 8),
+              ("polish", "point_knn", 5, table, 1, 4),
+              ("polish, fine table", "point_knn", 5, fine, 1, 4),
+              ("r 2, fine table", "point_knn", 5, fine, 2, 16)]
+    calls = {}
+    for label, name, k, tb, r, w in shapes:
+        call = lambda tb=tb, k=k, r=r, w=w: knn.knn_query(tb, qw, k=k, radius=r, bucket_width=w)
+        plain = lambda tb=tb, k=k, r=r, w=w: knn.knn_query_plain(tb, qw, k=k, radius=r,
+                                                                 bucket_width=w)
+        calls.setdefault(name, []).append(call)
+        nk, ok_k, dk = call()
+        np_, ok_p, dp = plain()
         fin = torch.isfinite(dp)
+        if not (torch.equal(ok_k, ok_p) and torch.equal(nk, np_)
+                and torch.equal(torch.isfinite(dk), fin)):
+            fail(f"{name} ({label}): other neighbours, flags or infinite distances than the "
+                 f"plain version")
         err = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
-        # bytes: the queries, the grid entries and table rows this run probes,
-        # and the k winners written
-        qc = K.voxel_coords(qw, inv)
-        offs = torch.as_tensor(knn._neighbor_offsets(1), device=dev)
+        # bytes: the queries, the grid entries (a table that fits) and table
+        # rows this run probes, and the k winners written
+        qc = K.voxel_coords(qw, tb.inv)
+        offs = torch.as_tensor(knn._neighbor_offsets(r), device=dev)
         lin = K.sort_key(*K.pack_key((qc[:, None, :] + offs[None]).reshape(-1, 3)))
         n_probe = int(torch.unique(lin).numel())
-        row(name, err, 1e-5,
-            lambda: knn.knn_query(table, qw, k=k, radius=1, bucket_width=8),
-            time_ms(lambda: knn.knn_query_plain(table, qw, k=k, radius=1, bucket_width=8)),
-            n_q * 12 + n_probe * 4 + n_m * 20 + 20 + n_q * k * 17, n_q * 27 * 8 * 10,
-            note=f"{n_q} queries x 27 bins x 8, {int(ok_k.sum())} neighbours found; "
-                 f"{n_probe} distinct bins probed")
+        n_bins = (2 * r + 1) ** 3
+        args = (err, 1e-5, call, time_ms(plain),
+                n_q * 12 + n_probe * 4 * int(tb.fits) + n_m * 20 + 20 + n_q * k * 17,
+                n_q * n_bins * w * 10)
+        note = (f"{label}: {n_q} queries x {n_bins} bins x {w}, {1 / tb.inv:g} m bins, "
+                f"fits={int(tb.fits)}, {int(ok_k.sum())} neighbours found; {n_probe} distinct "
+                f"bins probed")
+        if label == "coarse":
+            row(name, *args, note=note)
+        else:
+            one = {}
+            record(one, name, *args, note=note)
+            rows[name].setdefault("shapes", {})[label] = one[name]
+    for name, k in (("point_knn", 5), ("point_nn1", 1)):
+        check_one_launch(rows, name, "knn", f"point_knn_kernelILi{k}E", calls[name],
+                         note="a warp a query, 8 queries a block")
 
-    # ---- K2b with the loop's weight residual (one coarse step) ----
+    # ---- K5b plane_fit_5nn at the loop solve's shape: K6b's k = 5 output ----
     nb, nb_ok, _ = knn.knn_query(table, qw, k=5, radius=1, bucket_width=8)
     fit = icp.plane_fit_5nn(qw, nb, nb_ok, q_mask, icfg, gate=False)
+    gap = k5b_gaps(fit, icp.plane_fit_5nn_plain(qw, nb, nb_ok, q_mask, icfg, gate=False), nb,
+                   nb_ok)
+    if gap["sel_rows"] or gap["flips"]:
+        fail(f"plane_fit_5nn (loop shape): {gap['sel_rows']} rows chose other candidates and "
+             f"{gap['flips']} validity flags differ from the plain version")
+    one = {}
+    fit_call = lambda: icp.plane_fit_5nn(qw, nb, nb_ok, q_mask, icfg, gate=False)
+    record(one, "plane_fit_5nn", gap["err"], 1e-4, fit_call,
+           time_ms(lambda: icp.plane_fit_5nn_plain(qw, nb, nb_ok, q_mask, icfg, gate=False)),
+           *k5b_bytes_ops(fit, nb_ok),
+           note=f"the loop shape: {n_q} rows x 5 candidates (point_knn's), ungated; "
+                f"{int(fit.valid.sum())} valid, {int((~gap['well'] & q_mask).sum())} masked-in "
+                f"rows with an ill-conditioned normal left out of the comparison")
+    rows["plane_fit_5nn"] = dict(rows_in["plane_fit_5nn"], loop_shape=one["plane_fit_5nn"])
+    check_one_launch(rows, "plane_fit_5nn", "grid_knn", "plane_fit_kernel", [fit_call],
+                     note="k = 5: a group of 8 lanes a point, 32 points a block")
+
+    # ---- K2b with the loop's weight residual (one coarse step) ----
     r_nn = torch.sum(fit.normal * (qw - fit.nearest), -1).contiguous()
     flags = torch.zeros((3,), dtype=torch.int32, device=dev)
     aux, scale = icp._scale_and_alpha(fit.dist, fit.valid, flags,
@@ -1069,7 +1212,7 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     rows["cross_power"]["prealign"] = sub["cross_power (prealign)"]
 
     # ---- K9a map_bulk_index (the fresh index of the surfel path's map) ----
-    corr = torch.as_tensor(drift, device=dev)
+    corr = torch.as_tensor(lq["drift"], device=dev)
     cen, cnt, live, cap, _ = vm.rehash_records(surfel_map, corr)
     plan = vm.bulk_plan(cen, cnt, live, cap, surfel_map.c1, voxel_size=cfg.map_voxel_size)
     c1 = surfel_map.c1

@@ -16,22 +16,30 @@
 //    writes each bin's first sorted index: no host read, one launch.
 //  * point_knn probes (2r+1)^3 bins x W entries a query: at r = 1, W = 8,
 //    216 candidates, ~10 flops each, ~18 MFLOP and ~1.2 MB of distinct
-//    reads a launch: far below both bounds; the random reads into the
-//    table (which stays in L2) and the per-thread top-k bound it. Design:
-//    one thread per query walks the bins in the JAX offset order, keeps a
-//    register top-k sorted by (squared distance, candidate index), which is
-//    jax.lax.top_k's order on ties, and writes only the k winners: the
+//    reads a launch: far below both bounds; the dependent rounds of reads
+//    into the table (which stays in L2) bound it. Design: one warp a query
+//    (8 a block). Lane l takes bins l, l + 32, ... of the window in the JAX
+//    offset order (dx outer, dz inner): one round of grid reads (or binary
+//    searches of the sorted keys when the table does not fit the window),
+//    then the bin's W rows, their keys and points all loaded before any is
+//    used (in chunks of CH = 4, 8 or 16 rows; k = 1 always 4). Each lane
+//    keeps its own K nearest by (squared distance, candidate index), then
+//    the warp pops the K smallest (common.cuh topk_pop: a redux.sync
+//    minimum a pop), which is jax.lax.top_k's order on ties; lanes j < 3K
+//    write the (K, 3) neighbours as one coalesced row. The distance's
+//    square root is common.cuh's fast_sqrt (no slow-path call). The
 //    (N, M*W) candidate tensor of the JAX program never reaches memory. A
-//    device flag returns a finished solve's launch at once. Two entry
-//    points of one template: point_knn (k = 5, the plane fits) and
-//    point_nn1 (k = 1, the inlier ratio).
+//    device flag returns a finished solve's launch at once (the whole warp
+//    leaves). Two entry points of one template: point_knn (k = 5, the
+//    plane fits) and point_nn1 (k = 1, the inlier ratio).
 #include "common.cuh"
 
 namespace {
 
 constexpr int GX = 128, GY = 128, GZ = 32;
 constexpr int GRID_THREADS = 1024;
-constexpr int KNN_THREADS = 128;
+constexpr int KNN_WARPS = 8;                 // queries a block
+constexpr int KNN_THREADS = 32 * KNN_WARPS;
 constexpr long long INVALID_KEY = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int BIG = 1 << 20;
 
@@ -108,80 +116,122 @@ __device__ __forceinline__ int lower_bound(const long long* __restrict__ key_s, 
   return lo;
 }
 
-template <int K>
+template <int K, int CH>
 __global__ void __launch_bounds__(KNN_THREADS)
 point_knn_kernel(const float* __restrict__ q, int n, const int* __restrict__ flags,
                  const long long* __restrict__ key_s, const float* __restrict__ pts_s, int c,
                  const int* __restrict__ grid, const int* __restrict__ meta, float inv,
                  int radius, int width, float* __restrict__ nb, bool* __restrict__ ok_out,
                  float* __restrict__ dist) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || (flags != nullptr && flags[0])) return;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * KNN_WARPS + (threadIdx.x >> 5);   // this warp's query
+  if (i >= n || (flags != nullptr && flags[0])) return;        // the whole warp leaves
+  // ---- the query's bin and the table's window
   const float qx = q[3 * i], qy = q[3 * i + 1], qz = q[3 * i + 2];
   const int cx = vcoord(qx, inv), cy = vcoord(qy, inv), cz = vcoord(qz, inv);
   const bool fits = meta[3] != 0;
   const int ox = meta[0], oy = meta[1], oz = meta[2];
-  float bd[K];
-  int bi[K], bg[K];
-  bool bo[K];
+  const int side = 2 * radius + 1, n_bins = side * side * side;
+  unsigned long long key[K];
+  int val[K];   // the candidate's table row, its ok flag in bit 31
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    bd[j] = INFINITY;
-    bi[j] = 0x7FFFFFFF;
-    bg[j] = c - 1;
-    bo[j] = false;
+  for (int s = 0; s < K; ++s) {
+    key[s] = lo::NO_KEY;
+    val[s] = c - 1;
   }
-  int m = 0;
-  for (int dx = -radius; dx <= radius; ++dx)
-    for (int dy = -radius; dy <= radius; ++dy)
-      for (int dz = -radius; dz <= radius; ++dz, ++m) {
-        const int bx = cx + dx, by = cy + dy, bz = cz + dz;
-        const long long key = sort_key(bx, by, bz);
-        int start;
-        if (fits) {
-          const int lx = bx - ox, ly = by - oy, lz = bz - oz;
-          const bool inside = lx >= 0 && lx < GX && ly >= 0 && ly < GY && lz >= 0 && lz < GZ;
-          start = inside ? grid[(lx * GY + ly) * GZ + lz] : c;
-        } else {
-          start = lower_bound(key_s, c, key);
+  for (int m0 = 0; m0 < n_bins; m0 += 32) {
+    const int m = m0 + lane;
+    if (m < n_bins) {
+      // ---- bins: the first sorted row of the lane's bin
+      const int bx = cx + m / (side * side) - radius;
+      const int by = cy + (m / side) % side - radius;
+      const int bz = cz + m % side - radius;
+      const long long bkey = sort_key(bx, by, bz);
+      int start;
+      if (fits) {
+        const int lx = bx - ox, ly = by - oy, lz = bz - oz;
+        const bool inside = lx >= 0 && lx < GX && ly >= 0 && ly < GY && lz >= 0 && lz < GZ;
+        start = inside ? grid[(lx * GY + ly) * GZ + lz] : c;
+      } else {
+        start = lower_bound(key_s, c, bkey);
+      }
+      // ---- candidates: the bin's rows, CH at a time, every load issued first
+      for (int w0 = 0; w0 < width; w0 += CH) {
+        long long kg[CH];
+        float px[CH], py[CH], pz[CH];
+#pragma unroll
+        for (int w = 0; w < CH; ++w) {
+          const int g = min(start + w0 + w, c - 1);
+          kg[w] = key_s[g];
+          px[w] = pts_s[3 * g];
+          py[w] = pts_s[3 * g + 1];
+          pz[w] = pts_s[3 * g + 2];
         }
-        for (int w = 0; w < width; ++w) {
-          const int g = min(start + w, c - 1);
-          const long long kg = key_s[g];
-          const bool okc = kg == key && kg != INVALID_KEY;
-          float d2 = INFINITY;
-          if (okc) {
-            const float ex = __fsub_rn(pts_s[3 * g], qx);
-            const float ey = __fsub_rn(pts_s[3 * g + 1], qy);
-            const float ez = __fsub_rn(pts_s[3 * g + 2], qz);
-            d2 = __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)), __fmul_rn(ez, ez));
-          }
-          const int idx = m * width + w;
-          // insert (d2, idx) into the list kept sorted by (distance, index)
-          if (!(d2 < bd[K - 1] || (d2 == bd[K - 1] && idx < bi[K - 1]))) continue;
-          int p = K - 1;
-          while (p > 0 && (d2 < bd[p - 1] || (d2 == bd[p - 1] && idx < bi[p - 1]))) {
-            bd[p] = bd[p - 1];
-            bi[p] = bi[p - 1];
-            bg[p] = bg[p - 1];
-            bo[p] = bo[p - 1];
-            --p;
-          }
-          bd[p] = d2;
-          bi[p] = idx;
-          bg[p] = g;
-          bo[p] = okc;
+#pragma unroll
+        for (int w = 0; w < CH; ++w) {
+          if (w0 + w >= width) break;
+          const int g = min(start + w0 + w, c - 1);
+          const bool okc = kg[w] == bkey && kg[w] != INVALID_KEY;
+          const float ex = __fsub_rn(px[w], qx), ey = __fsub_rn(py[w], qy),
+                      ez = __fsub_rn(pz[w], qz);
+          const float d2 = okc ? __fadd_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)),
+                                           __fmul_rn(ez, ez))
+                               : INFINITY;
+          lo::topk_insert(key, val, lo::topk_key(d2, (unsigned)(m * width + w0 + w)),
+                          g | (okc ? (int)0x80000000 : 0));
         }
       }
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const size_t o = (size_t)i * K + j;
-    nb[3 * o] = pts_s[3 * bg[j]];
-    nb[3 * o + 1] = pts_s[3 * bg[j] + 1];
-    nb[3 * o + 2] = pts_s[3 * bg[j] + 2];
-    ok_out[o] = bo[j];
-    dist[o] = bo[j] ? sqrtf(fmaxf(bd[j], 0.f)) : INFINITY;
+    }
   }
+  // ---- merge: the warp's K nearest, lane s keeps the s-th
+  unsigned long long kept = lo::NO_KEY;
+  int kept_v = c - 1;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    int v;
+    const unsigned long long win = lo::topk_pop<32, K>(key, val, v);
+    if (lane == s) {
+      kept = win;
+      kept_v = v;
+    }
+  }
+  // ---- write: lanes j < 3K the neighbours' coordinates, lanes s < K flag and distance
+  const int gv = __shfl_sync(0xffffffffu, kept_v, min(lane / 3, K - 1));
+  if (lane < 3 * K)
+    nb[(size_t)i * 3 * K + lane] = pts_s[3 * (size_t)(gv & 0x7FFFFFFF) + lane % 3];
+  if (lane < K) {
+    const bool okw = kept_v < 0;
+    const size_t o = (size_t)i * K + lane;
+    ok_out[o] = okw;
+    const float d2 = __uint_as_float((unsigned)(kept >> 32));
+    dist[o] = okw ? lo::fast_sqrt(fmaxf(d2, 0.f)) : INFINITY;
+  }
+}
+
+// One launch: CH, the rows a lane loads at once, from the bucket width
+// (k = 1: always 4).
+template <int K>
+int launch_knn(const float* q, int n, const int* flags, const long long* key_s,
+               const float* pts_s, int c, const int* grid, const int* meta, float inv,
+               int radius, int width, float* nb, bool* ok, float* dist, void* stream) {
+  if (radius < 0 || width < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = max(1, (n + KNN_WARPS - 1) / KNN_WARPS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (K == 1) {   // at CH = 8 or 16 ptxas keeps 12 bytes of k = 1's state on a stack
+    point_knn_kernel<K, 4><<<blocks, KNN_THREADS, 0, st>>>(q, n, flags, key_s, pts_s, c, grid,
+                                                           meta, inv, radius, width, nb, ok, dist);
+  } else if (width <= 4) {
+    point_knn_kernel<K, 4><<<blocks, KNN_THREADS, 0, st>>>(q, n, flags, key_s, pts_s, c, grid,
+                                                           meta, inv, radius, width, nb, ok, dist);
+  } else if (width <= 8) {
+    point_knn_kernel<K, 8><<<blocks, KNN_THREADS, 0, st>>>(q, n, flags, key_s, pts_s, c, grid,
+                                                           meta, inv, radius, width, nb, ok, dist);
+  } else {
+    point_knn_kernel<K, 16><<<blocks, KNN_THREADS, 0, st>>>(q, n, flags, key_s, pts_s, c, grid,
+                                                            meta, inv, radius, width, nb, ok,
+                                                            dist);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -197,18 +247,14 @@ LO_EXPORT int lo_point_knn(const float* q, int n, const int* flags, const long l
                            const float* pts_s, int c, const int* grid, const int* meta,
                            float inv, int radius, int width, float* nb, bool* ok,
                            float* dist, void* stream) {
-  point_knn_kernel<5><<<max(1, (n + KNN_THREADS - 1) / KNN_THREADS), KNN_THREADS, 0,
-                        (cudaStream_t)stream>>>(q, n, flags, key_s, pts_s, c, grid, meta, inv,
-                                                radius, width, nb, ok, dist);
-  return (int)cudaGetLastError();
+  return launch_knn<5>(q, n, flags, key_s, pts_s, c, grid, meta, inv, radius, width, nb, ok,
+                       dist, stream);
 }
 
 LO_EXPORT int lo_point_nn1(const float* q, int n, const int* flags, const long long* key_s,
                            const float* pts_s, int c, const int* grid, const int* meta,
                            float inv, int radius, int width, float* nb, bool* ok,
                            float* dist, void* stream) {
-  point_knn_kernel<1><<<max(1, (n + KNN_THREADS - 1) / KNN_THREADS), KNN_THREADS, 0,
-                        (cudaStream_t)stream>>>(q, n, flags, key_s, pts_s, c, grid, meta, inv,
-                                                radius, width, nb, ok, dist);
-  return (int)cudaGetLastError();
+  return launch_knn<1>(q, n, flags, key_s, pts_s, c, grid, meta, inv, radius, width, nb, ok,
+                       dist, stream);
 }

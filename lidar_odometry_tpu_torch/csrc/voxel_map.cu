@@ -34,7 +34,7 @@
 //    butterfly sums over the 32 lanes (lanes 27-31 add zeros), so the plain
 //    twin pads to 32 and halves 16, 8, 4, 2, 1 to sum in the same order.
 //    Lane 0 runs eigh3 in registers with the fast divisions and square
-//    roots (common.cuh, FAST) and writes the 8-float surfel row, the
+//    roots (common.cuh) and writes the 8-float surfel row, the
 //    verdict and the 27-bit live-child mask that the deletion step uses. A
 //    dead row (slot < 0) or a parent without a live child writes the twin's
 //    constant row with no eigen-solve. Eight warps a block: R = 14336 is
@@ -156,9 +156,9 @@ surfel_recompute_kernel(const float4* __restrict__ l0, const long long* __restri
   const float c12 = lo::fast_div(c[4], denom), c22 = lo::fast_div(c[5], denom);
   const float A[3][3] = {{c00, c01, c02}, {c01, c11, c12}, {c02, c12, c22}};
   float lam[3], nrm[3];
-  lo::eigvals3<true>(A, lam);
+  lo::eigvals3(A, lam);
   // ---- eigenvector
-  lo::eigvec_for<true>(A, lam[0], nrm);
+  lo::eigvec_for(A, lam[0], nrm);
   // ---- outputs
   const float plan = lo::fast_div(lam[0], lam[2] + 1e-6f);
   o[0] = make_float4(nrm[0], nrm[1], nrm[2], mean[0]);

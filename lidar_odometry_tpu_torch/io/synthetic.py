@@ -684,3 +684,72 @@ def shard_points(lanes: int, n: int, seed: int = 0, one_cell: bool = False,
         pts = rng.uniform(-30.0, 30.0, (lanes, n, 3)) * np.array([1.0, 1.0, 0.1])
     mask = np.zeros((lanes, n), bool) if masked else rng.random((lanes, n)) > 0.1
     return pts.astype(np.float32), mask
+
+
+def knn_cloud(n: int, seed: int = 0, *, n_queries: int = 600, wide: bool = False,
+              ties: bool = False, all_valid: bool = False):
+    """K6b's edge-case input: (pts (n + 3, 3) float32, mask (n + 3,) bool,
+    queries (n_queries + 46, 3) float32). The cloud is clustered so that 2 m
+    bins hold more rows than the widest probe (16), ~10 % masked off; with
+    `wide` it is 150 m wide, so a table of 0.5 m bins does not fit the dense
+    128 x 128 x 32 window (the binary-search path); with `ties` every point
+    and query lies on a 0.25 m lattice and a quarter of the points are
+    repeated (equal squared distances across bins and within one); with
+    `all_valid` no row is masked. A third of the points, in either case,
+    crowd a 0.8 m Gaussian cluster. Three points stand apart: one alone 20 m
+    below the cloud (its queries find fewer than 5 candidates), and two in
+    the cloud's top bin, which sorts last, so that probes of a table whose
+    rows are all valid clamp onto its last row. The queries: n_queries near
+    the cloud's points, 3 beside each lone point, and 40 far above the cloud
+    (no candidate)."""
+    rng = np.random.default_rng(seed)
+    if wide:
+        pts = rng.uniform([-75, -20, -2], [75, 20, 3], (n, 3))
+    else:
+        pts = rng.uniform([-12, -12, -2], [12, 12, 4], (n, 3))
+    pts[: n // 3] = rng.normal([2.0, -3.0, 0.5], 0.8, (n // 3, 3))
+    if ties:
+        pts = np.round(pts * 4.0) / 4.0
+        rep = rng.choice(n, n // 4, replace=False)
+        pts[rep] = pts[rng.choice(n, n // 4)]
+    apart = np.array([[1.0, 1.0, -20.0], [3.0, 3.25, 9.5], [3.25, 3.0, 9.75]])
+    pts = np.concatenate([pts, apart])
+    mask = np.ones(n + 3, bool) if all_valid else rng.random(n + 3) > 0.1
+    mask[n:] = True
+    q = pts[rng.integers(0, n, n_queries)] + rng.normal(0.0, 0.6, (n_queries, 3))
+    near = np.repeat(apart, 3, axis=0) + rng.normal(0.0, 0.3, (9, 3))
+    far = rng.uniform(-5, 5, (40, 3)) + np.array([0.0, 0.0, 60.0])
+    q = np.concatenate([q, near, far])
+    if ties:
+        q = np.round(q * 2.0) / 2.0
+    return pts.astype(np.float32), mask, q[: n_queries + 46].astype(np.float32)
+
+
+def plane_candidates(n: int, k: int, seed: int = 0):
+    """K5b's edge-case input: (p (n, 3), cand (n, k, 3), cand_ok (n, k),
+    mask (n,)), k >= 5, rows in tenths: the first tenth with exact ties
+    (every odd candidate a copy of the even one before it), the second
+    with fewer than 5 ok candidates, the third with all candidates on a
+    line through the point (the nearest three collinear), the fourth with
+    no ok candidate and masked off (an all-masked row); the rest near a
+    plane (half of them flat to 1 cm) with ~70 % of the candidates ok and
+    ~10 % of the rows masked off."""
+    rng = np.random.default_rng(seed)
+    t = max(n // 10, 1)
+    p = rng.uniform(-5.0, 5.0, (n, 3))
+    cand = p[:, None, :] + rng.normal(0.0, 0.4, (n, k, 3))
+    flat = rng.random(n) < 0.5
+    cand[flat, :, 2] = p[flat, None, 2] + rng.normal(0.0, 0.01, (int(flat.sum()), k))
+    ok = rng.random((n, k)) < 0.7
+    cand[:t, 1::2] = cand[:t, 0:k - 1:2][:, : k // 2]
+    ok[:t, 1::2] = ok[:t, 0:k - 1:2][:, : k // 2]
+    ok[t:2 * t] = False
+    ok[t:2 * t, rng.integers(0, k, 3)] = True
+    d = rng.normal(size=(t, 1, 3))
+    s = np.linspace(0.05, 0.3, k)[None, :, None] * rng.choice([-1.0, 1.0], (t, k, 1))
+    cand[2 * t:3 * t] = p[2 * t:3 * t, None, :] + d / np.linalg.norm(d, axis=-1, keepdims=True) * s
+    ok[2 * t:3 * t, :5] = True
+    ok[3 * t:4 * t] = False
+    mask = rng.random(n) < 0.9
+    mask[3 * t:4 * t] = False
+    return p.astype(np.float32), cand.astype(np.float32), ok, mask

@@ -43,7 +43,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "KernelError", "KernelInputError", "KERNELS", "build", "library",
-           "ptxas_info", "reset_counts", "counts", "check", "check_aligned", "BUILD_DIR"]
+           "ptxas_info", "ptxas_entries", "reset_counts", "counts", "check", "check_aligned",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -139,24 +140,36 @@ def _build() -> dict:
 
 
 def ptxas_info(src: str, kernel: str) -> dict:
-    """ptxas's -v report of the entry function of csrc/<src>.cu whose
+    """ptxas's -v report of the first entry function of csrc/<src>.cu whose
     (mangled) name holds `kernel`, read from its build's log: registers,
     and the stack frame, spill stores and spill loads in bytes. Builds the
     kernels if needed."""
+    return next(iter(ptxas_entries(src, kernel).values()))
+
+
+def ptxas_entries(src: str, kernel: str) -> dict:
+    """ptxas_info of every entry function of csrc/<src>.cu whose mangled
+    name holds `kernel` (each instantiation of a template), by that name,
+    in the log's order."""
     with _lock:
         _build()
     lines = _lib_path(src).with_suffix(".log").read_text().splitlines()
-    head = next((i for i, l in enumerate(lines)
-                 if "Compiling entry function" in l and kernel in l), None)
-    if head is None:
+    heads = [i for i, l in enumerate(lines) if "Compiling entry function" in l]
+    out = {}
+    for n, head in enumerate(heads):
+        name = re.search(r"Compiling entry function '([^']+)'", lines[head])
+        if name is None or kernel not in name.group(1):
+            continue
+        end = heads[n + 1] if n + 1 < len(heads) else len(lines)
+        text = " ".join(lines[head:end])
+        grab = lambda pat: int(re.search(pat, text).group(1))
+        out[name.group(1)] = dict(registers=grab(r"Used (\d+) registers"),
+                                  stack=grab(r"(\d+) bytes stack frame"),
+                                  spill_stores=grab(r"(\d+) bytes spill stores"),
+                                  spill_loads=grab(r"(\d+) bytes spill loads"))
+    if not out:
         raise KernelError(f"no entry function {kernel!r} in the build log of csrc/{src}.cu")
-    end = next((i for i in range(head + 1, len(lines)) if "Compiling entry function" in lines[i]),
-               len(lines))
-    text = " ".join(lines[head:end])
-    grab = lambda pat: int(re.search(pat, text).group(1))
-    return dict(registers=grab(r"Used (\d+) registers"), stack=grab(r"(\d+) bytes stack frame"),
-                spill_stores=grab(r"(\d+) bytes spill stores"),
-                spill_loads=grab(r"(\d+) bytes spill loads"))
+    return out
 
 
 def library(src: str):

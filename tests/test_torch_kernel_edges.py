@@ -70,6 +70,29 @@ holding shards 1-2 of 4 (first > 0, n_local < n_shards), S = 1 (cap = N),
 S = 8, and 2 lanes at two poses: the twin's (p_own, ok, sel, over) equal
 to JAX's _compact_owned of owner_of_points (of the points the twin hashes,
 moved in the twin's rounding where there is a pose).
+
+K6b: point tables (synthetic.knn_cloud) whose 2 m bins hold more rows than
+the widest probe, one 150 m wide at 0.5 m bins (the binary-search path),
+one on a 0.25 m lattice with repeated points (exact ties in the squared
+distance across bins and within one) and one with every row valid whose
+last bin is shorter than the probe (the clamp repeats the last row as an
+ok candidate); query counts that are not a multiple of the kernel's warp
+a query or 8-query block, queries with fewer than k candidates and with
+none; r = 1 and 2, W = 4, 5, 8 and 16, k = 5 and 1: the twin's neighbours
+(every slot) and ok flags equal to JAX's knn_query, its distances within
+1e-6.
+
+K5b: candidate sets (synthetic.plane_candidates) with exact ties, fewer
+than 5 ok candidates, collinear nearest three and all-masked rows, at k =
+5 and 8 (the kernel's group of 8 lanes a point), 9, 27 and 125 (16 lanes a
+point; 125 not a multiple of 16), row counts not a multiple of the
+kernel's 4 or 8 points a warp: the twin's selection equal to jax.lax.top_k's,
+its validity flags and nearest point equal to JAX's _plane_fit_5nn, the
+centroid within 1e-5, and where the two smallest eigenvalues of the 5
+points' covariance are more than 1e-2 of the largest apart
+(tests/test_torch_grid_knn.py's rule) the normal within 1e-5 and the
+distance within 1e-4 (the normal's float32 error times coordinates of up
+to ~9 m).
 """
 import numpy as np
 import jax
@@ -79,6 +102,7 @@ import torch
 
 from lidar_odometry_tpu.ops import icp as jicp
 from lidar_odometry_tpu.ops import iris as jiris
+from lidar_odometry_tpu.ops import knn as jknn
 from lidar_odometry_tpu.ops import pko as jpko
 from lidar_odometry_tpu.ops import voxel_filter as jvf
 from lidar_odometry_tpu.ops import voxel_map as jvm
@@ -89,6 +113,7 @@ from lidar_odometry_tpu.utils import lie as jlie
 from lidar_odometry_tpu_torch.io import synthetic
 from lidar_odometry_tpu_torch.ops import icp as ticp
 from lidar_odometry_tpu_torch.ops import iris as tiris
+from lidar_odometry_tpu_torch.ops import knn as tknn
 from lidar_odometry_tpu_torch.ops import pko as tpko
 from lidar_odometry_tpu_torch.ops import voxel_filter as tvf
 from lidar_odometry_tpu_torch.ops import voxel_map as tvm
@@ -575,3 +600,119 @@ def test_shard_own_twin_on_kernel_edges(case):
         assert int(over.max()) > 0
     if case == "no_point_owned":
         assert not bool(ok.any()) and bool((sel == pts.shape[1] - 1).all())
+
+
+# the card tests' K6b cases: knn_cloud's options, the bin size, k, r, W and
+# the query count
+K6B_CASES = {
+    "queries_not_a_multiple_of_the_block": dict(k=5, r=1, w=8, n_q=613),
+    "radius_2": dict(k=5, r=2, w=8),
+    "width_4": dict(k=5, r=1, w=4),
+    "width_5": dict(k=5, r=1, w=5),
+    "width_16": dict(k=5, r=1, w=16),
+    "binary_search_r1": dict(k=5, r=1, w=4, wide=True),
+    "binary_search_r2": dict(k=5, r=2, w=8, wide=True),
+    "ties_across_and_within_bins": dict(k=5, r=1, w=8, ties=True),
+    "ties_radius_2_width_16": dict(k=5, r=2, w=16, ties=True),
+    "valid_table_short_last_bin": dict(k=5, r=1, w=8, all_valid=True),
+    "k_1": dict(k=1, r=1, w=8),
+    "k_1_radius_2_binary_search": dict(k=1, r=2, w=8, wide=True),
+}
+
+
+def _k6b_case(case):
+    """(pts, mask, queries, bin size, k, r, W) of a K6b case."""
+    c = K6B_CASES[case]
+    pts, mask, q = synthetic.knn_cloud(3000, seed=len(case), n_queries=c.get("n_q", 600),
+                                       wide=c.get("wide", False), ties=c.get("ties", False),
+                                       all_valid=c.get("all_valid", False))
+    return pts, mask, q, 0.5 if c.get("wide") else 2.0, c["k"], c["r"], c["w"]
+
+
+@pytest.mark.parametrize("case", sorted(K6B_CASES))
+def test_point_knn_twin_on_kernel_edges(case):
+    pts, mask, q, bin_size, k, r, w = _k6b_case(case)
+    jt = jknn.build_point_table(jnp.asarray(pts), jnp.asarray(mask), bin_size=bin_size)
+    pt = tknn.build_point_table(torch.as_tensor(pts), torch.as_tensor(mask), bin_size=bin_size)
+    assert bool(pt.fits) == (bin_size == 2.0)
+    jn, jo, jd = (np.asarray(x) for x in jknn.knn_query(jt, jnp.asarray(q), bin_size=bin_size,
+                                                        k=k, radius=r, bucket_width=w))
+    pn, po, pd = (x.numpy() for x in tknn.knn_query(pt, torch.as_tensor(q), k=k, radius=r,
+                                                    bucket_width=w))
+    np.testing.assert_array_equal(po, jo)
+    np.testing.assert_array_equal(pn, jn)
+    np.testing.assert_array_equal(np.isinf(pd), np.isinf(jd))
+    fin = np.isfinite(jd)
+    np.testing.assert_allclose(pd[fin], jd[fin], atol=1e-6, rtol=0)
+    n_ok = po.sum(1)
+    assert (n_ok == 0).any() and (n_ok == k).any()
+    if k > 1:
+        assert ((n_ok > 0) & (n_ok < k)).any()             # fewer than k candidates
+    if bin_size == 2.0:                                    # bins fuller than the probe
+        _, counts = np.unique(pt.key.numpy()[pt.valid.numpy()], return_counts=True)
+        assert counts.max() > w
+    if "ties" in case:                                     # equal distances in one row
+        assert (po[:, 1:] & (pd[:, 1:] == pd[:, :-1])).any()
+    if case == "valid_table_short_last_bin":               # the clamp's repeated last row
+        last = pt.pts[-1].numpy()
+        hits = po & np.all(pn == last, -1)
+        assert (hits.sum(1) > 1).any()
+
+
+# the card tests' K5b cases: (rows, candidates a row, gate)
+K5B_CASES = {
+    "k_5": (613, 5, True),
+    "k_5_ungated": (613, 5, False),
+    "k_8": (402, 8, True),
+    "k_9": (402, 9, False),
+    "k_27": (613, 27, True),
+    "k_125": (613, 125, True),
+    "k_125_ungated": (301, 125, False),
+}
+
+
+def _k5b_case(case):
+    n, k, gate = K5B_CASES[case]
+    return synthetic.plane_candidates(n, k, seed=len(case)) + (gate,)
+
+
+def _degenerate(nb, nb_ok):
+    """Rows whose masked covariance has its two smallest eigenvalues within
+    1e-2 of the largest (float64)."""
+    m = nb_ok[..., None].astype(np.float64)
+    cnt = np.maximum(m.sum(1), 1.0)
+    d = (nb - ((nb * m).sum(1) / cnt)[:, None]) * m
+    lam = np.linalg.eigvalsh(np.einsum("nki,nkj->nij", d, d) / cnt[..., None])
+    return (lam[:, 1] - lam[:, 0]) <= 1e-2 * (lam[:, 2] + 1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(K5B_CASES))
+def test_plane_fit_twin_on_kernel_edges(case):
+    p, cand, ok, mask, gate = _k5b_case(case)
+    jcfg = jicp.ICPConfig(max_correspondence_distance=0.1, plane_fit_planarity=0.1)
+    tcfg = ticp.ICPConfig(max_correspondence_distance=0.1, plane_fit_planarity=0.1)
+    fit = jax.jit(jicp._plane_fit_5nn, static_argnames=("cfg", "gate"))
+    jn, jc, jnn, jv, jd = (np.asarray(x) for x in fit(
+        jnp.asarray(p), jnp.asarray(cand), jnp.asarray(ok), jnp.asarray(mask), cfg=jcfg,
+        gate=gate))
+    d2 = jnp.where(jnp.asarray(ok), jnp.sum((jnp.asarray(cand) - p[:, None, :]) ** 2, -1),
+                   jnp.inf)
+    jsel = np.asarray(jax.lax.top_k(-d2, 5)[1])
+    t = ticp.plane_fit_5nn(torch.as_tensor(p), torch.as_tensor(cand), torch.as_tensor(ok),
+                           torch.as_tensor(mask), tcfg, gate)
+    np.testing.assert_array_equal(t.sel.numpy(), jsel)
+    np.testing.assert_array_equal(t.valid.numpy(), jv)
+    np.testing.assert_array_equal(t.nearest.numpy(), jnn)
+    np.testing.assert_allclose(t.centroid.numpy(), jc, atol=1e-5)
+    deg = _degenerate(np.take_along_axis(cand, jsel[..., None], 1).astype(np.float64),
+                      np.take_along_axis(ok, jsel, 1))
+    tenth = len(p) // 10
+    assert deg[2 * tenth:4 * tenth].all() and not deg.all()   # the lines and empty rows
+    # a normal off by eps * lambda_2 / (lambda_1 - lambda_0) ~ 6e-6 rad moves
+    # n.p by up to ~5e-5 at these 5-9 m coordinates
+    np.testing.assert_allclose(t.dist.numpy()[~deg], jd[~deg], atol=1e-4)
+    assert np.abs(np.sum(t.normal.numpy() * jn, -1))[~deg].min() > 1 - 1e-5
+    assert not t.valid.numpy()[tenth:4 * tenth].any()         # too few, collinear, masked
+    assert t.valid.numpy().any()
+    sd = np.take_along_axis(np.where(ok, ((cand - p[:, None]) ** 2).sum(-1), np.inf), jsel, 1)
+    assert (np.isfinite(sd[:tenth, 1:]) & (sd[:tenth, 1:] == sd[:tenth, :-1])).any()  # ties

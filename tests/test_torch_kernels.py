@@ -1520,3 +1520,141 @@ def test_map_and_shard_kernels_launch_once_without_a_stack(dev):
         assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
     for src, fn in (("voxel_map", "surfel_recompute_kernel"), ("shard", "own_compact_kernel")):
         assert kernels.ptxas_info(src, fn)["stack"] == 0
+
+
+# K6b's edges (a warp a query, 8 queries a block; tests/test_torch_kernel_edges.py
+# holds the twin on the same inputs against JAX): knn_cloud's options, k, r,
+# W and the query count
+K6B_CASES = {
+    "queries_not_a_multiple_of_the_block": dict(k=5, r=1, w=8, n_q=613),
+    "radius_2": dict(k=5, r=2, w=8),
+    "width_4": dict(k=5, r=1, w=4),
+    "width_5": dict(k=5, r=1, w=5),
+    "width_16": dict(k=5, r=1, w=16),
+    "binary_search_r1": dict(k=5, r=1, w=4, wide=True),
+    "binary_search_r2": dict(k=5, r=2, w=8, wide=True),
+    "ties_across_and_within_bins": dict(k=5, r=1, w=8, ties=True),
+    "ties_radius_2_width_16": dict(k=5, r=2, w=16, ties=True),
+    "valid_table_short_last_bin": dict(k=5, r=1, w=8, all_valid=True),
+    "k_1": dict(k=1, r=1, w=8),
+    "k_1_radius_2_binary_search": dict(k=1, r=2, w=8, wide=True),
+}
+
+
+def _k6b_case(case, dev):
+    """(point table, queries, k, r, W) of a K6b case on the card (the table
+    built by K6a)."""
+    from lidar_odometry_tpu_torch.ops import knn
+    c = K6B_CASES[case]
+    pts, mask, q = synthetic.knn_cloud(3000, seed=len(case), n_queries=c.get("n_q", 600),
+                                       wide=c.get("wide", False), ties=c.get("ties", False),
+                                       all_valid=c.get("all_valid", False))
+    table = knn.build_point_table(torch.as_tensor(pts, device=dev),
+                                  torch.as_tensor(mask, device=dev),
+                                  bin_size=0.5 if c.get("wide") else 2.0)
+    assert bool(table.fits) != bool(c.get("wide"))
+    return table, torch.as_tensor(q, device=dev), c["k"], c["r"], c["w"]
+
+
+@pytest.mark.parametrize("case", sorted(K6B_CASES))
+def test_point_knn_kernel_edges(dev, case):
+    """K6b against its twin on the card: the neighbours of every slot (not
+    ok ones too) and the ok flags equal, the distances within 1e-5 and
+    infinite where the twin's are, two calls bit-equal, one launch a call."""
+    from lidar_odometry_tpu_torch.ops import knn
+    table, q, k, r, w = _k6b_case(case, dev)
+    name = "point_knn" if k == 5 else "point_nn1"
+    n0 = kernels.KERNELS[name].launches
+    got = knn.knn_query(table, q, k=k, radius=r, bucket_width=w)
+    again = knn.knn_query(table, q, k=k, radius=r, bucket_width=w)
+    nb, ok, d = knn.knn_query_plain(table, q, k=k, radius=r, bucket_width=w)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS[name].launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[1], ok) and torch.equal(got[0], nb)
+    fin = torch.isfinite(d)
+    assert torch.equal(torch.isfinite(got[2]), fin)
+    assert float((got[2][fin] - d[fin]).abs().max()) <= 1e-5
+    n_ok = ok.sum(1)
+    assert bool((n_ok == 0).any()) and bool((n_ok == k).any())
+
+
+# K5b's edges (a group of 8 lanes a point for k <= 8, else 16; 4 or 8 points
+# a warp): (rows, candidates a row, gate)
+K5B_CASES = {
+    "k_5": (613, 5, True),
+    "k_5_ungated": (613, 5, False),
+    "k_8": (402, 8, True),
+    "k_9": (402, 9, False),
+    "k_27": (613, 27, True),
+    "k_125": (613, 125, True),
+    "k_125_ungated": (301, 125, False),
+}
+
+
+def _k5b_case(case, dev):
+    n, k, gate = K5B_CASES[case]
+    p, cand, ok, mask = (torch.as_tensor(x, device=dev)
+                         for x in synthetic.plane_candidates(n, k, seed=len(case)))
+    return p, cand, ok, mask, gate
+
+
+@pytest.mark.parametrize("case", sorted(K5B_CASES))
+def test_plane_fit_kernel_edges(dev, case):
+    """K5b against its twin on the card: the selection and nearest point
+    equal on every row, the centroid within 1e-5; where the covariance is
+    well conditioned the validity flags equal, the distance and |residual|
+    within 1e-4 and the normal within 1e-5; no all-masked row valid; two
+    calls bit-equal, one launch a call."""
+    p, cand, ok, mask, gate = _k5b_case(case, dev)
+    cfg = icp.ICPConfig(max_correspondence_distance=0.1, plane_fit_planarity=0.1)
+    n0 = kernels.KERNELS["plane_fit_5nn"].launches
+    fk = icp.plane_fit_5nn(p, cand, ok, mask, cfg, gate)
+    again = icp.plane_fit_5nn(p, cand, ok, mask, cfg, gate)
+    fp_ = icp.plane_fit_5nn_plain(p, cand, ok, mask, cfg, gate)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["plane_fit_5nn"].launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(fk, again))
+    assert torch.equal(fk.sel, fp_.sel) and torch.equal(fk.nearest, fp_.nearest)
+    assert float((fk.centroid - fp_.centroid).abs().max()) <= 1e-5
+    well = _well_conditioned(cand, ok, fp_.sel)
+    assert bool(well.any())
+    assert int((fk.valid != fp_.valid)[well].sum()) == 0
+    assert float((fk.dist - fp_.dist)[well].abs().max()) <= 1e-4
+    assert float((fk.resid.abs() - fp_.resid.abs())[well].abs().max()) <= 1e-4
+    assert float((fk.normal * fp_.normal).sum(1).abs()[well].min()) > 1 - 1e-5
+    tenth = p.shape[0] // 10
+    assert not bool(fk.valid[3 * tenth:4 * tenth].any())
+
+
+def test_knn_and_plane_fit_kernels_launch_once_without_a_stack(dev):
+    """K6b (coarse, polish and 1-NN shapes, and a finished solve's launch)
+    and K5b (groups of 8 and of 16 lanes a point) launch their kernel once
+    a call with no torch op beside it that launches device work, and ptxas
+    gave no instantiation of either kernel a stack frame."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidar_odometry_tpu_torch.ops import knn
+    table, q, _, _, _ = _k6b_case("radius_2", dev)
+    done = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
+    cfg = icp.ICPConfig()
+    fit5, fit125 = _k5b_case("k_5", dev), _k5b_case("k_125", dev)
+    calls = [("point_knn", lambda: knn.knn_query(table, q, k=5, radius=1, bucket_width=8)),
+             ("point_knn", lambda: knn.knn_query(table, q, k=5, radius=1, bucket_width=4)),
+             ("point_knn", lambda: knn.knn_query(table, q, k=5, radius=2, bucket_width=16,
+                                                 flags=done)),
+             ("point_nn1", lambda: knn.knn_query(table, q, k=1, radius=1, bucket_width=8)),
+             ("plane_fit_5nn", lambda: icp.plane_fit_5nn(*fit5[:4], cfg, True)),
+             ("plane_fit_5nn", lambda: icp.plane_fit_5nn(*fit125[:4], cfg, True, flags=done))]
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        n0 = kernels.KERNELS[name].launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert kernels.KERNELS[name].launches == n0 + 1
+        ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
+    for src, fn, n in (("knn", "point_knn_kernel", 4), ("grid_knn", "plane_fit_kernel", 2)):
+        entries = kernels.ptxas_entries(src, fn)
+        assert len(entries) == n and all(e["stack"] == 0 for e in entries.values()), entries

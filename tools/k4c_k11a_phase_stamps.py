@@ -45,7 +45,6 @@ It needs the card and nvcc; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import sys
 from pathlib import Path
 
@@ -190,28 +189,6 @@ def timings(tag: str, card: str, inp) -> None:
               f"twin; over {got[3].tolist()}", flush=True)
 
 
-def stamped(tree: Path, out: Path, source: str, specs: list, block: int, kernel: str, name: str):
-    """csrc/<source>.cu (and headers) with the functions of `specs` [(file,
-    start regex, first, last, anchors if the file has no phase comments)]
-    stamped, built, and bound to the tree's wrapper of kernel `name`.
-    Returns (lib, labels)."""
-    from lidar_odometry_tpu_torch import kernels
-    csrc = tree / "lidar_odometry_tpu_torch" / "csrc"
-    stamps = ps.Stamps()
-    texts = {}
-    for fname, start, first, last, anchors in specs:
-        lines = texts.get(fname) or (csrc / fname).read_text().splitlines()
-        texts[fname] = stamps.function(lines, start, first=first, last=last, anchors=anchors)
-    ps.copy_sources(csrc, out, source, texts)
-    lib = ps.build(out, source, out / f"lib{source}_stamped.so", block, kernel)
-    k = kernels.KERNELS[name]
-    fn = getattr(lib, f"lo_{name}")
-    fn.argtypes = k.argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    k._fn = fn          # the tree's wrapper now launches the stamped copy
-    return lib, stamps.labels
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, default=None,
@@ -246,24 +223,18 @@ def main() -> None:
     if args.plain:
         return
 
-    # the SM clock: a spin of known cycles timed by CUDA events
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(20_000_000)
-    end.record()
-    torch.cuda.synchronize()
-    us_per_cycle = start.elapsed_time(end) * 1e3 / 20_000_000
+    us_per_cycle = ps.sm_us_per_cycle()
     csrc = tree / "lidar_odometry_tpu_torch" / "csrc"
     base = ROOT / "build" / "k4c_k11a_stamps" / tag
 
     new4 = "// ---- sums" in (csrc / "voxel_map.cu").read_text()
     new_eig = "// ---- eigvals3" in (csrc / "common.cuh").read_text()
-    lib, labels = stamped(tree, base / "k4c", "voxel_map", [
+    lib, labels = ps.stamped(tree, base / "k4c", "voxel_map", [
         ("voxel_map.cu", r"^surfel_recompute_kernel\(", "start", "end",
          () if new4 else K4C_ANCHORS),
         ("common.cuh", r"^__device__ __forceinline__ void eigvals3\(",
          "eigvals3: trace, p, B, det", None, () if new_eig else EIG_ANCHORS)],
-        0, "surfel_recompute_kernel", "map_surfel_recompute")
+        0, "surfel_recompute_kernel", ["map_surfel_recompute"])
     _, l0, r_slot = k4c_shapes(inp)[0]
     a = cs.k4c_agreement(l0, r_slot, cs.C1, 0.1)
     run = lambda: vm.map_surfel_recompute(l0, r_slot, cs.C1, 0.1)
@@ -280,9 +251,9 @@ def main() -> None:
     ps.report(phases, total, us_per_cycle)
 
     new11 = "// ---- ranks in the warp" in (csrc / "shard.cu").read_text()
-    lib, labels = stamped(tree, base / "k11a", "shard", [
+    lib, labels = ps.stamped(tree, base / "k11a", "shard", [
         ("shard.cu", r"^own_compact_kernel\(", "prologue", "end", () if new11 else K11A_ANCHORS)],
-        -1, "own_compact_kernel", "shard_own")
+        -1, "own_compact_kernel", ["shard_own"])
     label, args11 = [s for s in k11a_shapes(inp) if s[0].endswith("1 lane, S 4, T")][0]
     check_k11a(args11)
     run = lambda: so.shard_own(*args11)

@@ -1,7 +1,7 @@
-"""The clock64 phase stamps that tools/k3_phase_stamps.py and
-tools/k10b_phase_stamps.py take of one kernel on the card: stamping a copy
-of its sources at their phase comments, building the copy with the port's
-nvcc flags, and reading the stamps back, split by phase.
+"""The clock64 phase stamps that the tools/k*_phase_stamps.py take of a
+kernel on the card: stamping a copy of its sources at their phase
+comments, building the copy with the port's nvcc flags, binding the tree's
+wrappers to it (stamped), and reading the stamps back, split by phase.
 
 A stamp is taken by thread 0 of block LO_STAMP_BLOCK (a define of the
 build; blockIdx.y and .z 0) and appends (phase, clock64) to a log in device memory. Every
@@ -150,6 +150,44 @@ def build(csrc: Path, source: str, lib_path: Path, block: int, kernel: str):
             for l in report[i:i + 4]:
                 print(f"ptxas: {l.strip()}")
     return ctypes.CDLL(str(lib_path))
+
+
+def stamped(tree: Path, out: Path, source: str, specs: list, block: int, kernel: str,
+            names: list):
+    """The tree's csrc/<source>.cu (and headers) with the functions of
+    `specs` [(file, start regex, first, last, anchors if the file has no
+    phase comments)] stamped, built into `out` (stamps taken in block
+    `block`; ptxas's lines for `kernel` printed), and bound to the tree's
+    wrappers of the kernels `names`, which launch the stamped copy from then
+    on. Returns (lib, labels)."""
+    from lidar_odometry_tpu_torch import kernels
+    csrc = tree / "lidar_odometry_tpu_torch" / "csrc"
+    stamps = Stamps()
+    texts = {}
+    for fname, start, first, last, anchors in specs:
+        lines = texts.get(fname) or (csrc / fname).read_text().splitlines()
+        texts[fname] = stamps.function(lines, start, first=first, last=last, anchors=anchors)
+    copy_sources(csrc, out, source, texts)
+    lib = build(out, source, out / f"lib{source}_stamped.so", block, kernel)
+    for name in names:
+        k = kernels.KERNELS[name]
+        fn = getattr(lib, f"lo_{name}")
+        fn.argtypes = k.argtypes + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        k._fn = fn
+    return lib, stamps.labels
+
+
+def sm_us_per_cycle() -> float:
+    """Microseconds a cycle of the SM clock: a spin of known cycles timed
+    by CUDA events."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / 20_000_000
 
 
 def clear(lib) -> None:

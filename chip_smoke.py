@@ -31,6 +31,10 @@ Phases, each of which exits nonzero on failure:
        - the KD-tree kernels (K5a grid_knn, K5b plane_fit_5nn) at the mid360
          shapes (scan capacity 16384, 0.4 m voxels, radius 2, a map of 65536
          parents built without surfels by the mid360 path's first keyframes);
+         K5a also at radius 1, with the row mask in the kernel (timed beside
+         K5a then torch's &) and on a tail warp, all exactly, and the
+         KD-tree correspondences with one K5a launch and no torch & of the
+         mask;
        - the loop-closure kernels at kitti.yaml's shapes (keyframes of the
          loops path's circuit scanned densely enough to fill the scan
          capacity of 16384 features, so a loop query of 8192 valid rows
@@ -66,7 +70,9 @@ Phases, each of which exits nonzero on failure:
          at kitti.yaml's width (16384 features of a dense loop frame, 101
          alphas, a map of 65536 parents built by the sharded update from
          the earlier dense frames) at 1, 2, 4 and 8 shards: K11a and K11c
-         exactly, K11b within 1e-5 of its largest entry, K11d the same
+         exactly (K11c alone and inside K11b's launch, K11b's part of that
+         launch bit-equal to K11b alone, both timed at every S), K11b within
+         1e-5 of its largest entry, K11d the same
          alpha and T within 1e-6, each shard of a launch bit-equal to a
          one-shard launch, and K2a's one launch over every shard (and over
          2 lanes x 4 shards) bit-equal to its per-instance launches; times
@@ -118,7 +124,8 @@ Phases, each of which exits nonzero on failure:
      map_backend=ShardedMapBackend).process_frame over the loops path's
      220 scans (it must accept a loop, rehash the sharded map, log no loop
      error, end below 0.5 m ATE and within 0.02 m of the loops path's
-     distributed run, launch K11a-d and no K5a); then
+     distributed run, launch K11a, K11b and K11d and no K5a, and run
+     K11c inside K11b's launch once an ICP iteration, never alone); then
      multichip_odometry_step at 2 lanes x 4 shards over the blocked path's
      first two lanes, 60 frames (each lane below 0.5 m ATE);
  10. one JSON line of kernels, then the card line, then the result line.
@@ -127,12 +134,13 @@ lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs. K2b (B = 1, B = 4,
 the weight residual) and K11b (at each S) are also held to two calls
 bit-equal; for both, the cluster size they launch with, and for them,
-K4c, K11a, K5b and K6b ptxas's stack frame of every instantiation (0
-bytes, else the run fails) and one launch a call with no torch op that
-launches device work beside it (no zero fill, read from torch.profiler's
-op events) are printed and kept in the kernels line, with K11b's device
-and as-issued times and bound at every S, K6b's at each of its shapes
-and K5b's at the loop shape.
+K4c, K11a, K5b, K6b, K5a and K11c (K11b's kernel) ptxas's stack frame of
+every instantiation (0 bytes, else the run fails) and one launch a call
+with no torch op that launches device work beside it (no zero fill, read
+from torch.profiler's op events) are printed and kept in the kernels
+line, with K11b's and K11c's device and as-issued times at every S (K11b
+alone and with the sample), K6b's at each of its shapes, K5b's at the
+loop shape and K5a's at r = 1 and with the row mask.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
@@ -141,9 +149,12 @@ loops path the surfel path's kernels, K5b and every loop-closure kernel
 not launch), the PGO path K10a-K10d, the Schur path K12a and K12b and no
 K10 kernel, the blocked path the surfel path's
 kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
-the loops path's kernels, K10a-d and K11a-d, the step path K11a-d, K1,
-K2a and K4a-c; on both, K2a once an ICP iteration (as many launches as
-K11d's), one launch for every lane and shard. `--profile` also profiles
+the loops path's kernels, K10a-d and K11a, K11b, K11d, the step path
+K11a, K11b, K11d, K1, K2a and K4a-c; on both, K2a once an ICP iteration (as
+many launches as K11d's), one launch for every lane and shard, and K11c's
+sample inside K11b's launch once an ICP iteration and never launched alone
+(its runs there are counted in its `fused` count, and the kernels line
+adds them to its launches: fused_launches_by_path). `--profile` also profiles
 20 frames of the sharded path and of the step path. Lanes 1-3's scans
 are made in spawned worker processes while the parent makes the other
 scans.
@@ -229,6 +240,8 @@ SHARD_CHECK = (1, 2, 4, 8)
 SHARDS = 4
 STEP_LANES = 2
 SHARD_KERNELS = ("shard_own", "shard_alpha_normal_eq", "shard_sample", "shard_gn_select")
+# launched by the sharded ICP (K11c runs inside K11b's launch: check_sample_in_k11b)
+SHARD_PATH_KERNELS = ("shard_own", "shard_alpha_normal_eq", "shard_gn_select")
 
 
 def fail(msg: str) -> None:
@@ -495,6 +508,19 @@ def check_launches(path: str, launches: dict, must, never=()) -> None:
     extra = [k for k in never if launches[k] != 0]
     if extra:
         fail(f"the {path} path launched {extra}, which it must not")
+
+
+def check_sample_in_k11b(path: str, launches: dict, fused: dict) -> None:
+    """The sharded ICP runs K11c's sample inside K11b's launch: no launch of
+    its own, its work in every ICP iteration's K11b launch (as many as
+    K11d's)."""
+    n, k11d = fused["shard_sample"], launches["shard_gn_select"]
+    print(f"{path} path: K11c's sample ran {n} times inside K11b's launch (K11b launches "
+          f"{launches['shard_alpha_normal_eq']}), {launches['shard_sample']} launches of its "
+          f"own, {k11d} ICP iterations", flush=True)
+    if launches["shard_sample"] != 0 or n != k11d or n == 0:
+        fail(f"{path} path: K11c ran {n} times in K11b's launch and {launches['shard_sample']} "
+             f"times alone for {k11d} ICP iterations (all of them in K11b's expected)")
 
 
 def setup():
@@ -884,25 +910,68 @@ def check_kd_kernels(scans, sysc):
     if flips:
         fail(f"grid_knn: {flips} candidate flags differ from the plain version")
     m = okk.shape[1]
-    # bytes: the points, every distinct bucket row probed and L0 row read,
-    # and the (N, M) candidates written
     qc = K.voxel_coords(p, K.f32(1.0 / K.f32(vox)))
-    span = (2 * r) // 3 + 2
-    par = (torch.div(qc - r, 3, rounding_mode="floor")[:, None, :]
-           + torch.as_tensor(vm._cube(0, span - 1), device=dev)[None])
-    n_b = int(torch.unique(vm.hash_bucket(*K.pack_key(par.reshape(-1, 3)),
-                                          state.n_buckets - 1)).numel())
-    nbr = qc[:, None, :] + torch.as_tensor(vm._cube(-r, r), device=dev)[None]
-    n_r = int(torch.unique(K.sort_key(*K.pack_key(nbr.reshape(-1, 3)))).numel())
+
+    def k5a_bytes(rr: int) -> int:
+        """The points, every distinct bucket row probed and L0 row read, and
+        the (N, M) candidates written."""
+        span = (2 * rr) // 3 + 2
+        par = (torch.div(qc - rr, 3, rounding_mode="floor")[:, None, :]
+               + torch.as_tensor(vm._cube(0, span - 1), device=dev)[None])
+        n_b = int(torch.unique(vm.hash_bucket(*K.pack_key(par.reshape(-1, 3)),
+                                              state.n_buckets - 1)).numel())
+        nbr = qc[:, None, :] + torch.as_tensor(vm._cube(-rr, rr), device=dev)[None]
+        n_r = int(torch.unique(K.sort_key(*K.pack_key(nbr.reshape(-1, 3)))).numel())
+        return n * 12 + n_b * 128 + n_r * 16 + n * (2 * rr + 1) ** 3 * 13, n_b, n_r
+
+    b5, n_b, n_r = k5a_bytes(r)
     row("grid_knn", float((ck - cp).abs().max()), 0.0,
         lambda: vm.grid_knn_neighbors(state, p, voxel_size=vox, radius=r),
         time_ms(lambda: vm.grid_knn_neighbors_plain(state, p, voxel_size=vox, radius=r)),
-        n * 12 + n_b * 128 + n_r * 16 + n * m * 13, n * m * 20,
+        b5, n * m * 20,
         note=f"{n} rows x {m} candidates, {int(okk.sum())} live; {n_b} bucket rows, "
              f"{n_r} L0 rows")
+    # r = 1, the row mask in the kernel (the KD-tree ICP's route) and a tail
+    # warp (N % 4 = 1): each exactly the twin's (with the mask, ANDed)
+    cases = (("r = 1", 1, p, None), ("the row mask", r, p, mask),
+             ("a tail of 1 point", r, p[:n - 3].contiguous(), None))
+    for label, rr, pts, msk in cases:
+        ck2, ok2 = vm.grid_knn_neighbors(state, pts, voxel_size=vox, radius=rr, mask=msk)
+        cp2, op2 = vm.grid_knn_neighbors_plain(state, pts, voxel_size=vox, radius=rr)
+        if msk is not None:
+            op2 = op2 & msk[:, None]
+        if not (torch.equal(ck2, cp2) and torch.equal(ok2, op2)):
+            fail(f"grid_knn with {label}: differs from the plain version")
+    r1 = lambda: vm.grid_knn_neighbors(state, p, voxel_size=vox, radius=1)
+    masked = lambda: vm.grid_knn_neighbors(state, p, voxel_size=vox, radius=r, mask=mask)
+
+    def then_and():   # the route before the mask went into the kernel
+        c, o = vm.grid_knn_neighbors(state, p, voxel_size=vox, radius=r)
+        return c, o & mask[:, None]
+
+    b1 = bound_ms(k5a_bytes(1)[0], n * 27 * 20)
+    rows["grid_knn"].update(
+        r1_ms=time_ms(r1), r1_device_ms=device_ms(r1), r1_bound_ms=b1[0],
+        masked_ms=time_ms(masked), masked_device_ms=device_ms(masked),
+        then_and_ms=time_ms(then_and), then_and_device_ms=device_ms(then_and))
+    fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
+    g = rows["grid_knn"]
+    print(f"  grid_knn: r = 1 ({n} x 27) {fmt(g['r1_device_ms'])} ms on the device "
+          f"({g['r1_ms']:.4f} as issued, bound {b1[0]:.5f}); with the row mask in the kernel "
+          f"{fmt(g['masked_device_ms'])} ({g['masked_ms']:.4f}) against K5a then torch & "
+          f"{fmt(g['then_and_device_ms'])} ({g['then_and_ms']:.4f}); r = 1, the row mask and a "
+          f"tail warp equal to the plain version", flush=True)
+    check_one_launch(rows, "grid_knn", "grid_knn", "grid_knn_kernel", [r1, masked],
+                     note="4 points a warp, 4 warps a block")
+    # the KD-tree correspondences: one K5a launch, no torch & of the mask
+    eye = torch.eye(4, device=dev).reshape(16)
+    n_k, ops = launches_of(lambda: icp._grid_plane_correspondences(state, p, mask, eye, None,
+                                                                   cfg), "grid_knn")
+    if n_k != 1 or {"aten::bitwise_and", "aten::__and__"} & set(ops):
+        fail(f"KD-tree correspondences: {n_k} K5a launches beside the torch ops {ops}")
 
     # ---- K5b plane_fit_5nn ----
-    cand_ok = okk & mask[:, None]
+    cand_ok = okk & mask[:, None]   # as K5a writes them on the ICP's route
     fk = icp.plane_fit_5nn(p, ck, cand_ok, mask, cfg, True)
     fp_ = icp.plane_fit_5nn_plain(p, ck, cand_ok, mask, cfg, True)
     gap = k5b_gaps(fk, fp_, ck, cand_ok)
@@ -2360,9 +2429,13 @@ def check_shard_lanes(frames, icfg, consts, st, g, inv):
             flags[done] = torch.tensor([1, 0, 77], dtype=torch.int32, device=dev)
         rk = torch.full((b * s, ld), -7.0, device=dev)
         rp = rk.clone()
-        so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, consts.alphas, icfg,
-                                 n_local=s, out=rk)
-        so.shard_sample(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=rk)
+        # the step path's route: K11b with K11c's sample in its launch
+        so.shard_alpha_normal_eq_sample(p_own, nrm, r, valid, T, flags, mom, consts.alphas, u,
+                                        icfg, first=0, n_local=s, off=off, out=rk)
+        alone = rk.clone()
+        so.shard_sample(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=alone)
+        if not torch.equal(alone, rk):
+            bad.append(f"K11c alone differs from K11c in K11b's launch (done {done})")
         so.shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, flags, mom, consts.alphas, icfg,
                                        n_local=s, out=rp)
         so.shard_sample_plain(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=rp)
@@ -2374,11 +2447,11 @@ def check_shard_lanes(frames, icfg, consts, st, g, inv):
             bad.append(f"K11b/K11c wrote done lane {done}")
         for lane in range(b):
             one = torch.full((s, ld), -7.0, device=dev)
-            so.shard_alpha_normal_eq(inst(p_own, lane), inst(nrm, lane), inst(r, lane),
-                                     inst(valid, lane), T[lane:lane + 1], flags[lane:lane + 1],
-                                     mom[lane:lane + 1], consts.alphas, icfg, n_local=s, out=one)
-            so.shard_sample(inst(r, lane), inst(valid, lane), flags[lane:lane + 1],
-                            mom[lane:lane + 1], u, first=0, n_local=s, off=off, out=one)
+            so.shard_alpha_normal_eq_sample(inst(p_own, lane), inst(nrm, lane), inst(r, lane),
+                                            inst(valid, lane), T[lane:lane + 1],
+                                            flags[lane:lane + 1], mom[lane:lane + 1],
+                                            consts.alphas, u, icfg, first=0, n_local=s, off=off,
+                                            out=one)
             if not torch.equal(one, inst(rk, lane)):
                 bad.append(f"K11b/K11c lane {lane} (done {done})")
         buf = rk.view(b, s, ld)
@@ -2518,22 +2591,36 @@ def check_shard_kernels(frames, cfg, rows):
             return so.shard_sample_plain(r, valid, flags, mom, u, first=0, n_local=s, off=off,
                                          out=rp)
 
-        ne_k(), ne_p(), sample_k(), sample_p()
+        rf = torch.zeros((s, ld), device=dev)
+
+        def fused_k(out=rf):   # the ICP round's one launch: K11b with K11c's sample slice
+            return so.shard_alpha_normal_eq_sample(p_own, nrm, r, valid, T1, flags, mom,
+                                                   consts.alphas, u, icfg, first=0, n_local=s,
+                                                   off=off, out=out)
+
+        ne_k(), ne_p(), sample_k(), sample_p(), fused_k()
         first = rk.clone()
         ne_k()
         twice = torch.equal(first, rk)
         rel_h, rel_g, err_cnt = ne_errors(rk, rp, n_alpha)
         scale_ne = float(rp[:, :off].abs().max())
         err_ne = float((rk[:, :off] - rp[:, :off]).abs().max())
-        err_smp = float((rk[:, off:-1] - rp[:, off:-1]).abs().max())
+        # K11c alone and inside K11b's launch, exactly; K11b's part of the
+        # fused row bit-equal to K11b alone
+        err_smp = max(float((rk[:, off:-1] - rp[:, off:-1]).abs().max()),
+                      float((rf[:, off:-1] - rp[:, off:-1]).abs().max()))
+        eq_fused = torch.equal(rf[:, :off], rk[:, :off]) and torch.equal(rf[:, -1], rk[:, -1])
         eq_rows = True
         for k in range(s):
-            one = torch.zeros((1, ld), device=dev)
+            one, onef = (torch.zeros((1, ld), device=dev) for _ in range(2))
             so.shard_alpha_normal_eq(p_own[k:k + 1], nrm[k:k + 1], r[k:k + 1], valid[k:k + 1],
                                      T1, flags, mom, consts.alphas, icfg, n_local=1, out=one)
             so.shard_sample(r[k:k + 1], valid[k:k + 1], flags, mom, u, first=k, n_local=1,
                             off=off, out=one)
-            eq_rows &= torch.equal(one[0], rk[k])
+            so.shard_alpha_normal_eq_sample(p_own[k:k + 1], nrm[k:k + 1], r[k:k + 1],
+                                            valid[k:k + 1], T1, flags, mom, consts.alphas, u,
+                                            icfg, first=k, n_local=1, off=off, out=onef)
+            eq_rows &= torch.equal(one[0], rk[k]) and torch.equal(onef[0], rf[k])
         buf = rk[None].contiguous()
 
         def sel_k(b=buf):
@@ -2551,7 +2638,11 @@ def check_shard_kernels(frames, cfg, rows):
         b_ne = bound_ms(s * cap * (12 + 12 + 4 + 1) + s * ld * 4 + 64, n_valid * n_alpha * 54)
         by_shards[s] = dict(ms=time_ms(ne_k), device_ms=device_ms(ne_k), bound_ms=b_ne[0],
                             bound_by=b_ne[1], max_abs_err=err_ne, scale=scale_ne, rows=s * cap,
-                            valid_rows=n_valid, two_calls_bit_equal=twice)
+                            valid_rows=n_valid, two_calls_bit_equal=twice,
+                            with_sample_ms=time_ms(fused_k),
+                            with_sample_device_ms=device_ms(fused_k),
+                            sample_alone_ms=time_ms(sample_k),
+                            sample_alone_device_ms=device_ms(sample_k))
         lanes2 = so.shard_gn_select(torch.cat([buf, buf]), torch.cat([T1, T1]),
                                     torch.cat([flags, flags]), consts, pick, icfg,
                                     n_alpha=n_alpha, quota=q, use_pko=True)
@@ -2562,16 +2653,23 @@ def check_shard_kernels(frames, cfg, rows):
               f"{fmt(own_by_shards[s]['device_ms'])} ms on the device, "
               f"{fmt(own_by_shards[s]['device_ms_without_T'])} without T), "
               f"K11b {fmt(by_shards[s]['device_ms'])} ms on the device "
-              f"({by_shards[s]['ms']:.4f} as issued, bound {b_ne[0]:.5f}), two calls bit-equal "
+              f"({by_shards[s]['ms']:.4f} as issued, bound {b_ne[0]:.5f}), with K11c's sample "
+              f"in its launch {fmt(by_shards[s]['with_sample_device_ms'])} "
+              f"({by_shards[s]['with_sample_ms']:.4f}), K11c alone "
+              f"{fmt(by_shards[s]['sample_alone_device_ms'])} "
+              f"({by_shards[s]['sample_alone_ms']:.4f}); two calls bit-equal "
               f"{twice}, moments rel {err_mom:.1e}, systems {err_ne:.2e} of {scale_ne:.3e}: "
               f"J J^T block {rel_h:.1e} rel, J r block {rel_g:.1e} rel, count {err_cnt:.0e}, "
-              f"K11c {err_smp:.1e} (exact), "
+              f"K11c {err_smp:.1e} (exact, alone and in K11b's launch; K11b's part of that "
+              f"launch bit-equal to K11b alone {eq_fused}), "
               f"K11d alpha {int(sk[2][0, 0])} vs {int(sp[2][0, 0])}, T {err_sel:.1e}; "
               f"instances bit-equal to one-instance launches: K11a {eq_own}, K11b/K11c "
               f"{eq_rows}, K11d lanes {eq_sel}, K2a's one launch over the {s} shards {eq_k2a}; "
               f"{n_valid} valid correspondences", flush=True)
         if err_own != 0.0 or err_smp != 0.0:
             fail(f"shards S={s}: K11a or K11c differs from its plain version")
+        if not eq_fused:
+            fail(f"shards S={s}: K11b's part of the fused launch differs from K11b alone")
         if err_mom > 1e-5 or rel_h > 1e-5 or rel_g > 1e-5 or err_cnt != 0.0:
             fail(f"shards S={s}: K11b differs from its plain version")
         if not torch.equal(sk[2], sp[2]) or not torch.equal(sk[1], sp[1]) or err_sel > 1e-6:
@@ -2618,13 +2716,26 @@ def check_shard_kernels(frames, cfg, rows):
             "shard_alpha_normal_eq")
         if n_mom != 1 or ops_mom:
             fail(f"shard_alpha_normal_eq (moments): {n_mom} launches beside {ops_mom}")
+        # K11c's bytes: the flags, the q residuals it draws and its row slots
         record(rows, "shard_sample", err_smp, 0.0, sample_k, time_ms(sample_p, reps=5),
-               g_inst * (4 + 1) + s * 2 * s * q * 4 + s * 12, 0.0, note=f"quota {q}")
+               g_inst + s * q * 4 + s * 2 * s * q * 4 + s * 12 + s * q * 4, 0.0,
+               note=f"quota {q}; alone (K11b's kernel with the sample slice only); on the "
+                    f"paths it runs inside K11b's launch")
+        check_one_launch(rows, "shard_sample", "shard", "alpha_ne_kernel", [sample_k],
+                         so.shard_alpha_normal_eq_shape(),
+                         note="K11b's kernel, the sample slice alone")
+        n_f, ops_f = launches_of(fused_k, "shard_alpha_normal_eq")
+        if n_f != 1 or ops_f:
+            fail(f"shard_alpha_normal_eq with the sample: {n_f} launches beside {ops_f}")
         record(rows, "shard_gn_select", err_sel, 1e-6, sel_k, time_ms(sel_p, reps=3),
                s * ld * 4 + (n_alpha * 100 + 100) * 4 + 64 + 12, 0.0,
                note=f"alpha {int(sk[2][0, 0])} (plain {int(sp[2][0, 0])})")
         del st
     rows["shard_alpha_normal_eq"]["by_shards"] = by_shards
+    rows["shard_sample"]["by_shards"] = {
+        s: dict(device_ms=v["sample_alone_device_ms"], ms=v["sample_alone_ms"],
+                k11b_with_sample_device_ms=v["with_sample_device_ms"],
+                k11b_alone_device_ms=v["device_ms"]) for s, v in by_shards.items()}
     rows["shard_own"]["by_shards"] = own_by_shards
     return rows
 
@@ -2679,7 +2790,7 @@ def sharded_path(scans, gt, cfg, traj_dist, group):
     est.finalize_loops()
     sync()
     wall = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches, fused = kernels.counts(), kernels.fused_counts()
     traj = est.trajectory()
     n = len(scans)
     if traj.shape != (n, 4, 4) or not np.all(np.isfinite(traj)):
@@ -2700,8 +2811,9 @@ def sharded_path(scans, gt, cfg, traj_dist, group):
           f"n_dropped {counts['n_dropped']}, owned points past the shard caps {over}", flush=True)
     print("sharded loop stages (ms, cumulative): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
-    check_launches("sharded", launches, LOOPS_PATH_KERNELS + PGO_KERNELS + SHARD_KERNELS,
-                   ("grid_knn",))
+    check_launches("sharded", launches, LOOPS_PATH_KERNELS + PGO_KERNELS + SHARD_PATH_KERNELS,
+                   ("grid_knn", "shard_sample"))
+    check_sample_in_k11b("sharded", launches, fused)
     check_one_k2a_an_iteration("sharded", launches)
     if est.get_loop_closure_count() < 1:
         fail("the sharded path accepted no loop")
@@ -2727,7 +2839,7 @@ def sharded_path(scans, gt, cfg, traj_dist, group):
             for s in scans[20:40]:
                 prof.process_frame(s)
         profile_window(window, "the sharded path, 20 frames of process_frame", "sharded_")
-    return launches
+    return launches, fused
 
 
 def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
@@ -2789,7 +2901,7 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
     state = drive(state, range(LANE_FRAMES), host)
     sync()
     wall = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches, fused = kernels.counts(), kernels.fused_counts()
     poses, n_kf = host["poses"], host["n_kf"]
     if not np.all(np.isfinite(poses)):
         fail("step path: poses not all finite")
@@ -2801,9 +2913,11 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
           f"{[round(a, 4) for a in blocked_ates[:b]]} m); keyframes {n_kf}; n_l0 per lane "
           f"{n_l0}; {sum(launches.values()) / LANE_FRAMES:.1f} launches of the port's kernels a "
           f"frame", flush=True)
-    check_launches("step", launches, SHARD_KERNELS + ("voxel_filter", "icp_correspond",
-                                                      "map_scatter_add"),
-                   ("grid_knn", "plane_fit_5nn", "pko_alpha", "icp_normal_eq") + LOOP_KERNELS)
+    check_launches("step", launches, SHARD_PATH_KERNELS + ("voxel_filter", "icp_correspond",
+                                                           "map_scatter_add"),
+                   ("grid_knn", "plane_fit_5nn", "pko_alpha", "icp_normal_eq", "shard_sample")
+                   + LOOP_KERNELS)
+    check_sample_in_k11b("step", launches, fused)
     check_one_k2a_an_iteration("step", launches)
     bad = [i for i in range(b) if not ates[i] < 0.5]
     if bad:
@@ -2817,7 +2931,7 @@ def step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group):
                            prof_host)
         profile_window(lambda: drive(prof_state, range(20, 40), prof_host),
                        f"the step path, 20 frames x {b} lanes", "step_")
-    return launches
+    return launches, fused
 
 
 def check_one_k2a_an_iteration(path: str, launches: dict) -> None:
@@ -3002,23 +3116,31 @@ def main() -> None:
                                                         surfel)
 
         # ---- phase 9: the sharded path and the data x map step ----
-        by_path["sharded"] = sharded_path(loop_scans, loop_gt,
-                                          kitti.replace(pgo_backend="distributed"), traj_dist,
-                                          group)
-        by_path["step"] = step_path(lanes_np, lane_gt, cfg, consts, blocked_ates, group)
+        fused_by_path = {}
+        by_path["sharded"], fused_by_path["sharded"] = sharded_path(
+            loop_scans, loop_gt, kitti.replace(pgo_backend="distributed"), traj_dist, group)
+        by_path["step"], fused_by_path["step"] = step_path(lanes_np, lane_gt, cfg, consts,
+                                                           blocked_ates, group)
     finally:
         dist.destroy_process_group()
 
     # ---- phase 10: report ----
+    # a kernel whose work runs inside another's launch (K11c in K11b's) counts
+    # those runs too, beside its own launches (the other paths run no such launch)
     out = []
     for name, k in kernels.KERNELS.items():
         per = {path: counts[name] for path, counts in by_path.items()}
+        inside = {path: f[name] for path, f in fused_by_path.items() if f[name]}
+        extra = (dict(fused_launches_by_path=inside, in_launch_of="shard_alpha_normal_eq")
+                 if inside else {})
         out.append(dict(name=name, route="cuda",
                         source=f"lidar_odometry_tpu_torch/csrc/{k.source}.cu",
-                        replaces=k.replaces, launches=sum(per.values()),
-                        launches_by_path=per, **rows[name]))
+                        replaces=k.replaces, launches=sum(per.values()) + sum(inside.values()),
+                        launches_by_path=per, **extra, **rows[name]))
     print("kernels: " + " | ".join(
-        f"{o['name']} launches={o['launches_by_path']} err={o['max_abs_err']:.2e} "
+        f"{o['name']} launches={o['launches_by_path']}"
+        f"{' + ' + str(o['fused_launches_by_path']) + ' in K11b' if 'in_launch_of' in o else ''}"
+        f" err={o['max_abs_err']:.2e} "
         f"ms={o['ms']:.4f} plain_ms={o['plain_ms']:.4f}" for o in out), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -69,8 +69,26 @@
 //    share of the outputs, and after one cluster barrier each rank adds
 //    its eighth), so the result depends on n alone. The moments
 //    (iteration 0) are one CTA an instance.
-//  * K11c reads each instance's residuals and flags (~40 KB) once: one
-//    block per instance as in K3's sample step, latency-bound.
+//  * K11c reads each instance's flags and q <= 100 of its residuals (~8 KB
+//    at S = 4), so a launch is its dependent rounds: the flags' load, the
+//    scan, the search, the residuals' gather. Design: a slice of K11b's
+//    grid (one more cluster an instance, beside the alpha groups'), so on
+//    the ICP's rounds it takes no launch of its own; only rank 0 of the
+//    slice's cluster works. Its 256 threads read the flags 16 bytes at a
+//    time (a chunk: 16 flags as a 16-bit mask, counted with __popc; the
+//    row is read from its 16-byte aligned start, the bytes outside it
+//    masked off, so any n and any row offset take wide loads), tiles of
+//    1024 chunks, a tile's chunk j to thread j mod 256 (coalesced). The
+//    chunks' counts are scanned with warp shuffles and one cross-warp
+//    step (warp 0 scans the 4 x 8 warp totals), two barriers a tile,
+//    into a shared-memory table of inclusive counts; thread t < q then
+//    binary-searches its stratum's rank in the table and takes the bit
+//    in the chunk's mask with __fns (no second pass over the flags), and
+//    the q residuals come in one round of loads. One CTA is enough: inside
+//    K11b's launch the slice runs beside the alpha groups' clusters and
+//    the launch takes K11b's own time, so spreading it over the cluster's
+//    8 CTAs (one more cluster barrier, ~1 us) cannot pay. Standalone
+//    (shard_sample), the same kernel launches with the sample slice alone.
 //  * K11d is one block per lane over a few KB: K3's GMM fit and JS argmin
 //    (gmm.cuh) and K2b's solve and retract (gn.cuh); latency-bound.
 #include <cooperative_groups.h>
@@ -94,7 +112,9 @@ constexpr int NE_ROW = 28;          // a row in shared memory: its 27 products, 
 constexpr int NE_OUT = NE_Z * 32;   // a cluster's sums: 27 for each of its 32 alphas
 constexpr int NE_DEPTH = 2;         // chunks a warp has in flight
 constexpr int MOM_THREADS = 256;
-constexpr int SAMPLE_THREADS = 1024;
+constexpr int SMP_V = 4;            // chunks of 16 flags a thread loads at once
+constexpr int SMP_TILE = NE_THREADS * SMP_V;   // chunks a tile
+constexpr int SMP_MAX_CHUNKS = 4096;           // the table: rows of up to 65536 - 15 flags
 constexpr int SELECT_THREADS = 1024;
 constexpr int MAX_Q = 100;          // samples a shard draws
 constexpr int MAX_A = 128;          // alpha rows of K11d's JS table
@@ -392,6 +412,132 @@ moments_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, 
   }
 }
 
+// K11c's sample slice for one instance (row resid, valid of n entries;
+// its global shard me): q draws of |r| / scale over the valid entries'
+// ranks (feature order) with the shard's uniforms, written (times ok) at
+// out[me * q + t] and ok at out[S q + me * q + t], zeros in every other
+// shard's slots. One CTA of NE_THREADS; `smem` the CTA's scratch (the
+// kernel's zs). A done lane writes nothing.
+__device__ __forceinline__ void sample_slice(const float* __restrict__ resid,
+                                             const bool* __restrict__ valid, int n, int me,
+                                             const int* __restrict__ flags,
+                                             const float* __restrict__ mom, int n_shards,
+                                             const float* __restrict__ u, int q,
+                                             float* __restrict__ out, int* smem) {
+  int* incl = smem;                                   // [SMP_MAX_CHUNKS] counts through a chunk
+  unsigned short* bits = reinterpret_cast<unsigned short*>(incl + SMP_MAX_CHUNKS);   // its mask
+  int* wtot = reinterpret_cast<int*>(bits + SMP_MAX_CHUNKS);   // [SMP_V][NE_WARPS] warp totals
+  int* wexc = wtot + SMP_V * NE_WARPS;                // their exclusive scan
+  int* ttot = wexc + SMP_V * NE_WARPS;                // the tile's total
+  const int t = threadIdx.x, warp = t / 32, wl = t % 32;
+  // one round of loads: the lane's flag, its moments, the thread's uniform
+  // and its first tile's chunks
+  const int done = flags[0];
+  const float uj = t < q ? u[me * q + t] : 0.f;
+  // the row from its 16-byte aligned start: chunk j holds bytes [16 j, 16 j + 16)
+  const int head = (int)(reinterpret_cast<uintptr_t>(valid) & 15u);
+  const uint4* row = reinterpret_cast<const uint4*>(valid - head);
+  const int span = head + n, chunks = (span + 15) / 16;
+  const int tiles = (chunks + SMP_TILE - 1) / SMP_TILE;
+  auto load = [&](int tile, uint4 (&w)[SMP_V]) {
+#pragma unroll
+    for (int v = 0; v < SMP_V; ++v) {
+      const int j = tile * SMP_TILE + v * NE_THREADS + t;
+      w[v] = j < chunks ? row[j] : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  uint4 w[SMP_V];
+  load(0, w);
+  if (done) return;
+  const float denom = fmaxf(scale_from_moments(mom, n_shards), 1e-6f);
+  const int m = n_shards * q;
+  for (int j = t; j < m; j += NE_THREADS) {   // other shards' slots
+    if (j / q == me) continue;
+    out[j] = 0.f;
+    out[m + j] = 0.f;
+  }
+  // ---- sample: the flags' counts, a tile at a time
+  int base = 0;   // valid flags in earlier tiles
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile > 0) load(tile, w);
+    unsigned mk[SMP_V];
+    int c[SMP_V];
+#pragma unroll
+    for (int v = 0; v < SMP_V; ++v) {
+      // a byte's flag (0 or 1) to its bit: 4 bytes to 4 bits by one multiply
+      const uint32_t x[4] = {w[v].x, w[v].y, w[v].z, w[v].w};
+      unsigned b = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b |= (((x[e] & 0x01010101u) * 0x01020408u) >> 24) << (4 * e);
+      // only the bytes of the row
+      const int p0 = 16 * (tile * SMP_TILE + v * NE_THREADS + t);
+      if (p0 < head) b &= 0xffffu << (head - p0);
+      if (p0 + 16 > span) b &= p0 >= span ? 0u : 0xffffu >> (p0 + 16 - span);
+      mk[v] = b;
+      c[v] = __popc(b);
+    }
+    int in[SMP_V];   // inclusive over the warp's lanes, row v of the tile
+#pragma unroll
+    for (int v = 0; v < SMP_V; ++v) in[v] = c[v];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int v = 0; v < SMP_V; ++v) {
+        const int a = __shfl_up_sync(0xffffffffu, in[v], o);
+        if (wl >= o) in[v] += a;
+      }
+    }
+    if (wl == 31) {
+#pragma unroll
+      for (int v = 0; v < SMP_V; ++v) wtot[v * NE_WARPS + warp] = in[v];
+    }
+    __syncthreads();
+    if (warp == 0) {   // the tile's 32 warp totals in chunk order (v, warp)
+      const int x = wtot[wl];
+      int s = x;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int a = __shfl_up_sync(0xffffffffu, s, o);
+        if (wl >= o) s += a;
+      }
+      wexc[wl] = s - x;
+      if (wl == 31) ttot[0] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < SMP_V; ++v) {
+      const int j = tile * SMP_TILE + v * NE_THREADS + t;
+      if (j < chunks) {
+        incl[j] = base + wexc[v * NE_WARPS + warp] + in[v];
+        bits[j] = (unsigned short)mk[v];
+      }
+    }
+    base += ttot[0];
+  }
+  __syncthreads();
+  // ---- sample: thread t's stratum, its rank's chunk by a binary search, the bit by __fns
+  const int nv = base;
+  if (t >= q) return;
+  const int k = (int)floorf(__fdiv_rn(__fmul_rn(__fadd_rn((float)t, uj), (float)nv), (float)q));
+  // t < nv: rank k clipped to [0, nv - 1]; t >= nv: the first valid entry (rank 0)
+  const int want = t < nv ? min(max(k, 0), nv - 1) : 0;
+  int idx = 0;   // no valid entry: entry 0, as the JAX program's zero-filled table
+  if (nv > 0) {
+    int lo = 0, hi = chunks - 1;   // the first chunk whose count passes want
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (incl[mid] > want) hi = mid; else lo = mid + 1;
+    }
+    const int before = lo > 0 ? incl[lo - 1] : 0;
+    idx = 16 * lo + (int)__fns(bits[lo], 0u, want - before + 1) - head;
+  }
+  // ---- sample: the residuals, one round
+  const float okf = t < nv ? 1.f : 0.f;
+  const float v = __fdiv_rn(fabsf(resid[idx]), denom);
+  out[me * q + t] = __fmul_rn(v, okf);
+  out[m + me * q + t] = okf;
+}
+
 // K11b: one cluster of NE_CLUSTER CTAs per (alpha group, instance) =
 // (blockIdx.y, blockIdx.z); lane l of every warp sums alpha 32 y + l.
 // out[a * 42 + (0..35)] = sum of w_a vec(J J^T), out[a * 42 + 36 + (0..5)]
@@ -401,13 +547,22 @@ alpha_ne_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                 const float* __restrict__ resid, const bool* __restrict__ valid, int n,
                 int n_local, const float* __restrict__ T, const int* __restrict__ flags,
                 const float* __restrict__ mom, int n_shards, const float* __restrict__ alphas,
-                int n_alpha, int robust, int cauchy, int ld, float* __restrict__ out) {
+                int n_alpha, int robust, int cauchy, int ld, float* __restrict__ out,
+                const float* __restrict__ u, int q, int first, int off) {
   namespace cg = cooperative_groups;
-  // a warp's chunk: 32 rows of NE_ROW floats; after the walk, the warps' sums
+  // a warp's chunk: 32 rows of NE_ROW floats; after the walk, the warps'
+  // sums; in the sample slice, its tables
   __shared__ __align__(16) float zs[NE_WARPS * 32 * NE_ROW];
   __shared__ float inbox[NE_OUT + NE_CLUSTER];   // every CTA's sums of this rank's outputs
   __shared__ int cnt[NE_WARPS];
   const int g = blockIdx.z, lane = g / n_local;
+  if ((int)blockIdx.y * 32 >= n_alpha) {   // past the alpha groups: the sample slice
+    if (blockIdx.x == 0)                   // the slice's cluster rank 0
+      sample_slice(resid + (size_t)g * n, valid + (size_t)g * n, n, first + g % n_local,
+                   flags + 3 * lane, mom + (size_t)lane * n_shards * 3, n_shards, u, q,
+                   out + (size_t)g * ld + off, reinterpret_cast<int*>(zs));
+    return;
+  }
   pts += (size_t)g * n * 3;
   nrm += (size_t)g * n * 3;
   resid += (size_t)g * n;
@@ -583,73 +738,6 @@ alpha_ne_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   }
 }
 
-// K11c: one block per instance. Draws q samples of |r| / scale over the
-// valid entries' ranks (feature order) with the shard's uniforms, writes
-// them (times ok) at [off + me * q, ...) and ok at [off + S q + me * q,
-// ...), and zeros in every other shard's slots.
-__global__ void __launch_bounds__(SAMPLE_THREADS)
-sample_kernel(const float* __restrict__ resid, const bool* __restrict__ valid, int n,
-              int n_local, int first, const int* __restrict__ flags,
-              const float* __restrict__ mom, int n_shards, const float* __restrict__ u, int q,
-              int off, int ld, float* __restrict__ out) {
-  __shared__ int scan[SAMPLE_THREADS];
-  __shared__ int ranks[MAX_Q];
-  __shared__ int sidx[MAX_Q];
-  __shared__ int first_idx;
-  const int g = blockIdx.x, lane = g / n_local, me = first + g % n_local;
-  if (flags[3 * lane]) return;
-  const int t = threadIdx.x;
-  resid += (size_t)g * n;
-  valid += (size_t)g * n;
-  out += (size_t)g * ld + off;
-  const int m = n_shards * q;
-  for (int j = t; j < m; j += SAMPLE_THREADS) {
-    if (j / q == me) continue;
-    out[j] = 0.f;
-    out[m + j] = 0.f;
-  }
-  const float denom = fmaxf(scale_from_moments(mom + (size_t)lane * n_shards * 3, n_shards),
-                            1e-6f);
-  const int chunk = (n + SAMPLE_THREADS - 1) / SAMPLE_THREADS;
-  const int b0 = min(n, t * chunk);
-  const int b1 = min(n, b0 + chunk);
-  int c = 0;
-  for (int i = b0; i < b1; ++i) c += valid[i];
-  const int incl = lo::block_inclusive_scan(c, scan);
-  const int nv = scan[SAMPLE_THREADS - 1];
-  const int base = incl - c;
-  if (t < q) {
-    const float uj = u[me * q + t];
-    const int k = (int)floorf(__fdiv_rn(__fmul_rn(__fadd_rn((float)t, uj), (float)nv), (float)q));
-    ranks[t] = min(max(k, 0), max(nv - 1, 0));
-  }
-  if (t == 0) first_idx = 0;
-  __syncthreads();
-  if (c > 0) {
-    for (int j = 0; j < q; ++j) {
-      const int want = ranks[j] - base;
-      if (want < 0 || want >= c) continue;
-      int seen = 0;
-      for (int i = b0; i < b1; ++i) {
-        if (!valid[i]) continue;
-        if (seen == want) { sidx[j] = i; break; }
-        ++seen;
-      }
-    }
-    if (base == 0) {
-      for (int i = b0; i < b1; ++i)
-        if (valid[i]) { first_idx = i; break; }
-    }
-  }
-  __syncthreads();
-  if (t < q) {
-    const float okf = t < nv ? 1.f : 0.f;
-    const float v = __fdiv_rn(fabsf(resid[t < nv ? sidx[t] : first_idx]), denom);
-    out[me * q + t] = __fmul_rn(v, okf);
-    out[m + me * q + t] = okf;
-  }
-}
-
 // K11d's solve and retract on thread 0, out of line: inlined into the
 // 1024-thread kernel (64 registers a thread) the unrolled 6x6 elimination
 // costs the kernel's other phases their register allocation.
@@ -773,16 +861,23 @@ LO_EXPORT int lo_shard_alpha_normal_eq(const float* pts, const float* nrm, const
                                        const float* T, const int* flags, const float* mom,
                                        int n_shards, const float* alphas, int n_alpha,
                                        int robust, int cauchy, int moments, int ld, float* out,
+                                       const float* u, int q, int first, int off,
                                        void* stream) {
   if (moments) {
     moments_kernel<<<instances, MOM_THREADS, 0, (cudaStream_t)stream>>>(resid, valid, n, n_local,
                                                                          flags, ld, out);
   } else {
-    if (n_alpha < 1 || ld < n_alpha * 42 + 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid(NE_CLUSTER, (n_alpha + 31) / 32, instances);   // __cluster_dims__
+    if (n_alpha < 0 || ld < n_alpha * 42 + 1 || (n_alpha == 0 && u == nullptr))
+      return (int)cudaErrorInvalidValue;
+    // with u, one more cluster an instance: K11c's sample slice
+    if (u != nullptr && (q < 1 || q > MAX_Q || n < 1 || n + 15 > 16 * SMP_MAX_CHUNKS ||
+                         off < n_alpha * 42 || off + 2 * n_shards * q > ld))
+      return (int)cudaErrorInvalidValue;
+    const int groups = (n_alpha + 31) / 32 + (u != nullptr);
+    const dim3 grid(NE_CLUSTER, groups, instances);   // __cluster_dims__
     alpha_ne_kernel<<<grid, NE_THREADS, 0, (cudaStream_t)stream>>>(
         pts, nrm, resid, valid, n, n_local, T, flags, mom, n_shards, alphas, n_alpha, robust,
-        cauchy, ld, out);
+        cauchy, ld, out, u, q, first, off);
   }
   return (int)cudaGetLastError();
 }
@@ -794,14 +889,14 @@ LO_EXPORT void lo_shard_alpha_normal_eq_shape(int* out) {
   out[2] = 32;
 }
 
+// K11c alone: K11b's kernel with the sample slice and no alpha group.
 LO_EXPORT int lo_shard_sample(const float* resid, const bool* valid, int n, int instances,
                               int n_local, int first, const int* flags, const float* mom,
                               int n_shards, const float* u, int q, int off, int ld, float* out,
                               void* stream) {
-  if (q < 1 || q > MAX_Q) return (int)cudaErrorInvalidValue;
-  sample_kernel<<<instances, SAMPLE_THREADS, 0, (cudaStream_t)stream>>>(
-      resid, valid, n, n_local, first, flags, mom, n_shards, u, q, off, ld, out);
-  return (int)cudaGetLastError();
+  return lo_shard_alpha_normal_eq(nullptr, nullptr, resid, valid, n, instances, n_local, nullptr,
+                                  flags, mom, n_shards, nullptr, 0, 0, 0, 0, ld, out, u, q,
+                                  first, off, stream);
 }
 
 LO_EXPORT int lo_shard_gn_select(const float* buf, int lanes, int n_shards, int ld, int n_alpha,

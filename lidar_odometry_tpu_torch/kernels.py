@@ -18,8 +18,11 @@ instances (lanes x local shards) the same way; the host solvers' kernels
 (K12a, K12b) take an f64 flag and run in float or double. `Kernel.launch`
 raises KernelError (a RuntimeError) on a nonzero return and adds one to
 `Kernel.launches`, a plain integer that shows which kernels a run went
-through; a wrapper refuses tensors it cannot launch on (device, dtype,
-layout, shape, alignment: `check`, `check_aligned`) with
+through; a launch that also runs another kernel's work in its grid (K11c's
+sample slice in K11b's launch) adds one to that kernel's `Kernel.fused`
+instead of its `launches` (`fused_counts`); a wrapper refuses tensors it
+cannot launch on (device, dtype, layout, shape, alignment: `check`,
+`check_aligned`) with
 KernelInputError, a KernelError and a ValueError. The loop-closure worker launches from its own thread and stream
 while the main thread runs chunks: the build, the library loads and the
 counts are taken under one lock, and a launch goes to the calling
@@ -43,8 +46,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["Kernel", "KernelError", "KernelInputError", "KERNELS", "build", "library",
-           "ptxas_info", "ptxas_entries", "reset_counts", "counts", "check", "check_aligned",
-           "BUILD_DIR"]
+           "ptxas_info", "ptxas_entries", "reset_counts", "counts", "fused_counts", "check",
+           "check_aligned", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -191,9 +194,12 @@ class Kernel:
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
+        self.fused = 0      # launches of this kernel's work inside another's launch
         self._fn = None
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, fused: tuple = ()) -> None:
+        """Launch on the calling thread's current stream; `fused` names the
+        kernels whose work this launch runs in its grid as well."""
         if self._fn is None:
             fn = getattr(library(self.source), f"lo_{self.name}")
             fn.argtypes = self.argtypes + [_P]
@@ -205,6 +211,8 @@ class Kernel:
                                f"(cudaError {err})")
         with _lock:
             self.launches += 1
+            for name in fused:
+                KERNELS[name].fused += 1
 
 
 KERNELS = {k.name: k for k in [
@@ -230,7 +238,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _I, _I, _F, _P, _P, _P],
            REF + "/ops/voxel_map.py:330"),
     Kernel("grid_knn", "grid_knn",
-           [_P, _I, _P, _P, _I, _P, _I, _F, _I, _P, _P],
+           [_P, _I, _P, _P, _P, _I, _P, _I, _F, _I, _P, _P],
            REF + "/ops/voxel_map.py:831"),
     Kernel("plane_fit_5nn", "grid_knn",
            [_P, _P, _P, _P, _I, _I, _P, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
@@ -291,7 +299,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _I, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],
            REF + "/parallel/sharded_map.py:92"),
     Kernel("shard_alpha_normal_eq", "shard",
-           [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I, _P] + [_I] * 5 + [_P],
+           [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I, _P] + [_I] * 5 + [_P, _P] + [_I] * 3,
            REF + "/parallel/sharded_map.py:312"),
     Kernel("shard_sample", "shard",
            [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P],
@@ -306,11 +314,18 @@ def reset_counts() -> None:
     with _lock:
         for k in KERNELS.values():
             k.launches = 0
+            k.fused = 0
 
 
 def counts() -> dict:
     with _lock:
         return {name: k.launches for name, k in KERNELS.items()}
+
+
+def fused_counts() -> dict:
+    """Each kernel's work launched inside another kernel's launch."""
+    with _lock:
+        return {name: k.fused for name, k in KERNELS.items()}
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None) -> None:

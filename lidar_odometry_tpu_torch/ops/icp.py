@@ -431,12 +431,12 @@ def plane_fit_5nn_plain(p_world, cand, cand_ok, mask, cfg: ICPConfig, gate: bool
 
 
 def _grid_plane_correspondences(map_state, pts, mask, T, flags, cfg: ICPConfig) -> PlaneFit:
-    """KD-tree-mode correspondences: K5a's candidates, K5b's plane fit."""
+    """KD-tree-mode correspondences: K5a's candidates (the row mask ANDed
+    into their flags in the kernel), K5b's plane fit."""
     p_world = lie.transform_points(T.view(4, 4), pts)
     cand, cand_ok = vm.grid_knn_neighbors(map_state, p_world, voxel_size=cfg.voxel_size,
-                                          radius=cfg.grid_knn_radius, flags=flags)
-    return plane_fit_5nn(p_world, cand, cand_ok & mask[:, None], mask, cfg, gate=True,
-                         flags=flags)
+                                          radius=cfg.grid_knn_radius, flags=flags, mask=mask)
+    return plane_fit_5nn(p_world, cand, cand_ok, mask, cfg, gate=True, flags=flags)
 
 
 # ---------------------------------------------------------------------------

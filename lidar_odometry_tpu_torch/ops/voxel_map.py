@@ -31,7 +31,8 @@ Kernels (csrc/voxel_map.cu), each with its plain twin below:
       order, which the twin repeats (_lane_sum).
   K5a grid_knn (csrc/grid_knn.cu) — the KD-tree mode's candidates: the L0
       centroids of each query's (2r+1)^3 voxel neighbourhood, found by
-      probing the (2r//3 + 2)^3 distinct parents once each.
+      probing the (2r//3 + 2)^3 distinct parents once each, with an
+      optional row mask ANDed into the flags.
 
 With compute_surfels=False (KD-tree mode) update_map keeps no surfels: it
 skips K4c and the non-planar deletion, still frees the cells that
@@ -654,18 +655,20 @@ def lookup_surfels(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float
 
 
 def grid_knn_neighbors(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float,
-                       hierarchy_factor: int = 3, radius: int = 1, flags=None):
+                       hierarchy_factor: int = 3, radius: int = 1, flags=None, mask=None):
     """K5a's wrapper: the L0 centroids of each query's (2r+1)^3 voxel
     neighbourhood, in meshgrid "ij" offset order. pts (N, 3) f32. Returns
     (centroids (N, M, 3), ok (N, M) bool), M = (2r+1)^3; a neighbour that
     is not live has ok False and the centroid of the row it was read from.
     `flags` (3,) int32 [done, failed, n_corr] of an ICP solve, or None:
     once done, the kernel returns at once and leaves the outputs
-    unwritten, as the JAX while_loop stops. The kernel takes radius 1 or
-    2 with hierarchy factor 3."""
+    unwritten, as the JAX while_loop stops. `mask` (N,) bool, or None: ok
+    is also False on the rows it masks out (ok & mask[:, None], in the
+    kernel). The kernel takes radius 1 or 2 with hierarchy factor 3."""
     if not pts.is_cuda:
-        return grid_knn_neighbors_plain(state, pts, voxel_size=voxel_size,
-                                        hierarchy_factor=hierarchy_factor, radius=radius)
+        cen, ok = grid_knn_neighbors_plain(state, pts, voxel_size=voxel_size,
+                                           hierarchy_factor=hierarchy_factor, radius=radius)
+        return cen, ok if mask is None else ok & mask[:, None]
     if hierarchy_factor != 3 or radius not in (1, 2):
         raise kernels.KernelInputError(
             "grid_knn: the kernel takes radius 1 or 2 with hierarchy factor 3")
@@ -677,12 +680,16 @@ def grid_knn_neighbors(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: f
     kernels.check(state.l0_data, "l0_data", torch.float32)
     if flags is not None:
         kernels.check(flags, "flags", torch.int32, (3,))
+    if mask is not None:
+        kernels.check(mask, "mask", torch.bool, (n,))
+    # the kernel's 16-byte stores need 16-byte aligned outputs (torch.empty's are)
     cen = torch.empty((n, m, 3), dtype=torch.float32, device=pts.device)
     ok = torch.empty((n, m), dtype=torch.bool, device=pts.device)
     kernels.KERNELS["grid_knn"].launch(
         pts.data_ptr(), n, None if flags is None else flags.data_ptr(),
-        state.l1_index.data_ptr(), state.n_buckets, state.l0_data.data_ptr(), state.c1,
-        K.f32(1.0 / K.f32(voxel_size)), radius, cen.data_ptr(), ok.data_ptr())
+        None if mask is None else mask.data_ptr(), state.l1_index.data_ptr(), state.n_buckets,
+        state.l0_data.data_ptr(), state.c1, K.f32(1.0 / K.f32(voxel_size)), radius,
+        cen.data_ptr(), ok.data_ptr())
     return cen, ok
 
 

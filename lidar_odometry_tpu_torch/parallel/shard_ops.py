@@ -23,7 +23,9 @@ rows (ShardGroup.all_gather, (L, S, ...)) and add them in shard order.
       moments [sum w, sum |r| w, sum r^2 w] of iteration 0.
   K11c shard_sample: one draw per stratum of the valid ranks of |r| /
       scale with the shard's uniforms, into the shard's slice of the
-      (S * quota) sample and ok buffers, zero elsewhere.
+      (S * quota) sample and ok buffers, zero elsewhere; a slice of K11b's
+      grid, so the ICP's rounds run it inside K11b's launch
+      (shard_alpha_normal_eq_sample), and alone through shard_sample.
   K11d shard_gn_select: on the gathered buffers, the sample slots filled
       with the mean of the filled ones, K3's GMM fit and JS argmin, the
       chosen system's 6x6 solve, the retract and the done / failed /
@@ -32,9 +34,9 @@ rows (ShardGroup.all_gather, (L, S, ...)) and add them in shard order.
 Buffers: the ICP round's per-shard row is [A * 42 systems | S * quota
 samples | S * quota ok | count] (ld = A * 42 + 2 S quota + 1), as the JAX
 program psums it; K11b writes the systems and the count, K11c the sample
-slots. The iteration-0 scale std / 6 comes from the gathered moments,
-summed in shard order with each operation rounded (scale_from_moments);
-K11b and K11c each derive it from the same moments.
+slots, both in one launch. The iteration-0 scale std / 6 comes from the
+gathered moments, summed in shard order with each operation rounded
+(scale_from_moments); K11b and K11c each derive it from the same moments.
 """
 from __future__ import annotations
 
@@ -50,12 +52,14 @@ from ..utils import lie
 
 __all__ = ["owned_cap", "owner_inv", "shard_own", "shard_own_plain", "shard_owner",
            "shard_owner_plain", "scale_from_moments", "shard_alpha_normal_eq",
-           "shard_alpha_normal_eq_plain", "shard_alpha_normal_eq_shape", "shard_sample",
-           "shard_sample_plain",
+           "shard_alpha_normal_eq_plain", "shard_alpha_normal_eq_shape",
+           "shard_alpha_normal_eq_sample", "shard_sample", "shard_sample_plain",
            "shard_gn_select", "shard_gn_select_plain", "buffer_width"]
 
 
 MAX_LOCAL_SHARDS = 8   # K11a's local shards a launch (pko.shard_draws' largest S)
+MAX_QUOTA = 100        # K11c's draws a shard
+MAX_SAMPLE_ROW = 65521  # K11c's entries an instance (4096 chunks of 16 flags)
 
 
 def owned_cap(n: int, n_shards: int) -> int:
@@ -188,6 +192,37 @@ def shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, *, n
     if not r.is_cuda:
         return shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, flags, mom, alphas, cfg,
                                            n_local=n_local, moments=moments, out=out)
+    if moments:
+        g = r.shape[0]
+        _check_ne(p_own, nrm, r, valid, T, flags)
+        out = torch.empty((g, 3), dtype=torch.float32, device=r.device)   # all written
+        kernels.KERNELS["shard_alpha_normal_eq"].launch(
+            p_own.data_ptr(), nrm.data_ptr(), r.data_ptr(), valid.data_ptr(), r.shape[1], g,
+            n_local, T.data_ptr(), flags.data_ptr(), None, 1, None, 1,
+            int(cfg.use_robust_loss), int(cfg.loss_type == "cauchy"), 1, 3, out.data_ptr(),
+            None, 0, 0, 0)
+        return out
+    _launch_ne(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, n_local, out, None, 0, 0)
+    return out
+
+
+def shard_alpha_normal_eq_sample(p_own, nrm, r, valid, T, flags, mom, alphas, u, cfg, *,
+                                 first: int, n_local: int, off: int, out):
+    """K11b with K11c's sample in its launch: shard_alpha_normal_eq's
+    systems and count and shard_sample's slots [off, off + 2 S quota) of
+    out (G, ld), one launch (K11c's work counted in its `fused`); the
+    arguments as those two take them. Returns out."""
+    if not r.is_cuda:
+        shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, flags, mom, alphas, cfg,
+                                    n_local=n_local, out=out)
+        return shard_sample_plain(r, valid, flags, mom, u, first=first, n_local=n_local,
+                                  off=off, out=out)
+    _check_sample(r, valid, flags, mom, u, off, out, "shard_alpha_normal_eq_sample")
+    _launch_ne(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, n_local, out, u, first, off)
+    return out
+
+
+def _check_ne(p_own, nrm, r, valid, T, flags):
     g, n = r.shape
     lanes = T.shape[0]
     kernels.check(p_own, "p_own", torch.float32, (g, n, 3))
@@ -196,24 +231,27 @@ def shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, *, n
     kernels.check(valid, "valid", torch.bool, (g, n))
     kernels.check(T, "T", torch.float32, (lanes, 16))
     kernels.check(flags, "flags", torch.int32, (lanes, 3))
-    if moments:
-        out = torch.empty((g, 3), dtype=torch.float32, device=r.device)   # all written
-        n_shards, a = 1, 1
-    else:
-        n_shards = mom.shape[1]
-        kernels.check(mom, "mom", torch.float32, (lanes, n_shards, 3))
-        kernels.check(alphas, "alphas", torch.float32)
-        kernels.check(out, "out", torch.float32)
-        a = alphas.shape[0]
-        if out.shape[0] != g or out.shape[1] < a * 42 + 1:
-            raise kernels.KernelInputError(
-                f"shard_alpha_normal_eq: out of shape {tuple(out.shape)}")
+
+
+def _launch_ne(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, n_local, out, u, first, off):
+    """K11b's systems into out; with u (S, quota), K11c's sample slice in
+    the same grid."""
+    g, n = r.shape
+    lanes = T.shape[0]
+    _check_ne(p_own, nrm, r, valid, T, flags)
+    n_shards = mom.shape[1]
+    kernels.check(mom, "mom", torch.float32, (lanes, n_shards, 3))
+    kernels.check(alphas, "alphas", torch.float32)
+    kernels.check(out, "out", torch.float32)
+    a = alphas.shape[0]
+    if out.shape[0] != g or out.shape[1] < a * 42 + 1:
+        raise kernels.KernelInputError(f"shard_alpha_normal_eq: out of shape {tuple(out.shape)}")
     kernels.KERNELS["shard_alpha_normal_eq"].launch(
         p_own.data_ptr(), nrm.data_ptr(), r.data_ptr(), valid.data_ptr(), n, g, n_local,
-        T.data_ptr(), flags.data_ptr(), None if moments else mom.data_ptr(), n_shards,
-        None if moments else alphas.data_ptr(), a, int(cfg.use_robust_loss),
-        int(cfg.loss_type == "cauchy"), int(moments), out.shape[1], out.data_ptr())
-    return out
+        T.data_ptr(), flags.data_ptr(), mom.data_ptr(), n_shards, alphas.data_ptr(), a,
+        int(cfg.use_robust_loss), int(cfg.loss_type == "cauchy"), 0, out.shape[1],
+        out.data_ptr(), None if u is None else u.data_ptr(), 0 if u is None else u.shape[1],
+        first, off, fused=() if u is None else ("shard_sample",))
 
 
 def shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, flags, mom, alphas, cfg, *,
@@ -251,14 +289,25 @@ def shard_alpha_normal_eq_plain(p_own, nrm, r, valid, T, flags, mom, alphas, cfg
 # ---------------------------------------------------------------------------
 
 def shard_sample(r, valid, flags, mom, u, *, first: int, n_local: int, off: int, out):
-    """K11c's wrapper. r (G, n) f32, valid (G, n) bool, flags (L, 3) int32,
-    mom (L, S, 3), u (S, quota) f32 every shard's uniforms. Writes each
-    instance's samples (times ok) and ok flags at [off, off + S quota) and
-    [off + S quota, off + 2 S quota) of out (G, ld), zero outside its
-    shard's slots; returns out. A done lane's rows are left unwritten."""
+    """K11c's wrapper (alone: the ICP's rounds run it inside K11b's launch,
+    shard_alpha_normal_eq_sample). r (G, n) f32, valid (G, n) bool, flags
+    (L, 3) int32, mom (L, S, 3), u (S, quota) f32 every shard's uniforms.
+    Writes each instance's samples (times ok) and ok flags at [off, off +
+    S quota) and [off + S quota, off + 2 S quota) of out (G, ld), zero
+    outside its shard's slots; returns out. A done lane's rows are left
+    unwritten."""
     if not r.is_cuda:
         return shard_sample_plain(r, valid, flags, mom, u, first=first, n_local=n_local,
                                   off=off, out=out)
+    _check_sample(r, valid, flags, mom, u, off, out, "shard_sample")
+    g, n = r.shape
+    kernels.KERNELS["shard_sample"].launch(
+        r.data_ptr(), valid.data_ptr(), n, g, n_local, first, flags.data_ptr(), mom.data_ptr(),
+        mom.shape[1], u.data_ptr(), u.shape[1], off, out.shape[1], out.data_ptr())
+    return out
+
+
+def _check_sample(r, valid, flags, mom, u, off, out, name):
     g, n = r.shape
     lanes, n_shards = mom.shape[0], mom.shape[1]
     q = u.shape[1]
@@ -269,11 +318,11 @@ def shard_sample(r, valid, flags, mom, u, *, first: int, n_local: int, off: int,
     kernels.check(u, "u", torch.float32, (n_shards, q))
     kernels.check(out, "out", torch.float32)
     if out.shape[0] != g or out.shape[1] < off + 2 * n_shards * q:
-        raise kernels.KernelInputError(f"shard_sample: out of shape {tuple(out.shape)}")
-    kernels.KERNELS["shard_sample"].launch(
-        r.data_ptr(), valid.data_ptr(), n, g, n_local, first, flags.data_ptr(), mom.data_ptr(),
-        n_shards, u.data_ptr(), q, off, out.shape[1], out.data_ptr())
-    return out
+        raise kernels.KernelInputError(f"{name}: out of shape {tuple(out.shape)}")
+    if not (1 <= q <= MAX_QUOTA and 1 <= n <= MAX_SAMPLE_ROW):
+        raise kernels.KernelInputError(f"{name}: the kernel takes 1 to {MAX_QUOTA} draws a "
+                                       f"shard and 1 to {MAX_SAMPLE_ROW} entries an instance, "
+                                       f"got {q} and {n}")
 
 
 def shard_sample_plain(r, valid, flags, mom, u, *, first: int, n_local: int, off: int, out):

@@ -17,11 +17,11 @@ as views, so the single-device update writes them in place.
   * lookup: replicated queries, each shard answers the keys it owns and
     misses the rest; a psum combines.
   * ICP (robust_icp_loop): owned points compacted once at the guess
-    (K11a); each iteration one K2a launch over every lane and shard,
-    K11b's per-alpha systems and K11c's sample into one row per shard, an
-    all_gather of the rows (the JAX program's one fused psum), and K11d's
-    replicated select, solve and retract. Iteration 0 gathers the raw moments first (K11b) for
-    the std / 6 scale.
+    (K11a); each iteration one K2a launch over every lane and shard, one
+    launch of K11b's per-alpha systems with K11c's sample into one row per
+    shard, an all_gather of the rows (the JAX program's one fused psum),
+    and K11d's replicated select, solve and retract. Iteration 0 gathers
+    the raw moments first (K11b) for the std / 6 scale.
   * rehash (a loop correction): every shard's live (centroid, count)
     records moved by T and all_gathered in shard order; each shard
     bulk-builds the ones it owns (K11a's owner mode, K9a/K9b, K4c) and
@@ -221,11 +221,13 @@ def robust_icp_loop(views, group: ShardGroup, pts, mask, T0, cfg: icp_ops.ICPCon
             m = so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, None, None, cfg,
                                          n_local=n_local, moments=True)
             mom = group.all_gather(m.view(lanes, n_local, 3), dim=1).contiguous()
-        so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, alphas, cfg,
-                                 n_local=n_local, out=row)
-        if use_pko:
-            so.shard_sample(r, valid, flags, mom, u, first=group.first, n_local=n_local,
-                            off=n_alpha * 42, out=row)
+        if use_pko:   # K11b's systems and K11c's sample, one launch
+            so.shard_alpha_normal_eq_sample(p_own, nrm, r, valid, T, flags, mom, alphas, u, cfg,
+                                            first=group.first, n_local=n_local,
+                                            off=n_alpha * 42, out=row)
+        else:
+            so.shard_alpha_normal_eq(p_own, nrm, r, valid, T, flags, mom, alphas, cfg,
+                                     n_local=n_local, out=row)
         rows = group.all_gather(row.view(lanes, n_local, ld), dim=1).contiguous()
         T, flags, _ = so.shard_gn_select(rows, T, flags, pko_consts, pick, cfg,
                                          n_alpha=n_alpha, quota=quota, use_pko=use_pko)

@@ -76,6 +76,44 @@ def test_grid_knn_matches_jax(scene, radius):
     assert (n_ok >= 5).mean() > 0.5                    # most have a plane's worth
 
 
+@pytest.mark.parametrize("radius", [1, 2])
+def test_kd_correspondences_with_the_row_mask_in_grid_knn_match_jax(scene, radius):
+    """K5a's wrapper with the row mask: the twin's flags ANDed with it,
+    the centroids as without it; the KD-tree correspondences that pass the
+    mask to it against JAX's _grid_plane_correspondences (which ANDs it
+    after grid_knn_neighbors), at test_plane_fit_5nn_matches_jax's
+    tolerances: validity, nearest point and selection exactly, centroid
+    1e-5, distance and normal on the well-conditioned rows."""
+    js, ts, q = scene
+    mask = np.random.default_rng(radius).random(len(q)) < 0.7
+    tq, tm = torch.as_tensor(q), torch.as_tensor(mask)
+    tc, tok = tvm.grid_knn_neighbors(ts, tq, voxel_size=VOX, radius=radius, mask=tm)
+    pc, pok = tvm.grid_knn_neighbors_plain(ts, tq, voxel_size=VOX, radius=radius)
+    assert torch.equal(tc, pc) and torch.equal(tok, pok & tm[:, None])
+    assert bool(tok.any()) and not bool(tok[~tm].any())
+    jcfg = jicp.ICPConfig(voxel_size=VOX, grid_knn_radius=radius, max_correspondence_distance=0.1,
+                          plane_fit_planarity=0.1)
+    tcfg = ticp.ICPConfig(voxel_size=VOX, grid_knn_radius=radius, max_correspondence_distance=0.1,
+                          plane_fit_planarity=0.1, use_surfel_correspondence=False)
+    fit = jax.jit(jicp._grid_plane_correspondences, static_argnames=("cfg",))
+    jn, jc, jnn, jv, jd = (np.asarray(x) for x in fit(js, jnp.asarray(q), jnp.asarray(mask),
+                                                      jnp.eye(4, dtype=jnp.float32), cfg=jcfg))
+    t = ticp._grid_plane_correspondences(ts, tq, tm, torch.eye(4), None, tcfg)
+    np.testing.assert_array_equal(t.valid.numpy(), jv)
+    np.testing.assert_array_equal(t.nearest.numpy(), jnn)
+    np.testing.assert_allclose(t.centroid.numpy(), jc, atol=1e-5)
+    jcand, jok = jvm.grid_knn_neighbors(js, jnp.asarray(q), voxel_size=VOX, radius=radius)
+    jok = np.asarray(jok) & mask[:, None]
+    d2 = np.where(jok, ((np.asarray(jcand) - q[:, None]) ** 2).sum(-1), np.inf)
+    jsel = np.asarray(jax.lax.top_k(-jnp.asarray(d2), 5)[1])
+    np.testing.assert_array_equal(t.sel.numpy(), jsel)
+    nb = np.take_along_axis(np.asarray(jcand), jsel[..., None], 1).astype(np.float64)
+    well = ~_degenerate(nb, np.take_along_axis(jok, jsel, 1))
+    assert jv.sum() > 0 and well.sum() > 0
+    np.testing.assert_allclose(t.dist.numpy()[well], jd[well], atol=1e-5)
+    assert np.abs(np.sum(t.normal.numpy() * jn, -1))[well].min() > 1 - 1e-5
+
+
 def _candidates(seed=3, n=600, k=27):
     """Candidate sets with exact ties (repeated points), rows with fewer
     than 5 ok entries, rows whose nearest three lie on a line, and rows

@@ -93,6 +93,16 @@ points' covariance are more than 1e-2 of the largest apart
 (tests/test_torch_grid_knn.py's rule) the normal within 1e-5 and the
 distance within 1e-4 (the normal's float32 error times coordinates of up
 to ~9 m).
+
+K11c: shard rows (synthetic.normal_eq_shards) at S = 1 with two lanes and
+n not a multiple of the kernel's 16-flag loads (rows off their 16-byte
+alignment), S = 2 with fewer valid entries than the quota, S = 4 with a
+shard of no valid entry and with n past one tile of 16384 flags, S = 8
+with a done lane: the twin's sample and ok slots exactly JAX's
+stratified_sample of |r| / scale with fold_in(PRNGKey(42), shard), zero
+in every other shard's slots, a done lane's rows unwritten. (The card
+cases of K11c and K5a are in tests/test_torch_kernels.py; K5a's twin with
+the row mask against JAX is in tests/test_torch_grid_knn.py.)
 """
 import numpy as np
 import jax
@@ -716,3 +726,52 @@ def test_plane_fit_twin_on_kernel_edges(case):
     assert t.valid.numpy().any()
     sd = np.take_along_axis(np.where(ok, ((cand - p[:, None]) ** 2).sum(-1), np.inf), jsel, 1)
     assert (np.isfinite(sd[:tenth, 1:]) & (sd[:tenth, 1:] == sd[:tenth, :-1])).any()  # ties
+
+
+# the card tests' K11c cases: lanes, shards a lane, n, few or no valid rows,
+# a done lane
+K11C_CASES = {
+    "s1_two_lanes_rows_not_a_multiple_of_16": dict(lanes=2, shards=1, n=1013),
+    "s2_fewer_valid_than_quota": dict(lanes=1, shards=2, n=1200, few=(1, 20)),
+    "s4_no_valid_row": dict(lanes=1, shards=4, n=700, empty=2),
+    "s4_two_tiles": dict(lanes=1, shards=4, n=20011),
+    "s8_two_lanes_one_done": dict(lanes=2, shards=8, n=613, done=0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K11C_CASES))
+def test_shard_sample_twin_on_kernel_edges(case):
+    c = K11C_CASES[case]
+    s = c["shards"]
+    _, _, r, valid, _, mom = synthetic.normal_eq_shards(c["lanes"], s, c["n"], seed=len(case),
+                                                        empty=c.get("empty"))
+    if "few" in c:
+        valid[c["few"][0], c["few"][1]:] = False
+    flags = torch.zeros((c["lanes"], 3), dtype=torch.int32)
+    if "done" in c:
+        flags[c["done"]] = torch.tensor([1, 0, 77], dtype=torch.int32)
+    u = torch.as_tensor(tpko.shard_draws(s)[0])
+    q = u.shape[1]
+    off = 101 * 42
+    out = torch.full((c["lanes"] * s, so.buffer_width(101, s, q)), -7.0)
+    so.shard_sample(torch.as_tensor(r), torch.as_tensor(valid), flags, torch.as_tensor(mom), u,
+                    first=0, n_local=s, off=off, out=out)
+    scale = so.scale_from_moments(torch.as_tensor(mom))
+    key = jax.random.PRNGKey(42)
+    for i in range(c["lanes"] * s):
+        lane, me = i // s, i % s
+        if bool(flags[lane, 0]):
+            assert bool((out[i] == -7.0).all())
+            continue
+        nr = jnp.abs(jnp.asarray(r[i])) / jnp.maximum(jnp.float32(float(scale[lane])), 1e-6)
+        samp, sok = jpko.stratified_sample(nr, jnp.asarray(valid[i]), q,
+                                           jax.random.fold_in(key, me))
+        sokf = np.asarray(sok, np.float32)
+        ref = np.zeros(2 * s * q, np.float32)
+        ref[me * q:(me + 1) * q] = np.asarray(samp) * sokf
+        ref[s * q + me * q:s * q + (me + 1) * q] = sokf
+        np.testing.assert_array_equal(out[i, off:off + 2 * s * q].numpy(), ref)
+        assert bool((out[i, :off] == -7.0).all()) and float(out[i, -1]) == -7.0
+    n_ok = out[:, off + s * q:off + 2 * s * q].sum(1)
+    if "few" in c or "empty" in c:
+        assert bool((n_ok[(flags[:, 0] == 0).repeat_interleave(s)] < q).any())

@@ -1658,3 +1658,183 @@ def test_knn_and_plane_fit_kernels_launch_once_without_a_stack(dev):
     for src, fn, n in (("knn", "point_knn_kernel", 4), ("grid_knn", "plane_fit_kernel", 2)):
         entries = kernels.ptxas_entries(src, fn)
         assert len(entries) == n and all(e["stack"] == 0 for e in entries.values()), entries
+
+
+# K11c's edges (one CTA an instance in K11b's grid, the flags 16 to a load
+# from the row's 16-byte aligned start, tiles of 1024 loads;
+# tests/test_torch_kernel_edges.py holds the twin on the same inputs
+# against JAX): lanes, shards a lane, n, and the instances with few or no
+# valid rows, or a done lane
+K11C_CASES = {
+    "s1_two_lanes_rows_not_a_multiple_of_16": dict(lanes=2, shards=1, n=1013),
+    "s2_fewer_valid_than_quota": dict(lanes=1, shards=2, n=1200, few=(1, 20)),
+    "s4_no_valid_row": dict(lanes=1, shards=4, n=700, empty=2),
+    "s4_two_tiles": dict(lanes=1, shards=4, n=20011),
+    "s8_two_lanes_one_done": dict(lanes=2, shards=8, n=613, done=0),
+}
+
+
+def _k11c_args(case, dev):
+    """K11b's wrapper arguments (p, nrm, r, valid, T, flags, mom, alphas)
+    of a K11c case on the card, its config, shards a lane and the shards'
+    uniforms."""
+    c = K11C_CASES[case]
+    p, nrm, r, valid, T, mom = synthetic.normal_eq_shards(c["lanes"], c["shards"], c["n"],
+                                                          seed=len(case), empty=c.get("empty"))
+    if "few" in c:
+        valid[c["few"][0], c["few"][1]:] = False
+    flags = torch.zeros((c["lanes"], 3), dtype=torch.int32, device=dev)
+    if "done" in c:
+        flags[c["done"]] = torch.tensor([1, 0, 77], dtype=torch.int32, device=dev)
+    tt = lambda x: torch.as_tensor(x, device=dev)
+    T16 = tt(T).reshape(1, 16).repeat(c["lanes"], 1).contiguous()
+    alphas = pko.make_pko_constants(*ARGS, device=dev).alphas
+    u = tt(pko.shard_draws(c["shards"])[0])
+    return ((tt(p), tt(nrm), tt(r), tt(valid), T16, flags, tt(mom), alphas), icp.ICPConfig(),
+            c["shards"], u)
+
+
+@pytest.mark.parametrize("case", sorted(K11C_CASES))
+def test_shard_sample_kernel_edges(dev, case):
+    """K11c alone and inside K11b's launch against its twin on the card,
+    exactly (a done lane's rows unwritten); K11b's part of the fused row
+    bit-equal to K11b launched alone; each instance bit-equal to a
+    one-instance launch; the fused launch counted once for K11b and once
+    in K11c's `fused`."""
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    args, cfg, s, u = _k11c_args(case, dev)
+    r, valid, flags, mom = args[2], args[3], args[5], args[6]
+    g, q, a = r.shape[0], u.shape[1], args[7].shape[0]
+    off, ld = a * 42, so.buffer_width(a, s, q)
+    rk, rp, rf, rn = (torch.full((g, ld), -7.0, device=dev) for _ in range(4))
+    n0, f0 = kernels.counts(), kernels.fused_counts()
+    so.shard_sample(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=rk)
+    so.shard_alpha_normal_eq_sample(*args, u, cfg, first=0, n_local=s, off=off, out=rf)
+    torch.cuda.synchronize()
+    n1, f1 = kernels.counts(), kernels.fused_counts()
+    assert n1["shard_sample"] == n0["shard_sample"] + 1
+    assert n1["shard_alpha_normal_eq"] == n0["shard_alpha_normal_eq"] + 1
+    assert f1["shard_sample"] == f0["shard_sample"] + 1
+    so.shard_sample_plain(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=rp)
+    so.shard_alpha_normal_eq(*args, cfg, n_local=s, out=rn)
+    assert torch.equal(rk, rp)
+    assert torch.equal(rf[:, off:-1], rp[:, off:-1])
+    assert torch.equal(rf[:, :off], rn[:, :off]) and torch.equal(rf[:, -1], rn[:, -1])
+    done = [i for i in range(g) if bool(flags[i // s, 0])]
+    assert all(bool((rf[i] == -7.0).all()) for i in done)
+    if "few" in K11C_CASES[case] or "empty" in K11C_CASES[case]:
+        assert bool((rk[:, off + s * q:off + 2 * s * q] == 0.0).any())   # ok = 0 slots
+    for i in range(g):
+        lane, k = i // s, i % s
+        one = torch.full((1, ld), -7.0, device=dev)
+        so.shard_alpha_normal_eq_sample(*[x[i:i + 1] for x in args[:4]], args[4][lane:lane + 1],
+                                        flags[lane:lane + 1], mom[lane:lane + 1], args[7], u,
+                                        cfg, first=k, n_local=1, off=off, out=one)
+        assert torch.equal(one[0], rf[i])
+
+
+# K5a's edges (4 points a warp, a tail warp's narrow stores, the row mask
+# in the kernel, a scaled quotient below 2^-126): radius, rows (None:
+# the scene's 8192), row mask, done flag, tiny and infinite sums
+K5A_CASES = {
+    "radius_1": dict(r=1),
+    "radius_2": dict(r=2),
+    "radius_1_rows_not_a_multiple_of_4_masked": dict(r=1, n=8189, mask=True),
+    "radius_2_rows_not_a_multiple_of_4_masked": dict(r=2, n=8189, mask=True),
+    "tail_warp_only": dict(r=2, n=3, mask=True),
+    "done_flag": dict(r=2, done=True),
+    "subnormal_and_infinite_sums": dict(r=2, tiny=True),
+}
+
+
+def _k5a_case(case, scene):
+    """(map state, points, radius, mask or None, flags or None) of a K5a
+    case on the card: the scene's map and next features at its guess."""
+    c = K5A_CASES[case]
+    st, T, feat, mask = scene["carry"].map_state, scene["T"], scene["feat"], scene["mask"]
+    n = c.get("n", feat.shape[0])
+    p = lie.transform_points(T.view(4, 4), feat)
+    if n < 4:   # a lone tail warp: rows with live candidates, one of them masked out
+        live = vm.grid_knn_neighbors_plain(st, p, voxel_size=0.5, radius=c["r"])[1].any(1)
+        rows = torch.cat([torch.nonzero(live & mask).flatten()[:n - 1],
+                          torch.nonzero(live & ~mask).flatten()[:1]])
+        p, mask = p[rows], mask[rows]
+    p, mask = p[:n].contiguous(), mask[:n].contiguous()
+    if c.get("tiny"):
+        # live rows whose sums give quotients below 2^-126 (subnormal sums, and
+        # normal ones divided down), and one infinite sum
+        l0 = st.l0_data.clone()
+        live = torch.nonzero(l0[:-1, 0] > 0).flatten()
+        gen = torch.Generator().manual_seed(5)
+        ints = torch.randint(1, 1 << 22, (live.numel(), 3), generator=gen).to(l0.device)
+        sub = ints.float() * 2.0 ** -149 * torch.where(ints % 2 == 0, 1.0, -1.0)
+        l0[live[0::3], 1:4] = sub[0::3]
+        small = ((ints[1::3] % 16) + 1).float() * 2.0 ** -126   # normal, below 17 x 2^-126
+        l0[live[1::3], 1:4] = small * torch.where(ints[1::3] % 3 == 0, 1.0, -1.0)
+        l0[live[1::3], 0] = torch.clamp(l0[live[1::3], 0], min=3.0)
+        l0[live[5], 1] = float("inf")
+        st = st._replace(l0_data=l0)
+    flags = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda") if c.get("done") else None
+    return st, p, c["r"], mask if c.get("mask") else None, flags
+
+
+@pytest.mark.parametrize("case", sorted(K5A_CASES))
+def test_grid_knn_kernel_edges(scene, case):
+    """K5a against its twin on the card, exactly: centroids and flags (with
+    a row mask, the twin's flags ANDed with it), including empty and
+    count-1 rows; a done flag launches and returns at once; one launch a
+    call."""
+    st, p, r, mask, flags = _k5a_case(case, scene)
+    n0 = kernels.KERNELS["grid_knn"].launches
+    ck, okk = vm.grid_knn_neighbors(st, p, voxel_size=0.5, radius=r, flags=flags, mask=mask)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["grid_knn"].launches == n0 + 1
+    m = (2 * r + 1) ** 3
+    assert ck.shape == (p.shape[0], m, 3) and okk.shape == (p.shape[0], m)
+    if flags is not None:
+        return
+    cp, okp = vm.grid_knn_neighbors_plain(st, p, voxel_size=0.5, radius=r)
+    if mask is not None:
+        okp = okp & mask[:, None]
+        assert bool(okp.any()) and not bool(okp[~mask].any())
+    assert torch.equal(okk, okp)
+    assert torch.equal(ck, cp)                     # inf equal; no NaN in these sums
+    # the map holds empty (count 0) and count-1 rows beside fuller ones
+    cnt = st.l0_data[:, 0]
+    assert {0.0, 1.0} <= set(torch.unique(cnt[cnt <= 1.0]).tolist())
+    if K5A_CASES[case].get("tiny"):
+        sub = (ck != 0) & (ck.abs() < 2.0 ** -126)
+        assert bool(sub.any()) and bool(torch.isinf(ck).any())
+
+
+def test_grid_knn_and_shard_sample_launch_once_without_a_stack(dev, scene):
+    """K5a (r = 1 and 2, with a row mask) and K11c (alone and inside K11b's
+    launch) launch their kernel once a call with no torch op beside it
+    that launches device work, and ptxas gave neither kernel a stack
+    frame."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    st, p, _, mask, _ = _k5a_case("radius_2_rows_not_a_multiple_of_4_masked", scene)
+    args, cfg, s, u = _k11c_args("s8_two_lanes_one_done", dev)
+    a, q = args[7].shape[0], u.shape[1]
+    out = torch.zeros((args[2].shape[0], so.buffer_width(a, s, q)), device=dev)
+    calls = [("grid_knn", lambda: vm.grid_knn_neighbors(st, p, voxel_size=0.5, radius=1)),
+             ("grid_knn", lambda: vm.grid_knn_neighbors(st, p, voxel_size=0.5, radius=2,
+                                                        mask=mask)),
+             ("shard_sample", lambda: so.shard_sample(args[2], args[3], args[5], args[6], u,
+                                                      first=0, n_local=s, off=a * 42, out=out)),
+             ("shard_alpha_normal_eq", lambda: so.shard_alpha_normal_eq_sample(
+                 *args, u, cfg, first=0, n_local=s, off=a * 42, out=out))]
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        n0 = kernels.KERNELS[name].launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert kernels.KERNELS[name].launches == n0 + 1
+        ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
+    for src, fn, n in (("grid_knn", "grid_knn_kernel", 2), ("shard", "alpha_ne_kernel", 1)):
+        entries = kernels.ptxas_entries(src, fn)
+        assert len(entries) == n and all(e["stack"] == 0 for e in entries.values()), entries

@@ -284,6 +284,53 @@ def test_shard_group_one_rank():
                                   ((y[:, 0] + y[:, 1]) + y[:, 2]).numpy())
 
 
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_fused_normal_eq_and_sample_match_the_two_twins(n_shards):
+    """shard_alpha_normal_eq_sample (K11b with K11c in its launch) writes,
+    on the CPU, the row of shard_alpha_normal_eq then shard_sample, at 2
+    lanes x S shards with lane 1 done, a shard with fewer valid entries
+    than its quota and one with none; its sample slots exactly JAX's
+    stratified_sample of each live shard."""
+    b, s, n = 2, n_shards, 310
+    p, nrm, r, valid = (torch.as_tensor(a) for a in _correspondences(11 + s, b * s, n))
+    valid[0, 7:] = False                                 # nv < quota
+    if s > 1:
+        valid[1] = False                                 # nv = 0
+    T = torch.as_tensor(np.stack([_pose(), np.eye(4, dtype=np.float32)])).reshape(b, 16)
+    flags = torch.zeros((b, 3), dtype=torch.int32)
+    flags[1] = torch.tensor([1, 0, 77], dtype=torch.int32)
+    cfg = icp.ICPConfig()
+    consts = pko.make_pko_constants(*PKO_ARGS, device="cpu")
+    u = torch.as_tensor(pko.shard_draws(s)[0])
+    q = u.shape[1]
+    off, ld = 101 * 42, so.buffer_width(101, s, q)
+    mom = so.shard_alpha_normal_eq(p, nrm, r, valid, T, torch.zeros_like(flags), None, None, cfg,
+                                   n_local=s, moments=True).view(b, s, 3)
+    fused, two = torch.full((b * s, ld), -7.0), torch.full((b * s, ld), -7.0)
+    so.shard_alpha_normal_eq_sample(p, nrm, r, valid, T, flags, mom, consts.alphas, u, cfg,
+                                    first=0, n_local=s, off=off, out=fused)
+    so.shard_alpha_normal_eq(p, nrm, r, valid, T, flags, mom, consts.alphas, cfg, n_local=s,
+                             out=two)
+    so.shard_sample(r, valid, flags, mom, u, first=0, n_local=s, off=off, out=two)
+    assert torch.equal(fused, two)
+    assert bool((fused[s:] == -7.0).all())               # the done lane's rows
+    scale = float(so.scale_from_moments(mom)[0])
+    key = jax.random.PRNGKey(42)
+    for me in range(s):
+        nr = jnp.abs(jnp.asarray(r[me].numpy())) / jnp.maximum(jnp.float32(scale), 1e-6)
+        samp, sok = jpko.stratified_sample(nr, jnp.asarray(valid[me].numpy()), q,
+                                           jax.random.fold_in(key, me))
+        sokf = np.asarray(sok, np.float32)
+        got = fused[me, off:off + 2 * s * q].numpy()
+        np.testing.assert_array_equal(got[me * q:(me + 1) * q], np.asarray(samp) * sokf)
+        np.testing.assert_array_equal(got[s * q + me * q:s * q + (me + 1) * q], sokf)
+        others = np.ones(2 * s * q, bool)
+        others[me * q:(me + 1) * q] = others[s * q + me * q:s * q + (me + 1) * q] = False
+        assert not got[others].any()
+    nv = int(valid[0].sum())
+    assert 0 < nv < q and int(fused[0, off + s * q:off + s * q + q].sum()) == nv
+
+
 def test_twins_lane_axis():
     """The plain twins over 2 lanes x 4 shards, the lanes with their own
     points, poses and moments: lane b of each call equals a one-lane call

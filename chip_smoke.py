@@ -27,7 +27,9 @@ Phases, each of which exits nonzero on failure:
          on the card and on the CPU, two calls bit-equal; K4c also at the
          rehash's shape (every one of the 65536 slots), its live-child
          masks equal to the twin's and no non-planar verdict different
-         outside a 1e-5 band around the threshold at either shape;
+         outside a 1e-5 band around the threshold at either shape; K4b
+         with its targets computed in the kernel, timed beside the torch
+         ops that computed them before;
        - the KD-tree kernels (K5a grid_knn, K5b plane_fit_5nn) at the mid360
          shapes (scan capacity 16384, 0.4 m voxels, radius 2, a map of 65536
          parents built without surfels by the mid360 path's first keyframes);
@@ -59,7 +61,9 @@ Phases, each of which exits nonzero on failure:
          1e-9 on the retracted poses, and for K10c's solve of a system of
          kappa ~5e9 its normwise backward error at most 1e-13, two calls
          bit-equal, and the same on a synthetic D = 200 separator system;
-         its cluster size and panel width are printed; K10b also two
+         its cluster size and panel width are printed; K10d also at n_pad
+         8192 (past its one cluster: synthetic.backsub_system), its
+         cluster size printed; K10b also two
          calls bit-equal, its longest partition longer than its staging
          ring, and an input that is not positive definite ending in NaN
          and ok false (check_eliminate_edges); their bounds count
@@ -134,8 +138,9 @@ lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs. K2b (B = 1, B = 4,
 the weight residual) and K11b (at each S) are also held to two calls
 bit-equal; for both, the cluster size they launch with, and for them,
-K4c, K11a, K5b, K6b, K5a and K11c (K11b's kernel) ptxas's stack frame of
-every instantiation (0 bytes, else the run fails) and one launch a call
+K4c, K11a, K5b, K6b, K5a, K11c (K11b's kernel), K4b and K10d ptxas's
+stack frame of every instantiation (0 bytes, else the run fails; K10d's
+40 bytes are the double sin and cos's slow path) and one launch a call
 with no torch op that launches device work beside it (no zero fill, read
 from torch.profiler's op events) are printed and kept in the kernels
 line, with K11b's and K11c's device and as-issued times at every S (K11b
@@ -155,7 +160,10 @@ many launches as K11d's), one launch for every lane and shard, and K11c's
 sample inside K11b's launch once an ICP iteration and never launched alone
 (its runs there are counted in its `fused` count, and the kernels line
 adds them to its launches: fused_launches_by_path). `--profile` also profiles
-20 frames of the sharded path and of the step path. Lanes 1-3's scans
+20 frames of the sharded path and of the step path; a window's device busy
+time is the sum of its device activity records (kernels, memcpy, memset),
+each counted once (the first window also prints the op table's sum, which
+counts an op's kernels twice). Lanes 1-3's scans
 are made in spawned worker processes while the parent makes the other
 scans.
 
@@ -346,13 +354,13 @@ def entry_name(mangled: str) -> str:
     return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', rest.split('EEv', 1)[0]))}>"
 
 
-def check_one_launch(rows, name, src, kernel, fns, shape=None, note=""):
+def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0):
     """A kernel's build and launch: ptxas's report of every entry function
-    whose name holds `kernel` (each instantiation of a template; 0 bytes of
-    stack, else fail), its launch shape where given (a cluster kernel's) or
-    a `note` on it, and for each call in `fns` one launch of the kernel
-    `name` and no torch op that launches device work (no zero fill), all
-    kept in rows[name]."""
+    whose name holds `kernel` (each instantiation of a template; at most
+    `stack` bytes of stack, 0 unless the note says why, else fail), its
+    launch shape where given (a cluster kernel's) or a `note` on it, and
+    for each call in `fns` one launch of the kernel `name` and no torch op
+    that launches device work (no zero fill), all kept in rows[name]."""
     from lidar_odometry_tpu_torch import kernels
     entries = {entry_name(m): info for m, info in kernels.ptxas_entries(src, kernel).items()}
     ran = [launches_of(fn, name) for fn in fns]
@@ -365,7 +373,7 @@ def check_one_launch(rows, name, src, kernel, fns, shape=None, note=""):
     print(f"  {name}: {what}{report}; a call: {[n for n, _ in ran]} launches, torch ops that "
           f"launch {[o for _, o in ran]}", flush=True)
     for k, info in entries.items():
-        if info["stack"] != 0:
+        if info["stack"] > stack:
             fail(f"{name}: ptxas reports {info['stack']} bytes of stack for {k}")
     for n, ops in ran:
         if n != 1 or ops:
@@ -735,21 +743,39 @@ def check_kernels(scans_np, cfg, consts, kw):
     firstk[1:] = s_key[1:] != s_key[:-1]
     valid_s = mask[s_idx]
     nrows = C1 * 27
-    tgt = torch.where(firstk & hit[s_idx] & valid_s, slot[s_idx] * 27 + off[s_idx], nrows)
+    placed = hit & mask
+    k4b = (world, s_idx, firstk, valid_s, placed, slot, off)
     l0k, l0p = l0.clone(), l0.clone()
-    vm.map_scatter_add(l0k, world, s_idx, firstk, valid_s, tgt)
-    vm.map_scatter_add_plain(l0p, world, s_idx, firstk, valid_s, tgt)
+    vm.map_scatter_add(l0k, *k4b)
+    vm.map_scatter_add_plain(l0p, *k4b)
     err = float((l0k[:nrows] - l0p[:nrows]).abs().max())
-    lead = firstk & (tgt < nrows)
-    tgt_pt = torch.where(hit & mask, slot * 27 + off, nrows)
+    # the bytes the function needs: firstk and valid_s at every sorted
+    # position, s_idx and the point at each valid one, placed at each run
+    # leader, and pslot, ch_off and the row's read-modify-write at a placed one
+    n_valid, n_lead = int(mask.sum()), int(firstk.sum())
+    n_placed = int((firstk & placed[s_idx]).sum())
+    tgt_pt = torch.where(placed, slot * 27 + off, nrows)
     data4 = torch.cat([mask.float()[:, None], torch.where(mask[:, None], world, 0.0)], 1)
     l0_lib = l0.clone()
+
+    def target_ops():
+        """The torch ops that computed K4b's targets in update_map before
+        K4b took placed, pslot and ch_off and computed them itself."""
+        return torch.where(firstk & placed[s_idx], slot[s_idx] * 27 + off[s_idx], nrows)
+
+    tops_ms, tops_dev = time_ms(target_ops), device_ms(target_ops)
     row("map_scatter_add", err, 1e-6,
-        lambda: vm.map_scatter_add(l0k, world, s_idx, firstk, valid_s, tgt),
-        time_ms(lambda: vm.map_scatter_add_plain(l0p, world, s_idx, firstk, valid_s, tgt)),
-        N * (12 + 8 + 1 + 1 + 8) + int(lead.sum()) * 32, N * 4,
+        lambda: vm.map_scatter_add(l0k, *k4b),
+        time_ms(lambda: vm.map_scatter_add_plain(l0p, *k4b)),
+        N * 2 + n_valid * (12 + 8) + n_lead * 1 + n_placed * (16 + 32), N * 4,
         library=lambda: l0_lib.index_add_(0, tgt_pt, data4),
-        note=f"{int(lead.sum())} voxel rows")
+        note=f"{n_placed} voxel rows of {n_lead} runs; the targets computed in the "
+             f"kernel: the torch ops that computed them before take {tops_ms:.4f} ms "
+             f"as issued, " + ("n/a" if tops_dev is None else f"{tops_dev:.4f}")
+             + " ms on the device")
+    rows["map_scatter_add"].update(target_ops_ms=tops_ms, target_ops_device_ms=tops_dev)
+    check_one_launch(rows, "map_scatter_add", "voxel_map", "scatter_add_kernel",
+                     [lambda: vm.map_scatter_add(l0k, *k4b)])
 
     # ---- K4c surfel recompute of every parent with enough children ----
     r_n = min(SCAN_CAP, C1)
@@ -1460,7 +1486,53 @@ def check_pgo_kernels(graph):
         D * 48 + n_rows * (288 * 2 + 48) + n_pad * (12 + 2 * 128) + 32,
         n_rows * 156 + n_pad * 170,
         note=f"{n_pad} poses, |dx| {float(dxn):.4e}; err = max abs pose-entry difference")
+    check_one_launch(rows, "pgo_backsub_retract", "pgo", "backsub_kernel",
+                     [lambda: dpgo.backsub_retract(g, scratch, xs_p, F, G, gv, 1 << 30, 0.0)],
+                     dpgo.BACKSUB_SHAPE, note="its 40-byte stack is the double sin and cos's "
+                     "slow-path argument reduction, which retract keeps as it was", stack=40)
+    check_backsub_past_one_cluster(rows)
     return rows
+
+
+def check_backsub_past_one_cluster(rows, n_pad: int = 8192):
+    """K10d at an n_pad past its one cluster (synthetic.backsub_system, 60
+    partitions): poses within 1e-9 of the twin, |dx| within 1e-12
+    relative, two calls bit-equal, its device time and bound."""
+    import torch
+    from lidar_odometry_tpu_torch.io import synthetic
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    a, plan = synthetic.backsub_system(n_pad, 60, seed=n_pad, zero_rows=100)
+    g = {k: torch.as_tensor(a[k], device=DEVICE) for k in ("real_mask", "pose_row",
+                                                           *dpgo.BACK_KEYS)}
+    g["st"] = torch.tensor([0.0, float("inf"), 1.0, 1.0], dtype=torch.float64, device=DEVICE)
+    poses, xs, F, G, gv = (torch.as_tensor(a[k], device=DEVICE)
+                           for k in ("poses", "xs", "F", "G", "g"))
+    back = [g[k] for k in dpgo.BACK_KEYS]
+    p_p, dxn, ok = dpgo.backsub_retract_plain(poses, xs, F, G, gv, *back, g["real_mask"])
+    p_k, p_2 = poses.clone(), poses.clone()
+    dpgo.backsub_retract(g, p_k, xs, F, G, gv, 1 << 30, 0.0)
+    st = g["st"].clone()
+    g["st"].copy_(torch.tensor([0.0, float("inf"), 1.0, 1.0], dtype=torch.float64))
+    dpgo.backsub_retract(g, p_2, xs, F, G, gv, 1 << 30, 0.0)
+    err = float((p_k - p_p).abs().max())
+    rel = abs(float(st[1]) - float(dxn)) / float(dxn)
+    if not (bool(ok) and err <= 1e-9 and rel <= 1e-12 and torch.equal(p_k, p_2)
+            and torch.equal(st, g["st"])):
+        fail(f"pgo_backsub_retract at n_pad {n_pad}: poses {err:.3e} from the twin, |dx| "
+             f"{rel:.3e}, two calls equal {torch.equal(p_k, p_2)}")
+    n_rows = int(plan["valid"].sum())
+    fn = lambda: dpgo.backsub_retract(g, p_k, xs, F, G, gv, 1 << 30, 0.0)
+    ms, dev_ms = time_ms(fn), device_ms(fn)
+    b, by = bound_ms(plan["D"] * 48 + n_rows * (288 * 2 + 48) + n_pad * (12 + 2 * 128) + 32,
+                     n_rows * 156 + n_pad * 170, FP64_OPS_PER_S)
+    print(f"  pgo_backsub_retract at n_pad {n_pad} (past one cluster, {plan['D']} partitions): "
+          f"poses {err:.3e} from the twin (tol 1e-09), |dx| {rel:.1e} relative, two calls "
+          f"bit-equal | kernel {ms:.4f} ms (device "
+          + ("n/a" if dev_ms is None else f"{dev_ms:.4f}") + f" ms), bound {b:.5f} ms ({by})",
+          flush=True)
+    rows["pgo_backsub_retract"].update(
+        {f"n_pad_{n_pad}": dict(max_abs_err=err, ms=ms, device_ms=dev_ms, bound_ms=b,
+                                bound_by=by)})
 
 
 def check_eliminate_edges(g, lin, poses, el_k):
@@ -2960,6 +3032,17 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def device_busy_us(prof):
+    """The device's busy time in a profiled window: the durations of its
+    activity records (kernels, memcpy, memset), each counted once; GPU-side
+    user annotations, which span other records, are left out. Returns
+    (microseconds, records)."""
+    from torch.autograd import DeviceType
+    recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sum(e.time_range.elapsed_us() for e in recs), len(recs)
+
+
 def profile_window(fn, label: str, prefix: str = "") -> None:
     """One call of fn under torch.profiler: device busy share, time by
     kernel, and the Chrome trace, written to PROFILE_DIR (file names start
@@ -2974,12 +3057,13 @@ def profile_window(fn, label: str, prefix: str = "") -> None:
         sync()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events)
+    dev_us, n_records = device_busy_us(prof)
     launched = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                          "cuLaunchKernelEx",
                                                          "cudaLaunchKernelExC"))
     print(f"profile: {label}, wall {wall * 1e3:.3f} ms, "
-          f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f} %), "
+          f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f} %; "
+          f"{n_records} kernel, memcpy and memset records), "
           f"{launched} kernel launches", flush=True)
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     (out / f"{prefix}profile_device.txt").write_text(table)

@@ -27,11 +27,16 @@
 //    Cholesky in 24-column panels whose trailing updates run on the fp64
 //    tensor cores, with bs as one more row (the forward solve), and solves
 //    L^T x = y (the design is at the kernel).
-//  * K10d lo_pgo_backsub_retract — :649-686: one thread a padded pose
-//    computes its dx; block partials of |dx|^2 and of non-finite entries go
-//    to scratch; the last block to finish (a threadfence + a ticket counter
-//    it resets) sums them in block order, retracts every pose where dx is all
-//    finite and writes the loop state.
+//  * K10d lo_pgo_backsub_retract — :649-686: one thread-block cluster of
+//    BACKSUB_CLUSTER CTAs (16, a non-portable size; an error where the
+//    card refuses it), one thread a padded pose. Each thread computes its
+//    dx in registers; the CTAs' sums of |dx|^2 and of non-finite entries
+//    meet in distributed shared memory, every CTA summing them in rank
+//    order, so all agree on ok; each thread's pose, read at the start, is retracted
+//    while the cluster barrier completes and stored where ok. Rank 0
+//    writes the loop state. Past BACKSUB_CLUSTER x 256 poses a thread
+//    takes every (cluster x 256)-th pose and recomputes the dx of all but
+//    its first for the retraction.
 //
 // Loop state st (4 doubles) = [it, |dx|, ok, active], active being the
 // while_loop's condition it < max_iters && |dx| >= tol && ok; every kernel
@@ -61,7 +66,8 @@ namespace {
 constexpr double LIE_EPS = 1e-10;        // reference kEpsLie
 constexpr int FAC_THREADS = 128;
 constexpr int ASM_THREADS = 256;
-constexpr int BACKSUB_THREADS = 256;     // distributed_pgo.py _BACKSUB_THREADS
+constexpr int BACKSUB_THREADS = 256;     // threads a CTA of K10d's cluster
+constexpr int BACKSUB_CLUSTER = 16;      // CTAs of K10d's cluster (distributed_pgo.py BACKSUB_SHAPE)
 
 __device__ __forceinline__ double clip1(double x) {  // jnp.clip, NaN kept
   return x < -1.0 ? -1.0 : (x > 1.0 ? 1.0 : x);
@@ -1078,51 +1084,131 @@ reduced_kernel(const double* __restrict__ diag, const double* __restrict__ off,
 // K10d
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(BACKSUB_THREADS)
+// The back-substituted update of one pose, real_mask applied: xs at a
+// separator (code < 0), else g - F x_left - G x_right of its interior
+// row, in the JAX einsums' order. A thread reads its own rows as 16-byte
+// vectors (their starts are 16-byte aligned: 288 and 48 bytes a row).
+// Staging a warp's rows through shared memory with coalesced cp.async
+// copies instead was slower at the PGO path's shape (7.7 us against 4.0
+// for this phase, H100 80GB HBM3 at 700 W), so each thread loads its own.
+__device__ __forceinline__ void backsub_dx(const double* __restrict__ xs,
+                                           const double* __restrict__ F,
+                                           const double* __restrict__ G,
+                                           const double* __restrict__ g,
+                                           const int* __restrict__ has_left,
+                                           const int* __restrict__ xl_idx, int code, int max_m,
+                                           double m, double x[6]) {
+  if (code < 0) {
+    const double2* xr = reinterpret_cast<const double2*>(xs + 6 * (size_t)(-code - 1));
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const double2 v = __ldg(xr + a);
+      x[2 * a] = v.x * m;
+      x[2 * a + 1] = v.y * m;
+    }
+    return;
+  }
+  const int k = code / max_m;
+  const double2* Fr = reinterpret_cast<const double2*>(F + 36 * (size_t)code);
+  const double2* Gr = reinterpret_cast<const double2*>(G + 36 * (size_t)code);
+  const double2* gr = reinterpret_cast<const double2*>(g + 6 * (size_t)code);
+  const double2* xr = reinterpret_cast<const double2*>(xs + 6 * (size_t)k);
+  const bool left = __ldg(has_left + k) != 0;
+  const double* xlr = xs + 6 * (size_t)__ldg(xl_idx + k);
+  double xv[6], xl[6], gv[6];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const double2 a = __ldg(xr + q), b = __ldg(gr + q);
+    xv[2 * q] = a.x;
+    xv[2 * q + 1] = a.y;
+    gv[2 * q] = b.x;
+    gv[2 * q + 1] = b.y;
+  }
+#pragma unroll
+  for (int q = 0; q < 6; ++q) xl[q] = left ? __ldg(xlr + q) : 0.0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    double f[6], h[6];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const double2 u = __ldg(Fr + 3 * a + q), v = __ldg(Gr + 3 * a + q);
+      f[2 * q] = u.x;
+      f[2 * q + 1] = u.y;
+      h[2 * q] = v.x;
+      h[2 * q + 1] = v.y;
+    }
+    double fx = 0.0, gx = 0.0;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      fx += f[q] * xl[q];
+      gx += h[q] * xv[q];
+    }
+    x[a] = ((gv[a] - fx) - gx) * m;
+  }
+}
+
+// One cluster; thread tid of CTA rank takes the poses p0 = rank * 256 + tid,
+// p0 + stride, ... (stride = the cluster's threads). The sums run in a
+// fixed order (a thread's entries, warp shuffles down, the 8 warps in
+// order, the 256-pose blocks in order, each from 0.0), so two calls give
+// the same bits, and at one pose a thread so does a grid of 256-thread
+// blocks summing the same way; a CTA past the poses adds 0.0, which
+// changes no sum's bits. The first pose's retraction is
+// computed while the cluster barrier completes and stored once every CTA
+// has agreed that dx is finite.
+__global__ void __launch_bounds__(BACKSUB_THREADS, 1)
 backsub_kernel(const double* __restrict__ xs, const double* __restrict__ F,
                const double* __restrict__ G, const double* __restrict__ g,
                const int* __restrict__ has_left, const int* __restrict__ xl_idx,
                const int* __restrict__ pose_row, const double* __restrict__ real_mask, int n_pad,
                int max_m, int max_iters, double tol, double* __restrict__ st,
-               double* __restrict__ dx, double* __restrict__ partials,
-               unsigned int* __restrict__ counter, double* __restrict__ poses) {
+               double* __restrict__ poses) {
+  namespace cg = cooperative_groups;
+  __shared__ double part[2];                        // this CTA's sums, read by every CTA
   __shared__ double red[2][BACKSUB_THREADS / 32];
-  __shared__ bool last;
-  __shared__ bool ok_s;
+  cg::cluster_group cluster = cg::this_cluster();
+  // every CTA reads st[3] before the barrier that rank 0 writes it after,
+  // so all leave here together or none does
   if (st[3] == 0.0) return;
   const int tid = threadIdx.x;
-  const int p = blockIdx.x * blockDim.x + tid;
+  const int rank = (int)cluster.block_rank(), nct = (int)cluster.num_blocks();
+  const bool writer = rank == 0 && tid == 0;        // writes the loop state
+  const double it = writer ? st[0] + 1.0 : 0.0;     // read now, not after the barrier
+  const int stride = nct * BACKSUB_THREADS;
+  const int p0 = rank * BACKSUB_THREADS + tid;
+  // ---- dx: the thread's poses, the first kept in registers
+  double x0[6];
   double ss = 0.0, bad = 0.0;
-  if (p < n_pad) {
-    const int code = pose_row[p];
-    double x[6];
-    if (code < 0) {
-      for (int a = 0; a < 6; ++a) x[a] = xs[6 * (size_t)(-code - 1) + a];
-    } else {
-      const int k = code / max_m;
-      const double* Fr = F + 36 * (size_t)code;
-      const double* Gr = G + 36 * (size_t)code;
-      const double* gr = g + 6 * (size_t)code;
-      const double* xr = xs + 6 * (size_t)k;
-      double xl[6];
-      for (int q = 0; q < 6; ++q) xl[q] = has_left[k] ? xs[6 * (size_t)xl_idx[k] + q] : 0.0;
-      for (int a = 0; a < 6; ++a) {
-        double fx = 0.0, gx = 0.0;
-        for (int q = 0; q < 6; ++q) {
-          fx += Fr[6 * a + q] * xl[q];
-          gx += Gr[6 * a + q] * xr[q];
-        }
-        x[a] = (gr[a] - fx) - gx;
-      }
-    }
+  if (p0 < n_pad) {
+    backsub_dx(xs, F, G, g, has_left, xl_idx, __ldg(pose_row + p0), max_m,
+               __ldg(real_mask + p0), x0);
+#pragma unroll
     for (int a = 0; a < 6; ++a) {
-      const double v = x[a] * real_mask[p];
-      dx[6 * (size_t)p + a] = v;
-      ss += v * v;
-      bad += isfinite(v) ? 0.0 : 1.0;
+      ss += x0[a] * x0[a];
+      bad += isfinite(x0[a]) ? 0.0 : 1.0;
     }
   }
-  // block sums in warp order, then the partials in block order by the last block
+  for (int p = p0 + stride; p < n_pad; p += stride) {
+    double x[6];
+    backsub_dx(xs, F, G, g, has_left, xl_idx, __ldg(pose_row + p), max_m,
+               __ldg(real_mask + p), x);
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      ss += x[a] * x[a];
+      bad += isfinite(x[a]) ? 0.0 : 1.0;
+    }
+  }
+  // ---- sums: warp shuffles, the CTA's warps in order (the first pose on its way)
+  double T[16];
+  if (p0 < n_pad) {
+    const double2* tp = reinterpret_cast<const double2*>(poses + 16 * (size_t)p0);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const double2 v = tp[q];
+      T[2 * q] = v.x;
+      T[2 * q + 1] = v.y;
+    }
+  }
   for (int o = 16; o > 0; o >>= 1) {
     ss += __shfl_down_sync(0xffffffffu, ss, o);
     bad += __shfl_down_sync(0xffffffffu, bad, o);
@@ -1138,38 +1224,77 @@ backsub_kernel(const double* __restrict__ xs, const double* __restrict__ F,
       s0 += red[0][w];
       s1 += red[1][w];
     }
-    partials[2 * blockIdx.x] = s0;
-    partials[2 * blockIdx.x + 1] = s1;
+    part[0] = s0;
+    part[1] = s1;
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-
-  if (tid == 0) {
-    double s0 = 0.0, s1 = 0.0;
-    for (unsigned int bk = 0; bk < gridDim.x; ++bk) {
-      s0 += __ldcg(partials + 2 * bk);
-      s1 += __ldcg(partials + 2 * bk + 1);
-    }
-    const double dxn = sqrt(s0);
-    const bool ok = s1 == 0.0;
-    const double it = st[0] + 1.0;
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  // ---- retract: the first pose's, while the barrier completes
+  if (p0 < n_pad) retract(T, x0);
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  // ---- cluster: every CTA's sums, in rank order, in every warp
+  double a = 0.0, b = 0.0;
+  if ((tid & 31) < nct) {
+    const double* rp = cluster.map_shared_rank(part, tid & 31);
+    a = rp[0];
+    b = rp[1];
+  }
+  double s0 = 0.0, s1 = 0.0;
+  for (int r = 0; r < nct; ++r) {
+    s0 += __shfl_sync(0xffffffffu, a, r);
+    s1 += __shfl_sync(0xffffffffu, b, r);
+  }
+  // done with the other CTAs' shared memory; the wait before the exit
+  // keeps this CTA's until every CTA has read it
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  const double dxn = sqrt(s0);
+  const bool ok = s1 == 0.0;
+  if (writer) {
     st[0] = it;
     st[1] = dxn;
     st[2] = ok ? 1.0 : 0.0;
     st[3] = (it < (double)max_iters && dxn >= tol && ok) ? 1.0 : 0.0;
-    ok_s = ok;
-    *counter = 0u;   // ready for the next iteration's launch
   }
-  __syncthreads();
-  if (!ok_s) return;
-  for (int q = tid; q < n_pad; q += blockDim.x) {
-    double xi[6];
-    for (int a = 0; a < 6; ++a) xi[a] = __ldcg(dx + 6 * (size_t)q + a);
-    retract(poses + 16 * (size_t)q, xi);
+  // ---- store: the poses where every dx is finite
+  if (ok) {
+    if (p0 < n_pad) {
+      double2* tp = reinterpret_cast<double2*>(poses + 16 * (size_t)p0);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) tp[q] = make_double2(T[2 * q], T[2 * q + 1]);
+    }
+    for (int p = p0 + stride; p < n_pad; p += stride) {
+      double x[6];
+      backsub_dx(xs, F, G, g, has_left, xl_idx, __ldg(pose_row + p), max_m,
+                 __ldg(real_mask + p), x);
+      retract(poses + 16 * (size_t)p, x);
+    }
   }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// K10d's launch: one cluster of BACKSUB_CLUSTER CTAs.
+void backsub_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  cfg = {};
+  cfg.gridDim = dim3(BACKSUB_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(BACKSUB_THREADS, 1, 1);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = BACKSUB_CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+// Sets the non-portable cluster size K10d needs and checks with
+// cudaOccupancyMaxActiveClusters that one cluster of BACKSUB_CLUSTER CTAs
+// fits: an error where the card refuses it.
+cudaError_t backsub_check(const cudaLaunchConfig_t& cfg) {
+  cudaError_t e =
+      cudaFuncSetAttribute(backsub_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  int fit = 0;
+  e = cudaOccupancyMaxActiveClusters(&fit, backsub_kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  return fit >= 1 ? cudaSuccess : cudaErrorLaunchOutOfResources;
 }
 
 inline int nblocks(int n, int t) { return (n + t - 1) / t; }
@@ -1255,10 +1380,15 @@ LO_EXPORT int lo_pgo_backsub_retract(const double* xs, const double* F, const do
                                      const double* g, const int* has_left, const int* xl_idx,
                                      const int* pose_row, const double* real_mask, int n_pad,
                                      int max_m, int max_iters, double tol, double* st,
-                                     double* dx, double* partials, unsigned int* counter,
                                      double* poses, void* stream) {
-  backsub_kernel<<<nblocks(n_pad, BACKSUB_THREADS), BACKSUB_THREADS, 0, (cudaStream_t)stream>>>(
-      xs, F, G, g, has_left, xl_idx, pose_row, real_mask, n_pad, max_m, max_iters, tol, st, dx,
-      partials, counter, poses);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  backsub_config(cfg, attr);
+  cfg.stream = (cudaStream_t)stream;
+  cudaError_t e = backsub_check(cfg);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, backsub_kernel, xs, F, G, g, has_left, xl_idx, pose_row,
+                         real_mask, n_pad, max_m, max_iters, tol, st, poses);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

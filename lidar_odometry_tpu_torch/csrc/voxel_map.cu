@@ -17,11 +17,23 @@
 //    |sum - cnt*s|^2 > d^2 * cnt^2, and any-reduces in a register, so the
 //    per-row verdicts never reach memory. A device flag gates the stage
 //    without a host read.
-//  * map_scatter_add moves p x (12 + 8 + 2 + 8) B in and touches at most p
-//    rows of 16 B: ~0.6 MB, ~0.2 us, so launch latency bounds it. Design:
-//    one thread per run leader walks its run of equal keys in the sorted
-//    order, sums [count | xyz] in the order the JAX segment_sum does, and
-//    adds the total to its unique target row: no atomics, no second pass.
+//  * map_scatter_add moves p x (12 + 8 + 2 + 1 + 8 + 8) B in and touches at
+//    most p rows of 16 B: ~0.8 MB, ~0.25 us at 3.35 TB/s, so launch latency
+//    and its dependent load rounds bound it (~1 us a round). Design: one
+//    thread a sorted position, all active, three rounds: (1) its s_idx
+//    and, as 4-byte words, the block's firstk and valid_s flags; (2) one
+//    gather at s_idx of its point and, at a run leader, of placed, pslot
+//    and ch_off, from which the leader computes its target row as the JAX
+//    program does (placed ? pslot * 27 + ch_off : the sink); [valid | xyz]
+//    goes to shared memory; (3) the leader's read of its target row,
+//    issued before the block's barrier. The leader then finds its run's end
+//    from the block's firstk bits (a ballot a warp), folds the run's rows
+//    out of shared memory left to right, in the order of the JAX
+//    segment_sum (invalid rows add zeros, which leaves every sum's bits
+//    as they were), reads only the tail of a run that crosses the block's
+//    end from global memory, and adds the total to its unique row: no
+//    atomics, no second pass. An unplaced leader (the padding rows' run
+//    among them) leaves at once; the sink row is never written.
 //  * map_surfel_recompute reads 27 x 16 B per live recomputed parent (at
 //    most p of them, ~6 MB at the bulk tier) and does ~300 flops each plus
 //    one eigh3: bytes bound it, in 432 B blocks at random slots, but at the
@@ -76,28 +88,82 @@ evict_scan_kernel(const float4* __restrict__ l0, int c1, const float* __restrict
   cand[p] = any;
 }
 
+// K4b: one thread a sorted position i = blockIdx.x * THREADS + threadIdx.x.
 __global__ void __launch_bounds__(THREADS)
 scatter_add_kernel(const float* __restrict__ pts, const long long* __restrict__ s_idx,
                    const bool* __restrict__ firstk, const bool* __restrict__ valid_s,
-                   const long long* __restrict__ tgt, int p, long long nrows,
+                   const bool* __restrict__ placed, const long long* __restrict__ pslot,
+                   const long long* __restrict__ ch_off, int p, long long nrows,
                    float4* __restrict__ l0) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p || !firstk[i]) return;
-  const long long t = tgt[i];
-  if (t < 0 || t >= nrows) return;
+  __shared__ unsigned flag_w[2][THREADS / 4];   // the block's firstk, valid_s: 4 rows a word
+  __shared__ unsigned lead_bits[THREADS / 32];  // the block's firstk, a bit a row
+  __shared__ float4 rows[THREADS];              // [valid | xyz] of each row's point
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * THREADS;
+  const int n = min(THREADS, p - base);
+  // ---- rows: the sorted index, and the flags as words
+  const long long s = tid < n ? __ldg(s_idx + base + tid) : 0;
+  if (tid < THREADS / 2) {
+    const int which = tid / (THREADS / 4), q = 4 * (tid % (THREADS / 4));
+    const unsigned char* f = reinterpret_cast<const unsigned char*>(which ? valid_s : firstk) + base;
+    unsigned w = 0u;
+    if (q + 4 <= n && (reinterpret_cast<uintptr_t>(f + q) & 3u) == 0u) {
+      w = __ldg(reinterpret_cast<const unsigned*>(f + q));
+    } else {
+      for (int k = 0; k < 4; ++k)
+        if (q + k < n) w |= (unsigned)__ldg(f + q + k) << (8 * k);
+    }
+    flag_w[which][q / 4] = w;
+  }
+  __syncthreads();
+  const bool lead = tid >= n || reinterpret_cast<const unsigned char*>(flag_w[0])[tid] != 0;
+  const bool valid = tid < n && reinterpret_cast<const unsigned char*>(flag_w[1])[tid] != 0;
+  // ---- gather: the point, and at a leader the parts of its target
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const float* q = pts + 3 * s;
+    v = make_float4(1.0f, __ldg(q), __ldg(q + 1), __ldg(q + 2));
+  }
+  long long t = -1;
+  if (tid < n && lead) {
+    const bool pl = __ldg(reinterpret_cast<const unsigned char*>(placed) + s) != 0;
+    const long long ps = __ldg(pslot + s), co = __ldg(ch_off + s);
+    t = pl ? ps * lo::NCH + co : nrows;
+    if (t < 0 || t >= nrows) t = -1;    // the sink: dropped, as mode="drop" drops it
+  }
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (t >= 0) r = l0[t];                // the target row, read before the barrier
+  rows[tid] = v;
+  const unsigned bits = __ballot_sync(0xffffffffu, lead);
+  if ((tid & 31) == 0) lead_bits[tid >> 5] = bits;
+  __syncthreads();
+  if (t < 0) return;
+  // ---- fold: the run's rows in this block, left to right
+  int w = tid >> 5;
+  unsigned after = lead_bits[w] & ~((2u << (tid & 31)) - 1u);   // leaders after tid
+  while (after == 0u && ++w < THREADS / 32) after = lead_bits[w];
+  const int end = after ? 32 * w + __ffs(after) - 1 : THREADS;
   float c = 0.f, x = 0.f, y = 0.f, z = 0.f;
-  int j = i;
-  do {
-    if (valid_s[j]) {
+#pragma unroll 4
+  for (int j = tid; j < end; ++j) {
+    const float4 a = rows[j];
+    c = __fadd_rn(c, a.x);
+    x = __fadd_rn(x, a.y);
+    y = __fadd_rn(y, a.z);
+    z = __fadd_rn(z, a.w);
+  }
+  // ---- tail: a run that crosses the block's end, from global memory
+  if (end == THREADS) {
+    for (int j = base + THREADS; j < p && !firstk[j]; ++j) {
+      if (!valid_s[j]) continue;
       const float* q = pts + 3 * s_idx[j];
       c = __fadd_rn(c, 1.0f);
       x = __fadd_rn(x, q[0]);
       y = __fadd_rn(y, q[1]);
       z = __fadd_rn(z, q[2]);
     }
-    ++j;
-  } while (j < p && !firstk[j]);
-  float4 r = l0[t];
+  }
+  // ---- write: one read-modify-write of the unique target row
   r.x = __fadd_rn(r.x, c);
   r.y = __fadd_rn(r.y, x);
   r.z = __fadd_rn(r.z, y);
@@ -179,10 +245,11 @@ LO_EXPORT int lo_map_evict_scan(const float* l0, int c1, const float* sensors, i
 }
 
 LO_EXPORT int lo_map_scatter_add(const float* pts, const long long* s_idx, const bool* firstk,
-                                 const bool* valid_s, const long long* tgt, int p,
-                                 long long nrows, float* l0, void* stream) {
+                                 const bool* valid_s, const bool* placed, const long long* pslot,
+                                 const long long* ch_off, int p, long long nrows, float* l0,
+                                 void* stream) {
   scatter_add_kernel<<<max(1, blocks(p)), THREADS, 0, (cudaStream_t)stream>>>(
-      pts, s_idx, firstk, valid_s, tgt, p, nrows, (float4*)l0);
+      pts, s_idx, firstk, valid_s, placed, pslot, ch_off, p, nrows, (float4*)l0);
   return (int)cudaGetLastError();
 }
 

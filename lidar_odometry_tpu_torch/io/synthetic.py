@@ -533,6 +533,78 @@ def separator_system(D: int, n_loops: int, seed: int = 0, spd: bool = True):
         loop_valid=(np.arange(L) < L - 1).astype(np.int32))
 
 
+def scatter_add_inputs(counts, n_invalid: int = 0, seed: int = 0, unplaced_every: int = 0,
+                       voxel: float = 0.5):
+    """The inputs of the map update's per-voxel accumulation (K4b) over
+    voxel_runs' points: the points (p, 3) float32 in their original order;
+    s_idx, the stable sort of their voxel keys (the invalid rows last, as
+    one run); firstk and valid_s in that order; and by point, placed, pslot
+    (each distinct parent a distinct slot of c1 = parents + 7, every
+    `unplaced_every`-th parent unplaced: slot -1) and ch_off (the child
+    offset of the cell in its parent, 0-26); l0 (c1 * 27 + 1, 4) float32
+    with integer counts and finite sums in every row but the zero sink
+    row last. Returns a dict of numpy arrays and c1."""
+    rng = np.random.default_rng(seed + 1)
+    pts = voxel_runs(counts, n_invalid, seed=seed, voxel=voxel)
+    ok = np.all(np.isfinite(pts), -1)
+    cell = np.floor(np.where(ok[:, None], pts, 0.0) / np.float32(voxel)).astype(np.int64)
+    key = np.where(ok, ((cell[:, 0] + 512) * 1024 + cell[:, 1] + 512) * 1024 + cell[:, 2] + 512,
+                   np.iinfo(np.int64).max)
+    s_idx = np.argsort(key, kind="stable")
+    s_key = key[s_idx]
+    firstk = np.ones(len(pts), bool)
+    firstk[1:] = s_key[1:] != s_key[:-1]
+    par = np.floor_divide(cell, 3)
+    m = cell - 3 * par
+    ch_off = (m[:, 0] * 3 + m[:, 1]) * 3 + m[:, 2]
+    uniq, inv = np.unique(par[ok], axis=0, return_inverse=True)
+    c1 = len(uniq) + 7
+    slots = rng.permutation(c1)[:len(uniq)]
+    if unplaced_every:
+        slots[::unplaced_every] = -1
+    pslot = np.full(len(pts), -1, np.int64)
+    pslot[ok] = slots[inv.reshape(-1)]
+    cnt = rng.integers(0, 6, c1 * 27).astype(np.float32)
+    l0 = np.concatenate([cnt[:, None], cnt[:, None] * rng.uniform(-50, 50, (c1 * 27, 3))], 1)
+    l0 = np.concatenate([l0, np.zeros((1, 4))]).astype(np.float32)
+    return dict(pts=pts, s_idx=s_idx, firstk=firstk, valid_s=ok[s_idx], placed=ok & (pslot >= 0),
+                pslot=pslot, ch_off=ch_off, l0=l0), c1
+
+
+def backsub_system(n_pad: int, n_parts: int, seed: int = 0, zero_rows: int = 0):
+    """The inputs of the back-substitution and retraction (K10d) for n_pad
+    poses cut into n_parts partitions (separators evenly spaced, the last
+    at n_pad - 1; the partition plan of distributed_pgo.make_plan): xs (D,
+    6) and F, G (D, max_m, 6, 6), g (D, max_m, 6) of an elimination, with
+    entries that give |dx| of ~1e-2 a pose; random poses (n_pad, 4, 4) in
+    SE(3) within 100 m; real_mask 1 but on the last `zero_rows` poses, and
+    pose_row (each pose's plan row, or -(separator + 1)) as pack_graph
+    writes it. Returns (dict of float64 and int32 arrays, plan)."""
+    from ..parallel.distributed_pgo import make_plan
+    rng = np.random.default_rng(seed)
+    seps = sorted(set(np.linspace(0, n_pad - 1, n_parts + 1)[1:].round().astype(int).tolist()))
+    plan = make_plan(n_pad, seps)
+    D, max_m = plan["D"], plan["max_m"]
+    poses = np.tile(np.eye(4), (n_pad, 1, 1))
+    poses[:, :3, :3] = [_so3_exp_np(w) for w in rng.normal(0.0, 1.0, (n_pad, 3))]
+    poses[:, :3, 3] = rng.uniform(-100.0, 100.0, (n_pad, 3))
+    real_mask = np.ones(n_pad)
+    real_mask[n_pad - zero_rows:] = 0.0
+    pose_row = np.zeros(n_pad, np.int32)
+    for i, sp in enumerate(plan["seps"]):
+        pose_row[sp] = -(i + 1)
+    kk, rr = np.nonzero(plan["valid"])
+    pose_row[plan["int_idx"][kk, rr]] = kk * max_m + rr
+    arrays = dict(poses=poses, xs=rng.normal(0.0, 1e-2, (D, 6)),
+                  F=rng.uniform(-0.3, 0.3, (D, max_m, 6, 6)),
+                  G=rng.uniform(-0.3, 0.3, (D, max_m, 6, 6)),
+                  g=rng.normal(0.0, 1e-2, (D, max_m, 6)), real_mask=real_mask,
+                  pose_row=pose_row,
+                  **{k: plan[k].astype(np.int32) for k in ("int_idx", "valid", "has_left",
+                                                          "xl_idx", "seps")})
+    return arrays, plan
+
+
 def chain_system(n_pad: int, seed: int = 0):
     """A block-tridiagonal system of n_pad 6x6 blocks, the inputs of the
     interior elimination (K10b) for any partition plan of n_pad poses:

@@ -28,8 +28,8 @@ while the main thread runs chunks: the build, the library loads and the
 counts are taken under one lock, and a launch goes to the calling
 thread's current stream. Only K1's wrapper keeps scratch memory between
 calls: one zeroed buffer per device and stream, which each launch leaves
-zeroed; the others allocate theirs per call (K2b and K11b, whose sums
-meet in a thread-block cluster's shared memory, need none).
+zeroed; the others allocate theirs per call (K2b, K11b and K10d, whose
+sums meet in a thread-block cluster's shared memory, need none).
 """
 from __future__ import annotations
 
@@ -232,7 +232,7 @@ KERNELS = {k.name: k for k in [
            [_P, _I, _P, _I, _F, _P, _P],
            REF + "/ops/voxel_map.py:407"),
     Kernel("map_scatter_add", "voxel_map",
-           [_P, _P, _P, _P, _P, _I, _L, _P],
+           [_P] * 7 + [_I, _L, _P],
            REF + "/ops/voxel_map.py:498"),
     Kernel("map_surfel_recompute", "voxel_map",
            [_P, _P, _I, _I, _F, _P, _P, _P],
@@ -287,7 +287,7 @@ KERNELS = {k.name: k for k in [
            [_P] * 12 + [_I] * 2 + [_P] * 3,
            REF + "/parallel/distributed_pgo.py:625"),
     Kernel("pgo_backsub_retract", "pgo",
-           [_P] * 8 + [_I] * 3 + [_D] + [_P] * 5,
+           [_P] * 8 + [_I] * 3 + [_D] + [_P] * 2,
            REF + "/parallel/distributed_pgo.py:649"),
     Kernel("pgo_block_thomas", "schur",
            [_P] * 3 + [_I] * 2 + [_P] * 3,

@@ -24,7 +24,8 @@ Kernels (csrc/voxel_map.cu), each with its plain twin below:
   K4a map_evict_scan — the divide-free radius test over every child row,
       any-reduced per parent;
   K4b map_scatter_add — per-voxel [count | sum xyz] totals of the
-      key-sorted points, added at each voxel's leader row;
+      key-sorted points, added at the target row that each voxel's leader
+      computes from its point's parent slot and child offset;
   K4c map_surfel_recompute — per recomputed parent: its 27-row block,
       count, mean, covariance, eigh3, planarity and the non-planar verdict;
       a warp a parent, its sums over the children in a fixed butterfly
@@ -315,35 +316,43 @@ def map_evict_scan_plain(l0_data, c1: int, sensors, maxd2: float, enabled):
     return torch.any(ev.view(c1, NCH), dim=1) & enabled
 
 
-def map_scatter_add(l0_data, pts, s_idx, firstk, valid_s, tgt):
+def map_scatter_add(l0_data, pts, s_idx, firstk, valid_s, placed, pslot, ch_off):
     """K4b's wrapper: for each run of equal keys in the sorted order (runs
     start where `firstk`), add the run's [count | sum xyz] of valid points
-    to l0_data[tgt at the run start]; targets >= C1*27 are skipped. In
-    place."""
+    to its target row, computed in the kernel from the run leader's point
+    as the JAX program computes it: pslot * 27 + ch_off where `placed`, else
+    the sink row, which is never written (`placed`, `pslot` and `ch_off`
+    are indexed by point, as `pts`). In place."""
     if not l0_data.is_cuda:
-        return map_scatter_add_plain(l0_data, pts, s_idx, firstk, valid_s, tgt)
+        return map_scatter_add_plain(l0_data, pts, s_idx, firstk, valid_s, placed, pslot,
+                                     ch_off)
     p = pts.shape[0]
     kernels.check(l0_data, "l0_data", torch.float32)
     kernels.check(pts, "pts", torch.float32, (p, 3))
     kernels.check(s_idx, "s_idx", torch.int64, (p,))
     kernels.check(firstk, "firstk", torch.bool, (p,))
     kernels.check(valid_s, "valid_s", torch.bool, (p,))
-    kernels.check(tgt, "tgt", torch.int64, (p,))
+    kernels.check(placed, "placed", torch.bool, (p,))
+    kernels.check(pslot, "pslot", torch.int64, (p,))
+    kernels.check(ch_off, "ch_off", torch.int64, (p,))
+    kernels.check_aligned(l0_data, "l0_data")
     kernels.KERNELS["map_scatter_add"].launch(
         pts.data_ptr(), s_idx.data_ptr(), firstk.data_ptr(), valid_s.data_ptr(),
-        tgt.data_ptr(), p, l0_data.shape[0] - 1, l0_data.data_ptr())
+        placed.data_ptr(), pslot.data_ptr(), ch_off.data_ptr(), p, l0_data.shape[0] - 1,
+        l0_data.data_ptr())
     return l0_data
 
 
-def map_scatter_add_plain(l0_data, pts, s_idx, firstk, valid_s, tgt):
+def map_scatter_add_plain(l0_data, pts, s_idx, firstk, valid_s, placed, pslot, ch_off):
     p = pts.shape[0]
+    nrows = l0_data.shape[0] - 1
+    tgt = torch.where(firstk & placed[s_idx], pslot[s_idx] * NCH + ch_off[s_idx], nrows)
     data4 = torch.cat([valid_s.to(torch.float32)[:, None],
                        torch.where(valid_s[:, None], pts[s_idx], 0.0)], dim=1)
     gix = torch.cumsum(firstk.to(torch.int64), 0) - 1
     seg4 = torch.zeros((p, 4), dtype=torch.float32, device=pts.device)
     seg4.index_add_(0, gix, data4)
-    nrows = l0_data.shape[0] - 1
-    t = torch.where(firstk & (tgt < nrows), tgt, nrows)
+    t = torch.where((tgt >= 0) & (tgt < nrows), tgt, nrows)
     l0_data.index_add_(0, t, seg4[gix])
     l0_data[nrows:].fill_(0.0)
     return l0_data
@@ -501,10 +510,9 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
                                      phi, plo, new_mask, res_sz, res_cap, find0)
     placed = new_mask & (pslot >= 0)
 
-    # ---- Step 4: accumulate the per-voxel totals at leader rows ----
-    lead_ok = firstk & placed[s_idx]
-    tgt = torch.where(lead_ok, pslot[s_idx] * NCH + ch_off[s_idx], nrows)
-    map_scatter_add(l0_data, new_pts, s_idx, firstk, valid_s, tgt)
+    # ---- Step 4: accumulate the per-voxel totals at leader rows (K4b
+    # computes each leader's target from placed, pslot and ch_off) ----
+    map_scatter_add(l0_data, new_pts, s_idx, firstk, valid_s, placed, pslot, ch_off)
 
     # ---- Step 5: new children ----
     new_child = is_new_voxel & placed

@@ -61,7 +61,7 @@ from .. import kernels
 __all__ = ["plan_partition", "dense_solve", "make_plan", "pack_graph", "upload",
            "gn_optimize_device", "linearize", "linearize_plain", "eliminate",
            "eliminate_plain", "reduced_solve", "reduced_solve_plain", "reduced_solve_shape",
-           "backsub_retract",
+           "backsub_retract", "BACKSUB_SHAPE",
            "backsub_retract_plain", "gn_iterations", "LIN_KEYS", "PLAN_KEYS",
            "RED_KEYS", "BACK_KEYS", "block_tridiag_solve", "block_tridiag_solve_plain",
            "pack_interiors", "eliminate_interior_lu", "eliminate_interior_lu_plain",
@@ -746,17 +746,20 @@ def backsub_retract_plain(poses, xs, F, G, g, int_idx, valid, has_left, xl_idx, 
 
 
 BACK_KEYS = ("int_idx", "valid", "has_left", "xl_idx", "seps")
-_BACKSUB_THREADS = 256  # csrc/pgo.cu BACKSUB_THREADS
+# K10d's one cluster: csrc/pgo.cu BACKSUB_CLUSTER CTAs x BACKSUB_THREADS
+BACKSUB_SHAPE = {"cluster": 16, "threads": 256}
 
 
 def backsub_retract(g: Dict[str, torch.Tensor], poses, xs, F, G, gv, max_iters: int,
                     tol: float) -> None:
     """K10d's wrapper: updates `poses` (n_pad,4,4) and the loop state g["st"]
     = [it, |dx|, ok, active] in place: it + 1, |dx|, ok, and active =
-    it < max_iters and |dx| >= tol and ok (the while_loop's condition). A
-    grid-wide reduction of |dx|^2 and the finiteness test (block partials
-    summed in block order by the last block to finish) precede the
-    retraction, which that block applies."""
+    it < max_iters and |dx| >= tol and ok (the while_loop's condition). One
+    launch of one thread-block cluster (BACKSUB_SHAPE; the launch fails
+    where the card cannot hold 16 CTAs in one cluster): the CTAs'
+    sums of |dx|^2 and of non-finite entries meet in the cluster's shared
+    memory, and every thread retracts its own pose where dx is all finite.
+    No scratch: nothing is allocated or filled."""
     st = g["st"]
     if not poses.is_cuda:
         if not bool(st[3]):
@@ -776,20 +779,16 @@ def backsub_retract(g: Dict[str, torch.Tensor], poses, xs, F, G, gv, max_iters: 
     kernels.check(F, "F", _F64, (D, max_m, 6, 6))
     kernels.check(G, "G", _F64, (D, max_m, 6, 6))
     kernels.check(gv, "g", _F64, (D, max_m, 6))
+    for t, name in ((poses, "poses"), (xs, "xs"), (F, "F"), (G, "G"), (gv, "g")):
+        kernels.check_aligned(t, name)
     for k in ("has_left", "xl_idx", "pose_row"):
         kernels.check(g[k], k, torch.int32)
     kernels.check(g["real_mask"], "real_mask", _F64, (n_pad,))
     kernels.check(st, "st", _F64, (4,))
-    blocks = (n_pad + _BACKSUB_THREADS - 1) // _BACKSUB_THREADS
-    dev = poses.device
-    dx = torch.empty((n_pad, 6), dtype=_F64, device=dev)
-    partials = torch.empty((blocks, 2), dtype=_F64, device=dev)
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     kernels.KERNELS["pgo_backsub_retract"].launch(
         xs.data_ptr(), F.data_ptr(), G.data_ptr(), gv.data_ptr(), g["has_left"].data_ptr(),
         g["xl_idx"].data_ptr(), g["pose_row"].data_ptr(), g["real_mask"].data_ptr(), n_pad,
-        max_m, max_iters, float(tol), st.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-        counter.data_ptr(), poses.data_ptr())
+        max_m, max_iters, float(tol), st.data_ptr(), poses.data_ptr())
 
 
 def _check_graph(g: Dict[str, torch.Tensor], poses) -> None:

@@ -103,6 +103,22 @@ stratified_sample of |r| / scale with fold_in(PRNGKey(42), shard), zero
 in every other shard's slots, a done lane's rows unwritten. (The card
 cases of K11c and K5a are in tests/test_torch_kernels.py; K5a's twin with
 the row mask against JAX is in tests/test_torch_grid_knn.py.)
+
+K4b: key-sorted points (synthetic.scatter_add_inputs) in runs of 1, 2 and
+300 points, a run across two of the kernel's 256-row block ends, a long
+invalid tail run, unplaced parents (their leaders go to the sink) and p
+not a multiple of 256: the twin's rows exactly JAX's segment_sum and
+unique row scatter-add as voxel_map.py:501-507 and :542-548 write them
+(mode="drop"), and within 1e-6 of a numpy float64 per-voxel sum,
+relative to the sum of its terms' magnitudes; the sink row stays zero.
+
+K10d: back-substitution inputs (synthetic.backsub_system) at n_pad = 17,
+300, 4096 (the kernel's one cluster of 16 x 256 threads) and 8192 (past
+it), with real_mask rows of zero, a NaN in dx and an inactive loop state:
+dx and |dx| against numpy float64 at 1e-12, the retracted poses against
+the poses times JAX's _bse3_exp of the same dx under x64 at 1e-12, and
+the loop state as the while_loop sets it; a non-finite dx or an inactive
+state leaves every pose as it was.
 """
 import numpy as np
 import jax
@@ -775,3 +791,134 @@ def test_shard_sample_twin_on_kernel_edges(case):
     n_ok = out[:, off + s * q:off + 2 * s * q].sum(1)
     if "few" in c or "empty" in c:
         assert bool((n_ok[(flags[:, 0] == 0).repeat_interleave(s)] < q).any())
+
+
+# the card tests' K4b cases: (run lengths, invalid rows, every n-th parent unplaced)
+K4B_CASES = {
+    "runs_of_1_2_and_300": ([1, 2, 300] * 4 + [1] * 50, 0, 0),
+    "run_across_two_block_ends": ([3] * 60 + [700] + [2] * 40, 0, 0),
+    "invalid_tail_run": ([1, 2, 3, 4] * 60, 2000, 0),
+    "unplaced_leaders": ([1 + i % 5 for i in range(400)], 37, 3),
+    "p_not_a_multiple_of_256": ([2, 1, 3] * 150 + [13], 100, 7),
+}
+
+
+def _k4b_case(case):
+    counts, n_invalid, every = K4B_CASES[case]
+    d, c1 = synthetic.scatter_add_inputs(counts, n_invalid, seed=len(case),
+                                         unplaced_every=every)
+    return {k: torch.as_tensor(v) for k, v in d.items()}, c1
+
+
+@pytest.mark.parametrize("case", sorted(K4B_CASES))
+def test_scatter_add_twin_on_kernel_edges(case):
+    t, c1 = _k4b_case(case)
+    nrows = c1 * 27
+    keys = ("pts", "s_idx", "firstk", "valid_s", "placed", "pslot", "ch_off")
+    got = tvm.map_scatter_add(t["l0"].clone(), *[t[k] for k in keys])
+    n = {k: v.numpy() for k, v in t.items()}
+    # the JAX program's accumulation, as voxel_map.py:501-507 and :542-548 write it
+    s_idx, firstk, valid_s = (jnp.asarray(n[k]) for k in ("s_idx", "firstk", "valid_s"))
+    p = s_idx.shape[0]
+    pts_s = jnp.where(valid_s[:, None], jnp.asarray(n["pts"])[s_idx], 0.0)
+    data4 = jnp.concatenate([valid_s.astype(jnp.float32)[:, None], pts_s], axis=1)
+    gix = jnp.cumsum(firstk.astype(jnp.int32)) - 1
+    seg4 = jax.ops.segment_sum(data4, gix, num_segments=p, indices_are_sorted=True)
+    tot4 = seg4[gix]
+    placed_s = jnp.asarray(n["placed"])[s_idx]
+    pslot_s = jnp.asarray(n["pslot"])[s_idx]
+    off_s = jnp.asarray(n["ch_off"])[s_idx]
+    tgt = jnp.where(firstk & placed_s, pslot_s * 27 + off_s, nrows)
+    ref = jnp.asarray(n["l0"][:nrows]).at[tgt].add(tot4, mode="drop", unique_indices=True)
+    np.testing.assert_array_equal(got[:nrows].numpy(), np.asarray(ref))
+    assert bool((got[nrows] == 0.0).all())
+    # a numpy float64 sum of each voxel's points at its leader's row, held
+    # at 1e-6 of the sum of its terms' magnitudes (a float32 sum of n terms
+    # errs by up to n eps of that; the existing rows reach ~250)
+    ref64 = n["l0"][:nrows].astype(np.float64)
+    scale = np.abs(ref64)
+    lead = np.flatnonzero(n["firstk"])
+    for a, b in zip(lead, list(lead[1:]) + [p]):
+        i = n["s_idx"][a]
+        if not n["placed"][i]:
+            continue
+        run = n["pts"][n["s_idx"][a:b][n["valid_s"][a:b]]].astype(np.float64)
+        row = n["pslot"][i] * 27 + n["ch_off"][i]
+        ref64[row] += np.concatenate([[len(run)], run.sum(0)])
+        scale[row] += np.concatenate([[len(run)], np.abs(run).sum(0)])
+    assert (np.abs(got[:nrows].numpy() - ref64) <= 1e-6 * scale).all()
+    if case == "unplaced_leaders":
+        assert not n["placed"][n["s_idx"][lead]].all()
+    if case == "invalid_tail_run":
+        assert not n["valid_s"][-2000:].any() and not n["firstk"][-1999:].any()
+
+
+# the card tests' K10d cases: (n_pad, partitions, real_mask zero rows, NaN, inactive)
+K10D_CASES = {
+    "n_pad_17": (17, 3, 0, False, False),
+    "n_pad_300_zero_mask_rows": (300, 8, 45, False, False),
+    "n_pad_4096_one_cluster": (4096, 73, 396, False, False),
+    "n_pad_8192_past_one_cluster": (8192, 60, 100, False, False),
+    "nan_in_dx": (300, 8, 0, True, False),
+    "inactive": (300, 8, 0, False, True),
+}
+
+
+def _k10d_case(case):
+    """(graph dict of tensors, poses, xs, F, G, g, max_iters, tol) of a K10d case."""
+    n_pad, parts, zero, nan, inactive = K10D_CASES[case]
+    a, plan = synthetic.backsub_system(n_pad, parts, seed=n_pad + zero, zero_rows=zero)
+    if nan:
+        a["g"][1, -1, 2] = np.nan
+    g = {k: torch.as_tensor(a[k]) for k in ("real_mask", "pose_row", *dpgo.BACK_KEYS)}
+    g["st"] = torch.tensor([2.0, 0.5, 1.0, 0.0 if inactive else 1.0], dtype=torch.float64)
+    return (g, torch.as_tensor(a["poses"]), *(torch.as_tensor(a[k]) for k in
+                                                ("xs", "F", "G", "g")), 10, 1e-6)
+
+
+def _numpy_dx(g, xs, F, G, gv):
+    """dx of the back-substitution in numpy float64, row by row."""
+    n_pad = g["real_mask"].shape[0]
+    x = np.zeros((n_pad, 6))
+    xs, F, G, gv = (t.numpy() for t in (xs, F, G, gv))
+    for k, (row_idx, row_ok) in enumerate(zip(g["int_idx"].numpy(), g["valid"].numpy())):
+        xl = xs[g["xl_idx"][k]] if g["has_left"][k] else np.zeros(6)
+        for m in np.flatnonzero(row_ok):
+            x[row_idx[m]] = gv[k, m] - F[k, m] @ xl - G[k, m] @ xs[k]
+    x[g["seps"].numpy()] = xs
+    return x * g["real_mask"].numpy()[:, None]
+
+
+@pytest.mark.parametrize("case", sorted(K10D_CASES))
+def test_backsub_retract_twin_on_kernel_edges(case):
+    g, poses, xs, F, G, gv, max_iters, tol = _k10d_case(case)
+    n_pad, _, zero, nan, inactive = K10D_CASES[case]
+    st0 = g["st"].clone()
+    p0 = poses.clone()
+    dpgo.backsub_retract(g, poses, xs, F, G, gv, max_iters, tol)
+    if inactive:
+        assert torch.equal(poses, p0) and torch.equal(g["st"], st0)
+        return
+    dx = _numpy_dx(g, xs, F, G, gv)
+    dxn = np.linalg.norm(dx)
+    st = g["st"].numpy()
+    if nan:
+        assert torch.equal(poses, p0)
+        assert st[0] == 3 and st[2] == 0 and st[3] == 0 and not np.isfinite(st[1])
+        return
+    assert abs(st[1] - dxn) <= 1e-12 * dxn
+    assert st[0] == 3 and st[2] == 1 and st[3] == float(dxn >= tol)
+    if zero:
+        assert not dx[n_pad - zero:].any()
+    with jax.enable_x64():
+        dR, dt = (np.asarray(v) for v in jdpgo._bse3_exp(jnp.asarray(dx)))
+    R, t = p0[:, :3, :3].numpy(), p0[:, :3, 3].numpy()
+    np.testing.assert_allclose(poses[:, :3, :3].numpy(), R @ dR, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(poses[:, :3, 3].numpy(),
+                               np.einsum("nij,nj->ni", R, dt) + t, rtol=0, atol=1e-12)
+    assert bool((poses[:, 3] == torch.tensor([0.0, 0, 0, 1], dtype=torch.float64)).all())
+    # the twin's dx is the numpy one: the poses it retracts by agree above;
+    # its own dx, compared directly
+    new, dxn_t, ok = dpgo.backsub_retract_plain(p0, xs, F, G, gv,
+                                                *[g[k] for k in dpgo.BACK_KEYS], g["real_mask"])
+    assert bool(ok) and abs(float(dxn_t) - dxn) <= 1e-12 * dxn

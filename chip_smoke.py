@@ -50,9 +50,11 @@ Phases, each of which exits nonzero on failure:
          slot, distances within 1e-5; K5b also at the loop shape (K6b's
          coarse k = 5 output, 8192 rows, ungated), K7 bev_raster, K7c
          cross_power (the Iris query's 64 spectra, and the prealign's),
-         K8a iris_image, K8g gabor_product (also at b = 1), K8b iris_encode, K8c
-         iris_hamming, K9a map_bulk_index, K9b map_bulk_merge, and K2b with
-         the loop's weight residual;
+         K8a iris_image, K8g gabor_product (also at b = 1), K8b iris_encode
+         (also at b = 1, and at b = 3 on responses whose squared magnitudes
+         sit on and beside its threshold, every word equal to the CPU
+         twin's), K8c iris_hamming, K9a map_bulk_index, K9b map_bulk_merge,
+         and K2b with the loop's weight residual;
        - the pose-graph kernels (K10a pgo_linearize, K10b pgo_eliminate,
          K10c pgo_reduced_solve, K10d pgo_backsub_retract) on a
          KITTI-00-sized graph (3700 keyframes padded to 4096, 32 loop
@@ -61,9 +63,10 @@ Phases, each of which exits nonzero on failure:
          1e-9 on the retracted poses, and for K10c's solve of a system of
          kappa ~5e9 its normwise backward error at most 1e-13, two calls
          bit-equal, and the same on a synthetic D = 200 separator system;
-         its cluster size and panel width are printed; K10d also at n_pad
-         8192 (past its one cluster: synthetic.backsub_system), its
-         cluster size printed; K10b also two
+         its cluster size and panel width are printed; K10a also two calls
+         bit-equal and at n_pad 8192 (a revisit graph of 7400 keyframes);
+         K10d also at n_pad 8192 (past its one cluster:
+         synthetic.backsub_system), its cluster size printed; K10b also two
          calls bit-equal, its longest partition longer than its staging
          ring, and an input that is not positive definite ending in NaN
          and ok false (check_eliminate_edges); their bounds count
@@ -238,6 +241,12 @@ PGO_KERNELS = ("pgo_linearize", "pgo_eliminate", "pgo_reduced_solve", "pgo_backs
 PGO_N = 3700
 PGO_LOOPS = 32
 PGO_SEED = 0
+# K10a's stack: se3_log's double acos, sin and tan keep their slow-path
+# argument reduction in local memory
+LINEARIZE_STACK = 40
+LINEARIZE_STACK_NOTE = ("a half-warp a pose, then a half-warp a loop edge; its 40-byte stack "
+                        "is the double acos, sin and tan's slow-path argument reduction in "
+                        "se3_log")
 # the host solvers (K12a, K12b) on the same graph: phase 7b
 SCHUR_KERNELS = ("pgo_block_thomas", "pgo_eliminate_lu")
 # the sharded map: K11a-d checked at these shard counts (the committed
@@ -1066,6 +1075,7 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     surfel path's 65536-parent map. `scans` holds the densely scanned
     frames of make_dense_loop_frames."""
     import torch
+    from lidar_odometry_tpu_torch.io import synthetic
     from lidar_odometry_tpu_torch.ops import bev_align, icp, iris, knn
     from lidar_odometry_tpu_torch.ops import voxel_map as vm
     from lidar_odometry_tpu_torch.utils import keys as K, lie
@@ -1265,6 +1275,27 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
         time_ms(lambda: iris.iris_encode_plain(resp)),
         resp.numel() * 8 + 2 * Tk8.numel() * 4, resp.numel() * 10,
         note="16 keyframes x 4 scales x 80 x 360 responses; err = differing code words")
+    resp1 = resp[:1].contiguous()   # b = 1: one keyframe, as the loops path runs it
+    Tk1, Mk1 = iris.iris_encode(resp1)
+    Tp1, Mp1 = iris.iris_encode_plain(resp1)
+    record(one, "iris_encode", float((Tk1 != Tp1).sum() + (Mk1 != Mp1).sum()), 0,
+           lambda: iris.iris_encode(resp1), time_ms(lambda: iris.iris_encode_plain(resp1)),
+           resp1.numel() * 8 + 2 * Tk1.numel() * 4, resp1.numel() * 10,
+           note="b = 1, the loops path's shape")
+    rows["iris_encode"]["b1"] = one["iris_encode"]
+    z, _ = synthetic.iris_threshold_responses(3, iris.MAG_SQ_THRESHOLD, seed=3)
+    edge = torch.as_tensor(z, device=dev)
+    Tke, Mke = iris.iris_encode(edge)
+    Tpe, Mpe = iris.iris_encode_plain(edge.cpu())
+    n_edge = int((Tke.cpu() != Tpe).sum() + (Mke.cpu() != Mpe).sum())
+    print(f"  iris_encode at its threshold (b = 3, squared magnitudes on and beside x0 = "
+          f"{iris.MAG_SQ_THRESHOLD!r}, NaN, +-inf, +-0): {n_edge} words differ from the CPU "
+          f"twin's", flush=True)
+    if n_edge:
+        fail(f"iris_encode: {n_edge} words differ from the twin at the magnitude threshold")
+    rows["iris_encode"]["threshold_words_differing"] = n_edge
+    check_one_launch(rows, "iris_encode", "iris", "iris_encode_kernel",
+                     [lambda: iris.iris_encode(resp), lambda: iris.iris_encode(resp1)])
 
     # ---- K8c iris_hamming (a query against 32 candidates of the DB) ----
     img8 = bk.to(torch.uint8)
@@ -1392,7 +1423,6 @@ def check_pgo_kernels(graph):
     P_v, M_v = len(priors), len(betweens)
     n_rows = int(pk.i32["valid"].sum())
     n_adj = int(pk.i32["adj_mask"].sum())
-    n_inc, n_chain = pk.i32["inc_ent"].size, pk.i32["chain_ent"].size
     print(f"  pgo graph: {PGO_N} keyframes padded to {n_pad}, {M_v} between factors "
           f"({M_v - PGO_N + 1} loops), D = {D} partitions, max_m = {max_m} rows, "
           f"{n_rows} interior rows, reduced system {6 * D} x {6 * D}", flush=True)
@@ -1416,10 +1446,14 @@ def check_pgo_kernels(graph):
     lin_p = dpgo.linearize_plain(poses, *lin_args)
     row("pgo_linearize", [rel(a, b) for a, b in zip(lin_k, lin_p)], 1e-10,
         lambda: dpgo.linearize(g, poses), time_ms(lambda: dpgo.linearize_plain(poses, *lin_args)),
-        n_pad * (128 + 8 + 288 + 48 + 8) + (n_pad - 1) * 288 + P_v * (4 + 128 + 288 + 4)
-        + M_v * (8 + 128 + 288 + 12) + (n_inc + n_chain) * 4 + L * (8 + 288),
-        P_v * 600 + M_v * 2000 + n_inc * 42 + n_chain * 36,
+        *linearize_bytes_ops(pk, P_v, M_v),
         note=f"{P_v} prior, {M_v} between factors; diag, off, b, lb; err relative")
+    if not all(torch.equal(a, c) for a, c in zip(lin_k, dpgo.linearize(g, poses))):
+        fail("pgo_linearize: two calls differ")
+    check_one_launch(rows, "pgo_linearize", "pgo", "linearize_kernel",
+                     [lambda: dpgo.linearize(g, poses)], note=LINEARIZE_STACK_NOTE,
+                     stack=LINEARIZE_STACK)
+    check_linearize_second_size(rows)
 
     diag, off, b, lb = lin_p
     plan = [g[k] for k in dpgo.PLAN_KEYS]
@@ -1492,6 +1526,52 @@ def check_pgo_kernels(graph):
                      "slow-path argument reduction, which retract keeps as it was", stack=40)
     check_backsub_past_one_cluster(rows)
     return rows
+
+
+def linearize_bytes_ops(pk, n_priors: int, n_betweens: int):
+    """K10a's bytes (each input that linearize_kernel takes read once,
+    each output written once) and f64 operations on a packed graph: the
+    poses, pad_reg and both lists' pointers; a prior's meas and sqrtI; a
+    between factor's from, to, meas and sqrtI (the lists carry each
+    factor's pose and validity); the lists; a loop edge's loop_bt and
+    loop_valid; the loop state; diag, b, off and lb."""
+    n_pad, L = pk.n_pad, pk.L
+    n_inc, n_chain = pk.i32["inc_ent"].size, pk.i32["chain_ent"].size
+    return (n_pad * (128 + 8) + 2 * (n_pad + 1) * 4 + n_pad * (288 + 48) + (n_pad - 1) * 288
+            + n_priors * (128 + 288) + n_betweens * (8 + 128 + 288)
+            + (n_inc + n_chain) * 4 + L * (8 + 288) + 32,
+            n_priors * 600 + n_betweens * 2000 + n_inc * 42 + n_chain * 36)
+
+
+def check_linearize_second_size(rows, n: int = 7400, n_loops: int = 64):
+    """K10a at n_pad 8192 (a revisit graph of n keyframes, n_loops loop
+    edges): within 1e-10 of each output's largest magnitude of the twin,
+    two calls bit-equal, its device time and bound."""
+    import torch
+    from lidar_odometry_tpu_torch.io import synthetic
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    init, priors, betweens, _ = synthetic.revisit_pose_graph(n, n_loops, seed=n)
+    pk = dpgo.pack_graph(init, priors, betweens)
+    g = dpgo.upload(pk, DEVICE)
+    poses = g["poses"]
+    lin_k = dpgo.linearize(g, poses)
+    lin_p = dpgo.linearize_plain(poses, *[g[k] for k in dpgo.LIN_KEYS])
+    err = max(float((a - c).abs().max() / c.abs().max().clamp(min=1e-300))
+              for a, c in zip(lin_k, lin_p))
+    same = all(torch.equal(a, c) for a, c in zip(lin_k, dpgo.linearize(g, poses)))
+    fn = lambda: dpgo.linearize(g, poses)
+    ms, dev_ms = time_ms(fn), device_ms(fn)
+    b, by = bound_ms(*linearize_bytes_ops(pk, len(priors), len(betweens)), FP64_OPS_PER_S)
+    print(f"  pgo_linearize at n_pad {pk.n_pad} ({n} keyframes, {len(betweens)} between factors, "
+          f"{n_loops} loops): {err:.3e} of the twin's largest (tol 1e-10), two calls "
+          f"bit-equal: {same} | kernel {ms:.4f} ms (device "
+          + ("n/a" if dev_ms is None else f"{dev_ms:.4f}") + f" ms), bound {b:.5f} ms ({by})",
+          flush=True)
+    if not (err <= 1e-10 and same):
+        fail(f"pgo_linearize at n_pad {pk.n_pad}: {err:.3e} from the twin, two calls equal {same}")
+    rows["pgo_linearize"].update(
+        {f"n_pad_{pk.n_pad}": dict(compared_err=err, ms=ms, device_ms=dev_ms, bound_ms=b,
+                                   bound_by=by)})
 
 
 def check_backsub_past_one_cluster(rows, n_pad: int = 8192):

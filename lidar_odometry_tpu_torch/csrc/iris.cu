@@ -30,11 +30,21 @@
 //    real-valued complex multiply rounds to).
 //  * iris_encode reads the 4 x 80 x 360 complex responses (0.9 MB a
 //    keyframe) and writes 2 x 20 x 360 words (57.6 KB): ~0.3 us, bytes
-//    bound it. Design: one thread per output word column reads the 32
-//    stacked rows it packs (neighbouring threads, neighbouring columns:
-//    coalesced), thresholds re > 0, im > 0 and |z| < 1e-4 after the 1/N
-//    scale is undone, and writes T and M words: the (640, 360) bool
-//    stacks never reach memory.
+//    bound it. Word w < 10 packs re > 0 of the stacked rows 32 w .. 32 w +
+//    31, word w + 10 im > 0 of the same rows, and both M words the same
+//    magnitude bits, so each response is read once: a thread takes 8 of a
+//    word's 32 rows at a column pair (eight 16-byte loads, all issued
+//    before any use; neighbouring lanes on neighbouring quarters and column
+//    pairs, so a warp's load is four whole 128-byte lines), and the four
+//    quarters of a word meet by two shuffles; quarter q then stores word
+//    q of [T w, T w + 10, M w, M w + 10] as 8 bytes. b = 1 gives 57 CTAs
+//    of 128 threads. |z| < 1e-4 after the 1/N scale is undone is tested
+//    as re^2 + im^2 < x0, x0 the least float32 whose correctly rounded
+//    square root is >= 1e-4 (ops/iris.py MAG_SQ_THRESHOLD): the same bit
+//    as sqrtf's for every input, NaN and inf included, with no IEEE square
+//    root (whose slow path ends its basic block in a call). The squares
+//    and the sum are rounded one at a time (no FMA), as the twin's are.
+//    The (640, 360) bool stacks never reach memory.
 //  * iris_hamming: per candidate, 2 orientations x 5 shifts of an XOR,
 //    AND-NOT and two popcounts over 7200 words of T and M: K <= 32
 //    candidates read ~1.9 MB of DB rows (L2 serves the repeats) and do
@@ -69,28 +79,59 @@ iris_image_kernel(const float* __restrict__ pts, const bool* __restrict__ mask, 
 
 // resp: (B, NSCALE, ROWS, COLS) complex64 as float pairs, the inverse FFT's
 // output before the scale; T, M: (B, WORDS, COLS) 32-bit words, bit j of
-// word w at column c = stacked row 32 w + j.
-__global__ void __launch_bounds__(THREADS)
-iris_encode_kernel(const float2* __restrict__ resp, int b, float scale, int* __restrict__ T,
-                   int* __restrict__ M) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b * WORDS * COLS) return;
-  const int k = i / (WORDS * COLS), w = (i / COLS) % WORDS, c = i % COLS;
-  const float2* base = resp + (size_t)k * NSCALE * ROWS * COLS;
-  unsigned int t = 0, m = 0;
-#pragma unroll 4
-  for (int j = 0; j < 32; ++j) {
-    const int r = 32 * w + j;                 // stacked row, 0..639
-    const int rr = r % (NSCALE * ROWS);       // the response row it reads
-    const float2 z = base[(size_t)(rr / ROWS) * ROWS * COLS + (rr % ROWS) * COLS + c];
-    const float re = __fmul_rn(z.x, scale), im = __fmul_rn(z.y, scale);
-    const bool tb = r < NSCALE * ROWS ? re > 0.f : im > 0.f;
-    const float mag = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
-    t |= (unsigned int)tb << j;
-    m |= (unsigned int)(mag < 1e-4f) << j;
+// word w at column c = stacked row 32 w + j. Thread i: quarter q = i % 4,
+// column pair cp, word row w < 10, keyframe k (outermost).
+constexpr int ENC_THREADS = 128;
+constexpr int ENC_PAIRS = COLS / 2;
+constexpr int ENC_PER_KF = 4 * ENC_PAIRS * (WORDS / 2);   // threads a keyframe: 7200
+
+__global__ void __launch_bounds__(ENC_THREADS)
+iris_encode_kernel(const float4* __restrict__ resp, int b, float scale, float x0,
+                   int2* __restrict__ T, int2* __restrict__ M) {
+  const int i = blockIdx.x * ENC_THREADS + threadIdx.x;
+  if (i >= b * ENC_PER_KF) return;        // whole warps: ENC_PER_KF is a multiple of 32
+  const int q = i & 3, cp = (i >> 2) % ENC_PAIRS, kw = (i >> 2) / ENC_PAIRS;
+  const int k = kw / (WORDS / 2), w = kw % (WORDS / 2);
+  // ---- loads
+  // rows 32 w + 8 q .. + 7 (< 320: every stacked row of the word is a
+  // response row), one 16-byte column pair each
+  const float4* src = resp + ((size_t)k * NSCALE * ROWS + 32 * w + 8 * q) * ENC_PAIRS + cp;
+  float4 z[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) z[j] = __ldg(src + j * ENC_PAIRS);
+  // ---- bits
+  // [re > 0, im > 0, |z| < 1e-4] of the two columns
+  unsigned int re0 = 0, im0 = 0, m0 = 0, re1 = 0, im1 = 0, m1 = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float a = __fmul_rn(z[j].x, scale), c = __fmul_rn(z[j].y, scale);
+    const float d = __fmul_rn(z[j].z, scale), e = __fmul_rn(z[j].w, scale);
+    const int at = 8 * q + j;
+    re0 |= (unsigned int)(a > 0.f) << at;
+    im0 |= (unsigned int)(c > 0.f) << at;
+    m0 |= (unsigned int)(__fadd_rn(__fmul_rn(a, a), __fmul_rn(c, c)) < x0) << at;
+    re1 |= (unsigned int)(d > 0.f) << at;
+    im1 |= (unsigned int)(e > 0.f) << at;
+    m1 |= (unsigned int)(__fadd_rn(__fmul_rn(d, d), __fmul_rn(e, e)) < x0) << at;
   }
-  T[i] = (int)t;
-  M[i] = (int)m;
+  // ---- merge
+  // the word's four quarters, lanes 4 t .. 4 t + 3
+  constexpr unsigned int FULL = 0xffffffffu;
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    re0 |= __shfl_xor_sync(FULL, re0, o);
+    im0 |= __shfl_xor_sync(FULL, im0, o);
+    m0 |= __shfl_xor_sync(FULL, m0, o);
+    re1 |= __shfl_xor_sync(FULL, re1, o);
+    im1 |= __shfl_xor_sync(FULL, im1, o);
+    m1 |= __shfl_xor_sync(FULL, m1, o);
+  }
+  // ---- store
+  // quarter q writes T[w], T[w + 10], M[w], M[w + 10]
+  const int row = (k * WORDS + w + (q & 1) * (WORDS / 2)) * ENC_PAIRS + cp;
+  if (q == 0) T[row] = make_int2((int)re0, (int)re1);
+  else if (q == 1) T[row] = make_int2((int)im0, (int)im1);
+  else M[row] = make_int2((int)m0, (int)m1);
 }
 
 // spec: (B, ROWS, COLS) complex64; filt: (NSCALE, COLS) f32; out: (B,
@@ -213,10 +254,14 @@ LO_EXPORT int lo_gabor_product(const float* spec, const float* filt, int b, floa
   return (int)cudaGetLastError();
 }
 
-LO_EXPORT int lo_iris_encode(const float* resp, int b, float scale, int* T, int* M,
+LO_EXPORT int lo_iris_encode(const float* resp, int b, float scale, float x0, int* T, int* M,
                              void* stream) {
-  iris_encode_kernel<<<max(1, blocks((long long)b * WORDS * COLS)), THREADS, 0,
-                       (cudaStream_t)stream>>>((const float2*)resp, b, scale, T, M);
+  if (b <= 0) return 0;
+  if ((((uintptr_t)resp) & 15) || (((uintptr_t)T | (uintptr_t)M) & 7))
+    return (int)cudaErrorMisalignedAddress;           // 16-byte column pairs, 8-byte word pairs
+  iris_encode_kernel<<<(int)(((long long)b * ENC_PER_KF + ENC_THREADS - 1) / ENC_THREADS),
+                       ENC_THREADS, 0, (cudaStream_t)stream>>>((const float4*)resp, b, scale, x0,
+                                                               (int2*)T, (int2*)M);
   return (int)cudaGetLastError();
 }
 

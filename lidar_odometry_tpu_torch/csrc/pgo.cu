@@ -5,12 +5,13 @@
 // jitted while_loop of gn_optimize_device, :696), iteration by iteration:
 //  * K10a lo_pgo_linearize — _linearize_device (:521): prior and between
 //    factors into diag (n_pad,6,6), off (n_pad-1,6,6), b (n_pad,6) and the
-//    loop blocks lb (L,6,6). Two kernels: one thread a factor evaluates its
-//    SE(3) log error, J_from = -Ad(hx^-1) and its weighted blocks in
-//    registers into a per-factor scratch; then one thread a pose sums its
-//    incident blocks in the order of the host-built lists (inc_*, chain_*),
+//    loop blocks lb (L,6,6). One kernel, no scratch: a half-warp a pose
+//    evaluates each incident factor (its SE(3) log error and J_from =
+//    -Ad(hx^-1), a lane a factor) and sums the weighted blocks, an output
+//    entry a lane, in the order of the host-built lists (inc_*, chain_*),
 //    the order of the JAX scatter-adds, so with no atomics the sums are the
-//    same in every run. One more thread a loop edge gathers its block.
+//    same in every run. One more half-warp a loop edge evaluates its block
+//    (the design is at the kernel).
 //  * K10b lo_pgo_eliminate — _eliminate_interior_spd under vmap (:450) with
 //    _gn_device's interior packing (:610-619): a block of two warps a
 //    partition, one staging its interior rows straight from the plan into
@@ -64,8 +65,6 @@
 namespace {
 
 constexpr double LIE_EPS = 1e-10;        // reference kEpsLie
-constexpr int FAC_THREADS = 128;
-constexpr int ASM_THREADS = 256;
 constexpr int BACKSUB_THREADS = 256;     // threads a CTA of K10d's cluster
 constexpr int BACKSUB_CLUSTER = 16;      // CTAs of K10d's cluster (distributed_pgo.py BACKSUB_SHAPE)
 
@@ -133,58 +132,113 @@ __device__ void retract(double* T, const double xi[6]) {
   T[12] = 0.0; T[13] = 0.0; T[14] = 0.0; T[15] = 1.0;
 }
 
+__device__ __forceinline__ void cp_async8(double* dst, const double* src, bool fill) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(fill ? 8 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n" : "=r"(v)
+               : "r"((unsigned)__cvta_generic_to_shared(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;\n" ::"r"((unsigned)__cvta_generic_to_shared(p)),
+               "r"(v) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // K10a
 // ---------------------------------------------------------------------------
+//
+// One launch, no scratch: a half-warp a padded pose (diag, b, off), then a
+// half-warp a loop edge (lb). Bytes bound it (at n_pad 4096 ~4.8 MB, ~1.4
+// us at 3.35 TB/s; ~10 MFLOP f64); what it takes beyond is a pose's chain:
+// three dependent load rounds (list, factor, poses) and the header's
+// serial fp64 arithmetic, then a few rounds of products:
+//  * A pose's tasks are its incident factor blocks (inc_ent: prior k,
+//    between k as "from", between k as "to") and then its chain couplings
+//    (chain_ent), in the order of the host-built lists. A round takes up to
+//    LIN_SLOTS of them: a lane a task reads its list entry, the half-warp
+//    stages the tasks' sqrt-information rows S into shared memory with
+//    cp.async, and meanwhile each task's lane evaluates its factor's header
+//    (the SE(3) log error and J_from = -Ad(hx^-1)) in registers, into
+//    shared memory.
+//  * Every 6x6 product is split by output entry over the 16 lanes: lane h
+//    takes entries h and 16 + h, lanes 0-3 entry 32 + h, lanes 4-9 entry
+//    h - 4 of the six-vector, so no lane holds a 36-double array. Each
+//    entry is a q = 0..5 dot product summed from 0.0; a lane adds its
+//    entries to its own accumulators in the lists' order, and a half-warp
+//    writes each row as 288 contiguous bytes.
+//  * Two poses a warp: at 128 registers an SM holds 16 warps, so the
+//    n_pad / 2 warps of n_pad 4096 run in one wave, and the two halves'
+//    headers run side by side.
+//  * A between factor is evaluated by both its end poses (and once more
+//    for its chain coupling), with the same code, so with the same bits.
+//    No value is added atomically: two calls are bit-equal.
+// The double acos, sin and tan of se3_log keep their slow-path argument
+// reduction, which is the kernel's only stack.
+constexpr int LIN_WARPS = 4;           // warps a CTA, two poses each
+constexpr int LIN_POSES = 2 * LIN_WARPS;
+constexpr int LIN_SLOTS = 8;           // tasks a pose evaluates a round
+enum { TASK_PRIOR = 0, TASK_FROM = 1, TASK_TO = 2, TASK_CHAIN = 3 };
 
-// One thread a factor. Scratch rows: prior k -> fac36[k] = info, fac6[k] =
-// rhs; between k -> fac36[P+k] = blk_ff, fac36[P+M+k] = blk_tt,
-// fac36[P+2M+k] = Hij_lo, fac6[P+k] = rhs_f, fac6[P+M+k] = rhs_t.
-__global__ void __launch_bounds__(FAC_THREADS)
-factor_kernel(const double* __restrict__ poses, const int* __restrict__ prior_key,
-              const double* __restrict__ prior_meas, const double* __restrict__ prior_sqrtI,
-              const int* __restrict__ prior_valid, int P, const int* __restrict__ bt_from,
-              const int* __restrict__ bt_to, const double* __restrict__ bt_meas,
-              const double* __restrict__ bt_sqrtI, const int* __restrict__ bt_valid, int M,
-              const double* __restrict__ st, double* __restrict__ fac36,
-              double* __restrict__ fac6) {
-  if (st[3] == 0.0) return;
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f < P) {
-    if (!prior_valid[f]) return;
-    const double* T = poses + 16 * (size_t)prior_key[f];
-    const double* Mm = prior_meas + 16 * (size_t)f;
-    const double* S = prior_sqrtI + 36 * (size_t)f;
-    double Re[3][3], te[3];
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j)   // Rm^T Rp
-        Re[i][j] = Mm[i] * T[j] + Mm[4 + i] * T[4 + j] + Mm[8 + i] * T[8 + j];
-      te[i] = Mm[i] * (T[3] - Mm[3]) + Mm[4 + i] * (T[7] - Mm[7]) + Mm[8 + i] * (T[11] - Mm[11]);
-    }
-    double err[6];
-    se3_log(Re, te, err);
-    double info[36];
-    for (int i = 0; i < 6; ++i)
-      for (int j = 0; j < 6; ++j) {
-        double v = 0.0;
-        for (int q = 0; q < 6; ++q) v += S[6 * q + i] * S[6 * q + j];
-        info[6 * i + j] = v;
-      }
-    for (int e = 0; e < 36; ++e) fac36[36 * (size_t)f + e] = info[e];
-    for (int i = 0; i < 6; ++i) {
-      double v = 0.0;
-      for (int q = 0; q < 6; ++q) v += info[6 * i + q] * err[q];
-      fac6[6 * (size_t)f + i] = -v;
-    }
-    return;
+struct LinPose {
+  double S[LIN_SLOTS][36];   // the tasks' sqrt-information rows
+  double J[LIN_SLOTS][36];   // J_from of a between task
+  double err[LIN_SLOTS][6];  // the log error
+  double W[36];              // Jw = S J, or a prior's information
+  double ew[6];              // S err
+  int kind[LIN_SLOTS], fac[LIN_SLOTS], lo_is_from[LIN_SLOTS];
+};
+
+// a[0] b[0] + ... + a[5 sa] b[5 sb], summed from 0.0 in q order
+__device__ __forceinline__ double dot6(const double* a, int sa, const double* b, int sb) {
+  double v = 0.0;
+#pragma unroll
+  for (int q = 0; q < 6; ++q) v += a[q * sa] * b[q * sb];
+  return v;
+}
+
+// Entry e = 6 i + j of A^T B for 6x6 row-major A, B.
+__device__ __forceinline__ double tprod(const double* A, const double* B, int e) {
+  return dot6(A + e / 6, 6, B + e % 6, 6);
+}
+
+// A prior factor's error at its pose T.
+__device__ void prior_header(const double* __restrict__ T, const double* __restrict__ Mm,
+                             double* err) {
+  double Re[3][3], te[3];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j)   // Rm^T Rp
+      Re[i][j] = Mm[i] * T[j] + Mm[4 + i] * T[4 + j] + Mm[8 + i] * T[8 + j];
+    te[i] = Mm[i] * (T[3] - Mm[3]) + Mm[4 + i] * (T[7] - Mm[7]) + Mm[8 + i] * (T[11] - Mm[11]);
   }
-  const int k = f - P;
-  if (k >= M || !bt_valid[k]) return;
-  const int from = bt_from[k], to = bt_to[k];
-  const double* Tf = poses + 16 * (size_t)from;
-  const double* Tt = poses + 16 * (size_t)to;
-  const double* Mm = bt_meas + 16 * (size_t)k;
-  const double* S = bt_sqrtI + 36 * (size_t)k;
+  double e[6];
+  se3_log(Re, te, e);
+  for (int i = 0; i < 6; ++i) err[i] = e[i];
+}
+
+// A between factor's error and J_from.
+__device__ void between_header(const double* __restrict__ Tf, const double* __restrict__ Tt,
+                               const double* __restrict__ Mm, double* err, double* Jout) {
   double Rhx[3][3], thx[3], Re[3][3], te[3];
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j)     // R_f^T R_t
@@ -196,98 +250,182 @@ factor_kernel(const double* __restrict__ poses, const int* __restrict__ prior_ke
       Re[i][j] = Mm[i] * Rhx[0][j] + Mm[4 + i] * Rhx[1][j] + Mm[8 + i] * Rhx[2][j];
     te[i] = Mm[i] * (thx[0] - Mm[3]) + Mm[4 + i] * (thx[1] - Mm[7]) + Mm[8 + i] * (thx[2] - Mm[11]);
   }
-  double err[6];
-  se3_log(Re, te, err);
+  double e[6];
+  se3_log(Re, te, e);
+  for (int i = 0; i < 6; ++i) err[i] = e[i];
   // hx^-1 = (R_hx^T, -R_hx^T t_hx); J_from = -Ad(hx^-1) = -[[Ri, 0], [skew(ti) Ri, Ri]]
   double Ri[3][3], ti[3];
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) Ri[i][j] = Rhx[j][i];
   for (int i = 0; i < 3; ++i) ti[i] = -(Ri[i][0] * thx[0] + Ri[i][1] * thx[1] + Ri[i][2] * thx[2]);
   const double K[3][3] = {{0.0, -ti[2], ti[1]}, {ti[2], 0.0, -ti[0]}, {-ti[1], ti[0], 0.0}};
-  double J[6][6];
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) {
-      J[i][j] = -Ri[i][j];
-      J[i][3 + j] = -0.0;
-      J[3 + i][j] = -(K[i][0] * Ri[0][j] + K[i][1] * Ri[1][j] + K[i][2] * Ri[2][j]);
-      J[3 + i][3 + j] = -Ri[i][j];
+      Jout[6 * i + j] = -Ri[i][j];
+      Jout[6 * i + 3 + j] = -0.0;
+      Jout[6 * (3 + i) + j] = -(K[i][0] * Ri[0][j] + K[i][1] * Ri[1][j] + K[i][2] * Ri[2][j]);
+      Jout[6 * (3 + i) + 3 + j] = -Ri[i][j];
     }
-  // Jw_f = S J_from (J_to = I, so Jw_t = S); ew = S err
-  double Jw[6][6], ew[6];
-  for (int i = 0; i < 6; ++i) {
-    for (int j = 0; j < 6; ++j) {
-      double v = 0.0;
-      for (int q = 0; q < 6; ++q) v += S[6 * i + q] * J[q][j];
-      Jw[i][j] = v;
-    }
-    double v = 0.0;
-    for (int q = 0; q < 6; ++q) v += S[6 * i + q] * err[q];
-    ew[i] = v;
-  }
-  double* ff = fac36 + 36 * (size_t)(P + k);
-  double* tt = fac36 + 36 * (size_t)(P + M + k);
-  double* hl = fac36 + 36 * (size_t)(P + 2 * M + k);
-  const bool lo_is_from = from < to;
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) {
-      double a = 0.0, c = 0.0, h = 0.0;
-      for (int q = 0; q < 6; ++q) {
-        a += Jw[q][i] * Jw[q][j];        // Jw_f^T Jw_f
-        c += S[6 * q + i] * S[6 * q + j];  // Jw_t^T Jw_t
-      }
-      // Hij = Jw_f^T Jw_t, stored as H[lo, hi]: Hij, or Hij^T when to < from
-      const int a_ = lo_is_from ? i : j, b_ = lo_is_from ? j : i;
-      for (int q = 0; q < 6; ++q) h += Jw[q][a_] * S[6 * q + b_];
-      ff[6 * i + j] = a;
-      tt[6 * i + j] = c;
-      hl[6 * i + j] = h;
-    }
-  for (int i = 0; i < 6; ++i) {
-    double rf = 0.0, rt = 0.0;
-    for (int q = 0; q < 6; ++q) {
-      rf += Jw[q][i] * ew[q];
-      rt += S[6 * q + i] * ew[q];
-    }
-    fac6[6 * (size_t)(P + k) + i] = -rf;
-    fac6[6 * (size_t)(P + M + k) + i] = -rt;
-  }
 }
 
-// One thread a pose (diag, b, off) and then one a loop edge (lb).
-__global__ void __launch_bounds__(ASM_THREADS)
-assemble_kernel(const double* __restrict__ pad_reg, int n_pad, int P, int M,
-                const int* __restrict__ loop_bt, const int* __restrict__ loop_valid, int L,
-                const int* __restrict__ inc_ptr, const int* __restrict__ inc_ent,
-                const int* __restrict__ chain_ptr, const int* __restrict__ chain_ent,
-                const double* __restrict__ st, const double* __restrict__ fac36,
-                const double* __restrict__ fac6, double* __restrict__ diag,
-                double* __restrict__ off, double* __restrict__ b, double* __restrict__ lb) {
+// Entry e of Jw = S J (row-major S and J of slot s).
+__device__ __forceinline__ double sj(const LinPose& sp, int s, int e) {
+  return dot6(sp.S[s] + 6 * (e / 6), 1, sp.J[s] + e % 6, 6);
+}
+
+// Entry e of Hij = Jw_f^T Jw_t (J_to = I, so Jw_t = S) as H[lo, hi]: Hij,
+// or its transpose where to < from.
+__device__ __forceinline__ double coupling(const LinPose& sp, int s, int e, bool lo_is_from) {
+  const int i = e / 6, j = e % 6;
+  return dot6(sp.W + (lo_is_from ? i : j), 6, sp.S[s] + (lo_is_from ? j : i), 6);
+}
+
+__global__ void __launch_bounds__(LIN_WARPS * 32)
+linearize_kernel(const double* __restrict__ poses, int n_pad, const double* __restrict__ pad_reg,
+                 const double* __restrict__ prior_meas, const double* __restrict__ prior_sqrtI,
+                 int P, const int* __restrict__ bt_from, const int* __restrict__ bt_to,
+                 const double* __restrict__ bt_meas, const double* __restrict__ bt_sqrtI, int M,
+                 const int* __restrict__ loop_bt, const int* __restrict__ loop_valid, int L,
+                 const int* __restrict__ inc_ptr, const int* __restrict__ inc_ent,
+                 const int* __restrict__ chain_ptr, const int* __restrict__ chain_ent,
+                 const double* __restrict__ st, double* __restrict__ diag,
+                 double* __restrict__ off, double* __restrict__ b, double* __restrict__ lb) {
+  __shared__ LinPose smem[LIN_POSES];
   if (st[3] == 0.0) return;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n_pad) {
-    double acc[36], bb[6];
-    for (int e = 0; e < 36; ++e) acc[e] = e % 7 == 0 ? pad_reg[t] : 0.0;
-    for (int i = 0; i < 6; ++i) bb[i] = 0.0;
-    for (int j = inc_ptr[t]; j < inc_ptr[t + 1]; ++j) {
-      const int e = inc_ent[j];
-      for (int q = 0; q < 36; ++q) acc[q] += fac36[36 * (size_t)e + q];
-      for (int i = 0; i < 6; ++i) bb[i] += fac6[6 * (size_t)e + i];
-    }
-    for (int q = 0; q < 36; ++q) diag[36 * (size_t)t + q] = acc[q];
-    for (int i = 0; i < 6; ++i) b[6 * (size_t)t + i] = bb[i];
-    if (t < n_pad - 1) {
-      for (int q = 0; q < 36; ++q) acc[q] = 0.0;
-      for (int j = chain_ptr[t]; j < chain_ptr[t + 1]; ++j) {
-        const double* h = fac36 + 36 * (size_t)(P + 2 * M + chain_ent[j]);
-        for (int q = 0; q < 36; ++q) acc[q] += h[q];
-      }
-      for (int q = 0; q < 36; ++q) off[36 * (size_t)t + q] = acc[q];
-    }
-  } else if (t < n_pad + L) {
-    const int l = t - n_pad;
-    const double* h = fac36 + 36 * (size_t)(P + 2 * M + loop_bt[l]);
-    for (int q = 0; q < 36; ++q) lb[36 * (size_t)l + q] = loop_valid[l] ? h[q] : 0.0;
+  const int h = threadIdx.x & 15, half = threadIdx.x >> 4;
+  const unsigned mask = 0xffffu << (16 * (half & 1));
+  const int p = blockIdx.x * LIN_POSES + half;
+  if (p >= n_pad + L) return;
+  LinPose& sp = smem[half];
+  // ---- tasks
+  // the pose's lists (a loop edge: its one coupling)
+  int i0 = 0, n_inc = 0, c0 = 0, n_task = 1;
+  if (p < n_pad) {
+    i0 = __ldg(inc_ptr + p);
+    n_inc = __ldg(inc_ptr + p + 1) - i0;
+    c0 = __ldg(chain_ptr + p);
+    n_task = n_inc + (p < n_pad - 1 ? __ldg(chain_ptr + p + 1) - c0 : 0);
+  } else if (!__ldg(loop_valid + (p - n_pad))) {
+    n_task = 0;
   }
+  // lane h: matrix entries h, 16 + h and (lanes 0-3) 32 + h; lanes 4-9
+  // entry h - 4 of the six-vector in place of the third
+  const int e0 = h, e1 = 16 + h, e2 = 32 + h, v = h - 4;
+  const bool third = h < 4, vec = h >= 4 && h < 10;
+  const bool real = p < n_pad;
+  double d0 = real && e0 % 7 == 0 ? pad_reg[p] : 0.0;   // diag
+  double d1 = real && e1 % 7 == 0 ? pad_reg[p] : 0.0;
+  double d2 = real && third && e2 % 7 == 0 ? pad_reg[p] : 0.0;  // or b
+  double o0 = 0.0, o1 = 0.0, o2 = 0.0;                  // off, or lb
+  for (int base = 0; base < n_task; base += LIN_SLOTS) {
+    const int ns = min(LIN_SLOTS, n_task - base);
+    int kind = TASK_CHAIN, f = 0;
+    if (h < ns) {
+      const int t = base + h;
+      if (!real) {
+        f = __ldg(loop_bt + (p - n_pad));
+      } else if (t < n_inc) {
+        const int e = __ldg(inc_ent + i0 + t);
+        kind = e < P ? TASK_PRIOR : (e < P + M ? TASK_FROM : TASK_TO);
+        f = kind == TASK_PRIOR ? e : (kind == TASK_FROM ? e - P : e - P - M);
+      } else {
+        f = __ldg(chain_ent + c0 + t - n_inc);
+      }
+      sp.kind[h] = kind;
+      sp.fac[h] = f;
+    }
+    __syncwarp(mask);
+    // ---- stage
+    // the tasks' S rows, in flight while the headers run
+    for (int q = h; q < 36 * ns; q += 16) {
+      const int s = q / 36, e = q - 36 * s;
+      const double* src = sp.kind[s] == TASK_PRIOR ? prior_sqrtI : bt_sqrtI;
+      cp_async8(&sp.S[s][e], src + 36 * (size_t)sp.fac[s] + e, true);
+    }
+    cp_async_commit();
+    // ---- header
+    // a lane a task: the SE(3) error and J_from
+    if (h < ns) {
+      if (kind == TASK_PRIOR) {
+        prior_header(poses + 16 * (size_t)p, prior_meas + 16 * (size_t)f, sp.err[h]);
+      } else {
+        const int from = __ldg(bt_from + f), to = __ldg(bt_to + f);
+        between_header(poses + 16 * (size_t)from, poses + 16 * (size_t)to,
+                       bt_meas + 16 * (size_t)f, sp.err[h], sp.J[h]);
+        sp.lo_is_from[h] = from < to;
+      }
+    }
+    cp_async_wait<0>();
+    __syncwarp(mask);
+    // ---- blocks
+    // a task at a time, an output entry a lane, in the lists' order
+    for (int s = 0; s < ns; ++s) {
+      const double* S = sp.S[s];
+      switch (sp.kind[s]) {
+        case TASK_PRIOR: {     // info = S^T S; b -= info err
+          const double a0 = tprod(S, S, e0), a1 = tprod(S, S, e1);
+          d0 += a0;
+          d1 += a1;
+          sp.W[e0] = a0;
+          sp.W[e1] = a1;
+          if (third) {
+            const double a2 = tprod(S, S, e2);
+            d2 += a2;
+            sp.W[e2] = a2;
+          }
+          __syncwarp(mask);
+          if (vec) d2 += -dot6(sp.W + 6 * v, 1, sp.err[s], 1);
+          break;
+        }
+        case TASK_FROM: {      // Jw^T Jw; b -= Jw^T ew
+          sp.W[e0] = sj(sp, s, e0);
+          sp.W[e1] = sj(sp, s, e1);
+          if (third) sp.W[e2] = sj(sp, s, e2);
+          else if (vec) sp.ew[v] = dot6(S + 6 * v, 1, sp.err[s], 1);
+          __syncwarp(mask);
+          d0 += tprod(sp.W, sp.W, e0);
+          d1 += tprod(sp.W, sp.W, e1);
+          if (third) d2 += tprod(sp.W, sp.W, e2);
+          else if (vec) d2 += -dot6(sp.W + v, 6, sp.ew, 1);
+          break;
+        }
+        case TASK_TO: {        // J_to = I: S^T S; b -= S^T ew
+          if (vec) sp.ew[v] = dot6(S + 6 * v, 1, sp.err[s], 1);
+          __syncwarp(mask);
+          d0 += tprod(S, S, e0);
+          d1 += tprod(S, S, e1);
+          if (third) d2 += tprod(S, S, e2);
+          else if (vec) d2 += -dot6(S + v, 6, sp.ew, 1);
+          break;
+        }
+        default: {             // the chain coupling (or loop block) H[lo, hi]
+          sp.W[e0] = sj(sp, s, e0);
+          sp.W[e1] = sj(sp, s, e1);
+          if (third) sp.W[e2] = sj(sp, s, e2);
+          __syncwarp(mask);
+          const bool lf = sp.lo_is_from[s];
+          o0 += coupling(sp, s, e0, lf);
+          o1 += coupling(sp, s, e1, lf);
+          if (third) o2 += coupling(sp, s, e2, lf);
+        }
+      }
+      __syncwarp(mask);
+    }
+  }
+  // ---- store
+  // 288-byte rows, a half-warp each
+  double* row = real ? diag + 36 * (size_t)p : lb + 36 * (size_t)(p - n_pad);
+  if (real) {
+    row[e0] = d0;
+    row[e1] = d1;
+    if (third) row[e2] = d2;
+    else if (vec) b[6 * (size_t)p + v] = d2;
+    if (p == n_pad - 1) return;
+    row = off + 36 * (size_t)p;
+  }
+  row[e0] = o0;
+  row[e1] = o1;
+  if (third) row[e2] = o2;
 }
 
 // ---------------------------------------------------------------------------
@@ -343,38 +481,6 @@ constexpr int EL_RING = 16;                // rows staged in shared memory
 constexpr int EL_LAG = 6;                  // groups issued after a row before it is published
 constexpr int EL_FREE = 4;                 // warp 0 releases slots every EL_FREE rows
 constexpr int EL_ROW = 80;                 // doubles a staged row (79 used)
-
-__device__ __forceinline__ void cp_async8(double* dst, const double* src, bool fill) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(fill ? 8 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n" : "=r"(v)
-               : "r"((unsigned)__cvta_generic_to_shared(p)) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.cta.shared.b32 [%0], %1;\n" ::"r"((unsigned)__cvta_generic_to_shared(p)),
-               "r"(v) : "memory");
-}
 
 // 1/sqrt(s) of a Cholesky pivot: rsqrt.approx (~2^-22 relative) refined by
 // one third-order Newton step (error ~(5/16) e^3, below double's epsilon)
@@ -1302,24 +1408,17 @@ inline int nblocks(int n, int t) { return (n + t - 1) / t; }
 }  // namespace
 
 LO_EXPORT int lo_pgo_linearize(const double* poses, int n_pad, const double* pad_reg,
-                               const int* prior_key, const double* prior_meas,
-                               const double* prior_sqrtI, const int* prior_valid, int P,
+                               const double* prior_meas, const double* prior_sqrtI, int P,
                                const int* bt_from, const int* bt_to, const double* bt_meas,
-                               const double* bt_sqrtI, const int* bt_valid, int M,
-                               const int* loop_bt, const int* loop_valid, int L,
-                               const int* inc_ptr, const int* inc_ent, const int* chain_ptr,
-                               const int* chain_ent, const double* st, double* fac36,
-                               double* fac6, double* diag, double* off, double* b, double* lb,
-                               void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  factor_kernel<<<max(1, nblocks(P + M, FAC_THREADS)), FAC_THREADS, 0, s>>>(
-      poses, prior_key, prior_meas, prior_sqrtI, prior_valid, P, bt_from, bt_to, bt_meas,
-      bt_sqrtI, bt_valid, M, st, fac36, fac6);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  assemble_kernel<<<max(1, nblocks(n_pad + L, ASM_THREADS)), ASM_THREADS, 0, s>>>(
-      pad_reg, n_pad, P, M, loop_bt, loop_valid, L, inc_ptr, inc_ent, chain_ptr, chain_ent,
-      st, fac36, fac6, diag, off, b, lb);
+                               const double* bt_sqrtI, int M, const int* loop_bt,
+                               const int* loop_valid, int L, const int* inc_ptr,
+                               const int* inc_ent, const int* chain_ptr, const int* chain_ent,
+                               const double* st, double* diag, double* off, double* b,
+                               double* lb, void* stream) {
+  linearize_kernel<<<max(1, nblocks(n_pad + L, LIN_POSES)), LIN_WARPS * 32, 0,
+                     (cudaStream_t)stream>>>(
+      poses, n_pad, pad_reg, prior_meas, prior_sqrtI, P, bt_from, bt_to, bt_meas, bt_sqrtI, M,
+      loop_bt, loop_valid, L, inc_ptr, inc_ent, chain_ptr, chain_ent, st, diag, off, b, lb);
   return (int)cudaGetLastError();
 }
 

@@ -825,3 +825,45 @@ def plane_candidates(n: int, k: int, seed: int = 0):
     mask = rng.random(n) < 0.9
     mask[3 * t:4 * t] = False
     return p.astype(np.float32), cand.astype(np.float32), ok, mask
+
+
+def iris_threshold_responses(b: int, x0: float, seed: int = 0, cols: int = 360):
+    """K8b's edge-case input: (b, 4, 80, cols) complex64 inverse-FFT
+    responses (before the x cols scale the codes undo) whose scaled squared
+    magnitudes re^2 + im^2, each square and the sum rounded in float32,
+    sit on and beside x0, the magnitude test's threshold: a quarter of the
+    elements within 2 float32 steps of x0 (exactly on it among them), the
+    rest of scaled magnitude 1e-5 to 1e-3, with random signs; ~1 % of the
+    components NaN, +-inf or +-0. Returns (responses, s), s (b, 4, 80,
+    cols) the float32 squared magnitudes."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    shape = (b, 4, 80, cols)
+    c = f32(cols)
+    mag = 10.0 ** rng.uniform(-5.0, -3.0, shape)
+    ang = rng.uniform(0.0, 2.0 * np.pi, shape)
+    re = (mag * np.cos(ang) / cols).astype(f32)
+    im = (mag * np.sin(ang) / cols).astype(f32)
+    # (re, im) pairs on and beside x0: re near sqrt(x0) / cols, im small
+    r0 = np.array([np.sqrt(x0) / cols], f32).view(np.int32)[0]
+    zr = (r0 + np.arange(-3000, 3000, dtype=np.int32)).view(f32)
+    zi = np.concatenate([[0.0, -0.0], 10.0 ** rng.uniform(-13.0, -9.0, 254)]).astype(f32)
+    R, I = np.meshgrid(zr, zi, indexing="ij")
+    s = (R * c) * (R * c) + (I * c) * (I * c)
+    x0_bits = int(np.array([x0], f32).view(np.int32)[0])
+    near = np.abs(s.view(np.int32).astype(np.int64) - x0_bits) <= 2
+    pr, pi = R[near], I[near]
+    n = re.size
+    at = rng.choice(n, n // 4, replace=False)
+    pick = rng.integers(0, pr.size, at.size)
+    sign = lambda: rng.choice(np.array([-1.0, 1.0], f32), at.size)
+    re.reshape(-1)[at] = pr[pick] * sign()
+    im.reshape(-1)[at] = pi[pick] * sign()
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], f32)
+    for part in (re, im):
+        at = rng.choice(n, n // 100, replace=False)
+        part.reshape(-1)[at] = special[rng.integers(0, special.size, at.size)]
+    z = np.empty(shape, np.complex64)
+    z.real, z.imag = re, im
+    sr, si = re * c, im * c
+    return z, sr * sr + si * si

@@ -265,7 +265,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _I, _P],
            REF + "/ops/iris.py:114"),
     Kernel("iris_encode", "iris",
-           [_P, _I, _F, _P, _P],
+           [_P, _I, _F, _F, _P, _P],
            REF + "/ops/iris.py:105"),
     Kernel("iris_hamming", "iris",
            [_P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -277,8 +277,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
            REF + "/ops/voxel_map.py:1029"),
     Kernel("pgo_linearize", "pgo",
-           [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-            _P, _P, _P, _P, _P, _P, _P],
+           [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I] + [_P] * 9,
            REF + "/parallel/distributed_pgo.py:521"),
     Kernel("pgo_eliminate", "pgo",
            [_P] * 12 + [_I] * 3 + [_P] * 7,

@@ -37,7 +37,7 @@ from .bev_align import cross_power
 __all__ = ["iris_bits", "iris_image", "log_gabor_filters", "features", "iris_feature",
            "gabor_product", "gabor_product_plain", "iris_encode", "iris_encode_plain", "iris_hamming", "iris_hamming_plain",
            "phase_shifts", "compare_rows", "compare_batch", "compare_batch_packed", "ROWS",
-           "COLS", "NSCALE", "PACKED_WORDS", "to_uint32"]
+           "COLS", "NSCALE", "PACKED_WORDS", "MAG_SQ_THRESHOLD", "to_uint32"]
 
 ROWS = 80
 COLS = 360
@@ -48,6 +48,13 @@ SIGMA_ONF = 0.75
 STACK_ROWS = 2 * NSCALE * ROWS
 PACKED_WORDS = STACK_ROWS // 32  # 20
 _DEG = K.f32(180.0 / math.pi)
+
+
+# K8b's magnitude test |z| < 1e-4 as re^2 + im^2 < MAG_SQ_THRESHOLD: the
+# least float32 x0 whose correctly rounded square root is >= 1e-4 (float32),
+# bits 0x322bcc76, so that sqrt(s) < 1e-4 exactly when s < x0 for every
+# float32 s (the square root is monotone; NaN compares false both ways)
+MAG_SQ_THRESHOLD = float(np.uint32(0x322BCC76).view(np.float32))
 
 
 def to_uint32(words: np.ndarray) -> np.ndarray:
@@ -151,9 +158,9 @@ def iris_encode(resp):
     b = resp.shape[0]
     kernels.check(resp, "resp", torch.complex64, (b, NSCALE, ROWS, COLS))
     T = torch.empty((b, PACKED_WORDS, COLS), dtype=torch.int32, device=resp.device)
-    M = torch.empty_like(T)
-    kernels.KERNELS["iris_encode"].launch(resp.data_ptr(), b, float(COLS), T.data_ptr(),
-                                          M.data_ptr())
+    M = torch.empty((b, PACKED_WORDS, COLS), dtype=torch.int32, device=resp.device)
+    kernels.KERNELS["iris_encode"].launch(resp.data_ptr(), b, float(COLS), MAG_SQ_THRESHOLD,
+                                          T.data_ptr(), M.data_ptr())
     return T, M
 
 

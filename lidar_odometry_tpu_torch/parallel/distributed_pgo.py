@@ -489,18 +489,14 @@ def linearize(g: Dict[str, torch.Tensor], poses: torch.Tensor):
     off = torch.empty((n_pad - 1, 6, 6), dtype=_F64, device=dev)
     b = torch.empty((n_pad, 6), dtype=_F64, device=dev)
     lb = torch.empty((L, 6, 6), dtype=_F64, device=dev)
-    fac36 = torch.empty((P + 3 * M, 36), dtype=_F64, device=dev)
-    fac6 = torch.empty((P + 2 * M, 6), dtype=_F64, device=dev)
     kernels.KERNELS["pgo_linearize"].launch(
-        poses.data_ptr(), n_pad, g["pad_reg"].data_ptr(),
-        g["prior_key"].data_ptr(), g["prior_meas"].data_ptr(), g["prior_sqrtI"].data_ptr(),
-        g["prior_valid"].data_ptr(), P,
-        g["bt_from"].data_ptr(), g["bt_to"].data_ptr(), g["bt_meas"].data_ptr(),
-        g["bt_sqrtI"].data_ptr(), g["bt_valid"].data_ptr(), M,
+        poses.data_ptr(), n_pad, g["pad_reg"].data_ptr(), g["prior_meas"].data_ptr(),
+        g["prior_sqrtI"].data_ptr(), P, g["bt_from"].data_ptr(), g["bt_to"].data_ptr(),
+        g["bt_meas"].data_ptr(), g["bt_sqrtI"].data_ptr(), M,
         g["loop_bt"].data_ptr(), g["loop_valid"].data_ptr(), L,
         g["inc_ptr"].data_ptr(), g["inc_ent"].data_ptr(), g["chain_ptr"].data_ptr(),
-        g["chain_ent"].data_ptr(), g["st"].data_ptr(), fac36.data_ptr(), fac6.data_ptr(),
-        diag.data_ptr(), off.data_ptr(), b.data_ptr(), lb.data_ptr())
+        g["chain_ent"].data_ptr(), g["st"].data_ptr(), diag.data_ptr(), off.data_ptr(),
+        b.data_ptr(), lb.data_ptr())
     return diag, off, b, lb
 
 

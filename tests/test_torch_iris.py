@@ -21,6 +21,7 @@ import torch
 
 import jax.numpy as jnp
 from lidar_odometry_tpu.ops import iris as ji
+from lidar_odometry_tpu_torch.io import synthetic
 from lidar_odometry_tpu_torch.ops import iris
 from test_iris import _ring_cloud
 
@@ -90,6 +91,29 @@ def test_iris_codes_match_jax(name):
     assert (np.abs(mval[dM] - 1e-4) < margin).all()
     assert dT.sum() <= (np.abs(tval) < margin).sum()
     assert dT.sum() + dM.sum() < 0.01 * dT.size
+
+
+def test_magnitude_threshold_is_exact():
+    """K8b tests |z| < 1e-4 as re^2 + im^2 < MAG_SQ_THRESHOLD: x0 is the
+    least float32 whose square root is >= 1e-4, and on responses whose
+    squared magnitudes sit on and beside x0 (with NaN, +-inf and +-0) the
+    twin's square-root test gives exactly the M words of the squared
+    compare."""
+    x0 = np.float32(iris.MAG_SQ_THRESHOLD)
+    t = np.float32(1e-4)
+    assert float(x0) == iris.MAG_SQ_THRESHOLD
+    assert np.sqrt(x0) >= t and np.sqrt(np.nextafter(x0, np.float32(0.0))) < t
+    z, s = synthetic.iris_threshold_responses(2, float(x0), seed=3)
+    below = np.nextafter(x0, np.float32(0.0))
+    assert (s == x0).any() and (s == below).any() and np.isnan(s).any() and (s == 0).any()
+    T, M = iris.iris_encode_plain(torch.as_tensor(z))
+    m = torch.as_tensor(s < x0)
+    want = iris._pack_rows(torch.cat([m, m], 1).reshape(2, iris.STACK_ROWS, iris.COLS))
+    assert torch.equal(M, want)
+    c = np.float32(iris.COLS)
+    re, im = torch.as_tensor(z.real * c), torch.as_tensor(z.imag * c)
+    bits = torch.cat([re > 0, im > 0], 1).reshape(2, iris.STACK_ROWS, iris.COLS)
+    assert torch.equal(T, iris._pack_rows(bits))
 
 
 def _features_both(c):

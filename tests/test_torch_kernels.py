@@ -1965,3 +1965,103 @@ def test_scatter_add_and_backsub_launch_once_without_a_stack(dev):
         assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
     assert kernels.ptxas_info("voxel_map", "scatter_add_kernel")["stack"] == 0
     print("K10d ptxas:", kernels.ptxas_info("pgo", "backsub_kernel"))
+
+
+# ---------------------------------------------------------------------------
+# K10a on edge graphs, K8b on responses at its magnitude threshold
+# ---------------------------------------------------------------------------
+
+def _se3(rng, scale=1.0):
+    T = np.eye(4)
+    T[:3, :3] = synthetic._so3_exp_np(rng.normal(0.0, 0.3 * scale, 3))
+    T[:3, 3] = rng.normal(0.0, 2.0 * scale, 3)
+    return T
+
+
+def _k10a_graph(case, dev):
+    """(uploaded graph, poses) of an edge graph: random poses, information
+    from random sqrt factors; "no_loops" a chain with a prior; "reversed"
+    chain factors given as (i + 1, i) and three loop edges, one of them
+    reversed, M and L padded with invalid slots; "isolated" poses 10 and
+    11 with no incident factor; "priors_only" no between factor, two
+    priors on pose 0."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    rng = np.random.default_rng(len(case))
+    n = {"no_loops": 20, "reversed": 13, "isolated": 12, "priors_only": 8}[case]
+    poses = np.stack([_se3(rng, 3.0) for _ in range(n)])
+    sq = lambda: np.triu(rng.normal(0.0, 1.0, (6, 6))) + np.eye(6) * 5.0
+    priors = [(0, _se3(rng), sq())]
+    betweens = []
+    if case == "priors_only":
+        priors += [(0, _se3(rng), sq())] + [(i, _se3(rng), sq()) for i in range(2, n)]
+    else:
+        last = 10 if case == "isolated" else n
+        for i in range(last - 1):
+            f, t = (i + 1, i) if case == "reversed" and i % 2 else (i, i + 1)
+            betweens.append((f, t, _se3(rng, 0.2), sq()))
+    if case == "reversed":
+        betweens += [(f, t, _se3(rng), sq()) for f, t in ((1, 9), (12, 4), (2, 11))]
+    g = dpgo.upload(dpgo.pack_graph(poses, priors, betweens), dev)
+    return g, g["poses"]
+
+
+@pytest.mark.parametrize("case", ["no_loops", "reversed", "isolated", "priors_only"])
+def test_linearize_kernel_edges(dev, case):
+    """K10a against its twin at 1e-10 of each output's largest magnitude,
+    two calls bit-equal, one launch a call."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    g, poses = _k10a_graph(case, dev)
+    n0 = kernels.KERNELS["pgo_linearize"].launches
+    a = dpgo.linearize(g, poses)
+    b = dpgo.linearize(g, poses)
+    p = dpgo.linearize_plain(poses, *[g[k] for k in dpgo.LIN_KEYS])
+    assert kernels.KERNELS["pgo_linearize"].launches == n0 + 2
+    for x, y, z in zip(a, b, p):
+        assert torch.equal(x, y)
+        assert _rel(x, z) <= 1e-10
+    if case == "priors_only":
+        assert not bool(a[1].any()) and not bool(a[3].any())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_iris_encode_kernel_at_its_threshold(dev, b):
+    """K8b on responses whose scaled squared magnitudes sit on and beside
+    its threshold, with NaN, +-inf and +-0: every T and M word equal to
+    the twin's on the card and on the CPU."""
+    from lidar_odometry_tpu_torch.ops import iris
+    z, s = synthetic.iris_threshold_responses(b, iris.MAG_SQ_THRESHOLD, seed=b)
+    resp = torch.as_tensor(z, device=dev)
+    Tk, Mk = iris.iris_encode(resp)
+    Tp, Mp = iris.iris_encode_plain(resp)
+    Tc, Mc = iris.iris_encode_plain(resp.cpu())
+    assert torch.equal(Tk, Tp) and torch.equal(Mk, Mp)
+    assert torch.equal(Tk.cpu(), Tc) and torch.equal(Mk.cpu(), Mc)
+    assert bool((torch.as_tensor(s) == iris.MAG_SQ_THRESHOLD).any())
+
+
+def test_linearize_and_encode_launch_once_without_a_stack(dev):
+    """K10a and K8b launch their kernel once a call with no torch op
+    beside it that launches device work (K10a: no scratch, no second
+    kernel); ptxas gave K8b no stack frame (K10a's is printed: the double
+    acos, sin and tan keep a slow-path argument reduction in local
+    memory)."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidar_odometry_tpu_torch.ops import iris
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    g, poses = _k10a_graph("reversed", dev)
+    resp = torch.as_tensor(synthetic.iris_threshold_responses(2, iris.MAG_SQ_THRESHOLD)[0],
+                           device=dev)
+    calls = [("pgo_linearize", lambda: dpgo.linearize(g, poses)),
+             ("iris_encode", lambda: iris.iris_encode(resp))]
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        n0 = kernels.KERNELS[name].launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert kernels.KERNELS[name].launches == n0 + 1
+        ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
+    assert kernels.ptxas_info("iris", "iris_encode_kernel")["stack"] == 0
+    print("K10a ptxas:", kernels.ptxas_info("pgo", "linearize_kernel"))

@@ -52,7 +52,6 @@ It needs the card and nvcc; it imports nothing of JAX.
 """
 from __future__ import annotations
 
-import argparse
 import sys
 from pathlib import Path
 
@@ -60,6 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import phase_stamps as ps  # noqa: E402
 
 ROOT = ps.ROOT
+ENTRIES = (("voxel_map", "scatter_add_kernel"), ("pgo", "backsub_kernel"))
 BIG_N_PAD = 8192
 
 # an older tree's kernels, at their statements (regex, label), in order
@@ -186,20 +186,6 @@ def k10d_call(inp, n_pad: int, timed: bool):
     return call, twin, poses, g
 
 
-def device_records(fn) -> int:
-    """The device activity records (kernels, memcpy, memset) of one call
-    of fn, from torch.profiler (chip_smoke.device_busy_us)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    import chip_smoke as cs
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return cs.device_busy_us(prof)[1]
-
-
 def timings(tag: str, card: str, inp) -> dict:
     """Every call against its twin, its device and as-issued times; the
     outputs of one call from the inputs kept for the comparison across
@@ -219,7 +205,7 @@ def timings(tag: str, card: str, inp) -> dict:
     print(f"  K4b ({tag}; {card}): p {inp['k4b']['pts'].shape[0]}: alone "
           f"{cs.device_ms(alone, 30):.4f} ms on the device ({cs.time_ms(alone, 30):.4f} as "
           f"issued); the step as issued {cs.device_ms(step, 30):.4f} "
-          f"({cs.time_ms(step, 30):.4f}), {device_records(step)} device records a step; "
+          f"({cs.time_ms(step, 30):.4f}), {ps.device_records(step)} device records a step; "
           f"{err:.1e} from the twin", flush=True)
     for n_pad in sorted(inp["k10d"]):
         call, tw, poses, g = k10d_call(inp, n_pad, timed=False)
@@ -232,62 +218,11 @@ def timings(tag: str, card: str, inp) -> dict:
         keep[f"K10d st {n_pad}"] = g["st"].clone()
         call, _, _, _ = k10d_call(inp, n_pad, timed=True)
         print(f"  K10d ({tag}; {card}): n_pad {n_pad}: {cs.device_ms(call, 30):.4f} ms on "
-              f"the device ({cs.time_ms(call, 30):.4f} as issued), {device_records(call)} "
+              f"the device ({cs.time_ms(call, 30):.4f} as issued), {ps.device_records(call)} "
               f"device records a call; poses {perr:.1e} from the twin, |dx| "
               f"{float(g['st'][1]):.6e}", flush=True)
-    keep["PGO path poses"] = pgo_path(tag, card)
+    keep["PGO path poses"] = ps.pgo_path(tag, card)
     return keep
-
-
-def pgo_path(tag: str, card: str):
-    """The PGO path's GN iterations (gn_iterations on the KITTI-00-sized
-    graph, chip_smoke.make_pgo_graph, max_iters 10, tol 1e-6) with the
-    tree's kernels: the device ms of each of 5 solves from a fresh upload
-    (chip_smoke.device_ms_once) and their median; returns the poses."""
-    import statistics
-    import chip_smoke as cs
-    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
-    init, priors, betweens, _ = cs.make_pgo_graph()
-    pk = dpgo.pack_graph(init, priors, betweens)
-    ms = []
-    for _ in range(5):
-        g = dpgo.upload(pk, "cuda")
-        ms.append(cs.device_ms_once(lambda: dpgo.gn_iterations(g, 10, 1e-6)))
-    it, dxn, ok, _ = g["st"].cpu().tolist()
-    known = [m for m in ms if m is not None]
-    med = f"{statistics.median(known):.4f}" if known else "n/a"
-    print(f"  PGO path ({tag}; {card}): n_pad {pk.n_pad}, {int(it)} GN iterations (|dx| "
-          f"{dxn:.3e}, ok {bool(ok)}): median {med} ms on the device over {len(known)} solves "
-          f"({ms})", flush=True)
-    return g["poses"].clone()
-
-
-def compare(keep: dict, tag: str) -> None:
-    """This tree's outputs against every other tree's saved ones."""
-    import torch
-    here = ROOT / "build" / f"k4b_k10d_outputs_{tag}.pt"
-    torch.save(keep, here)
-    for other in sorted(here.parent.glob("k4b_k10d_outputs_*.pt")):
-        if other == here:
-            continue
-        theirs = torch.load(other, map_location="cuda")
-        same = {k: torch.equal(v.view(torch.int64) if v.dtype == torch.float64 else v,
-                               theirs[k].view(torch.int64) if v.dtype == torch.float64
-                               else theirs[k])
-                for k, v in keep.items() if k in theirs}
-        print(f"outputs bit-equal to {other.stem[len('k4b_k10d_outputs_'):]}'s: {same}",
-              flush=True)
-
-
-def ptxas(tag: str) -> None:
-    import chip_smoke as cs
-    from lidar_odometry_tpu_torch import kernels
-    kernels.build()
-    for src, fn in (("voxel_map", "scatter_add_kernel"), ("pgo", "backsub_kernel")):
-        for name, info in kernels.ptxas_entries(src, fn).items():
-            print(f"ptxas {cs.entry_name(name)} ({tag}): {info['registers']} registers, "
-                  f"{info['stack']} bytes of stack, spills {info['spill_stores']} / "
-                  f"{info['spill_loads']} bytes", flush=True)
 
 
 def stamps(tree: Path, tag: str, card: str, inp) -> None:
@@ -336,42 +271,5 @@ def stamps(tree: Path, tag: str, card: str, inp) -> None:
     ps.report(phases, total, us_per_cycle)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", type=Path, default=None,
-                    help="a tree holding lidar_odometry_tpu_torch/ (default: this checkout)")
-    ap.add_argument("--plain", action="store_true",
-                    help="no stamps: ptxas's report and the times alone")
-    ap.add_argument("--make-inputs", action="store_true",
-                    help="make the inputs with this checkout's package, save them, and stop")
-    ap.add_argument("--inputs", type=Path, default=ROOT / "build" / "k4b_k10d_inputs.pt",
-                    help="the inputs (made by --make-inputs)")
-    args = ap.parse_args()
-    tree = (args.src or ROOT).resolve()
-    tag = "checkout" if args.src is None else tree.name
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(tree))     # the tree's package and its own wrappers
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("k4b_k10d_phase_stamps: needs a CUDA device")
-    from lidar_odometry_tpu_torch import kernels
-    if not Path(kernels.__file__).resolve().is_relative_to(tree):
-        raise SystemExit(f"imported {kernels.__file__}, not the package under {tree}")
-    if args.make_inputs:
-        if args.src is not None:
-            raise SystemExit("--make-inputs takes this checkout's package, not --src")
-        make_inputs(args.inputs)
-        return
-    if not args.inputs.exists():
-        raise SystemExit(f"{args.inputs} is missing: run with --make-inputs first")
-    card = ps.card()
-    ptxas(tag)
-    inp = torch.load(args.inputs, map_location="cuda")
-    print(f"K4b and K10d ({tag}; {card}):", flush=True)
-    compare(timings(tag, card, inp), tag)
-    if not args.plain:
-        stamps(tree, tag, card, inp)
-
-
 if __name__ == "__main__":
-    main()
+    ps.main(__doc__, "k4b_k10d", "K4b and K10d", ENTRIES, make_inputs, timings, stamps)

@@ -21,11 +21,19 @@ A kernel without phase comments (an older tree's) is stamped at anchors:
 (regex, label) pairs, a phase mark put before the first line of the body
 that matches each regex, in order.
 
+The tools also share their scaffolding here: the device records of a
+call (device_records), the PGO path's GN iterations with the tree's
+kernels (pgo_path), the outputs compared bit for bit across the trees of
+one call (compare), ptxas's report of a tree's kernels (print_ptxas) and
+the command line (main: --src, --plain, --make-inputs, --inputs).
+
 It needs the card and nvcc; it imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import sys
 import re
 import subprocess
 from pathlib import Path
@@ -238,3 +246,115 @@ def report(phases: dict, total: int, us_per_cycle: float = None) -> None:
 def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def device_records(fn) -> int:
+    """The device activity records (kernels, memcpy, memset) of one call
+    of fn, from torch.profiler (chip_smoke.device_busy_us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return cs.device_busy_us(prof)[1]
+
+
+def pgo_path(tag: str, card: str):
+    """The PGO path's GN iterations (gn_iterations on the KITTI-00-sized
+    graph, chip_smoke.make_pgo_graph, max_iters 10, tol 1e-6) with the
+    tree's kernels: the device ms of each of 5 solves from a fresh upload
+    (chip_smoke.device_ms_once) and their median; returns the poses."""
+    import statistics
+    import chip_smoke as cs
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    init, priors, betweens, _ = cs.make_pgo_graph()
+    pk = dpgo.pack_graph(init, priors, betweens)
+    ms = []
+    for _ in range(5):
+        g = dpgo.upload(pk, "cuda")
+        ms.append(cs.device_ms_once(lambda: dpgo.gn_iterations(g, 10, 1e-6)))
+    it, dxn, ok, _ = g["st"].cpu().tolist()
+    known = [m for m in ms if m is not None]
+    med = f"{statistics.median(known):.4f}" if known else "n/a"
+    print(f"  PGO path ({tag}; {card}): n_pad {pk.n_pad}, {int(it)} GN iterations (|dx| "
+          f"{dxn:.3e}, ok {bool(ok)}): median {med} ms on the device over {len(known)} solves "
+          f"({ms})", flush=True)
+    return g["poses"].clone()
+
+
+def compare(keep: dict, tag: str, prefix: str) -> None:
+    """This tree's outputs, saved to build/<prefix>_outputs_<tag>.pt,
+    against every other tree's saved ones, bit for bit."""
+    import torch
+    here = ROOT / "build" / f"{prefix}_outputs_{tag}.pt"
+    torch.save(keep, here)
+    bits = lambda t: t.view(torch.int64) if t.dtype == torch.float64 else t
+    for other in sorted(here.parent.glob(f"{prefix}_outputs_*.pt")):
+        if other == here:
+            continue
+        theirs = torch.load(other, map_location="cuda")
+        same = {k: torch.equal(bits(v), bits(theirs[k])) for k, v in keep.items() if k in theirs}
+        print(f"outputs bit-equal to {other.stem[len(prefix) + 9:]}'s: {same}", flush=True)
+
+
+def print_ptxas(tag: str, entries) -> None:
+    """ptxas's registers, stack and spills of the tree's kernels
+    `entries` [(source, function)]; a function the tree lacks is named."""
+    import chip_smoke as cs
+    from lidar_odometry_tpu_torch import kernels
+    kernels.build()
+    for src, fn in entries:
+        try:
+            found = kernels.ptxas_entries(src, fn)
+        except kernels.KernelError:
+            print(f"ptxas {fn} ({tag}): not in this tree's {src}.cu", flush=True)
+            continue
+        for name, info in found.items():
+            print(f"ptxas {cs.entry_name(name)} ({tag}): {info['registers']} registers, "
+                  f"{info['stack']} bytes of stack, spills {info['spill_stores']} / "
+                  f"{info['spill_loads']} bytes", flush=True)
+
+
+def main(doc: str, prefix: str, title: str, entries, make_inputs, timings, stamps) -> None:
+    """A tool's command line: --make-inputs calls make_inputs(path) with
+    this checkout's package; otherwise the tree's (--src, default this
+    checkout) ptxas report of `entries`, timings(tag, card, inputs) whose
+    outputs go to compare(), and unless --plain stamps(tree, tag, card,
+    inputs)."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=None,
+                    help="a tree holding lidar_odometry_tpu_torch/ (default: this checkout)")
+    ap.add_argument("--plain", action="store_true",
+                    help="no stamps: ptxas's report and the times alone")
+    ap.add_argument("--make-inputs", action="store_true",
+                    help="make the inputs with this checkout's package, save them, and stop")
+    ap.add_argument("--inputs", type=Path, default=ROOT / "build" / f"{prefix}_inputs.pt",
+                    help="the inputs (made by --make-inputs)")
+    args = ap.parse_args()
+    tree = (args.src or ROOT).resolve()
+    tag = "checkout" if args.src is None else tree.name
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(tree))     # the tree's package and its own wrappers
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{prefix}_phase_stamps: needs a CUDA device")
+    from lidar_odometry_tpu_torch import kernels
+    if not Path(kernels.__file__).resolve().is_relative_to(tree):
+        raise SystemExit(f"imported {kernels.__file__}, not the package under {tree}")
+    if args.make_inputs:
+        if args.src is not None:
+            raise SystemExit("--make-inputs takes this checkout's package, not --src")
+        make_inputs(args.inputs)
+        return
+    if not args.inputs.exists():
+        raise SystemExit(f"{args.inputs} is missing: run with --make-inputs first")
+    card_name = card()
+    print_ptxas(tag, entries)
+    inp = torch.load(args.inputs, map_location="cuda")
+    print(f"{title} ({tag}; {card_name}):", flush=True)
+    compare(timings(tag, card_name, inp), tag, prefix)
+    if not args.plain:
+        stamps(tree, tag, card_name, inp)

@@ -50,11 +50,12 @@ Phases, each of which exits nonzero on failure:
          slot, distances within 1e-5; K5b also at the loop shape (K6b's
          coarse k = 5 output, 8192 rows, ungated), K7 bev_raster, K7c
          cross_power (the Iris query's 64 spectra, and the prealign's),
-         K8a iris_image, K8g gabor_product (also at b = 1), K8b iris_encode
-         (also at b = 1, and at b = 3 on responses whose squared magnitudes
-         sit on and beside its threshold, every word equal to the CPU
-         twin's), K8c iris_hamming, K9a map_bulk_index, K9b map_bulk_merge,
-         and K2b with the loop's weight residual;
+         K8a iris_image (also at b = 1), K8g gabor_product (also at b = 1),
+         K8b iris_encode (also at b = 1, and at b = 3 on responses whose
+         squared magnitudes sit on and beside its threshold, every word
+         equal to the CPU twin's), K8c iris_hamming, K9a map_bulk_index
+         (also at the sharded path's per-shard c1 of 16384), K9b
+         map_bulk_merge, and K2b with the loop's weight residual;
        - the pose-graph kernels (K10a pgo_linearize, K10b pgo_eliminate,
          K10c pgo_reduced_solve, K10d pgo_backsub_retract) on a
          KITTI-00-sized graph (3700 keyframes padded to 4096, 32 loop
@@ -141,14 +142,17 @@ lane after a boot chunk) against their plain versions, and each lane
 bit for bit against a one-lane launch on its inputs. K2b (B = 1, B = 4,
 the weight residual) and K11b (at each S) are also held to two calls
 bit-equal; for both, the cluster size they launch with, and for them,
-K4c, K11a, K5b, K6b, K5a, K11c (K11b's kernel), K4b and K10d ptxas's
-stack frame of every instantiation (0 bytes, else the run fails; K10d's
-40 bytes are the double sin and cos's slow path) and one launch a call
-with no torch op that launches device work beside it (no zero fill, read
-from torch.profiler's op events) are printed and kept in the kernels
-line, with K11b's and K11c's device and as-issued times at every S (K11b
-alone and with the sample), K6b's at each of its shapes, K5b's at the
-loop shape and K5a's at r = 1 and with the row mask.
+K4c, K11a, K5b, K6b, K5a, K11c (K11b's kernel), K4b, K10d, K8a and K9a
+ptxas's stack frame of every instantiation (0 bytes, else the run fails;
+K10d's 40 bytes are the double sin and cos's slow path) and one launch a
+call with no torch op that launches device work beside it (no zero fill
+but K8a's, read from torch.profiler's op events) are printed and kept in
+the kernels line (with K10d's and K9a's cluster shapes, as their sources
+build the launch and as the profiler traced its grid and block), with K11b's and
+K11c's device and as-issued times at every S (K11b alone and with the
+sample), K6b's at each of its shapes, K5b's at the loop shape, K5a's at
+r = 1 and with the row mask, K8a's at b = 1 and K9a's at the sharded
+path's per-shard c1.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
@@ -363,16 +367,60 @@ def entry_name(mangled: str) -> str:
     return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', rest.split('EEv', 1)[0]))}>"
 
 
-def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0):
+def traced_dims(fn, kernel: str, tries: int = 3):
+    """One call of fn under torch.profiler with the device's activity: the
+    (grid, block) of every launch of a device kernel whose name holds
+    `kernel`, as CUPTI recorded it (the Chrome trace's kernel events).
+    The call is profiled up to `tries` times; [] comes back where no
+    window recorded the kernel (K10d's in a full run of this script, which
+    a process of its own does record)."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    path = ROOT / "build" / "traced_dims.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    for _ in range(tries):
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel" and kernel in e.get("name", "")
+                  and "grid" in e.get("args", {})]
+        path.unlink()
+        if events:
+            return [(tuple(e["args"]["grid"]), tuple(e["args"]["block"])) for e in events]
+    return []
+
+
+def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0, fill=(),
+                     expect=None):
     """A kernel's build and launch: ptxas's report of every entry function
     whose name holds `kernel` (each instantiation of a template; at most
     `stack` bytes of stack, 0 unless the note says why, else fail), its
-    launch shape where given (a cluster kernel's) or a `note` on it, and
-    for each call in `fns` one launch of the kernel `name` and no torch op
-    that launches device work (no zero fill), all kept in rows[name]."""
+    launch shape where given (a cluster kernel's, as built) or a `note` on
+    it, and for each call in `fns` one launch of the kernel `name` and no
+    torch op that launches device work beside it but the zero fill `fill`
+    names (the ops of the wrapper's torch.zeros, where its design keeps
+    one), all kept in rows[name]. A one-cluster kernel gives `expect`, its
+    CTAs a cluster and threads a CTA: its shape is then read from the
+    build (Kernel.launch_shape) and the grid and block the profiler traced
+    on each call (a call the profiler did not record shows []), and the
+    run fails unless they agree."""
     from lidar_odometry_tpu_torch import kernels
     entries = {entry_name(m): info for m, info in kernels.ptxas_entries(src, kernel).items()}
     ran = [launches_of(fn, name) for fn in fns]
+    if expect is not None:
+        shape = kernels.KERNELS[name].launch_shape()
+        if {k: shape[k] for k in expect} != expect:
+            fail(f"{name}: built with {shape}, expected {expect}")
+        built = ((shape["grid"], 1, 1), (shape["threads"], 1, 1))
+        traced = [traced_dims(fn, kernel) for fn in fns]
+        for dims in traced:
+            if any(d != built for d in dims):
+                fail(f"{name}: traced (grid, block) {dims}, built {shape}")
+        shape = dict(shape, traced=[[list(map(list, d)) for d in dims] for dims in traced])
     what = ("" if shape is None else
             f"a cluster of {shape['cluster']} CTAs x {shape['threads']} threads ({shape}); ")
     what += f"{note}; " if note else ""
@@ -385,7 +433,7 @@ def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0)
         if info["stack"] > stack:
             fail(f"{name}: ptxas reports {info['stack']} bytes of stack for {k}")
     for n, ops in ran:
-        if n != 1 or ops:
+        if n != 1 or set(ops) - set(fill):
             fail(f"{name}: one call launched it {n} times beside the torch ops {ops}")
     rows[name].update(ptxas=next(iter(entries.values())) if len(entries) == 1 else entries,
                       launches_a_call=1)
@@ -1238,12 +1286,26 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     bk = iris.iris_bits(clouds, masks)
     bp = iris._iris_bits_plain(clouds, masks)
     n_px = int((bp > 0).sum())
+    # the bytes K8a needs: every mask, the coordinates of the masked-in
+    # points, every pixel written once
     row("iris_image", float((bk != bp).sum()), max(2, n_px // 1000),
         lambda: iris.iris_bits(clouds, masks),
         time_ms(lambda: iris._iris_bits_plain(clouds, masks)),
-        clouds.numel() * 4 + masks.numel() + bk.numel() * 4, nb_pts * 40,
+        masks.numel() + nb_pts * 12 + bk.numel() * 4, nb_pts * 40,
         note=f"16 keyframes, {n_px} occupied pixels; err = differing pixels (points on a "
              f"ring, height or yaw edge)")
+    c1_, m1_ = clouds[:1].contiguous(), masks[:1].contiguous()   # b = 1: the loops path's shape
+    bk1 = iris.iris_bits(c1_, m1_)
+    one = {}
+    record(one, "iris_image", float((bk1 != iris._iris_bits_plain(c1_, m1_)).sum()), 0,
+           lambda: iris.iris_bits(c1_, m1_), time_ms(lambda: iris._iris_bits_plain(c1_, m1_)),
+           m1_.numel() + int(m1_.sum()) * 12 + bk1.numel() * 4, int(m1_.sum()) * 40,
+           note=f"b = 1, the loops path's shape; {int((bk1 > 0).sum())} occupied pixels")
+    rows["iris_image"]["b1"] = one["iris_image"]
+    check_one_launch(rows, "iris_image", "iris", "iris_image_kernel",
+                     [lambda: iris.iris_bits(clouds, masks), lambda: iris.iris_bits(c1_, m1_)],
+                     note="a thread a point, atomicOr into the image that the wrapper zeroes",
+                     fill=("aten::zeros", "aten::zero_", "aten::fill_"))
     filters = torch.as_tensor(iris.log_gabor_filters(), device=dev)
     spec = torch.fft.fft(bk.to(torch.complex64), dim=-1)
     gk = iris.gabor_product(spec, filters)
@@ -1343,19 +1405,43 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     plan = vm.bulk_plan(cen, cnt, live, cap, surfel_map.c1, voxel_size=cfg.map_voxel_size)
     c1 = surfel_map.c1
     bargs = vm.bulk_parents(plan.s_key, plan.first, cap, c1, plan.fresh.n_buckets)
-    fk, fp9 = vm.empty_map(0, c1, device=dev), vm.empty_map(0, c1, device=dev)
-    n_k = vm.map_bulk_index(*bargs, fk.l1_index, fk.l1_meta, c1)
-    n_p = vm.map_bulk_index_plain(*bargs, fp9.l1_index, fp9.l1_meta, c1)
-    if int(n_k) != int(n_p):
-        fail(f"map_bulk_index: {int(n_k)} parents placed vs plain {int(n_p)}")
-    n_par = int((bargs[0] < plan.fresh.n_buckets).sum())
-    row("map_bulk_index", float((fk.l1_index != fp9.l1_index).sum()
-                                + (fk.l1_meta != fp9.l1_meta).sum()), 0,
-        lambda: vm.map_bulk_index(*bargs, fk.l1_index, fk.l1_meta, c1),
-        time_ms(lambda: vm.map_bulk_index_plain(*bargs, fp9.l1_index, fp9.l1_meta, c1)),
-        c1 * (8 + 8 + 4 + 4 + 4 + 4) + int(n_k) * (12 + 16) + 4, c1 * 10,
-        note=f"{n_par} distinct parents, {int(n_k)} placed; err = differing index and meta "
-             f"entries")
+    k9a_calls = []
+
+    def k9a(rows_to, name, bargs, c1, what):
+        """K9a at n = c1 against its twin; the bytes it needs: the sorted
+        buckets and permutation of the live parents (a dead one sorts
+        after every live one, so none is needed), the placed keys' bits,
+        their index cells and meta rows, the count."""
+        fk, fp9 = vm.empty_map(0, c1, device=dev), vm.empty_map(0, c1, device=dev)
+        n_k = vm.map_bulk_index(*bargs, fk.l1_index, fk.l1_meta, c1)
+        n_p = vm.map_bulk_index_plain(*bargs, fp9.l1_index, fp9.l1_meta, c1)
+        if int(n_k) != int(n_p):
+            fail(f"map_bulk_index ({what}): {int(n_k)} parents placed vs plain {int(n_p)}")
+        n_par = int((bargs[0] < vm._n_buckets(c1)).sum())
+        call = lambda: vm.map_bulk_index(*bargs, fk.l1_index, fk.l1_meta, c1)
+        record(rows_to, name, float((fk.l1_index != fp9.l1_index).sum()
+                                    + (fk.l1_meta != fp9.l1_meta).sum()), 0, call,
+               time_ms(lambda: vm.map_bulk_index_plain(*bargs, fp9.l1_index, fp9.l1_meta, c1)),
+               n_par * (8 + 8) + int(n_k) * (8 + 12 + 16) + 4, n_par * 10,
+               note=f"{what}: n {c1}, {n_par} distinct parents, {int(n_k)} placed; err = "
+                    f"differing index and meta entries")
+        k9a_calls.append(call)
+
+    k9a(rows, "map_bulk_index", bargs, c1, "the surfel path's map")
+    # the sharded path's per-shard shape: shard 0's records of 4 at c1 / 4
+    # (sharded_map.sharded_transform_and_rehash's owner split)
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    c1s = c1 // SHARDS
+    own = so.shard_owner(cen.contiguous(), SHARDS, so.owner_inv(cfg.map_voxel_size, 3))
+    plan_s = vm.bulk_plan(cen, cnt, live & (own == 0), cap, c1s, voxel_size=cfg.map_voxel_size)
+    one = {}
+    k9a(one, "map_bulk_index", vm.bulk_parents(plan_s.s_key, plan_s.first, cap, c1s,
+                                               plan_s.fresh.n_buckets), c1s,
+        f"the sharded path's shard 0 of {SHARDS}")
+    rows["map_bulk_index"]["shard"] = one["map_bulk_index"]
+    check_one_launch(rows, "map_bulk_index", "rehash", "bulk_index_kernel", k9a_calls,
+                     expect=vm.BULK_INDEX_SHAPE,
+                     note="one cluster; the cell positions in a global scratch of n ints")
 
     # ---- K9b map_bulk_merge (the rehash of the surfel path's map) ----
     l0k, l0p = plan.fresh.l0_data.clone(), plan.fresh.l0_data.clone()
@@ -1522,7 +1608,7 @@ def check_pgo_kernels(graph):
         note=f"{n_pad} poses, |dx| {float(dxn):.4e}; err = max abs pose-entry difference")
     check_one_launch(rows, "pgo_backsub_retract", "pgo", "backsub_kernel",
                      [lambda: dpgo.backsub_retract(g, scratch, xs_p, F, G, gv, 1 << 30, 0.0)],
-                     dpgo.BACKSUB_SHAPE, note="its 40-byte stack is the double sin and cos's "
+                     expect=dpgo.BACKSUB_SHAPE, note="its 40-byte stack is the double sin and cos's "
                      "slow-path argument reduction, which retract keeps as it was", stack=40)
     check_backsub_past_one_cluster(rows)
     return rows

@@ -1475,6 +1475,17 @@ LO_EXPORT void lo_pgo_reduced_solve_shape(int* out) {
   out[3] = RED_SMEM;
 }
 
+// K10d's launch shape as backsub_config builds it: cluster CTAs, threads a
+// CTA, CTAs a launch.
+LO_EXPORT void lo_pgo_backsub_retract_shape(int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  backsub_config(cfg, attr);
+  out[0] = (int)attr.val.clusterDim.x;
+  out[1] = (int)cfg.blockDim.x;
+  out[2] = (int)cfg.gridDim.x;
+}
+
 LO_EXPORT int lo_pgo_backsub_retract(const double* xs, const double* F, const double* G,
                                      const double* g, const int* has_left, const int* xl_idx,
                                      const int* pose_row, const double* real_mask, int n_pad,

@@ -15,17 +15,32 @@
 // bulk_plan); the surfel recompute of every slot is K4c (csrc/voxel_map.cu).
 //
 // Bounds on the H100 (c1 = 65536 parents, up to 4 c1 = 262144 live records):
-//  * map_bulk_index reads the sorted bucket keys and permutation (16 B a
-//    parent) and the keys (8 B), writes and rereads one int a parent and
-//    writes 12 B of index and 16 B of meta a placed parent: ~3.9 MB, ~1.2 us.
-//    Design: one block of 1024 threads. Each sorted position finds its cell
-//    by walking back over at most 8 equal bucket keys (a cell past 8 is not
-//    placed), and writes it by original index; after a block barrier each
-//    thread takes a contiguous run of original indices, a block scan of the
-//    per-thread counts gives every placed parent its rank, hence its slot
-//    (counting down from the top, as the JAX free stack), and the thread
-//    writes the index cell (slot, hi, lo) and the meta row. One launch
-//    replaces a scatter, a cummax, a cumsum and five scatters.
+//  * map_bulk_index reads the live parents' sorted bucket keys and
+//    permutation (16 B each; the dead sort after them) and the placed
+//    parents' keys (8 B), and writes 12 B of index and 16 B of meta a
+//    placed parent: ~0.5 MB, ~0.15 us at the surfel map's ~9800 parents;
+//    its dependent rounds and the placed parents' scattered stores bound
+//    it. Design: one thread-block
+//    cluster of INDEX_CLUSTER CTAs x INDEX_THREADS (16 x 1024, a
+//    non-portable size; an error where the card refuses it). The walk: a
+//    CTA stages 4 runs of 1024 sorted bucket keys (and the 8 before each)
+//    in shared memory, the runs dealt over the cluster so that the live
+//    parents, which sort first, spread over it; each sorted position finds
+//    its cell by walking back over at most 8 equal keys there (a cell past
+//    8 is not placed) and stores its cell position at its original index
+//    in a global scratch of n ints (256 KB at c1 = 65536, L2-resident;
+//    rounds of 65536 positions). The count: the original indices
+//    are dealt to the CTAs in chunks of 128, a warp a chunk, 4 neighbouring
+//    indices a lane, so that the placed parents (a rehash's are a prefix
+//    of the indices) spread over every CTA's stores (scattered stores from
+//    one SM cost ~1.4 ns each); after a cluster barrier a warp scan gives
+//    each lane its rank in its chunk, the chunk counts are exchanged
+//    through distributed shared memory, and one warp's scan over them
+//    gives each chunk its offset: rank = placed entries of lower index,
+//    hence the slot (counting down from the top, as the JAX free stack).
+//    Each thread writes its index cells (slot, hi, lo) and meta rows; the
+//    last CTA writes the count. One launch replaces a scatter, a cummax, a
+//    cumsum and five scatters.
 //  * map_bulk_merge: the records in key order (8 + 8 B of key and index,
 //    16 B of count and centroid read through the index), one probe of a
 //    128-B bucket row per merged voxel, and 16 B written per merged voxel:
@@ -38,50 +53,194 @@
 //    writes its child row: the merged records of the JAX program (c0 x 4
 //    floats and two key arrays) never reach memory, and the placed /
 //    dropped counts are two atomics on the device.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int INDEX_THREADS = 1024;
+constexpr int INDEX_CLUSTER = 16;                        // CTAs of K9a's cluster
+constexpr int INDEX_THREADS = 1024;                      // threads a CTA
+constexpr int INDEX_WARPS = INDEX_THREADS / 32;
+constexpr int INDEX_RUN = lo::BUCKET + INDEX_THREADS;     // a staged run of keys, 8 before it
+constexpr int INDEX_CHUNK = 128;                         // original indices a warp counts: 4 a lane
+constexpr int INDEX_TILE = INDEX_CLUSTER * INDEX_WARPS * INDEX_CHUNK;   // indices a round: 65536
+
+// How load4 reads: the read-only path (inputs), or L2 (the scratch that
+// other CTAs of the launch wrote).
+enum Via { INPUT, L2 };
+
+template <Via V>
+__device__ __forceinline__ int4 ld16(const int* p) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+  return V == INPUT ? __ldg(q) : __ldcg(q);
+}
+
+template <Via V>
+__device__ __forceinline__ int ld4(const int* p) {
+  return V == INPUT ? __ldg(p) : __ldcg(p);
+}
+
+// p[i .. i + 3] (p + i 16-byte aligned) as one 16-byte load where all four
+// lie below `end`; `fill` past it.
+template <Via V>
+__device__ __forceinline__ void load4(const int* p, int i, int end, int fill, int (&v)[4]) {
+  if (i + 4 <= end) {
+    const int4 q = ld16<V>(p + i);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = i + j < end ? ld4<V>(p + i + j) : fill;
+  }
+}
+
+// The index cells and meta rows of four neighbouring original indices:
+// their cell positions c, key bits kh and kl, `rank` the placed entries of
+// lower index.
+__device__ __forceinline__ void write4(const int (&c)[4], const int (&kh)[4], const int (&kl)[4],
+                                       int rank, int slot_from_top, int* __restrict__ index,
+                                       int* __restrict__ meta) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (c[j] < 0) continue;
+    if (rank < slot_from_top) {
+      const int slot = slot_from_top - 1 - rank;
+      int* cell = index + (size_t)(c[j] >> 3) * lo::ROW + (c[j] & 7);
+      cell[0] = slot;
+      cell[lo::BUCKET] = kh[j];
+      cell[2 * lo::BUCKET] = kl[j];
+      reinterpret_cast<int4*>(meta)[slot] = make_int4(kh[j], kl[j], -1, c[j]);
+    }
+    ++rank;
+  }
+}
 
 // b_s (n,): the parents' bucket keys in sorted order, n_buckets for a dead
 // entry; i_s (n,): the sort permutation; khi, klo (n,): the parent keys by
-// original index (as int32 bits). cp (n,) is scratch: each parent's cell position b * 8 +
-// cell, or -1 when it is not placed.
+// original index (as int32 bits, 16-byte aligned). A position's cell
+// position is b * 8 + cell, or -1 where it is not placed; cp (n,) is the
+// scratch that holds them by original index.
+//
+// Both phases go in rounds of INDEX_TILE, dealt to the CTAs so that the
+// live parents (which sort first, and of a rehash are a prefix of the
+// indices) spread over the cluster. The walk: CTA r takes the round's runs
+// 16 j + r (j < 4) of INDEX_THREADS sorted positions. The count and the
+// writes: chunk q of INDEX_CHUNK original indices goes to CTA q % 16, its
+// warp q / 16.
 __global__ void __launch_bounds__(INDEX_THREADS)
 bulk_index_kernel(const long long* __restrict__ b_s, const long long* __restrict__ i_s,
                   const int* __restrict__ khi, const int* __restrict__ klo, int n, int n_buckets,
                   int slot_from_top, int* __restrict__ cp, int* __restrict__ index,
                   int* __restrict__ meta, int* __restrict__ n_placed) {
-  __shared__ int buf[INDEX_THREADS];
-  for (int p = threadIdx.x; p < n; p += INDEX_THREADS) {
-    const long long b = b_s[p];
-    int c = 0;
-    while (c < lo::BUCKET && p - c > 0 && b_s[p - c - 1] == b) ++c;
-    cp[i_s[p]] = (b < n_buckets && c < lo::BUCKET) ? (int)b * lo::BUCKET + c : -1;
-  }
-  __syncthreads();
-  const int per = (n + INDEX_THREADS - 1) / INDEX_THREADS;
-  const int i0 = min(n, (int)threadIdx.x * per), i1 = min(n, i0 + per);
-  int mine = 0;
-  for (int i = i0; i < i1; ++i) mine += cp[i] >= 0;
-  int rank = lo::block_inclusive_scan(mine, buf) - mine;
-  for (int i = i0; i < i1; ++i) {
-    const int c = cp[i];
-    if (c < 0) continue;
-    if (rank < slot_from_top) {
-      const int slot = slot_from_top - 1 - rank;
-      int* cell = index + (size_t)(c >> 3) * lo::ROW + (c & 7);
-      cell[0] = slot;
-      cell[lo::BUCKET] = khi[i];
-      cell[2 * lo::BUCKET] = klo[i];
-      int4* row = (int4*)meta + slot;
-      *row = make_int4(khi[i], klo[i], -1, c);
+  namespace cg = cooperative_groups;
+  __shared__ int bs[4 * INDEX_RUN];                    // 4 runs of bucket keys, 8 before each
+  __shared__ int wt[INDEX_WARPS];                      // this CTA's chunk counts, read by all
+  __shared__ int all[INDEX_CLUSTER * INDEX_WARPS];     // every CTA's chunk counts of the round
+  __shared__ int off[INDEX_WARPS + 1];                 // each warp's offset; the round's total
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // the sorted positions and the original indices go in rounds of
+  // INDEX_TILE; in a round every CTA takes 4 runs of INDEX_THREADS sorted
+  // positions (run 16 j + rank), and the live parents, which sort first,
+  // spread over the cluster
+  const int rounds = max(1, (n + INDEX_TILE - 1) / INDEX_TILE);
+  // ---- walk
+  for (int t = 0; t < rounds; ++t) {
+    // each run's permutation entries and bucket keys, and the 8 keys
+    // before it, all loads in one round
+    long long ix[4], bk[4], before = -1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = t * INDEX_TILE + ((j * INDEX_CLUSTER + rank) * INDEX_THREADS) + tid;
+      ix[j] = p < n ? __ldg(i_s + p) : 0;
+      bk[j] = p < n ? __ldg(b_s + p) : -1;
     }
-    ++rank;
+    if (tid < 4 * lo::BUCKET) {
+      const int g = t * INDEX_TILE + (((tid / lo::BUCKET) * INDEX_CLUSTER + rank) * INDEX_THREADS)
+                    - lo::BUCKET + tid % lo::BUCKET;
+      before = g >= 0 && g < n ? __ldg(b_s + g) : -1;
+    }
+    if (tid < 4 * lo::BUCKET) bs[(tid / lo::BUCKET) * INDEX_RUN + tid % lo::BUCKET] = (int)before;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bs[j * INDEX_RUN + lo::BUCKET + tid] = (int)bk[j];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = t * INDEX_TILE + ((j * INDEX_CLUSTER + rank) * INDEX_THREADS) + tid;
+      if (p >= n) break;
+      const int* run = bs + j * INDEX_RUN + lo::BUCKET + tid;
+      const int b = run[0];
+      int c = 0;
+      while (c < lo::BUCKET && run[-1 - c] == b) ++c;
+      cp[ix[j]] = (b < n_buckets && c < lo::BUCKET) ? b * lo::BUCKET + c : -1;
+    }
+    __syncthreads();
   }
-  if (threadIdx.x == 0) *n_placed = min(buf[INDEX_THREADS - 1], slot_from_top);
+  // every CTA's cell positions stored before any is read
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  // ---- count
+  int carry = 0;                      // placed entries of the rounds before
+  for (int r = 0; r < rounds; ++r) {
+    const int i = r * INDEX_TILE + (((warp * INDEX_CLUSTER + rank) * INDEX_CHUNK) | (4 * lane));
+    int c[4], hi[4], lw[4];
+    load4<L2>(cp, i, n, -1, c);
+    load4<INPUT>(khi, i, n, 0, hi);
+    load4<INPUT>(klo, i, n, 0, lw);
+    int mine = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mine += c[j] >= 0;
+    int x = mine;                     // the warp's inclusive scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    // the last round's readers of wt are done (their arrive below)
+    if (r) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    if (lane == 31) wt[warp] = x;
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    // ---- offsets
+    // every CTA's chunk counts of the round through distributed shared
+    // memory; each warp's offset = the counts of every chunk before its
+    if (tid < INDEX_CLUSTER * INDEX_WARPS)
+      all[tid] = cluster.map_shared_rank(wt, tid / INDEX_WARPS)[tid % INDEX_WARPS];
+    // no CTA reads another's shared memory again this round: arrive now,
+    // wait before wt is written again (or at the end)
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    __syncthreads();
+    if (warp == 0) {
+      int col = 0, before = 0;        // warp `lane`'s chunks over the CTAs; those of lower rank
+#pragma unroll
+      for (int q = 0; q < INDEX_CLUSTER; ++q) {
+        const int v = all[q * INDEX_WARPS + lane];
+        col += v;
+        before += q < rank ? v : 0;
+      }
+      int s = col;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, s, o);
+        if (lane >= o) s += y;
+      }
+      off[lane] = s - col + before;
+      if (lane == 31) off[INDEX_WARPS] = s;
+    }
+    __syncthreads();
+    // ---- write
+    write4(c, hi, lw, carry + off[warp] + x - mine, slot_from_top, index, meta);
+    carry += off[INDEX_WARPS];
+    __syncthreads();
+  }
+  if (rank == INDEX_CLUSTER - 1 && tid == 0) *n_placed = min(carry, slot_from_top);
+  // ---- finish
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
 __device__ __forceinline__ int floordiv3(int a) { return a >= 0 ? a / 3 : -((2 - a) / 3); }
@@ -122,13 +281,55 @@ bulk_merge_kernel(const long long* __restrict__ s_key, const long long* __restri
   atomicAdd(counts, 1);
 }
 
+// K9a's launch: one cluster of INDEX_CLUSTER CTAs (a non-portable size,
+// set and checked with cudaOccupancyMaxActiveClusters: an error where the
+// card refuses it).
+void bulk_index_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  cfg = {};
+  cfg.gridDim = dim3(INDEX_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(INDEX_THREADS, 1, 1);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = INDEX_CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
 }  // namespace
 
+// K9a's launch shape as bulk_index_config builds it: cluster CTAs, threads
+// a CTA, CTAs a launch.
+LO_EXPORT void lo_map_bulk_index_shape(int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  bulk_index_config(cfg, attr);
+  out[0] = (int)attr.val.clusterDim.x;
+  out[1] = (int)cfg.blockDim.x;
+  out[2] = (int)cfg.gridDim.x;
+}
+
+// cp: n ints of scratch (16-byte aligned).
 LO_EXPORT int lo_map_bulk_index(const long long* b_s, const long long* i_s, const int* khi,
                                 const int* klo, int n, int n_buckets, int slot_from_top, int* cp,
                                 int* index, int* meta, int* n_placed, void* stream) {
-  bulk_index_kernel<<<1, INDEX_THREADS, 0, (cudaStream_t)stream>>>(
-      b_s, i_s, khi, klo, n, n_buckets, slot_from_top, cp, index, meta, n_placed);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)khi | (uintptr_t)klo | (uintptr_t)meta | (uintptr_t)cp) & 15))
+    return (int)cudaErrorMisalignedAddress;             // 16-byte loads and meta rows
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  bulk_index_config(cfg, attr);
+  cfg.stream = (cudaStream_t)stream;
+  cudaError_t e = cudaFuncSetAttribute(bulk_index_kernel,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  int fit = 0;
+  e = cudaOccupancyMaxActiveClusters(&fit, bulk_index_kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (fit < 1) return (int)cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, bulk_index_kernel, b_s, i_s, khi, klo, n, n_buckets,
+                         slot_from_top, cp, index, meta, n_placed);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -867,3 +867,102 @@ def iris_threshold_responses(b: int, x0: float, seed: int = 0, cols: int = 360):
     z.real, z.imag = re, im
     sr, si = re * c, im * c
     return z, sr * sr + si * si
+
+
+def iris_edge_clouds(b: int, n: int, seed: int = 0):
+    """K8a's edge-case input: (b, n, 3) float32 sensor-frame clouds and
+    (b, n) masks whose points sit on the Iris image's bin edges. Kinds, in
+    about equal shares: 0 uniform within 90 m, z in [-7, 5] (past both
+    ends of the ring and height bins); 1 at a range ring's edge, distance
+    k in 0..85: axis-aligned points exactly on it, the others with x
+    within 3 float32 steps of it; 2 with z + 5 on or within 3 float32
+    steps of an integer in -1..9; 3 at a yaw column's edge (yaw + 0.5 an
+    integer), x and y within 3 float32 steps of it, and the poles (y =
+    +-0 with x < 0, x = +-0); and about 3 % of kind 4, a NaN or +-inf
+    coordinate. About 10 % of the points are masked out. Returns (points,
+    masks, kind), kind (b, n) int8."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    m = b * n
+    kind = rng.integers(0, 4, m).astype(np.int8)
+    kind[rng.random(m) < 0.03] = 4
+    r = rng.uniform(0.0, 90.0, m)
+    th = rng.uniform(-np.pi, np.pi, m)
+    x, y = r * np.cos(th), r * np.sin(th)
+    z = rng.uniform(-7.0, 5.0, m)
+    step = lambda v, k: (np.asarray(v, f32).view(np.int32) + k).view(f32)
+    jitter = lambda: rng.integers(-3, 4, m).astype(np.int32)
+    # 1: on and beside the ring edges
+    ring = rng.integers(0, 86, m).astype(np.float64)
+    axis = rng.random(m) < 0.3
+    x1 = np.where(axis, ring * rng.choice([-1.0, 1.0], m), ring * np.cos(th))
+    y1 = np.where(axis, 0.0, ring * np.sin(th))
+    x1 = np.where(axis, x1, step(x1, jitter()))
+    # 2: on and beside the height edges
+    z2 = step(rng.integers(-1, 10, m).astype(f32) - f32(5.0), jitter())
+    # 3: on and beside the yaw column edges, and the +-180 degree wrap
+    col = rng.integers(0, 361, m)
+    a = np.radians(col - 180.5)
+    x3, y3 = r * np.cos(a), r * np.sin(a)
+    x3, y3 = step(x3, jitter()), step(y3, jitter())
+    wrap = rng.random(m) < 0.15
+    x3 = np.where(wrap, -r, x3)
+    y3 = np.where(wrap, rng.choice([-0.0, 0.0], m), y3)
+    pole = rng.random(m) < 0.05
+    x3 = np.where(pole, rng.choice([-0.0, 0.0], m), x3)
+    y3 = np.where(pole, r * rng.choice([-1.0, 1.0], m), y3)
+    pts = np.stack([x, y, z], 1).astype(f32)
+    k1, k2, k3, k4 = kind == 1, kind == 2, kind == 3, kind == 4
+    pts[k1, 0], pts[k1, 1] = x1[k1], y1[k1]
+    pts[k2, 2] = z2[k2]
+    pts[k3, 0], pts[k3, 1] = x3[k3], y3[k3]
+    special = np.array([np.nan, np.inf, -np.inf], f32)
+    at = np.nonzero(k4)[0]
+    pts[at, rng.integers(0, 3, at.size)] = special[rng.integers(0, 3, at.size)]
+    masks = rng.random(m) >= 0.1
+    return pts.reshape(b, n, 3), masks.reshape(b, n), kind.reshape(b, n)
+
+
+def bulk_index_keys(n: int, n_buckets: int, seed: int = 0, *, n_dead: int = 0,
+                    crowd: int = 0):
+    """K9a's edge-case input: n distinct parent keys (hi, lo) uint32 and
+    live (n,) bool, the keys of a rehash's distinct parents. n_dead of them
+    (at random places) dead, holding the invalid key bits 0xFFFFFFFF;
+    `crowd` live keys whose bucket among n_buckets (a power of two) is one
+    bucket, so that it holds more than its 8 cells where crowd > 8; the
+    rest random keys near z = 0."""
+    import torch
+    from ..ops.voxel_map import hash_bucket
+    rng = np.random.default_rng(seed)
+    seen, hi, lo = set(), [], []
+    bucket = lambda h, l: hash_bucket(torch.as_tensor(h.astype(np.int64)),
+                                      torch.as_tensor(l.astype(np.int64)), n_buckets - 1).numpy()
+
+    def take(h, l):
+        for a, c in zip(h.tolist(), l.tolist()):
+            if (a, c) not in seen:
+                seen.add((a, c))
+                hi.append(a)
+                lo.append(c)
+
+    if crowd:
+        target = None
+        while len(hi) < crowd:
+            h = (np.uint32(2 ** 31) + rng.integers(-40, 40, 65536)).astype(np.uint32)
+            l = rng.integers(0, 2 ** 32, 65536, dtype=np.uint64).astype(np.uint32)
+            bk = bucket(h, l)
+            target = int(bk[0]) if target is None else target
+            sel = bk == target
+            take(h[sel][:crowd - len(hi)], l[sel][:crowd - len(hi)])
+    while len(hi) < n - n_dead:
+        k = n - n_dead - len(hi)
+        take((np.uint32(2 ** 31) + rng.integers(-40, 40, k)).astype(np.uint32),
+             rng.integers(0, 2 ** 32, k, dtype=np.uint64).astype(np.uint32))
+    order = rng.permutation(n - n_dead)
+    live = np.ones(n, bool)
+    live[rng.choice(n, n_dead, replace=False)] = False
+    key_hi = np.full(n, 0xFFFFFFFF, np.uint32)
+    key_lo = np.full(n, 0xFFFFFFFF, np.uint32)
+    key_hi[live] = np.asarray(hi, np.uint32)[order]
+    key_lo[live] = np.asarray(lo, np.uint32)[order]
+    return key_hi, key_lo, live

@@ -197,6 +197,16 @@ class Kernel:
         self.fused = 0      # launches of this kernel's work inside another's launch
         self._fn = None
 
+    def launch_shape(self) -> dict:
+        """A cluster kernel's launch shape as its source builds the launch
+        (its `lo_<name>_shape` export): CTAs a cluster, threads a CTA, CTAs
+        a launch. Builds the kernels if needed."""
+        fn = getattr(library(self.source), f"lo_{self.name}_shape")
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+        out = (ctypes.c_int * 3)()
+        fn(out)
+        return dict(zip(("cluster", "threads", "grid"), out))
+
     def launch(self, *args, fused: tuple = ()) -> None:
         """Launch on the calling thread's current stream; `fused` names the
         kernels whose work this launch runs in its grid as well."""

@@ -80,14 +80,22 @@ def iris_bits(points, mask):
     return img
 
 
+def _bin(v, top: int):
+    """A bin index in [0, top] from its float value as the kernel and XLA
+    convert it: NaN to 0, a value past either end to that end (clamped
+    before the cast, which on the CPU gives no defined result for NaN, inf
+    or a value past the integer range)."""
+    return torch.nan_to_num(v, nan=0.0).clamp(0, top).to(torch.int64)
+
+
 def _iris_bits_plain(points, mask):
     b = points.shape[0]
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     dis = torch.sqrt(x * x + y * y)
     yaw = torch.atan2(y, x) * _DEG + 180.0
-    q_dis = torch.clamp(torch.floor(dis).to(torch.int64), 0, ROWS - 1)
-    q_arc = torch.clamp(torch.ceil(z + 5.0).to(torch.int64), 0, 7)
-    q_yaw = torch.clamp(torch.floor(yaw + 0.5).to(torch.int64), 0, COLS - 1)
+    q_dis = _bin(torch.floor(dis), ROWS - 1)
+    q_arc = _bin(torch.ceil(z + 5.0), 7)
+    q_yaw = _bin(torch.floor(yaw + 0.5), COLS - 1)
     bi = torch.arange(b, device=points.device)[:, None].expand_as(q_dis)
     flat = ((bi * ROWS + q_dis) * COLS + q_yaw) * 8 + q_arc
     counts = torch.zeros((b * ROWS * COLS * 8,), dtype=torch.int32, device=points.device)

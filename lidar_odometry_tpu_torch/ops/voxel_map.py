@@ -69,7 +69,8 @@ __all__ = ["VoxelMapState", "empty_map", "update_map", "lookup_surfels", "parent
            "map_surfel_recompute_plain", "grid_knn_neighbors",
            "grid_knn_neighbors_plain", "l0_points", "MIN_OCCUPIED_CHILDREN",
            "transform_and_rehash", "bulk_build", "bulk_plan", "bulk_parents", "rehash_records",
-           "map_bulk_index", "map_bulk_index_plain", "map_bulk_merge", "map_bulk_merge_plain"]
+           "map_bulk_index", "map_bulk_index_plain", "map_bulk_merge", "map_bulk_merge_plain",
+           "BULK_INDEX_SHAPE"]
 
 MIN_OCCUPIED_CHILDREN = 5
 BUCKET = 8
@@ -814,6 +815,12 @@ def map_bulk_merge_plain(l0_data, s_key, s_idx, first, counts, centroids, l1_ind
     return torch.stack([ok.sum(), (first & ~phit).sum()]).to(torch.int32)
 
 
+# K9a's launch: one cluster of 16 CTAs x 1024 threads (csrc/rehash.cu
+# INDEX_CLUSTER, INDEX_THREADS; a non-portable size), as
+# kernels.KERNELS["map_bulk_index"].launch_shape() reads it from the build
+BULK_INDEX_SHAPE = {"cluster": 16, "threads": 1024}
+
+
 def map_bulk_index(b_s, i_s, hi, lo, l1_index, l1_meta, slot_from_top: int):
     """K9a's wrapper: the slots and bucket cells of DISTINCT keys in a fresh
     map, by sort. b_s (N,) int64 the keys' buckets in stable sorted order
@@ -833,6 +840,8 @@ def map_bulk_index(b_s, i_s, hi, lo, l1_index, l1_meta, slot_from_top: int):
     kernels.check(lo, "lo", torch.int32, (n,))
     kernels.check(l1_index, "l1_index", torch.int32)
     kernels.check(l1_meta, "l1_meta", torch.int32)
+    for t, name in ((hi, "hi"), (lo, "lo"), (l1_meta, "l1_meta")):
+        kernels.check_aligned(t, name)
     if slot_from_top > l1_meta.shape[0] - 1:
         raise kernels.KernelInputError(
             f"map_bulk_index: {slot_from_top} slots but {l1_meta.shape[0] - 1} meta rows")

@@ -72,6 +72,50 @@ def test_iris_image_binning_fixture():
     assert img[10, 180] == 32.0 and img[20, 270] == 1.0 and img.sum() == 33.0
 
 
+def _near_ring_or_yaw(c, margin=1e-4):
+    """Points within `margin` of a range-ring or yaw-column edge (float64):
+    where XLA's fused x * x + y * y and atan2 * deg + 180 may bin a point
+    apart from the unfused arithmetic of the twin and the kernel."""
+    with np.errstate(invalid="ignore"):
+        x, y = c[:, 0].astype(np.float64), c[:, 1].astype(np.float64)
+        dis = np.sqrt(x * x + y * y)
+        yaw = np.degrees(np.arctan2(y, x)) + 180.0 + 0.5
+        edge = lambda v: np.abs(v - np.round(v)) < margin
+        return edge(dis) | edge(yaw)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_iris_image_twin_on_bin_edges(seed):
+    """K8a's twin against JAX iris_image on synthetic.iris_edge_clouds:
+    points on and a few float32 steps beside the ring, height and yaw
+    edges, NaN and +-inf coordinates, points past every clamp, masked
+    points. Away from the ring and yaw edges (XLA fuses the products and
+    sums there) the images are equal pixel for pixel, the height edges,
+    clamps and non-finite points included (XLA and the kernel send NaN to
+    bin 0 and a value past an end to that end); the points near a ring or
+    yaw edge move a pixel at most within their ring's rows."""
+    pts, masks, kind = synthetic.iris_edge_clouds(2, 3000, seed)
+    twin = iris._iris_bits_plain(torch.as_tensor(pts), torch.as_tensor(masks)).numpy()
+    for k in range(2):
+        c, m = pts[k], masks[k]
+        near = _near_ring_or_yaw(c) & m
+        far = m & ~near
+        assert (kind[k][near] % 2 == 1).mean() > 0.99 and near.sum() > 500
+        assert {0, 2, 4} <= set(kind[k][far].tolist())
+        jimg = np.asarray(ji.iris_image(jnp.asarray(c), jnp.asarray(far)))
+        pimg = iris._iris_bits_plain(torch.as_tensor(c[None]), torch.as_tensor(far[None]))[0]
+        np.testing.assert_array_equal(pimg.numpy(), jimg.astype(np.int32))
+        diff = np.asarray(ji.iris_image(jnp.asarray(c), jnp.asarray(m))).astype(np.int32) != twin[k]
+        with np.errstate(invalid="ignore"):
+            ring = np.floor(np.hypot(c[near, 0].astype(np.float64), c[near, 1]))
+        rows = np.zeros(iris.ROWS, bool)
+        for r in np.clip(ring[np.isfinite(ring)].astype(int), 0, iris.ROWS - 1):
+            rows[max(r - 1, 0):r + 2] = True
+        assert not diff[~rows].any()
+        assert diff.sum() <= 2 * near.sum()
+        assert (twin[k] > 0).sum() > 1000
+
+
 @pytest.mark.parametrize("name", ["ring", "rand"])
 def test_iris_codes_match_jax(name):
     c = _clouds()[name]

@@ -28,9 +28,11 @@ import torch
 import jax.numpy as jnp
 from lidar_odometry_tpu.ops import voxel_map as jvm
 from lidar_odometry_tpu_torch import convert
+from lidar_odometry_tpu_torch.io import synthetic
 from lidar_odometry_tpu_torch.config import SystemConfig
 from lidar_odometry_tpu_torch.models.map_backend import SingleChipMapBackend
 from lidar_odometry_tpu_torch.ops import voxel_map as tvm
+from lidar_odometry_tpu_torch.utils import keys as K
 from test_torch_voxel_map import INT_FIELDS, THR, VOX, _frames, _ill_conditioned
 
 
@@ -143,3 +145,49 @@ def test_backend_rehash_identity_keeps_the_map():
     rb = _records(convert.map_state_to_numpy(pr), 4096)
     assert ra.keys() == rb.keys()
     assert int(pr.n_l0) == int(js.n_l0)
+
+
+# K9a's edge cases: (n = c1, dead keys, keys crowded into one bucket,
+# slot_from_top)
+BULK_CASES = {"overflow": (256, 0, 20, 256), "dead": (256, 60, 12, 256),
+              "slots_below_placed": (256, 10, 12, 50), "all_dead": (256, 256, 0, 256),
+              "one": (1, 0, 0, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(BULK_CASES))
+def test_bulk_index_twin_against_jax(case):
+    """K9a's twin (map_bulk_index_plain) against JAX's _bulk_index and
+    _write_bulk with bulk_build's meta rows, directly, on the keys of
+    synthetic.bulk_index_keys: a bucket holding more than its 8 cells
+    (its keys past the 8th not placed), dead keys between live ones,
+    fewer slots than placed keys, every key dead, one key. The index and
+    meta rows (less the port's sink rows) and the count placed are equal."""
+    n, n_dead, crowd, top = BULK_CASES[case]
+    nb = tvm._n_buckets(n)
+    hi, lo, live = synthetic.bulk_index_keys(n, nb, seed=n_dead + crowd, n_dead=n_dead,
+                                             crowd=crowd)
+    slot, cellpos, placed = jvm._bulk_index(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(live),
+                                            nb, top)
+    fresh = jvm.empty_map(0, n)
+    j_index = np.asarray(jvm._write_bulk(fresh.l1_index, slot, cellpos, placed, jnp.asarray(hi),
+                                         jnp.asarray(lo)))
+    st = jnp.where(placed, slot, n)
+    j_meta = fresh.l1_meta
+    j_meta = j_meta.at[st, 0].set(jnp.asarray(hi.view(np.int32)), mode="drop")
+    j_meta = j_meta.at[st, 1].set(jnp.asarray(lo.view(np.int32)), mode="drop")
+    j_meta = np.asarray(j_meta.at[st, 3].set(cellpos, mode="drop"))
+
+    hi64, lo64 = torch.as_tensor(hi.astype(np.int64)), torch.as_tensor(lo.astype(np.int64))
+    b = torch.where(torch.as_tensor(live), tvm.hash_bucket(hi64, lo64, nb - 1), nb)
+    b_s, i_s = torch.sort(b.to(torch.int64), stable=True)
+    st_t = tvm.empty_map(0, n, device="cpu")
+    n_placed = tvm.map_bulk_index_plain(b_s, i_s, K.to_i32(hi64), K.to_i32(lo64),
+                                        st_t.l1_index, st_t.l1_meta, top)
+    np.testing.assert_array_equal(st_t.l1_index[:-1].numpy(), j_index)
+    np.testing.assert_array_equal(st_t.l1_meta[:-1].numpy(), j_meta)
+    assert int(n_placed) == int(np.asarray(placed).sum())
+    per_bucket = np.bincount(b[torch.as_tensor(live)].numpy(), minlength=nb)
+    fits = int(np.minimum(per_bucket, 8).sum())
+    assert int(n_placed) == min(fits, top)
+    if crowd > 8:      # the crowded bucket overflows: some live keys are not placed
+        assert per_bucket.max() >= crowd and fits < int(live.sum())

@@ -41,7 +41,9 @@ Phases, each of which exits nonzero on failure:
          loops path's circuit scanned densely enough to fill the scan
          capacity of 16384 features, so a loop query of 8192 valid rows
          against a 16384-row keyframe; a 16-keyframe Iris batch, 32
-         candidates, the rehash of a 65536-parent map): K6a point_grid, K6b
+         candidates, the rehash of a 65536-parent map): K6a point_grid (the
+         coarse 2 m table and the fine 0.5 m one, grid and meta equal to
+         the twin's, one launch a call and no torch fill beside it), K6b
          point_knn (k = 5) and point_nn1 (k = 1) at the coarse shape (2 m
          bins, r = 1, W = 8), point_knn also at the polish width (W = 4) on
          that table and on the 0.5 m table (which does not fit the dense
@@ -53,7 +55,9 @@ Phases, each of which exits nonzero on failure:
          K8a iris_image (also at b = 1), K8g gabor_product (also at b = 1),
          K8b iris_encode (also at b = 1, and at b = 3 on responses whose
          squared magnitudes sit on and beside its threshold, every word
-         equal to the CPU twin's), K8c iris_hamming, K9a map_bulk_index
+         equal to the CPU twin's), K8c iris_hamming (32 candidates and the
+         loops path's K = 1 and 4, distances and biases bit-equal to the
+         twin's, a cluster a candidate), K9a map_bulk_index
          (also at the sharded path's per-shard c1 of 16384), K9b
          map_bulk_merge, and K2b with the loop's weight residual;
        - the pose-graph kernels (K10a pgo_linearize, K10b pgo_eliminate,
@@ -222,6 +226,9 @@ LOOP_CHUNK = 20
 LOOP_POINTS = 10000
 LOOP_RANGE = 45.0
 LOOP_REVISIT = 205        # the frame one lap after frame 0
+# (K, valid) of the loops path's Iris comparisons: it queries 1, 2 and 3
+# candidates, padded to a power of two
+LOOP_CANDIDATES = ((1, 1), (4, 3))
 DENSE_POINTS = 65536      # returns whose 0.5 m features fill a scan capacity of 16384
 DENSE_FRAMES = tuple(range(0, 32, 2)) + (LOOP_REVISIT,)
 LOOP_KERNELS = ("point_grid", "point_knn", "point_nn1", "bev_raster", "cross_power",
@@ -395,7 +402,7 @@ def traced_dims(fn, kernel: str, tries: int = 3):
 
 
 def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0, fill=(),
-                     expect=None):
+                     expect=None, grids=None):
     """A kernel's build and launch: ptxas's report of every entry function
     whose name holds `kernel` (each instantiation of a template; at most
     `stack` bytes of stack, 0 unless the note says why, else fail), its
@@ -407,7 +414,8 @@ def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0,
     CTAs a cluster and threads a CTA: its shape is then read from the
     build (Kernel.launch_shape) and the grid and block the profiler traced
     on each call (a call the profiler did not record shows []), and the
-    run fails unless they agree."""
+    run fails unless they agree; a kernel of a cluster per work item (K8c's
+    per candidate) gives each call's grid in CTAs as `grids`."""
     from lidar_odometry_tpu_torch import kernels
     entries = {entry_name(m): info for m, info in kernels.ptxas_entries(src, kernel).items()}
     ran = [launches_of(fn, name) for fn in fns]
@@ -415,11 +423,12 @@ def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0,
         shape = kernels.KERNELS[name].launch_shape()
         if {k: shape[k] for k in expect} != expect:
             fail(f"{name}: built with {shape}, expected {expect}")
-        built = ((shape["grid"], 1, 1), (shape["threads"], 1, 1))
         traced = [traced_dims(fn, kernel) for fn in fns]
-        for dims in traced:
+        for i, dims in enumerate(traced):
+            built = ((shape["grid"] if grids is None else grids[i], 1, 1),
+                     (shape["threads"], 1, 1))
             if any(d != built for d in dims):
-                fail(f"{name}: traced (grid, block) {dims}, built {shape}")
+                fail(f"{name}: traced (grid, block) {dims}, built {built}")
         shape = dict(shape, traced=[[list(map(list, d)) for d in dims] for dims in traced])
     what = ("" if shape is None else
             f"a cluster of {shape['cluster']} CTAs x {shape['threads']} threads ({shape}); ")
@@ -1157,21 +1166,36 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     T_init = icp.loop_prealign(q_pose, m_pose, torch.tensor(0.0, device=dev), q_pts, q_mask,
                                m_pts, m_mask)
 
-    # ---- K6a point_grid (the coarse 2 m table of the matched keyframe) ----
-    inv = K.f32(1.0 / K.f32(cfg.map_voxel_size * 4.0))
-    key = torch.where(m_mask, K.sort_key(*K.pack_key(K.voxel_coords(m_world, inv))),
-                      K.INVALID_SORT_KEY)
-    key_s, idx = torch.sort(key, stable=True)
-    pts_s = m_world[idx].contiguous()
-    gk, mk = knn.point_grid(key_s, pts_s, inv)
-    gp, mp = knn.point_grid_plain(key_s, pts_s, inv)
-    n_bins = int((gp != n_m).sum())
-    row("point_grid", float((gk != gp).sum() + (mk != mp).sum()), 0,
-        lambda: knn.point_grid(key_s, pts_s, inv),
-        time_ms(lambda: knn.point_grid_plain(key_s, pts_s, inv)),
-        n_m * 20 + n_bins * 4 + 20, n_m * 12,
-        note=f"{n_bins} occupied 2 m bins, fits={int(mk[3])}; err = differing grid entries")
-    table = knn.PointTable(key=key_s, pts=pts_s, grid=gk, meta=mk, inv=inv)
+    # ---- K6a point_grid (the coarse 2 m and fine 0.5 m tables of the matched keyframe) ----
+    grid_calls = []
+    for label, bin_size in (("coarse", cfg.map_voxel_size * 4.0), ("fine", cfg.map_voxel_size)):
+        inv_b = K.f32(1.0 / K.f32(bin_size))
+        key = torch.where(m_mask, K.sort_key(*K.pack_key(K.voxel_coords(m_world, inv_b))),
+                          K.INVALID_SORT_KEY)
+        ks, idx = torch.sort(key, stable=True)
+        ps_ = m_world[idx].contiguous()
+        gk, mk = knn.point_grid(ks, ps_, inv_b)
+        gp, mp = knn.point_grid_plain(ks, ps_, inv_b)
+        n_bins = int((gp != n_m).sum())
+        call = lambda ks=ks, ps_=ps_, inv_b=inv_b: knn.point_grid(ks, ps_, inv_b)
+        grid_calls.append(call)
+        # bytes: every key and point read, the whole grid and meta written
+        args = (float((gk != gp).sum() + (mk != mp).sum()), 0, call,
+                time_ms(lambda ks=ks, ps_=ps_, inv_b=inv_b: knn.point_grid_plain(ks, ps_, inv_b)),
+                n_m * 20 + gk.numel() * 4 + 20, n_m * 12)
+        note = (f"{label}: {n_bins} occupied {bin_size:g} m bins, fits={int(mk[3])}; err = "
+                f"differing grid and meta entries")
+        if label == "coarse":
+            row("point_grid", *args, note=note)
+            table = knn.PointTable(key=ks, pts=ps_, grid=gk, meta=mk, inv=inv_b)
+        else:
+            one = {}
+            record(one, "point_grid", *args, note=note)
+            rows["point_grid"]["fine"] = one["point_grid"]
+    check_one_launch(rows, "point_grid", "knn", "point_grid_kernel", grid_calls,
+                     expect=knn.POINT_GRID_SHAPE,
+                     note="16 clusters of 8, each filling and scattering a sixteenth of "
+                          "the grid; no torch fill")
 
     # ---- K6b point_knn (k = 5) and point_nn1 (k = 1) ----
     # (label, kernel, k, table, r, W): the coarse shape (each kernel's row),
@@ -1359,21 +1383,48 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     check_one_launch(rows, "iris_encode", "iris", "iris_encode_kernel",
                      [lambda: iris.iris_encode(resp), lambda: iris.iris_encode(resp1)])
 
-    # ---- K8c iris_hamming (a query against 32 candidates of the DB) ----
+    # ---- K8c iris_hamming (a query against 32 candidates of the DB, and the loops path's K) ----
     img8 = bk.to(torch.uint8)
-    cand = torch.arange(32, device=dev, dtype=torch.int32) % 16
-    valid = torch.arange(32, device=dev) < 30
-    shifts = iris.phase_shifts(img8[0].float(), img8[cand.long()].float())
-    hk = iris.iris_hamming(Tk8, Mk8, 0, cand, shifts, valid)
-    hp = iris.iris_hamming_plain(Tk8, Mk8, 0, cand, shifts, valid)
-    if not torch.equal(hk[:, 1], hp[:, 1]):
-        fail("iris_hamming: biases differ from the plain version")
-    fin = torch.isfinite(hp[:, 0])
-    row("iris_hamming", float((hk[fin, 0] - hp[fin, 0]).abs().max()), 1e-6,
-        lambda: iris.iris_hamming(Tk8, Mk8, 0, cand, shifts, valid),
-        time_ms(lambda: iris.iris_hamming_plain(Tk8, Mk8, 0, cand, shifts, valid)),
-        17 * 2 * 7200 * 4 + 32 * (4 + 8 + 1 + 8), 32 * 10 * 7200 * 6,
-        note=f"32 candidates (16 distinct rows), best distance {float(hk[fin, 0].min()):.4f}")
+    ham_calls, ham_shapes = [], ((32, 30),) + LOOP_CANDIDATES
+    for k8, n_valid in ham_shapes:
+        # 32: rows 0-15 twice, the query's own row among them; the loops
+        # path's K: the next rows, padding slots last
+        cand = (torch.arange(k8, device=dev, dtype=torch.int32) + int(k8 < 32)) % 16
+        valid = torch.arange(k8, device=dev) < n_valid
+        shifts = iris.phase_shifts(img8[0].float(), img8[cand.long()].float())
+        hk = iris.iris_hamming(Tk8, Mk8, 0, cand, shifts, valid)
+        hp = iris.iris_hamming_plain(Tk8, Mk8, 0, cand, shifts, valid)
+        if not torch.equal(hk[:, 1], hp[:, 1]):
+            fail(f"iris_hamming (K = {k8}): biases differ from the plain version")
+        n_bits = int((hk.view(torch.int32) != hp.view(torch.int32)).sum())
+        if n_bits:
+            fail(f"iris_hamming (K = {k8}): {n_bits} distances or biases not bit-equal to the "
+                 f"plain version's")
+        fin = torch.isfinite(hp[:, 0])
+        call = lambda cand=cand, shifts=shifts, valid=valid: iris.iris_hamming(
+            Tk8, Mk8, 0, cand, shifts, valid)
+        ham_calls.append(call)
+        # bytes: the DB rows read (the query's and each distinct candidate's
+        # T and M), the indices, shifts and flags, the output
+        n_rows = int(torch.unique(torch.cat([cand, cand.new_zeros(1)])).numel())
+        args = (float((hk[fin, 0] - hp[fin, 0]).abs().max()) if bool(fin.any()) else 0.0, 1e-6,
+                call, time_ms(lambda cand=cand, shifts=shifts, valid=valid:
+                              iris.iris_hamming_plain(Tk8, Mk8, 0, cand, shifts, valid)),
+                n_rows * 2 * 7200 * 4 + k8 * (4 + 8 + 1 + 8), k8 * 10 * 7200 * 6)
+        note = (f"{k8} candidates ({n_valid} valid, {int(torch.unique(cand).numel())} distinct "
+                f"rows), best distance {float(hk[:, 0].min()):.4f}; distances and biases "
+                f"bit-equal to the twin's")
+        if k8 == 32:
+            row("iris_hamming", *args, note=note)
+        else:
+            one = {}
+            record(one, "iris_hamming", *args, note=note + "; a K of the loops path")
+            rows["iris_hamming"][f"k{k8}"] = one["iris_hamming"]
+    check_one_launch(rows, "iris_hamming", "iris", "iris_hamming_kernel", ham_calls,
+                     expect=iris.HAMMING_SHAPE,
+                     grids=[iris.HAMMING_SHAPE["cluster"] * k for k, _ in ham_shapes],
+                     note="a cluster a candidate")
+    cand = torch.arange(32, device=dev, dtype=torch.int32) % 16   # the 32 candidates, for K7c
 
     # ---- K7c cross_power (the query's 64 Iris spectra; the prealign's) ----
     imgf = img8.float()

@@ -45,16 +45,25 @@
 //    root (whose slow path ends its basic block in a call). The squares
 //    and the sum are rounded one at a time (no FMA), as the twin's are.
 //    The (640, 360) bool stacks never reach memory.
-//  * iris_hamming: per candidate, 2 orientations x 5 shifts of an XOR,
-//    AND-NOT and two popcounts over 7200 words of T and M: K <= 32
+//  * iris_hamming: per candidate, 2 orientations x 5 shifts of an OR, an
+//    XOR, an AND-NOT and two popcounts over 7200 words of T and M: K <= 32
 //    candidates read ~1.9 MB of DB rows (L2 serves the repeats) and do
-//    ~14 M integer ops: far below the card's rates; latency-bound.
-//    Design: one block per candidate reads the query and candidate rows
-//    straight from the device DB by index (no gathered copy), rolls the
-//    query by the column shift in the index arithmetic, reduces the
-//    popcounts over the block, and thread 0 picks the first minimum over
-//    the shifts and the better orientation: one (distance, bias) row per
-//    candidate is all that is written.
+//    ~14 M integer ops: far below the card's rates. The popcounts (16 a
+//    clock on an SM) and the dependent rounds bound it. Design: one
+//    cluster of 8 CTAs a candidate (so that K = 1 runs on 8 SMs), each
+//    reading its eighth of the candidate's words once as 16-byte loads
+//    straight from the device DB by index (no gathered copy) and pairing
+//    each with the query's words at all 10 (orientation, shift) pairs from
+//    a copy of the query rows staged in shared memory once for each
+//    orientation, rolled so that no modulo is left in the inner loop; the
+//    20 counts stay in registers until one warp reduction, one store into
+//    the cluster's rank 0 and one cluster barrier; ten lanes of rank 0
+//    take a distance each, and lane 0 picks the first minimum over the
+//    shifts and the better orientation: one (distance, bias) row per
+//    candidate is all that is written (bit-equal to the plain version:
+//    exact integer counts, one correctly rounded division a pair).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -172,64 +181,173 @@ gabor_product_kernel(const float4* __restrict__ spec, const float* __restrict__ 
   }
 }
 
-__device__ __forceinline__ int wrap(int c) { return ((c % COLS) + COLS) % COLS; }
+// ---- K8c
+// dbT, dbM: (R, WORDS, COLS) code DB, 16-byte aligned; the query is row
+// qidx, candidate k row cand[k]; shifts (K, 2) s0 of the forward and the
+// flipped orientation; out (K, 2) [distance | bias].
+//
+// A cluster of HAM_CLUSTER CTAs a candidate; CTA r takes the candidate's
+// 16-byte chunks HAM_CHUNKS r .. + HAM_CHUNKS - 1 of T and of M (chunk g:
+// word row g / 90, columns 4 (g % 90) .. + 3), a thread one chunk of each,
+// loaded once. Candidate column j of orientation o (flip f = 0 or 180)
+// meets query column j + f - s at shift s = s0 + off, off in [-2, 2]. So
+// each CTA stages the query's word rows that its chunks touch once for each
+// orientation, rolled by base = f - s0 - 2 (mod 360) and padded to 364
+// words: then the 8 query words that chunk j meets at all 5 shifts are the
+// two aligned 16-byte words j and j + 4 of the staged row, with no modulo.
+// Each thread keeps the 20 counts (masked and differing bits of the 10
+// (orientation, shift) pairs) in registers; the warps sum them with redux,
+// each CTA stores its 20 sums into rank 0's shared memory, and after one
+// cluster barrier ten lanes of rank 0 take a distance each and lane 0
+// picks as the JAX program does.
+constexpr int HAM_CLUSTER = 8;                                  // CTAs a candidate
+constexpr int HAM_THREADS = 256;
+constexpr int ROW_CHUNKS = COLS / 4;                            // 16-byte chunks a word row
+constexpr int HAM_CHUNKS = WORDS * ROW_CHUNKS / HAM_CLUSTER;    // chunks a CTA: 225
+constexpr int HAM_ROWS = 3;          // word rows a CTA's chunks touch (225 r / 90 .. + 2)
+constexpr int HAM_QW = COLS + 4;     // words of a staged query row
+constexpr int NPAIR = 10;            // (orientation, shift) pairs
+constexpr int NCOUNT = 2 * NPAIR;    // pair p: masked bits at 2 p, differing bits at 2 p + 1
+constexpr int HAM_STAGE = 2 * HAM_ROWS * COLS;                  // query words a CTA stages
+constexpr int HAM_STAGE_PER = (HAM_STAGE + HAM_THREADS - 1) / HAM_THREADS;
+static_assert(WORDS * ROW_CHUNKS % HAM_CLUSTER == 0 && HAM_CHUNKS <= HAM_THREADS, "K8c split");
 
-__device__ __forceinline__ int block_sum(int v, int* buf) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) buf[warp] = v;
-  __syncthreads();
-  int s = 0;
-  if (threadIdx.x == 0)
-    for (int k = 0; k < THREADS / 32; ++k) s += buf[k];
-  return s;   // valid in thread 0
-}
+__device__ __forceinline__ int pmod(int c) { return ((c % COLS) + COLS) % COLS; }
 
-__global__ void __launch_bounds__(THREADS)
-iris_hamming_kernel(const int* __restrict__ qT, const int* __restrict__ qM,
-                    const int* __restrict__ dbT, const int* __restrict__ dbM,
+__global__ void __launch_bounds__(HAM_THREADS)
+iris_hamming_kernel(const int4* __restrict__ dbT, const int4* __restrict__ dbM, int qidx,
                     const int* __restrict__ cand, const int* __restrict__ shifts,
                     const bool* __restrict__ valid, float* __restrict__ out) {
-  __shared__ int buf[THREADS / 32];
-  const int k = blockIdx.x;
-  const size_t row = (size_t)cand[k] * WORDS * COLS;
-  const int* dT = dbT + row;
-  const int* dM = dbM + row;
+  namespace cg = cooperative_groups;
+  __shared__ __align__(16) unsigned int qs[2][2][HAM_ROWS][HAM_QW];   // [o][T, M][row][x]
+  __shared__ int wsum[HAM_THREADS / 32][NCOUNT];
+  __shared__ int part[HAM_CLUSTER][NCOUNT];           // rank 0's: every CTA's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, k = blockIdx.x / HAM_CLUSTER;
+  // every CTA has started before any stores into rank 0's shared memory
+  // (the wait before those stores)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  // ---- loads
+  // this thread's candidate chunk, and the query words to stage
+  const int g = rank * HAM_CHUNKS + tid;
+  const bool live = tid < HAM_CHUNKS;
+  const size_t crow = (size_t)__ldg(cand + k) * (WORDS * ROW_CHUNKS);
+  int4 ct = make_int4(0, 0, 0, 0), cm = ct;
+  if (live) {
+    ct = __ldg(dbT + crow + g);
+    cm = __ldg(dbM + crow + g);
+  }
+  const int s0 = __ldg(shifts + 2 * k), s1 = __ldg(shifts + 2 * k + 1);
+  const int w0 = rank * HAM_CHUNKS / ROW_CHUNKS;
+  const int* qT = reinterpret_cast<const int*>(dbT) + ((size_t)qidx * WORDS + w0) * COLS;
+  const int* qM = reinterpret_cast<const int*>(dbM) + ((size_t)qidx * WORDS + w0) * COLS;
+  int qv[HAM_STAGE_PER];
+#pragma unroll
+  for (int i = 0; i < HAM_STAGE_PER; ++i) {
+    const int e = tid + i * HAM_THREADS, rc = e % (HAM_ROWS * COLS);
+    qv[i] = (e < HAM_STAGE && w0 + rc / COLS < WORDS)
+                ? __ldg((e < HAM_ROWS * COLS ? qT : qM) + rc) : 0;
+  }
+  // ---- stage
+  // qs[o][.][r][x] = the query word at column x + base_o (mod 360)
+  const int base0 = pmod(-pmod(s0) - 2), base1 = pmod(180 - pmod(s1) - 2);
+#pragma unroll
+  for (int i = 0; i < HAM_STAGE_PER; ++i) {
+    const int e = tid + i * HAM_THREADS;
+    if (e >= HAM_STAGE) break;
+    const int tm = e / (HAM_ROWS * COLS), r = (e / COLS) % HAM_ROWS, c = e % COLS;
+    int x0 = c - base0, x1 = c - base1;
+    x0 += x0 < 0 ? COLS : 0;
+    x1 += x1 < 0 ? COLS : 0;
+    qs[0][tm][r][x0] = (unsigned)qv[i];
+    qs[1][tm][r][x1] = (unsigned)qv[i];
+    if (x0 < HAM_QW - COLS) qs[0][tm][r][x0 + COLS] = (unsigned)qv[i];
+    if (x1 < HAM_QW - COLS) qs[1][tm][r][x1 + COLS] = (unsigned)qv[i];
+  }
+  __syncthreads();
+  // ---- counts
+  // pair p = 5 o + off + 2: chunk column j + cc meets staged word j + cc + 4 - (off + 2)
+  int cnt[NCOUNT];
+#pragma unroll
+  for (int i = 0; i < NCOUNT; ++i) cnt[i] = 0;
+  if (live) {
+    const int r = g / ROW_CHUNKS - w0, j = (g % ROW_CHUNKS) * 4;
+    const unsigned dt[4] = {(unsigned)ct.x, (unsigned)ct.y, (unsigned)ct.z, (unsigned)ct.w};
+    const unsigned dm[4] = {(unsigned)cm.x, (unsigned)cm.y, (unsigned)cm.z, (unsigned)cm.w};
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const uint4 t0 = *reinterpret_cast<const uint4*>(&qs[o][0][r][j]);
+      const uint4 t1 = *reinterpret_cast<const uint4*>(&qs[o][0][r][j + 4]);
+      const uint4 m0 = *reinterpret_cast<const uint4*>(&qs[o][1][r][j]);
+      const uint4 m1 = *reinterpret_cast<const uint4*>(&qs[o][1][r][j + 4]);
+      const unsigned qt[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+      const unsigned qm[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+#pragma unroll
+      for (int p = 0; p < 5; ++p)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const unsigned mk = qm[cc + 4 - p] | dm[cc];
+          cnt[2 * (5 * o + p)] += __popc(mk);
+          cnt[2 * (5 * o + p) + 1] += __popc((qt[cc + 4 - p] ^ dt[cc]) & ~mk);
+        }
+    }
+  }
+  // ---- sums
+  // the warps' by redux, the CTA's in threads tid < 20, stored into rank 0
+#pragma unroll
+  for (int i = 0; i < NCOUNT; ++i) {
+    const int s = __reduce_add_sync(0xffffffffu, cnt[i]);
+    if (lane == 0) wsum[warp][i] = s;
+  }
+  __syncthreads();
+  int tot = 0;
+  if (tid < NCOUNT)
+#pragma unroll
+    for (int w = 0; w < HAM_THREADS / 32; ++w) tot += wsum[w][tid];
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (tid < NCOUNT) cluster.map_shared_rank(&part[0][0], 0)[rank * NCOUNT + tid] = tot;
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (rank != 0 || warp != 0) return;
+  // ---- pick
+  // lane p < 10: pair p's distance = diff / max(total, 1) (+inf where total
+  // is 0). lo::fast_div is IEEE's division here: diff <= total < 2^18, so
+  // the quotient lies at least 2^-19 ulp from any rounding midpoint, well
+  // past the error of its one correction step.
+  float dis = INFINITY;
+  if (lane < NPAIR) {
+    int masked = 0, diff = 0;
+#pragma unroll
+    for (int q = 0; q < HAM_CLUSTER; ++q) {
+      masked += part[q][2 * lane];
+      diff += part[q][2 * lane + 1];
+    }
+    const int total = ROWS * 2 * NSCALE * COLS - masked;
+    if (total != 0) dis = lo::fast_div((float)diff, (float)total);
+  }
+  // the first minimum over each orientation's shifts, then forward only
+  // where strictly better
   float best_d[2];
   int best_s[2];
-  for (int o = 0; o < 2; ++o) {             // forward, then flipped by 180 columns
-    const int flip = o == 0 ? 0 : 180;
-    const int s0 = shifts[2 * k + o];
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const int s = o == 0 ? s0 : s1;
     best_d[o] = INFINITY;
-    best_s[o] = s0 - 2;
-    for (int off = -2; off <= 2; ++off) {
-      const int s = s0 + off;
-      int masked = 0, diff = 0;
-      for (int i = threadIdx.x; i < WORDS * COLS; i += THREADS) {
-        const int w = i / COLS, c = i % COLS;
-        const int qi = w * COLS + wrap(c - s);
-        const int di = w * COLS + wrap(c - flip);
-        const unsigned int mk = (unsigned int)(qM[qi] | dM[di]);
-        masked += __popc(mk);
-        diff += __popc((unsigned int)(qT[qi] ^ dT[di]) & ~mk);
-      }
-      masked = block_sum(masked, buf);
-      diff = block_sum(diff, buf);
-      if (threadIdx.x == 0) {
-        const int total = ROWS * 2 * NSCALE * COLS - masked;
-        const float dis = total == 0 ? INFINITY : (float)diff / (float)max(total, 1);
-        if (dis < best_d[o]) {   // the first minimum, as argmin
-          best_d[o] = dis;
-          best_s[o] = s;
-        }
+    best_s[o] = s - 2;
+#pragma unroll
+    for (int p = 0; p < 5; ++p) {
+      const float d = __shfl_sync(0xffffffffu, dis, 5 * o + p);
+      if (d < best_d[o]) {
+        best_d[o] = d;
+        best_s[o] = s + p - 2;
       }
     }
   }
-  if (threadIdx.x != 0) return;
+  if (lane != 0) return;
   const bool use1 = best_d[0] < best_d[1];
   out[2 * k] = valid[k] ? (use1 ? best_d[0] : best_d[1]) : INFINITY;
-  out[2 * k + 1] = (float)(use1 ? best_s[0] : wrap(best_s[1] + 180));
+  out[2 * k + 1] = (float)(use1 ? best_s[0] : pmod(best_s[1] + 180));
 }
 
 inline int blocks(long long n) { return (int)((n + THREADS - 1) / THREADS); }
@@ -265,10 +383,22 @@ LO_EXPORT int lo_iris_encode(const float* resp, int b, float scale, float x0, in
   return (int)cudaGetLastError();
 }
 
-LO_EXPORT int lo_iris_hamming(const int* qT, const int* qM, const int* dbT, const int* dbM,
-                              const int* cand, const int* shifts, const bool* valid, int k,
-                              float* out, void* stream) {
-  iris_hamming_kernel<<<max(1, k), THREADS, 0, (cudaStream_t)stream>>>(qT, qM, dbT, dbM, cand,
-                                                                       shifts, valid, out);
-  return (int)cudaGetLastError();
+// K8c's launch shape: CTAs a cluster, threads a CTA, CTAs a candidate
+// (a launch of K candidates takes K clusters).
+LO_EXPORT void lo_iris_hamming_shape(int* out) {
+  out[0] = HAM_CLUSTER;
+  out[1] = HAM_THREADS;
+  out[2] = HAM_CLUSTER;
+}
+
+LO_EXPORT int lo_iris_hamming(const int* dbT, const int* dbM, int qidx, const int* cand,
+                              const int* shifts, const bool* valid, int k, float* out,
+                              void* stream) {
+  if (k <= 0) return 0;
+  if (k > (1 << 24)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)dbT | (uintptr_t)dbM) & 15)
+    return (int)cudaErrorMisalignedAddress;           // 16-byte chunks
+  return (int)lo::launch_clusters(iris_hamming_kernel, HAM_CLUSTER * k, HAM_THREADS,
+                                  HAM_CLUSTER, (cudaStream_t)stream, (const int4*)dbT,
+                                  (const int4*)dbM, qidx, cand, shifts, valid, out);
 }

@@ -966,3 +966,103 @@ def bulk_index_keys(n: int, n_buckets: int, seed: int = 0, *, n_dead: int = 0,
     key_hi[live] = np.asarray(hi, np.uint32)[order]
     key_lo[live] = np.asarray(lo, np.uint32)[order]
     return key_hi, key_lo, live
+
+
+# K8c's edge cases (iris_hamming_case)
+IRIS_HAMMING_CASES = ("k_1", "k_2_padded", "k_32_padded", "shifts_at_180", "shifts_across_the_wrap",
+                      "candidate_is_the_query", "all_masked_candidate", "ties_across_shifts",
+                      "ties_across_orientations")
+
+
+def iris_hamming_case(case: str, seed: int = 0):
+    """K8c's edge-case input, a DB of Iris codes and one comparison: (T, M)
+    (R, 20, 360) int32 words (T random, M with ~1/8 of its bits set), the
+    query row qidx, cand (K,) int32 rows, shifts (K, 2) int32 and valid
+    (K,) bool. Padded slots take row 0 and are not valid, as the loop
+    closure pads K to a power of two. Cases (IRIS_HAMMING_CASES): K = 1, 2
+    and 32; shifts at and beside +-180; shifts whose 5-wide window crosses
+    0 or a whole turn; a candidate equal to the query at a window holding
+    shift 0 (distance 0); a candidate whose mask covers every bit (+inf in
+    both orientations); a query and a candidate whose words are the same
+    in every column (equal distances at every shift); and a candidate
+    whose columns j and j + 180 are equal, with equal shifts (equal
+    distances in both orientations)."""
+    rng = np.random.default_rng(seed)
+    words = lambda *s: rng.integers(-2 ** 31, 2 ** 31, s, dtype=np.int64).astype(np.int32)
+    r = 40
+    T = words(r, 20, 360)
+    M = words(r, 20, 360) & words(r, 20, 360) & words(r, 20, 360)
+    qidx = 3
+    n, k = {"k_1": (1, 1), "k_2_padded": (1, 2), "k_32_padded": (23, 32)}.get(case, (8, 8))
+    cand = np.zeros(k, np.int32)
+    cand[:n] = rng.choice(np.delete(np.arange(r), qidx), n, replace=False)
+    shifts = rng.integers(-180, 180, (k, 2)).astype(np.int32)
+    valid = np.arange(k) < n
+    if case == "shifts_at_180":
+        shifts[:] = np.array([[-180, 180], [179, -179], [180, 181], [-181, -178],
+                              [178, 182], [-182, 0], [0, -180], [180, 180]], np.int32)
+    elif case == "shifts_across_the_wrap":
+        shifts[:] = np.array([[0, 1], [-1, 2], [1, -2], [-2, 359], [360, -360],
+                              [358, -358], [362, 721], [-721, 1000]], np.int32)
+    elif case == "candidate_is_the_query":
+        cand[:4] = qidx
+        shifts[:4] = np.array([[0, 5], [2, -2], [-1, 360], [359, 179]], np.int32)
+    elif case == "all_masked_candidate":
+        M[cand[:3]] = -1
+    elif case == "ties_across_shifts":
+        for row in (qidx, *cand[:4]):
+            T[row] = T[row][:, :1]
+            M[row] = M[row][:, :1]
+    elif case == "ties_across_orientations":
+        for row in cand[:4]:
+            T[row, :, 180:] = T[row, :, :180]
+            M[row, :, 180:] = M[row, :, :180]
+        shifts[:4, 1] = shifts[:4, 0]
+    return T, M, qidx, cand, shifts, valid
+
+
+# K6a's edge cases (point_grid_cloud)
+POINT_GRID_CASES = ("fits", "one_bin_too_wide_x", "one_bin_too_wide_y", "one_bin_too_wide_z",
+                    "no_valid_row", "one_valid_row", "rows_not_a_multiple_of_the_cta",
+                    "past_one_round", "points_in_the_windows_last_bin", "duplicate_keys")
+
+
+def point_grid_cloud(case: str, seed: int = 0):
+    """K6a's edge-case input: (points (c, 3) float32, mask (c,) bool, bin
+    size). Cases (POINT_GRID_CASES): a 0.5 m-bin cloud that fits the
+    128 x 128 x 32 window; one whose bins span 129 in x, y or z (one bin too
+    wide); no valid row; one valid row; 3089 rows (not a multiple of the
+    kernel's 1024-thread CTA); 20000 rows (past one round of the kernel's
+    16384); a cloud spanning exactly 128 x 128 x 32 bins with points in the
+    window's last bin; and 2 m bins holding runs of up to 40 rows (duplicate
+    keys). About 10 % of the rows are masked out, ragged-edge points among
+    them."""
+    rng = np.random.default_rng(seed)
+    c = {"rows_not_a_multiple_of_the_cta": 3089, "past_one_round": 20000,
+         "one_valid_row": 700}.get(case, 6000)
+    span = np.array([40.0, 40.0, 10.0])            # metres: 80 x 80 x 20 bins of 0.5 m
+    pts = rng.uniform(0.0, 1.0, (c, 3)) * span - span / 2
+    bin_size = 0.5
+    if case.startswith("one_bin_too_wide"):
+        d = "xyz".index(case[-1])
+        width = (128, 128, 32)[d] * 0.5
+        pts[0, d] = -span[d] / 2
+        pts[1, d] = -span[d] / 2 + width + 0.25    # bin 128 past the first row's bin
+    elif case == "points_in_the_windows_last_bin":
+        lo_b, hi_b = np.array([-64, -64, -16]), np.array([63, 63, 15])
+        pts = rng.integers(lo_b, hi_b + 1, (c, 3)) * 0.5 + rng.uniform(0.05, 0.45, (c, 3))
+        pts[:3] = lo_b * 0.5 + 0.25
+        pts[3:40] = hi_b * 0.5 + rng.uniform(0.05, 0.45, (37, 3))
+    elif case == "duplicate_keys":
+        centres = rng.uniform(-60.0, 60.0, (c // 20, 3)) * np.array([1.0, 1.0, 0.2])
+        pts = centres[rng.integers(0, len(centres), c)] + rng.uniform(-0.3, 0.3, (c, 3))
+        bin_size = 2.0
+    mask = rng.random(c) >= 0.1
+    if case.startswith("one_bin_too_wide") or case == "points_in_the_windows_last_bin":
+        mask[:40] = True
+    if case == "no_valid_row":
+        mask[:] = False
+    elif case == "one_valid_row":
+        mask[:] = False
+        mask[rng.integers(0, c)] = True
+    return pts.astype(np.float32), mask, bin_size

@@ -278,7 +278,7 @@ KERNELS = {k.name: k for k in [
            [_P, _I, _F, _F, _P, _P],
            REF + "/ops/iris.py:105"),
     Kernel("iris_hamming", "iris",
-           [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+           [_P, _P, _I, _P, _P, _P, _I, _P],
            REF + "/ops/iris.py:144"),
     Kernel("map_bulk_index", "rehash",
            [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],

@@ -37,7 +37,7 @@ from .bev_align import cross_power
 __all__ = ["iris_bits", "iris_image", "log_gabor_filters", "features", "iris_feature",
            "gabor_product", "gabor_product_plain", "iris_encode", "iris_encode_plain", "iris_hamming", "iris_hamming_plain",
            "phase_shifts", "compare_rows", "compare_batch", "compare_batch_packed", "ROWS",
-           "COLS", "NSCALE", "PACKED_WORDS", "MAG_SQ_THRESHOLD", "to_uint32"]
+           "COLS", "NSCALE", "PACKED_WORDS", "MAG_SQ_THRESHOLD", "HAMMING_SHAPE", "to_uint32"]
 
 ROWS = 80
 COLS = 360
@@ -55,6 +55,10 @@ _DEG = K.f32(180.0 / math.pi)
 # bits 0x322bcc76, so that sqrt(s) < 1e-4 exactly when s < x0 for every
 # float32 s (the square root is monotone; NaN compares false both ways)
 MAG_SQ_THRESHOLD = float(np.uint32(0x322BCC76).view(np.float32))
+
+# K8c's launch: a cluster of 8 CTAs x 256 threads a candidate (csrc/iris.cu
+# lo_iris_hamming_shape builds the same)
+HAMMING_SHAPE = {"cluster": 8, "threads": 256}
 
 
 def to_uint32(words: np.ndarray) -> np.ndarray:
@@ -228,21 +232,25 @@ def iris_hamming(dbT, dbM, qidx: int, cand_idx, shifts, valid):
     """K8c's wrapper. dbT, dbM (R, 20, 360) int32 code DB; the query is row
     qidx, the candidates rows cand_idx (K,) int32; shifts (K, 2) int32;
     valid (K,) bool. Returns (K, 2) f32 [distance | bias], +inf distance
-    where not valid."""
+    where not valid. The kernel runs a cluster of HAMMING_SHAPE a
+    candidate."""
     if not dbT.is_cuda:
         return iris_hamming_plain(dbT, dbM, qidx, cand_idx, shifts, valid)
     r, k = dbT.shape[0], cand_idx.shape[0]
     kernels.check(dbT, "dbT", torch.int32, (r, PACKED_WORDS, COLS))
     kernels.check(dbM, "dbM", torch.int32, (r, PACKED_WORDS, COLS))
+    kernels.check_aligned(dbT, "dbT")
+    kernels.check_aligned(dbM, "dbM")
     kernels.check(cand_idx, "cand_idx", torch.int32, (k,))
     kernels.check(shifts, "shifts", torch.int32, (k, 2))
     kernels.check(valid, "valid", torch.bool, (k,))
     if not 0 <= qidx < r:
         raise ValueError(f"iris_hamming: query row {qidx} outside the DB's {r} rows")
     out = torch.empty((k, 2), dtype=torch.float32, device=dbT.device)
-    kernels.KERNELS["iris_hamming"].launch(
-        dbT[qidx].data_ptr(), dbM[qidx].data_ptr(), dbT.data_ptr(), dbM.data_ptr(),
-        cand_idx.data_ptr(), shifts.data_ptr(), valid.data_ptr(), k, out.data_ptr())
+    if k:
+        kernels.KERNELS["iris_hamming"].launch(
+            dbT.data_ptr(), dbM.data_ptr(), int(qidx), cand_idx.data_ptr(), shifts.data_ptr(),
+            valid.data_ptr(), k, out.data_ptr())
     return out
 
 

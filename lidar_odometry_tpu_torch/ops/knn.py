@@ -27,9 +27,12 @@ from .. import kernels
 from ..utils import keys as K
 
 __all__ = ["PointTable", "build_point_table", "knn_query", "nn1_distance",
-           "knn_query_plain", "point_grid", "point_grid_plain", "GRID_DIMS"]
+           "knn_query_plain", "point_grid", "point_grid_plain", "GRID_DIMS", "POINT_GRID_SHAPE"]
 
 GRID_DIMS = (128, 128, 32)
+# K6a's launch: 16 clusters of 8 CTAs x 512 threads, each owning a
+# sixteenth of the grid (csrc/knn.cu lo_point_grid_shape builds the same)
+POINT_GRID_SHAPE = {"cluster": 8, "threads": 512, "grid": 128}
 _G = GRID_DIMS[0] * GRID_DIMS[1] * GRID_DIMS[2]
 _BIG = 1 << 20
 
@@ -65,13 +68,14 @@ class PointTable(NamedTuple):
 def point_grid(key_s, pts_s, inv: float):
     """K6a's wrapper. key_s (C,) int64 sorted bin keys (INVALID_SORT_KEY for
     masked rows), pts_s (C, 3) f32 in the same order. Returns (grid
-    (GX*GY*GZ,) int32, meta (5,) int32)."""
+    (GX*GY*GZ,) int32, meta (5,) int32). One launch of POINT_GRID_SHAPE,
+    which writes the whole grid."""
     if not key_s.is_cuda:
         return point_grid_plain(key_s, pts_s, inv)
     c = key_s.shape[0]
     kernels.check(key_s, "key_s", torch.int64, (c,))
     kernels.check(pts_s, "pts_s", torch.float32, (c, 3))
-    grid = torch.full((_G,), c, dtype=torch.int32, device=key_s.device)
+    grid = torch.empty((_G,), dtype=torch.int32, device=key_s.device)   # the kernel fills it
     meta = torch.empty((5,), dtype=torch.int32, device=key_s.device)
     kernels.KERNELS["point_grid"].launch(key_s.data_ptr(), pts_s.data_ptr(), c, inv,
                                          grid.data_ptr(), meta.data_ptr())

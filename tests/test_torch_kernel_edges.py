@@ -119,6 +119,20 @@ dx and |dx| against numpy float64 at 1e-12, the retracted poses against
 the poses times JAX's _bse3_exp of the same dx under x64 at 1e-12, and
 the loop state as the while_loop sets it; a non-finite dx or an inactive
 state leaves every pose as it was.
+
+K8c: comparisons (synthetic.iris_hamming_case) at K = 1, 2 and 32 with
+invalid padding, shifts at and beside +-180 and across the column wrap, a
+candidate equal to the query (distance 0), an all-masked candidate
+(+inf), equal distances across the shifts (the first minimum) and across
+the orientations (the flipped one): the twin's distances and biases bit
+for bit JAX's _hamming_over_shifts and _compare_one's choice at the same
+given shifts.
+
+K6a: clouds (synthetic.point_grid_cloud) that fit the dense window, that
+are one bin too wide in x, y or z, with no valid row, one valid row, 3089
+rows (not a multiple of the kernel's CTA), 20000 rows (past one round of
+its cluster), points in the window's last bin and duplicate keys: the
+twin's grid, origin, fits and count exactly JAX build_point_table's.
 """
 import numpy as np
 import jax
@@ -922,3 +936,63 @@ def test_backsub_retract_twin_on_kernel_edges(case):
     new, dxn_t, ok = dpgo.backsub_retract_plain(p0, xs, F, G, gv,
                                                 *[g[k] for k in dpgo.BACK_KEYS], g["real_mask"])
     assert bool(ok) and abs(float(dxn_t) - dxn) <= 1e-12 * dxn
+
+
+@pytest.fixture(scope="module")
+def jax_compare():
+    """JAX's comparison of one query against K candidates at given shifts:
+    _hamming_over_shifts forward and on the candidate rolled by 180
+    columns, then _compare_one's choice and compare_batch's +inf for
+    invalid slots, vmapped over the candidates."""
+    def one(qT, qM, dT, dM, s1, s2, ok):
+        d1, b1 = jiris._hamming_over_shifts(qT, qM, dT, dM, s1)
+        d2, b2 = jiris._hamming_over_shifts(qT, qM, jiris._roll_cols(dT, 180),
+                                            jiris._roll_cols(dM, 180), s2)
+        use1 = d1 < d2
+        return (jnp.where(ok, jnp.where(use1, d1, d2), jnp.inf),
+                jnp.where(use1, b1, (b2 + 180) % 360))
+    return jax.jit(jax.vmap(one, in_axes=(None, None, 0, 0, 0, 0, 0)))
+
+
+@pytest.mark.parametrize("case", synthetic.IRIS_HAMMING_CASES)
+def test_iris_hamming_twin_on_kernel_edges(jax_compare, case):
+    T, M, qidx, cand, shifts, valid = synthetic.iris_hamming_case(case, seed=len(case))
+    out = tiris.iris_hamming(torch.as_tensor(T), torch.as_tensor(M), qidx, torch.as_tensor(cand),
+                             torch.as_tensor(shifts), torch.as_tensor(valid)).numpy()
+    u = tiris.to_uint32
+    jd, jb = (np.asarray(x) for x in jax_compare(
+        jnp.asarray(u(T[qidx])), jnp.asarray(u(M[qidx])), jnp.asarray(u(T[cand])),
+        jnp.asarray(u(M[cand])), jnp.asarray(shifts[:, 0]), jnp.asarray(shifts[:, 1]),
+        jnp.asarray(valid)))
+    np.testing.assert_array_equal(out[:, 0].view(np.int32), jd.astype(np.float32).view(np.int32))
+    np.testing.assert_array_equal(out[:, 1], jb.astype(np.float32))
+    d, b = out[:, 0], out[:, 1]
+    assert np.isinf(d[~valid]).all()
+    assert np.isfinite(d[valid][3 if case == "all_masked_candidate" else 0:]).all()
+    if case == "candidate_is_the_query":          # windows holding shift 0 (mod 360)
+        assert (d[:4] == 0).all() and (b[:4] % 360 == 0).all()
+    elif case == "all_masked_candidate":          # +inf both ways: the flipped one's bias
+        assert np.isinf(d[:3]).all()
+        np.testing.assert_array_equal(b[:3], (shifts[:3, 1] - 2 + 180) % 360)
+    elif case == "ties_across_shifts":            # the first of five, then the flipped one
+        np.testing.assert_array_equal(b[:4], (shifts[:4, 1] - 2 + 180) % 360)
+    elif case == "ties_across_orientations":      # the flipped one's shift, plus 180
+        assert (((b[:4] - 180 - (shifts[:4, 0] - 2)) % 360) <= 4).all()
+
+
+@pytest.mark.parametrize("case", synthetic.POINT_GRID_CASES)
+def test_point_grid_twin_on_kernel_edges(case):
+    pts, mask, bin_size = synthetic.point_grid_cloud(case, seed=len(case))
+    jt = jknn.build_point_table(jnp.asarray(pts), jnp.asarray(mask), bin_size=bin_size)
+    pt = tknn.build_point_table(torch.as_tensor(pts), torch.as_tensor(mask), bin_size=bin_size)
+    np.testing.assert_array_equal(pt.grid.numpy(), np.asarray(jt.grid))
+    np.testing.assert_array_equal(pt.origin.numpy(), np.asarray(jt.origin))
+    assert bool(pt.fits) == bool(jt.fits) and int(pt.n) == int(jt.n) == int(mask.sum())
+    assert bool(pt.fits) == (case != "no_valid_row" and not case.startswith("one_bin"))
+    occupied = int((pt.grid != len(pts)).sum())
+    if case == "points_in_the_windows_last_bin":
+        assert pt.grid[-1] != len(pts) and pt.grid[0] != len(pts)
+    if case == "duplicate_keys":                    # runs: a bin keeps its first row
+        assert occupied < 0.2 * mask.sum()
+    if case == "no_valid_row":
+        assert occupied == 0

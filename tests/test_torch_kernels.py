@@ -2204,3 +2204,124 @@ def test_iris_image_and_bulk_index_launch_once_without_a_stack(dev, iris_clouds)
         for name, info in kernels.ptxas_entries(src, fn).items():
             print(f"{name}: {info}")
             assert info["stack"] == 0, (name, info)
+
+
+@pytest.fixture(scope="module")
+def loops_scene(dev, iris_clouds):
+    """The loops scene's Iris code DB (iris_clouds' 16 keyframes) and its
+    first keyframe in the world frame (the loop solve's matched cloud)."""
+    from lidar_odometry_tpu_torch.ops import iris
+    clouds, masks = iris_clouds
+    img = iris.iris_bits(clouds, masks).to(torch.float32)
+    T, M = iris.features(img, torch.as_tensor(iris.log_gabor_filters(), device=dev))
+    return dict(img=img, T=T, M=M, world=clouds[0] + torch.tensor([31.0, -12.0, 1.5], device=dev),
+                mask=masks[0])
+
+
+def _hamming_calls(case, scene, dev):
+    """[(dbT, dbM, qidx, cand, shifts, valid)] of a K8c case: an edge case
+    of synthetic.iris_hamming_case, or the loops scene at K = 1, 2, 4 (the
+    loops path's; 1, 2 and 3 valid) and 32 (30 valid)."""
+    from lidar_odometry_tpu_torch.ops import iris
+    if case != "loops_scene":
+        return [tuple(torch.as_tensor(x, device=dev) if isinstance(x, np.ndarray) else x
+                      for x in synthetic.iris_hamming_case(case, seed=len(case)))]
+    out = []
+    for k, n_valid in ((1, 1), (2, 2), (4, 3), (32, 30)):
+        cand = ((torch.arange(k, device=dev) + 1) % 16).to(torch.int32)
+        shifts = iris.phase_shifts(scene["img"][0], scene["img"][cand.long()])
+        out.append((scene["T"], scene["M"], 0, cand, shifts, torch.arange(k, device=dev) < n_valid))
+    return out
+
+
+@pytest.mark.parametrize("case", synthetic.IRIS_HAMMING_CASES + ("loops_scene",))
+def test_iris_hamming_kernel_edges(dev, loops_scene, case):
+    """K8c against its twin on the card, distances and biases bit for bit:
+    the CPU edge cases (K = 1, 2, 32 with padding, shifts at +-180 and
+    across the wrap, the query as a candidate, an all-masked candidate,
+    ties across shifts and across orientations) and the loops scene at
+    the loops path's K and at 32; one launch a call."""
+    from lidar_odometry_tpu_torch.ops import iris
+    for args in _hamming_calls(case, loops_scene, dev):
+        n0 = kernels.KERNELS["iris_hamming"].launches
+        out = iris.iris_hamming(*args)
+        assert kernels.KERNELS["iris_hamming"].launches == n0 + 1
+        twin = iris.iris_hamming_plain(*args)
+        assert torch.equal(out.view(torch.int32), twin.view(torch.int32)), (out, twin)
+        cpu = iris.iris_hamming(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        assert torch.equal(out.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def _grid_case(case, scene, dev):
+    """[(key_s, pts_s, inv)] of a K6a case: an edge case of
+    synthetic.point_grid_cloud, or the loops scene's matched cloud at the
+    loop solve's 2 m and 0.5 m bins."""
+    if case == "loops_scene":
+        pts, mask, sizes = scene["world"], scene["mask"], (2.0, 0.5)
+    else:
+        p, m, b = synthetic.point_grid_cloud(case, seed=len(case))
+        pts, mask, sizes = torch.as_tensor(p, device=dev), torch.as_tensor(m, device=dev), (b,)
+    out = []
+    for b in sizes:
+        inv = K.f32(1.0 / K.f32(b))
+        key = torch.where(mask, K.sort_key(*K.pack_key(K.voxel_coords(pts, inv))),
+                          K.INVALID_SORT_KEY)
+        key_s, idx = torch.sort(key, stable=True)
+        out.append((key_s, pts[idx].contiguous(), inv))
+    return out
+
+
+@pytest.mark.parametrize("case", synthetic.POINT_GRID_CASES + ("loops_scene",))
+def test_point_grid_kernel_edges(dev, loops_scene, case):
+    """K6a against its twin on the card, grid and meta bit for bit: the CPU
+    edge cases (a fitting cloud, one bin too wide in x, y or z, no valid
+    row, one valid row, c not a multiple of the CTA and past one round of
+    the cluster, the window's last bin, duplicate keys) and the loops
+    scene's matched cloud at 2 m (fits) and 0.5 m (does not); one launch
+    a call; a launch into a grid of other values gives the same grid (the
+    fill is the kernel's)."""
+    from lidar_odometry_tpu_torch.ops import knn
+    for key_s, pts_s, inv in _grid_case(case, loops_scene, dev):
+        n0 = kernels.KERNELS["point_grid"].launches
+        grid, meta = knn.point_grid(key_s, pts_s, inv)
+        assert kernels.KERNELS["point_grid"].launches == n0 + 1
+        gp, mp = knn.point_grid_plain(key_s, pts_s, inv)
+        assert torch.equal(grid, gp) and torch.equal(meta, mp), (meta, mp)
+        gc, mc = knn.point_grid_plain(key_s.cpu(), pts_s.cpu(), inv)
+        assert torch.equal(grid.cpu(), gc) and torch.equal(meta.cpu(), mc)
+        if case == "loops_scene":
+            assert bool(meta[3]) == (1.0 / inv == 2.0)
+    grid.fill_(-7)                  # a dirty allocation: the kernel writes every entry
+    torch.cuda.synchronize()
+    kernels.KERNELS["point_grid"].launch(key_s.data_ptr(), pts_s.data_ptr(), key_s.shape[0],
+                                         inv, grid.data_ptr(), meta.data_ptr())
+    assert torch.equal(grid, gp) and torch.equal(meta, mp)
+
+
+def test_hamming_and_point_grid_launch_once_without_a_stack(dev, loops_scene):
+    """K8c and K6a launch their kernel once a call with no torch op beside
+    it that launches device work (K6a's grid is filled in the kernel), K8c
+    as a cluster of 8 CTAs x 256 threads a candidate and K6a as 16 clusters
+    of 8 x 512 (as built), and ptxas gave both no stack frame."""
+    from torch.profiler import ProfilerActivity, profile
+    from lidar_odometry_tpu_torch.ops import iris, knn
+    calls = [("iris_hamming", lambda a=a: iris.iris_hamming(*a))
+             for a in _hamming_calls("loops_scene", loops_scene, dev)]
+    calls += [("point_grid", lambda a=a: knn.point_grid(*a))
+              for a in _grid_case("loops_scene", loops_scene, dev)]
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        n0 = kernels.KERNELS[name].launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        assert kernels.KERNELS[name].launches == n0 + 1
+        ops = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        assert ops <= {"aten::empty", "aten::slice", "aten::view", "aten::as_strided"}, ops
+    assert kernels.KERNELS["iris_hamming"].launch_shape() == dict(iris.HAMMING_SHAPE, grid=8)
+    assert kernels.KERNELS["point_grid"].launch_shape() == knn.POINT_GRID_SHAPE
+    for src, fn in (("iris", "iris_hamming_kernel"), ("knn", "point_grid_kernel")):
+        for name, info in kernels.ptxas_entries(src, fn).items():
+            print(f"{name}: {info}")
+            assert info["stack"] == 0, (name, info)

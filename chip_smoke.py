@@ -51,7 +51,10 @@ Phases, each of which exits nonzero on failure:
          0.5 m table, neighbours and flags equal to the twin's in every
          slot, distances within 1e-5; K5b also at the loop shape (K6b's
          coarse k = 5 output, 8192 rows, ungated), K7 bev_raster, K7c
-         cross_power (the Iris query's 64 spectra, and the prealign's),
+         cross_power (the Iris query's forward and flipped spectra as two
+         tensors at 32 candidates and the loops path's K = 1, 2 and 4, and
+         the prealign's; bit-equal to the twin; a phase_shifts call
+         launches it once and concatenates nothing),
          K8a iris_image (also at b = 1), K8g gabor_product (also at b = 1),
          K8b iris_encode (also at b = 1, and at b = 3 on responses whose
          squared magnitudes sit on and beside its threshold, every word
@@ -59,7 +62,10 @@ Phases, each of which exits nonzero on failure:
          loops path's K = 1 and 4, distances and biases bit-equal to the
          twin's, a cluster a candidate), K9a map_bulk_index
          (also at the sharded path's per-shard c1 of 16384), K9b
-         map_bulk_merge, and K2b with the loop's weight residual;
+         map_bulk_merge (also at the sharded path's per-shard shape, M = 4
+         x 16384 x 27 records; rows and counts bit-equal to the twin's, one
+         device record a call: no zero fill), and K2b with the loop's
+         weight residual;
        - the pose-graph kernels (K10a pgo_linearize, K10b pgo_eliminate,
          K10c pgo_reduced_solve, K10d pgo_backsub_retract) on a
          KITTI-00-sized graph (3700 keyframes padded to 4096, 32 loop
@@ -229,6 +235,8 @@ LOOP_REVISIT = 205        # the frame one lap after frame 0
 # (K, valid) of the loops path's Iris comparisons: it queries 1, 2 and 3
 # candidates, padded to a power of two
 LOOP_CANDIDATES = ((1, 1), (4, 3))
+# K of the loops path's Iris queries, each a K7c launch over 2K spectra
+K7C_CANDIDATES = (1, 2, 4)
 DENSE_POINTS = 65536      # returns whose 0.5 m features fill a scan capacity of 16384
 DENSE_FRAMES = tuple(range(0, 32, 2)) + (LOOP_REVISIT,)
 LOOP_KERNELS = ("point_grid", "point_knn", "point_nn1", "bev_raster", "cross_power",
@@ -355,6 +363,18 @@ def launches_of(fn, kernel: str):
     ops = sorted({e.name for e in prof.events()
                   if e.name.startswith("aten::") and e.name not in NO_LAUNCH_OPS})
     return kernels.KERNELS[kernel].launches - n0, ops
+
+
+def device_records(fn) -> int:
+    """The device activity records (kernels, memcpy, memset) of one call
+    of fn, from torch.profiler (device_busy_us)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    return device_busy_us(prof)[1]
 
 
 def entry_name(mangled: str) -> str:
@@ -1426,29 +1446,61 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
                      note="a cluster a candidate")
     cand = torch.arange(32, device=dev, dtype=torch.int32) % 16   # the 32 candidates, for K7c
 
-    # ---- K7c cross_power (the query's 64 Iris spectra; the prealign's) ----
+    # ---- K7c cross_power (the Iris queries' spectra; the prealign's) ----
     imgf = img8.float()
     qf = torch.fft.fft2(imgf[0].to(torch.complex64)).reshape(-1)
-    cf = imgf[cand.long()]
-    xs = torch.cat([torch.fft.fft2(cf.to(torch.complex64)),
-                    torch.fft.fft2(torch.roll(cf, 180, -1).to(torch.complex64))]).reshape(64, -1)
-    ck, cp = bev_align.cross_power(xs, qf), bev_align.cross_power_plain(xs, qf)
-    n_x = xs.numel()
-    row("cross_power", float((ck - cp).abs().max()), 1e-6,
-        lambda: bev_align.cross_power(xs, qf),
-        time_ms(lambda: bev_align.cross_power_plain(xs, qf)),
-        2 * n_x * 8 + qf.numel() * 8, n_x * 14,
-        note="32 candidates x (forward, flipped) x 80 x 360 against the query's spectrum; "
-             "unit-magnitude values")
+    k7c_calls = []
+    as_bits = lambda t: torch.view_as_real(t).view(torch.int32)
+
+    def k7c(rows_to, name, x, y, x2, note):
+        """K7c on x (and x2) against y, bit for bit against its twin."""
+        ck, cp = bev_align.cross_power(x, y, x2), bev_align.cross_power_plain(x, y, x2)
+        n_bits = int((as_bits(ck) != as_bits(cp)).sum())
+        if n_bits:
+            fail(f"cross_power ({note}): {n_bits} values not bit-equal to the plain version's")
+        call = lambda: bev_align.cross_power(x, y, x2)
+        n_x = ck.numel()
+        record(rows_to, name, float((ck - cp).abs().max()), 1e-6, call,
+               time_ms(lambda: bev_align.cross_power_plain(x, y, x2)),
+               2 * n_x * 8 + y.numel() * 8, n_x * 14,
+               note=note + "; bit-equal to the twin")
+        k7c_calls.append(call)
+
+    def iris_spectra(c):
+        """The forward and flipped spectra of the candidates c, (K, 28800)
+        each, as iris.phase_shifts makes them."""
+        cf = imgf[c.long()]
+        return (torch.fft.fft2(cf.to(torch.complex64)).reshape(c.shape[0], -1),
+                torch.fft.fft2(torch.roll(cf, 180, -1).to(torch.complex64)).reshape(
+                    c.shape[0], -1))
+
+    fd32, fdx32 = iris_spectra(cand)
+    k7c(rows, "cross_power", fd32, qf, fdx32,
+        note="32 candidates x (forward, flipped) x 80 x 360 against the query's spectrum, "
+             "as two tensors")
+    for k in K7C_CANDIDATES:
+        one = {}
+        fd, fdx = iris_spectra((torch.arange(k, device=dev, dtype=torch.int32) + 1) % 16)
+        k7c(one, "cross_power", fd, qf, fdx, note=f"K = {k}, a K of the loops path")
+        rows["cross_power"][f"k{k}"] = one["cross_power"]
     fa = torch.fft.fft2(ip[0].to(torch.complex64)).reshape(-1)
     fb = torch.fft.fft2(ip[1].to(torch.complex64)).reshape(1, -1)
-    bk7, bp7 = bev_align.cross_power(fb, fa), bev_align.cross_power_plain(fb, fa)
     sub = {}
-    record(sub, "cross_power (prealign)", float((bk7 - bp7).abs().max()), 1e-6,
-           lambda: bev_align.cross_power(fb, fa),
-           time_ms(lambda: bev_align.cross_power_plain(fb, fa)),
-           3 * fa.numel() * 8, fa.numel() * 14, note="the prealign's 128 x 128 BEV spectra")
-    rows["cross_power"]["prealign"] = sub["cross_power (prealign)"]
+    k7c(sub, "cross_power", fb, fa, None, note="the prealign's 128 x 128 BEV spectra")
+    rows["cross_power"]["prealign"] = sub["cross_power"]
+    check_one_launch(rows, "cross_power", "bev_align", "cross_power_kernel", k7c_calls,
+                     note="a thread a column pair of a row")
+    # the Iris query at the loops path's K = 4: one K7c launch over the
+    # forward and flipped spectra as they lie, no concatenation
+    cand4 = imgf[(torch.arange(4, device=dev) + 1) % 16]
+    q_call = lambda: iris.phase_shifts(imgf[0], cand4)
+    n_q, q_ops = launches_of(q_call, "cross_power")
+    q_records = device_records(q_call)
+    print(f"  phase_shifts (K = 4): {n_q} cross_power launch, {q_records} device records a "
+          f"call, torch ops that launch {q_ops}", flush=True)
+    if n_q != 1 or "aten::cat" in q_ops:
+        fail(f"phase_shifts: {n_q} cross_power launches beside the torch ops {q_ops}")
+    rows["cross_power"]["phase_shifts_k4"] = dict(device_records=q_records, torch_ops=q_ops)
 
     # ---- K9a map_bulk_index (the fresh index of the surfel path's map) ----
     corr = torch.as_tensor(lq["drift"], device=dev)
@@ -1494,39 +1546,85 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
                      expect=vm.BULK_INDEX_SHAPE,
                      note="one cluster; the cell positions in a global scratch of n ints")
 
-    # ---- K9b map_bulk_merge (the rehash of the surfel path's map) ----
-    l0k, l0p = plan.fresh.l0_data.clone(), plan.fresh.l0_data.clone()
-    a_k = vm.map_bulk_merge(l0k, plan.s_key, plan.s_idx, plan.first, plan.counts, plan.centroids,
-                            plan.fresh.l1_index)
-    a_p = vm.map_bulk_merge_plain(l0p, plan.s_key, plan.s_idx, plan.first, plan.counts,
-                                  plan.centroids, plan.fresh.l1_index)
-    if not torch.equal(a_k, a_p):
-        fail(f"map_bulk_merge: placed/dropped {a_k.tolist()} vs plain {a_p.tolist()}")
-    err = float(((l0k - l0p).abs() / l0p.abs().clamp(min=1.0)).max())
-    n_rec, n_live = cen.shape[0], int(live.sum())
-    n_merged = int(plan.first.sum())
-    # the library call: index_add_ of each live record's [count | sum] at its
-    # child row, given the rows
-    rec_row = torch.full((n_rec,), surfel_map.c1 * 27, dtype=torch.int64, device=dev)
-    ok_s = plan.s_key != K.INVALID_SORT_KEY
-    coords = K.unpack_key(*K.split_sort_key(plan.s_key))
-    par = torch.div(coords, 3, rounding_mode="floor")
-    pslot, phit, _, _ = vm.bucket_find(plan.fresh.l1_index, *K.pack_key(par))
-    rec_row[plan.s_idx] = torch.where(ok_s & phit, pslot.clamp(min=0) * 27
-                                      + vm._child_offset_of(coords), surfel_map.c1 * 27)
-    data4 = torch.cat([cnt[:, None], cen * cnt[:, None]], 1)
-    l0_lib = plan.fresh.l0_data.clone()
-    row("map_bulk_merge", err, 1e-5,
-        lambda: vm.map_bulk_merge(l0k, plan.s_key, plan.s_idx, plan.first, plan.counts,
-                                          plan.centroids, plan.fresh.l1_index),
-        time_ms(lambda: vm.map_bulk_merge_plain(l0p, plan.s_key, plan.s_idx, plan.first,
-                                                plan.counts, plan.centroids,
-                                                plan.fresh.l1_index)),
-        n_rec * (8 + 8 + 1) + n_live * 16 + n_merged * (128 + 16) + 8, n_live * 8,
-        library=lambda: l0_lib.index_add_(0, rec_row, data4),
-        note=f"{n_live} live records, {n_merged} merged voxels, placed/dropped "
-             f"{a_k.tolist()}; err is relative")
+    # ---- K9b map_bulk_merge (the rehash of the surfel path's map; a shard's) ----
+    k9b_calls = []
+
+    def k9b(rows_to, name, plan, c1, what):
+        """K9b against its twin, bit for bit; the library call: index_add_
+        of each live record's [count | sum] at its child row, given the
+        rows. The bytes it needs: the live records' leader flags, keys,
+        indices, counts and centroids, one dead key (where the live records
+        end), a bucket row probed and a row written per merged voxel, the
+        counts (a dead record's flag, key and index are not needed: dead
+        records sort last)."""
+        l0k, l0p = plan.fresh.l0_data.clone(), plan.fresh.l0_data.clone()
+        args = (plan.s_key, plan.s_idx, plan.first, plan.counts, plan.centroids,
+                plan.fresh.l1_index)
+        a_k = vm.map_bulk_merge(l0k, *args)
+        a_p = vm.map_bulk_merge_plain(l0p, *args)
+        if not torch.equal(a_k, a_p):
+            fail(f"map_bulk_merge ({what}): placed/dropped {a_k.tolist()} vs plain "
+                 f"{a_p.tolist()}")
+        n_bits = int((l0k.view(torch.int32) != l0p.view(torch.int32)).sum())
+        if n_bits:
+            fail(f"map_bulk_merge ({what}): {n_bits} values not bit-equal to the plain version's")
+        again = vm.map_bulk_merge(l0k, *args)
+        if not torch.equal(again, a_k):
+            fail(f"map_bulk_merge ({what}): a second call counted {again.tolist()}, the first "
+                 f"{a_k.tolist()}")
+        err = float(((l0k - l0p).abs() / l0p.abs().clamp(min=1.0)).max())
+        n_rec = plan.s_key.shape[0]
+        ok_s = plan.s_key != K.INVALID_SORT_KEY
+        n_live, n_merged = int(ok_s.sum()), int(plan.first.sum())
+        rec_row = torch.full((n_rec,), c1 * 27, dtype=torch.int64, device=dev)
+        coords = K.unpack_key(*K.split_sort_key(plan.s_key))
+        par = torch.div(coords, 3, rounding_mode="floor")
+        pslot, phit, _, _ = vm.bucket_find(plan.fresh.l1_index, *K.pack_key(par))
+        rec_row[plan.s_idx] = torch.where(ok_s & phit, pslot.clamp(min=0) * 27
+                                          + vm._child_offset_of(coords), c1 * 27)
+        data4 = torch.cat([plan.counts[:, None], plan.centroids * plan.counts[:, None]], 1)
+        l0_lib = plan.fresh.l0_data.clone()
+        call = lambda: vm.map_bulk_merge(l0k, *args)
+        record(rows_to, name, err, 1e-5, call,
+               time_ms(lambda: vm.map_bulk_merge_plain(l0p, *args)),
+               n_live * (1 + 16 + 16) + 8 + n_merged * (128 + 16) + 8, n_live * 8,
+               library=lambda: l0_lib.index_add_(0, rec_row, data4),
+               note=f"{what}: M {n_rec}, {n_live} live records, {n_merged} merged voxels, "
+                    f"placed/dropped {a_k.tolist()}; err is relative, the rows bit-equal to "
+                    f"the twin's")
+        k9b_calls.append(call)
+
+    k9b(rows, "map_bulk_merge", plan, c1, "the surfel path's map")
+    one = {}
+    k9b(one, "map_bulk_merge", shard_merge_plan(cen, cnt, live, cfg.map_voxel_size), c1s,
+        f"the sharded path's shard 0 of {SHARDS}")
+    rows["map_bulk_merge"]["shard"] = one["map_bulk_merge"]
+    check_one_launch(rows, "map_bulk_merge", "rehash", "bulk_merge_kernel", k9b_calls,
+                     note="a warp a tile of 32 records; no zero fill")
+    recs = [device_records(c) for c in k9b_calls]
+    print(f"  map_bulk_merge: device records a call {recs}", flush=True)
+    if recs != [1] * len(recs):
+        fail(f"map_bulk_merge: {recs} device records a call, not one")
+    rows["map_bulk_merge"]["device_records_a_call"] = recs
     return rows
+
+
+def shard_merge_plan(cen, cnt, live, voxel_size: float):
+    """K9b's shape on the sharded path: sharded_transform_and_rehash
+    gathers every shard's L0 rows (SHARDS x C1 / SHARDS x 27 records) and
+    shard 0 bulk-builds the records it owns. Here the single map's records
+    (cen, cnt, live) padded with dead ones to that count, shard 0's live
+    ones, its bulk plan at c1 C1 / SHARDS."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_tpu_torch.parallel import shard_ops as so
+    c1s = C1 // SHARDS
+    pad = SHARDS * c1s * vm.NCH - cen.shape[0]
+    cen = torch.cat([cen, cen.new_zeros((pad, 3))]).contiguous()
+    cnt = torch.cat([cnt, cnt.new_zeros((pad,))])
+    live = torch.cat([live, live.new_zeros((pad,))])
+    own = so.shard_owner(cen, SHARDS, so.owner_inv(voxel_size, 3))
+    return vm.bulk_plan(cen, cnt, live & (own == 0), c1s * vm.NCH, c1s, voxel_size=voxel_size)
 
 
 def make_pgo_graph():

@@ -41,25 +41,47 @@
 //    Each thread writes its index cells (slot, hi, lo) and meta rows; the
 //    last CTA writes the count. One launch replaces a scatter, a cummax, a
 //    cumsum and five scatters.
-//  * map_bulk_merge: the records in key order (8 + 8 B of key and index,
-//    16 B of count and centroid read through the index), one probe of a
-//    128-B bucket row per merged voxel, and 16 B written per merged voxel:
-//    ~12 MB at most, ~3.6 us at 3.35 TB/s. The reads through the sort
-//    permutation are random, so latency bounds it in practice. Design: one
-//    thread per merged voxel (a run leader in the sorted order) sums its run
-//    in that order — the order of the JAX segment sum, so the totals come
-//    out the same — derives its parent key and child offset from the run's
-//    key, probes the new index with the bucket probe of common.cuh and
-//    writes its child row: the merged records of the JAX program (c0 x 4
-//    floats and two key arrays) never reach memory, and the placed /
-//    dropped counts are two atomics on the device.
+//  * map_bulk_merge: the live records' flags, keys and indices in key
+//    order (17 B), their count and centroid (16 B, read through the
+//    index), one dead key (where they end: dead records sort last, and
+//    the rest is not read), one probe of a 128-B bucket row per merged
+//    voxel and 16 B written per merged voxel: 6.1 MB at the surfel map's
+//    262144 records (38045 live, 33984 merged voxels), ~1.8 us at 3.35
+//    TB/s; 1.5 MB at a sharded shard's 1769472 records (9340 live, 8267
+//    merged voxels), ~0.45 us. The reads through the sort permutation are
+//    random, and each run of equal keys is a chain of reads, so the
+//    dependent load rounds bound it in practice. Design: a warp a tile of
+//    32 sorted records, a lane a record, the tiles dealt over the warps of
+//    at most four CTAs an SM. Round 1: the tile's run-leader flags and its
+//    first key (a tile whose first key is dead lies past every live
+//    record, since dead keys sort last: the warp stops there), and the
+//    same for the warp's next tile. Round 2, in a tile with a leader:
+//    every lane's key and sort index, and in lanes below MERGE_EXTRA those
+//    of the MERGE_EXTRA records after the tile. Round 3: each record's
+//    count and centroid through its index, and each leader's probe of the
+//    fresh index (its parent key needs only its own key). (Reading the
+//    first tile's keys and indices with its flags, whether it is live or
+//    not, saved no time and cost a stack.) Past ~1 us of dependent rounds
+//    the random 32-byte sectors of the gathers and probes take the time.
+//    A leader then sums its run from its neighbours' registers by
+//    shuffles, in the run's order (the order of the JAX segment sum, so
+//    the totals come out the same); only a run that goes on past the
+//    MERGE_EXTRA records after the tile continues with a serial loop. The
+//    leader writes its child row: the merged records of the JAX program
+//    (c0 x 4 floats and two key arrays) never reach memory. The placed and
+//    dropped counts are summed in the CTA; each is added, with a ticket in
+//    its high half, into its own 64-bit word of a scratch that the wrapper
+//    keeps zeroed (K1's way): the CTA that draws a word's last ticket
+//    holds that count's total, writes it and sets the word back to zero,
+//    so no fill is launched before a call. (One word for the ticket and
+//    both counts left 24 bits a count, M < 2^24; a fence between the
+//    counts' word and a ticket's word cost ~1.2 us.)
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int INDEX_CLUSTER = 16;                        // CTAs of K9a's cluster
 constexpr int INDEX_THREADS = 1024;                      // threads a CTA
 constexpr int INDEX_WARPS = INDEX_THREADS / 32;
@@ -245,40 +267,153 @@ bulk_index_kernel(const long long* __restrict__ b_s, const long long* __restrict
 
 __device__ __forceinline__ int floordiv3(int a) { return a >= 0 ? a / 3 : -((2 - a) / 3); }
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_WARPS = MERGE_THREADS / 32;
+constexpr int MERGE_CTAS_PER_SM = 4;                 // the grid: at most this many CTAs an SM
+constexpr int MERGE_EXTRA = 8;                        // records after its tile a warp reads
+constexpr long long DEAD_KEY = 0x7FFFFFFFFFFFFFFFLL;  // INVALID_SORT_KEY: dead records sort last
+constexpr unsigned FULL = 0xffffffffu;
+
+// A record's count and centroid through its sort index r (raw), and its
+// [count | count * centroid].
+__device__ __forceinline__ float4 gather(const float* __restrict__ cnt,
+                                        const float* __restrict__ cen, long long r) {
+  return make_float4(__ldg(cnt + r), __ldg(cen + 3 * r), __ldg(cen + 3 * r + 1),
+                     __ldg(cen + 3 * r + 2));
+}
+
+__device__ __forceinline__ float4 weigh(float4 g) {
+  return make_float4(g.x, __fmul_rn(g.y, g.x), __fmul_rn(g.z, g.x), __fmul_rn(g.w, g.x));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int src) {
+  return make_float4(__shfl_sync(FULL, v.x, src), __shfl_sync(FULL, v.y, src),
+                     __shfl_sync(FULL, v.z, src), __shfl_sync(FULL, v.w, src));
+}
+
+// The sorted records: s_key (m,) keys (DEAD_KEY for a dead record, all of
+// them last), s_idx (m,) the permutation, first (m,) the run leaders of
+// live keys; cnt (m,) and cen (m, 3) by record. scratch: two 64-bit words,
+// zero before the launch and after it, [CTAs done : 32 | placed : 32] and
+// [CTAs done : 32 | dropped : 32] (a count is at most m < 2^31, so the low
+// half never carries into the high one). counts (2,): placed, dropped.
+__global__ void __launch_bounds__(MERGE_THREADS)
 bulk_merge_kernel(const long long* __restrict__ s_key, const long long* __restrict__ s_idx,
                   const bool* __restrict__ first, const float* __restrict__ cnt,
                   const float* __restrict__ cen, int m, const int* __restrict__ index,
-                  int n_buckets, float4* __restrict__ l0, int* __restrict__ counts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m || !first[i]) return;
-  const long long key = s_key[i];
-  float c = 0.f, x = 0.f, y = 0.f, z = 0.f;
-  int j = i;
-  do {
-    const long long r = s_idx[j];
-    const float w = cnt[r];
-    c = __fadd_rn(c, w);
-    x = __fadd_rn(x, __fmul_rn(cen[3 * r], w));
-    y = __fadd_rn(y, __fmul_rn(cen[3 * r + 1], w));
-    z = __fadd_rn(z, __fmul_rn(cen[3 * r + 2], w));
-    ++j;
-  } while (j < m && s_key[j] == key);
-  // the run's voxel, its parent and child offset (floor division by 3)
-  const int iz = (int)(key >> 32);
-  const unsigned int klo = (unsigned int)(key & 0xFFFFFFFFLL);
-  const int ix = (int)(klo >> 16) - 32768, iy = (int)(klo & 0xFFFFu) - 32768;
-  const int px = floordiv3(ix), py = floordiv3(iy), pz = floordiv3(iz);
-  uint32_t phi, plo;
-  lo::pack_key(px, py, pz, phi, plo);
-  const int slot = lo::probe(index, (uint32_t)(n_buckets - 1), phi, plo);
-  if (slot < 0) {
-    atomicAdd(counts + 1, 1);
-    return;
+                  int n_buckets, float4* __restrict__ l0, unsigned long long* __restrict__ scratch,
+                  int* __restrict__ counts) {
+  __shared__ int wsum[2][MERGE_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_tiles = (m + 31) >> 5, stride = gridDim.x * MERGE_WARPS;
+  int placed = 0, dropped = 0;
+  int t = blockIdx.x * MERGE_WARPS + warp;
+  // ---- flags
+  // a tile's leader flags and first key; the loop fetches the next tile's
+  // while it works on this one
+  bool lead = false;
+  long long head = DEAD_KEY;
+  if (t < n_tiles) {
+    lead = 32 * t + lane < m && first[32 * t + lane];
+    head = __ldg(s_key + 32 * t);
   }
-  const int off = ((ix - 3 * px) * 3 + (iy - 3 * py)) * 3 + (iz - 3 * pz);
-  l0[(size_t)slot * lo::NCH + off] = make_float4(c, x, y, z);
-  atomicAdd(counts, 1);
+  while (t < n_tiles) {
+    const int tn = t + stride;
+    bool lead_n = false;
+    long long head_n = DEAD_KEY;
+    if (tn < n_tiles) {
+      lead_n = 32 * tn + lane < m && first[32 * tn + lane];
+      head_n = __ldg(s_key + 32 * tn);
+    }
+    const unsigned leaders = __ballot_sync(FULL, lead);
+    if (!leaders && head == DEAD_KEY) break;     // this tile and every later one are dead
+    if (leaders) {
+      // ---- records
+      // each lane's key and sort index, and in lanes below MERGE_EXTRA
+      // those of the records after the tile (dead keys and index 0 past m)
+      const int base = 32 * t, p = base + lane, px = base + 32 + lane;
+      long long key = DEAD_KEY, idx = 0, key_x = DEAD_KEY, idx_x = 0;
+      if (p < m) {
+        key = __ldg(s_key + p);
+        idx = __ldg(s_idx + p);
+      }
+      if (lane < MERGE_EXTRA && px < m) {
+        key_x = __ldg(s_key + px);
+        idx_x = __ldg(s_idx + px);
+      }
+      // ---- gather and probe
+      // every lane's record and extra record through its index (a dead
+      // record's index is a valid one; past M it is 0), issued before the
+      // leaders' probes of their parents, so that all go out in one round
+      const float4 g = gather(cnt, cen, idx), g_x = gather(cnt, cen, idx_x);
+      // the run's voxel, its parent and child offset (floor division by 3)
+      const int iz = (int)(key >> 32);
+      const unsigned int klo = (unsigned int)(key & 0xFFFFFFFFLL);
+      const int ix = (int)(klo >> 16) - 32768, iy = (int)(klo & 0xFFFFu) - 32768;
+      const int qx = floordiv3(ix), qy = floordiv3(iy), qz = floordiv3(iz);
+      const int off = ((ix - 3 * qx) * 3 + (iy - 3 * qy)) * 3 + (iz - 3 * qz);
+      int slot = -1;
+      if (lead) {
+        uint32_t phi, plo;
+        lo::pack_key(qx, qy, qz, phi, plo);
+        slot = lo::probe(index, (uint32_t)(n_buckets - 1), phi, plo);
+      }
+      const float4 v = weigh(g), v_x = weigh(g_x);
+      // ---- runs
+      // bit q of `cont`: record q of the window (the tile's 32, then the
+      // MERGE_EXTRA after it) has the key of record q - 1
+      const long long up = __shfl_up_sync(FULL, key, 1), last = __shfl_sync(FULL, key, 31);
+      const long long up_x = __shfl_up_sync(FULL, key_x, 1);
+      const unsigned c_in = __ballot_sync(FULL, lane > 0 && key == up);
+      const unsigned c_x = __ballot_sync(FULL, lane < MERGE_EXTRA && key_x != DEAD_KEY &&
+                                                   key_x == (lane == 0 ? last : up_x));
+      const unsigned long long cont = (unsigned long long)c_in | ((unsigned long long)c_x << 32);
+      const int len = lead ? __ffsll((long long)~(cont >> (lane + 1))) : 0;
+      const int steps = __reduce_max_sync(FULL, (unsigned)len);
+      // ---- sums
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = 0; k < steps; ++k) {
+        const int q = lane + k;
+        const float4 a = shfl4(v, q & 31), b = shfl4(v_x, (q - 32) & 31);
+        if (k < len) acc = add4(acc, q < 32 ? a : b);
+      }
+      if (lead && lane + len == 32 + MERGE_EXTRA) {
+        // a run longer than the window goes on serially
+        for (int j = base + 32 + MERGE_EXTRA; j < m && __ldg(s_key + j) == key; ++j)
+          acc = add4(acc, weigh(gather(cnt, cen, __ldg(s_idx + j))));
+      }
+      // ---- store
+      if (slot >= 0) l0[(size_t)slot * lo::NCH + off] = acc;
+      placed += __popc(__ballot_sync(FULL, lead && slot >= 0));
+      dropped += __popc(__ballot_sync(FULL, lead && slot < 0));
+    }
+    t = tn;
+    lead = lead_n;
+    head = head_n;
+  }
+  // ---- counts
+  if (lane == 0) {
+    wsum[0][warp] = placed;
+    wsum[1][warp] = dropped;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    // each count with its own ticket: the CTA that draws a word's last
+    // ticket holds that count's total; the two atomics are in flight at once
+    unsigned long long mine = 1ull << 32;
+#pragma unroll
+    for (int w = 0; w < MERGE_WARPS; ++w) mine += (unsigned long long)wsum[threadIdx.x][w];
+    const unsigned long long before = atomicAdd(scratch + threadIdx.x, mine);
+    if ((before >> 32) == gridDim.x - 1) {
+      counts[threadIdx.x] = (int)(unsigned)(before + mine);
+      scratch[threadIdx.x] = 0;
+    }
+  }
 }
 
 // K9a's launch: one cluster of INDEX_CLUSTER CTAs (a non-portable size,
@@ -333,10 +468,19 @@ LO_EXPORT int lo_map_bulk_index(const long long* b_s, const long long* i_s, cons
   return (int)cudaGetLastError();
 }
 
+// scratch: the wrapper's two zeroed 64-bit words (left zeroed).
 LO_EXPORT int lo_map_bulk_merge(const long long* s_key, const long long* s_idx, const bool* first,
                                 const float* cnt, const float* cen, int m, const int* index,
-                                int n_buckets, float* l0, int* counts, void* stream) {
-  bulk_merge_kernel<<<max(1, (m + THREADS - 1) / THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      s_key, s_idx, first, cnt, cen, m, index, n_buckets, (float4*)l0, counts);
+                                int n_buckets, float* l0, unsigned long long* scratch, int* counts,
+                                void* stream) {
+  if (m < 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (m + 31) / 32;
+  const int grid = max(1, min(MERGE_CTAS_PER_SM * sms, (tiles + MERGE_WARPS - 1) / MERGE_WARPS));
+  bulk_merge_kernel<<<grid, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      s_key, s_idx, first, cnt, cen, m, index, n_buckets, (float4*)l0, scratch, counts);
   return (int)cudaGetLastError();
 }

@@ -968,6 +968,46 @@ def bulk_index_keys(n: int, n_buckets: int, seed: int = 0, *, n_dead: int = 0,
     return key_hi, key_lo, live
 
 
+def merge_records(n_live: int, n_dead: int, seed: int = 0, voxel: float = 0.5):
+    """K9b's edge-case input: (centroids (M, 3) f32, counts (M,) f32, live
+    (M,) bool), M = n_live + n_dead records of a rehash in random order,
+    n_dead of them dead. Where n_live allows, the live records hold runs of
+    equal voxels: one of 60 records (longer than a 32-record tile and the 8
+    records after it), then runs of 2 to 30, at the lowest z (first in key
+    order, so that their parents are placed in a small map), the rest single
+    records in random voxels of a 40 m cube. A record lies strictly inside
+    its voxel, its count a whole number from 1 to 9."""
+    rng = np.random.default_rng(seed)
+    runs = []
+    left = n_live
+    for size in [60] + list(rng.integers(2, 31, 40)):
+        if size > left:
+            break
+        runs.append(int(size))
+        left -= size
+    runs += [1] * left
+    vox = np.empty((n_live, 3), np.int64)
+    at = 0
+    for r, size in enumerate(runs):
+        if size > 1:
+            v = np.array([3 * r, -3 * r, -100 - r // 8])
+        else:
+            v = rng.integers(-80, 80, 3)
+        vox[at:at + size] = v
+        at += size
+    cen = ((vox + 0.1 + 0.8 * rng.random((n_live, 3))) * voxel).astype(np.float32)
+    m = n_live + n_dead
+    order = rng.permutation(m)
+    centroids = np.zeros((m, 3), np.float32)
+    counts = np.zeros(m, np.float32)
+    live = np.zeros(m, bool)
+    centroids[order[:n_live]] = cen
+    counts[order[:n_live]] = rng.integers(1, 10, n_live).astype(np.float32)
+    live[order[:n_live]] = True
+    centroids[order[n_live:]] = rng.uniform(-20, 20, (n_dead, 3)).astype(np.float32)
+    return centroids, counts, live
+
+
 # K8c's edge cases (iris_hamming_case)
 IRIS_HAMMING_CASES = ("k_1", "k_2_padded", "k_32_padded", "shifts_at_180", "shifts_across_the_wrap",
                       "candidate_is_the_query", "all_masked_candidate", "ties_across_shifts",

@@ -26,10 +26,11 @@ cannot launch on (device, dtype, layout, shape, alignment: `check`,
 KernelInputError, a KernelError and a ValueError. The loop-closure worker launches from its own thread and stream
 while the main thread runs chunks: the build, the library loads and the
 counts are taken under one lock, and a launch goes to the calling
-thread's current stream. Only K1's wrapper keeps scratch memory between
-calls: one zeroed buffer per device and stream, which each launch leaves
-zeroed; the others allocate theirs per call (K2b, K11b and K10d, whose
-sums meet in a thread-block cluster's shared memory, need none).
+thread's current stream. K1's and K9b's wrappers keep scratch memory
+between calls (`zeroed_scratch`): one zeroed buffer per kernel, device and
+stream, which each launch leaves zeroed, so no fill is launched before it;
+the others allocate theirs per call (K2b, K11b and K10d, whose sums meet
+in a thread-block cluster's shared memory, need none).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ import torch
 
 __all__ = ["Kernel", "KernelError", "KernelInputError", "KERNELS", "build", "library",
            "ptxas_info", "ptxas_entries", "reset_counts", "counts", "fused_counts", "check",
-           "check_aligned", "BUILD_DIR"]
+           "check_aligned", "zeroed_scratch", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -66,6 +67,7 @@ _P, _I, _F, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lo
 
 _libs: dict = {}
 _lock = threading.RLock()
+_scratch: dict = {}
 
 
 class KernelError(RuntimeError):
@@ -266,7 +268,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _I, _P, _P, _P, _I, _P, _I, _F, _P],
            REF + "/ops/bev_align.py:40"),
     Kernel("cross_power", "bev_align",
-           [_P, _P, _I, _I, _P],
+           [_P, _I, _P, _I, _P, _I, _P],
            REF + "/ops/bev_align.py:61"),
     Kernel("iris_image", "iris",
            [_P, _P, _I, _I, _F, _P],
@@ -284,7 +286,7 @@ KERNELS = {k.name: k for k in [
            [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
            REF + "/ops/voxel_map.py:967"),
     Kernel("map_bulk_merge", "rehash",
-           [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+           [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
            REF + "/ops/voxel_map.py:1029"),
     Kernel("pgo_linearize", "pgo",
            [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I] + [_P] * 9,
@@ -357,3 +359,18 @@ def check_aligned(t: torch.Tensor, name: str) -> None:
     if t.data_ptr() % 16:
         raise KernelInputError(f"{name}: the kernel reads 16-byte vectors; expected a "
                                f"16-byte aligned tensor")
+
+
+def zeroed_scratch(name: str, device, words: int) -> torch.Tensor:
+    """At least `words` int64 of zeroed scratch for kernel `name` on the
+    calling thread's current stream of `device`, kept between calls: its
+    kernel leaves it zeroed when it ends. A stream runs its launches in
+    order, so they share one buffer; a larger request replaces it with a
+    new zeroed one (the only fill, at a first or larger call)."""
+    key = (name, torch.device(device).index, torch.cuda.current_stream().cuda_stream)
+    with _lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros((max(words, 256),), dtype=torch.int64, device=device)
+            _scratch[key] = buf
+        return buf

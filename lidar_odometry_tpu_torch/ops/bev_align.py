@@ -66,22 +66,43 @@ def bev_raster_plain(pts_a, mask_a, T_a, pts_b, mask_b, center, *, grid: int = 1
                         _occupancy(pts_b, mask_b, center, grid, bin_size)])
 
 
-def cross_power(x, y):
-    """K7c's wrapper: x (B, N) and y (N,) complex64 spectra. Returns (B, N)
-    complex64 x conj(y) / max(|x conj(y)|, 1e-12), y broadcast over B."""
+def cross_power(x, y, x2=None):
+    """K7c's wrapper: x (B1, N) and y (N,) complex64 spectra, and where
+    given x2 (B2, N) complex64, the batch's rows after x's (read where it
+    lies: no concatenation). Returns (B1 + B2, N) complex64 x conj(y) /
+    max(|x conj(y)|, 1e-12), y broadcast over the batch. The kernel reads
+    a thread's two columns of every row as 16-byte vectors where N is even
+    (the tensors then 16-byte aligned)."""
     if not x.is_cuda:
-        return cross_power_plain(x, y)
-    b, n = x.shape
-    kernels.check(x, "x", torch.complex64, (b, n))
+        return cross_power_plain(x, y, x2)
+    b1, n = x.shape
+    b2 = 0 if x2 is None else x2.shape[0]
+    kernels.check(x, "x", torch.complex64, (b1, n))
     kernels.check(y, "y", torch.complex64, (n,))
-    out = torch.empty_like(x)
-    kernels.KERNELS["cross_power"].launch(x.data_ptr(), y.data_ptr(), b, n, out.data_ptr())
+    if x2 is not None:
+        kernels.check(x2, "x2", torch.complex64, (b2, n))
+    if n % 2 == 0:
+        for t, name in ((x, "x"), (y, "y")) + (() if x2 is None else ((x2, "x2"),)):
+            kernels.check_aligned(t, name)
+    out = torch.empty((b1 + b2, n), dtype=torch.complex64, device=x.device)
+    if b1 + b2:
+        kernels.KERNELS["cross_power"].launch(
+            x.data_ptr(), b1, 0 if x2 is None else x2.data_ptr(), b1 + b2, y.data_ptr(), n,
+            out.data_ptr())
     return out
 
 
-def cross_power_plain(x, y):
-    cross = x * torch.conj(y)[None]
-    return cross / torch.clamp(torch.abs(cross), min=1e-12)
+def cross_power_plain(x, y, x2=None):
+    """K7c's twin, in the kernel's real arithmetic and order (products,
+    hypot, the IEEE reciprocal of max(|.|, 1e-12), the scale), so that on
+    the card it gives the kernel's bits."""
+    if x2 is not None:
+        x = torch.cat([x, x2])
+    a, c = torch.view_as_real(x), torch.view_as_real(y)[None]
+    re = a[..., 0] * c[..., 0] + a[..., 1] * c[..., 1]
+    im = a[..., 1] * c[..., 0] - a[..., 0] * c[..., 1]
+    s = torch.reciprocal(torch.fmax(torch.hypot(re, im), re.new_tensor(1e-12)))
+    return torch.complex(re * s, im * s)
 
 
 def _offset_from_images(img, grid: int, bin_size: float):

@@ -221,7 +221,8 @@ def phase_shifts(q_img, cand_img):
     qf = torch.fft.fft2(q_img.to(torch.complex64))
     fd = torch.fft.fft2(cand_img.to(torch.complex64))
     fdx = torch.fft.fft2(torch.roll(cand_img, 180, -1).to(torch.complex64))
-    cross = cross_power(torch.cat([fd, fdx]).reshape(2 * k, ROWS * COLS), qf.reshape(-1))
+    cross = cross_power(fd.reshape(k, ROWS * COLS), qf.reshape(-1),
+                        fdx.reshape(k, ROWS * COLS))
     corr = torch.real(torch.fft.ifft2(cross.view(2 * k, ROWS, COLS)))
     dx = torch.argmax(corr.reshape(2 * k, -1), dim=1) % COLS
     dx = torch.where(dx >= COLS // 2, dx - COLS, dx)

@@ -27,7 +27,6 @@ by the map key (z-major).
 """
 from __future__ import annotations
 
-import threading
 
 import torch
 
@@ -68,21 +67,6 @@ def voxel_filter(points: torch.Tensor, n_points: int, *, voxel_size: float,
 
 
 _TILE = 512   # csrc/voxel_filter.cu THREADS: sorted entries a CTA takes at once
-# One zeroed int64 scratch buffer per (device, stream): K1's tile
-# descriptors and tickets, which every launch sets back to zero before it
-# ends. A stream runs its launches in order, so they can share one buffer.
-_scratch: dict = {}
-_scratch_lock = threading.Lock()
-
-
-def _k1_scratch(device, words: int) -> torch.Tensor:
-    key = (device.index, torch.cuda.current_stream().cuda_stream)
-    with _scratch_lock:
-        buf = _scratch.get(key)
-        if buf is None or buf.numel() < words:
-            buf = torch.zeros((max(words, 256),), dtype=torch.int64, device=device)
-            _scratch[key] = buf
-        return buf
 
 
 def voxel_segments(key_s, perm, pts, cap: int, inv: float, voxel: float):
@@ -108,7 +92,7 @@ def voxel_segments(key_s, perm, pts, cap: int, inv: float, voxel: float):
     mask = torch.empty(lead + (cap,), dtype=torch.bool, device=pts.device)
     n_vox = torch.empty(lead, dtype=torch.int32, device=pts.device)
     tiles = max(1, -(-n // _TILE))
-    scratch = _k1_scratch(pts.device, lanes * tiles + lanes + 1)
+    scratch = kernels.zeroed_scratch("voxel_filter", pts.device, lanes * tiles + lanes + 1)
     kernels.KERNELS["voxel_filter"].launch(
         key_s.data_ptr(), perm.data_ptr(), pts.data_ptr(), n, lanes, cap, inv, voxel,
         cent.data_ptr(), mask.data_ptr(), n_vox.data_ptr(), scratch.data_ptr())

@@ -769,13 +769,15 @@ def l1_surfels(state: VoxelMapState):
 
 def map_bulk_merge(l0_data, s_key, s_idx, first, counts, centroids, l1_index):
     """K9b's wrapper. The records in sorted order: s_key (M,) int64 sorted
-    keys (INVALID_SORT_KEY for dead records), s_idx (M,) int64 the
-    permutation, first (M,) bool run leaders of live keys; counts (M,) f32
-    and centroids (M, 3) f32 by record. Sums each run's [count | count *
-    centroid] in the sorted order and writes it to its parent's child row
-    of l0_data (in place; the parent found in l1_index). Returns (2,) int32
-    [merged voxels placed, merged voxels whose parent is not in the
-    index]."""
+    keys (INVALID_SORT_KEY for dead records, which sort last), s_idx (M,)
+    int64 the permutation, first (M,) bool run leaders of live keys; counts
+    (M,) f32 and centroids (M, 3) f32 by record. Sums each run's [count |
+    count * centroid] in the sorted order and writes it to its parent's
+    child row of l0_data (in place; the parent found in l1_index). Returns
+    (2,) int32 [merged voxels placed, merged voxels whose parent is not in
+    the index]. The kernel adds the counts into a zeroed scratch that it
+    leaves zeroed (kernels.zeroed_scratch), so a call launches nothing
+    else."""
     if not s_key.is_cuda:
         return map_bulk_merge_plain(l0_data, s_key, s_idx, first, counts, centroids, l1_index)
     m = s_key.shape[0]
@@ -787,24 +789,32 @@ def map_bulk_merge(l0_data, s_key, s_idx, first, counts, centroids, l1_index):
     kernels.check(centroids, "centroids", torch.float32, (m, 3))
     kernels.check(l1_index, "l1_index", torch.int32)
     kernels.check_aligned(l1_index, "l1_index")
-    out = torch.zeros((2,), dtype=torch.int32, device=s_key.device)
+    out = torch.empty((2,), dtype=torch.int32, device=s_key.device)
+    scratch = kernels.zeroed_scratch("map_bulk_merge", s_key.device, 2)
     kernels.KERNELS["map_bulk_merge"].launch(
         s_key.data_ptr(), s_idx.data_ptr(), first.data_ptr(), counts.data_ptr(),
         centroids.data_ptr(), m, l1_index.data_ptr(), l1_index.shape[0] - 1,
-        l0_data.data_ptr(), out.data_ptr())
+        l0_data.data_ptr(), scratch.data_ptr(), out.data_ptr())
     return out
 
 
 def map_bulk_merge_plain(l0_data, s_key, s_idx, first, counts, centroids, l1_index):
+    """K9b's twin. Step k adds the k-th record of every run to its total,
+    so each total is summed in its run's order on any device (the
+    kernel's order, and the JAX segment sum's)."""
     m = s_key.shape[0]
     nrows = l0_data.shape[0] - 1
+    dev = s_key.device
     live = s_key != K.INVALID_SORT_KEY
     w = torch.where(live, counts[s_idx], 0.0)
     data4 = torch.cat([w[:, None], centroids[s_idx] * w[:, None]], 1)
     seg = torch.cumsum(first.to(torch.int64), 0) - 1
-    # segment sums in the sorted order, one run after another
-    tot = torch.zeros((m, 4), dtype=torch.float32, device=s_key.device)
-    tot.index_add_(0, torch.where(live, seg.clamp(min=0), m - 1), torch.where(live[:, None], data4, 0.0))
+    pos = torch.arange(m, device=dev)
+    step = torch.where(live, pos - torch.cummax(torch.where(first, pos, 0), 0).values, -1)
+    tot = torch.zeros((m, 4), dtype=torch.float32, device=dev)
+    for k in range(int(step.max()) + 1 if m else 0):
+        at = step == k
+        tot[seg[at]] += data4[at]
     coords = K.unpack_key(*K.split_sort_key(s_key))
     par = torch.div(coords, 3, rounding_mode="floor")
     pslot, phit, _, _ = bucket_find(l1_index, *K.pack_key(par))

@@ -200,6 +200,28 @@ def _as_port(f):
             torch.as_tensor(np.array(f[2]).view(np.int32)))
 
 
+def test_phase_shifts_two_tensor_spectra_match_jax():
+    """K7c's two-tensor form as iris.phase_shifts calls it (the forward and
+    flipped candidate spectra passed apart, no concatenation) against
+    JAX's _phase_corr_shift of the same images: every shift equal."""
+    rng = np.random.default_rng(5)
+    clouds = [_ring_cloud(rng), _clouds()["rand"], _ring_cloud(rng)[::2]]
+    yaw = np.radians(37.0)
+    R = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]],
+                 np.float32)
+    clouds.append(clouds[0] @ R.T)
+    imgs = np.stack([np.asarray(ji.iris_image(jnp.asarray(c), jnp.ones(len(c), bool)))
+                     for c in clouds]).astype(np.float32)
+    q, cand = imgs[0], imgs[1:]
+    shifts = iris.phase_shifts(torch.as_tensor(q), torch.as_tensor(cand)).numpy()
+    qf_conj = jnp.conj(jnp.fft.fft2(jnp.asarray(q).astype(jnp.complex64)))
+    for k in range(cand.shape[0]):
+        for o, d in enumerate((cand[k], np.roll(cand[k], 180, -1))):
+            fd = jnp.fft.fft2(jnp.asarray(d).astype(jnp.complex64))
+            assert int(shifts[k, o]) == int(ji._phase_corr_shift(fd, qf_conj)), (k, o)
+    assert abs(int(shifts[2, 0])) in (36, 37, 38)     # the cloud turned by 37 degrees
+
+
 @pytest.mark.parametrize("case", ["identical", "rotated", "different", "masked"])
 def test_compare_matches_jax_on_the_same_codes(case):
     """The comparison alone (phase shifts, K8c's twin) on JAX's descriptors:

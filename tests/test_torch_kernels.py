@@ -468,12 +468,39 @@ def test_spectrum_kernels(loop_scene):
     correlations' shifts equal."""
     from lidar_odometry_tpu_torch.ops import bev_align, iris
     g = torch.Generator(device="cuda").manual_seed(3)
+    bits = lambda t: torch.view_as_real(t).view(torch.int32)
     for b, n in ((1, 128 * 128), (8, iris.ROWS * iris.COLS)):
         x = torch.randn((b, n), dtype=torch.complex64, device="cuda", generator=g)
         y = torch.randn((n,), dtype=torch.complex64, device="cuda", generator=g)
         y[:7] = 0
         ck, cp = bev_align.cross_power(x, y), bev_align.cross_power_plain(x, y)
         assert float((ck - cp).abs().max()) <= 1e-6
+        assert torch.equal(bits(ck), bits(cp))
+    # the two-tensor form (x's rows, then x2's; row chunks cut across the
+    # two), an odd N (8-byte loads and stores), and a misaligned x refused
+    for b1, b2, n in ((3, 3, iris.ROWS * iris.COLS), (1, 6, 63), (5, 0, 17)):
+        x = torch.randn((b1, n), dtype=torch.complex64, device="cuda", generator=g)
+        x2 = torch.randn((b2, n), dtype=torch.complex64, device="cuda", generator=g)
+        y = torch.randn((n,), dtype=torch.complex64, device="cuda", generator=g)
+        y[1] = 0
+        ck = bev_align.cross_power(x, y, x2 if b2 else None)
+        assert torch.equal(bits(ck), bits(bev_align.cross_power_plain(x, y, x2)))
+        assert torch.equal(bits(ck), bits(bev_align.cross_power(torch.cat([x, x2]), y)))
+    # magnitudes over the float range: elements past the fast reciprocal's
+    # range (2^125 and up, some infinite, some NaN), clamped ones (1e-12)
+    n = 4096
+    scale = lambda: 10.0 ** torch.empty(n, device="cuda").uniform_(-15.0, 19.5, generator=g)
+    x = torch.randn((3, n), dtype=torch.complex64, device="cuda", generator=g) * scale()
+    y = torch.randn((n,), dtype=torch.complex64, device="cuda", generator=g) * scale()
+    ck, cp = bev_align.cross_power(x, y), bev_align.cross_power_plain(x, y)
+    nan = torch.isnan(torch.view_as_real(ck))
+    assert torch.equal(nan, torch.isnan(torch.view_as_real(cp)))
+    assert torch.equal(bits(ck)[~nan], bits(cp)[~nan])
+    mag = torch.hypot(*torch.view_as_real(x * torch.conj(y)[None]).unbind(-1))
+    assert bool((mag >= 2.0 ** 125).any()) and bool((mag < 1e-12).any())
+    shifted = torch.empty(2 * 64 + 1, dtype=torch.complex64, device="cuda")[1:].view(2, 64)
+    with pytest.raises(kernels.KernelInputError):
+        bev_align.cross_power(shifted, torch.zeros(64, dtype=torch.complex64, device="cuda"))
     clouds = torch.stack([loop_scene["q"], loop_scene["q"].flip(0)]).contiguous()
     masks = torch.stack([loop_scene["q_mask"], loop_scene["q_mask"].flip(0)]).contiguous()
     img = iris.iris_bits(clouds, masks).float()
@@ -531,12 +558,51 @@ def test_rehash_kernel(scene):
                                  plan.centroids, plan.fresh.l1_index)
     assert torch.equal(pa, pb) and int(pa[0]) > 1000
     assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 1e-5
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     # the whole rehash on the card against its plain path on the host
     rk = vm.transform_and_rehash(st, T, voxel_size=0.5, planarity_threshold=0.1)
     cpu = vm.VoxelMapState(*(x.cpu() for x in st))
     rp = vm.transform_and_rehash(cpu, T.cpu(), voxel_size=0.5, planarity_threshold=0.1)
     for name in ("l1_index", "l1_meta", "l1_free_top", "n_l0", "n_l1", "n_dropped"):
         assert torch.equal(getattr(rk, name).cpu(), getattr(rp, name)), name
+
+
+def test_bulk_merge_kernel_edges(dev):
+    """K9b against its twin on records (synthetic.merge_records) whose
+    runs of equal keys cross the kernel's 32-record tiles, one longer than
+    a tile and its window of 8 records after it (the serial loop), M not a
+    multiple of 32, dead records between live ones, some parents left out
+    of the index; and on an all-dead record set. The rows bit for bit,
+    the placed and dropped counts equal, and equal again on a second call
+    (the kernel leaves its scratch zeroed); and the same live records
+    padded with dead ones past 2^24 records (a sharded map's rehash at
+    27 x map_l1_capacity >= 2^24): the same rows and counts."""
+    for n_live, n_dead in ((3000, 333), (0, 500)):
+        cen, cnt, live = (torch.as_tensor(a, device=dev)
+                          for a in synthetic.merge_records(n_live, n_dead, seed=3))
+        plan = vm.bulk_plan(cen, cnt, live, cen.shape[0], 256, voxel_size=0.5)
+        args = (plan.s_key, plan.s_idx, plan.first, plan.counts, plan.centroids,
+                plan.fresh.l1_index)
+        a, b = plan.fresh.l0_data.clone(), plan.fresh.l0_data.clone()
+        pa, pb = vm.map_bulk_merge(a, *args), vm.map_bulk_merge_plain(b, *args)
+        assert torch.equal(pa, pb) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(vm.map_bulk_merge(a, *args), pa)
+        if n_live:
+            assert int(pa[0]) > 100 and int(pa[1]) > 0
+            run = torch.unique_consecutive(plan.s_key, return_counts=True)[1]
+            assert int(run[:-1].max()) > 32 + 8
+            pad = (1 << 24) + 37 - plan.s_key.shape[0]
+            z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
+            big = (torch.cat([plan.s_key, z(pad, dtype=torch.int64) + K.INVALID_SORT_KEY]),
+                   torch.cat([plan.s_idx, z(pad, dtype=torch.int64)]),
+                   torch.cat([plan.first, z(pad, dtype=torch.bool)]),
+                   torch.cat([plan.counts, z(pad)]), torch.cat([plan.centroids, z(pad, 3)]),
+                   plan.fresh.l1_index)
+            c = plan.fresh.l0_data.clone()
+            assert torch.equal(vm.map_bulk_merge(c, *big), pa)
+            assert torch.equal(c.view(torch.int32), a.view(torch.int32))
+        else:
+            assert pa.tolist() == [0, 0] and not bool(a.any())
 
 
 def test_weight_residual_kernel(scene):

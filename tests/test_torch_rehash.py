@@ -191,3 +191,27 @@ def test_bulk_index_twin_against_jax(case):
     assert int(n_placed) == min(fits, top)
     if crowd > 8:      # the crowded bucket overflows: some live keys are not placed
         assert per_bucket.max() >= crowd and fits < int(live.sum())
+
+
+@pytest.mark.parametrize("n_live, n_dead", [(3000, 333), (0, 500)])
+def test_bulk_build_on_merge_records_matches_jax(n_live, n_dead):
+    """bulk_build (K9a's and K9b's twins, K4c's) against JAX's on
+    synthetic.merge_records: runs of equal voxels up to 60 records long
+    (K9b's tiles and window are 32 and 8), M not a multiple of 32, dead
+    records among the live ones, more parents than the 256 slots (the rest
+    dropped); and an all-dead record set. The integer state identical and
+    the child rows equal bit for bit (each run summed in its order on both
+    sides)."""
+    cen, cnt, live = synthetic.merge_records(n_live, n_dead, seed=3)
+    m = cen.shape[0]
+    js = jvm.bulk_build(jnp.asarray(cen), jnp.asarray(cnt), jnp.asarray(live), m, 256,
+                        voxel_size=VOX, planarity_threshold=THR)
+    ps = tvm.bulk_build(torch.as_tensor(cen), torch.as_tensor(cnt), torch.as_tensor(live), m,
+                        256, voxel_size=VOX, planarity_threshold=THR)
+    a = {k: np.asarray(v) for k, v in js._asdict().items()}
+    b = convert.map_state_to_numpy(ps)
+    for k in INT_FIELDS:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    np.testing.assert_array_equal(b["l0_data"], a["l0_data"])
+    assert int(a["n_l0"]) == (260 if n_live else 0)
+    assert int(a["n_dropped"]) == (2099 if n_live else 0)

@@ -250,16 +250,9 @@ def card() -> str:
 
 def device_records(fn) -> int:
     """The device activity records (kernels, memcpy, memset) of one call
-    of fn, from torch.profiler (chip_smoke.device_busy_us)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    of fn (chip_smoke.device_records)."""
     import chip_smoke as cs
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return cs.device_busy_us(prof)[1]
+    return cs.device_records(fn)
 
 
 def pgo_path(tag: str, card: str):

@@ -121,7 +121,10 @@ Phases, each of which exits nonzero on failure:
      K12b pgo_eliminate_lu against their plain twins on the first GN
      iteration's system (K12a on its block-tridiagonal part in float64 and
      float32, beside torch.linalg.solve of the dense 22200 x 22200 matrix;
-     K12b on D = 72 partitions of max_m = 211 rows); then
+     K12b on D = 72 partitions of max_m = 211 rows, in float64 and
+     float32; for both ptxas's stack of each instantiation, 0 bytes, and
+     one launch a call, with K12a's cluster, partitions and dependent
+     depth in rows, and K12b's); then
      block_tridiag_solve, schur_partitioned_solve (normwise backward error
      at most N eps, kappa_1 beside it), the host Gauss-Newton iteration
      _optimize_distributed_host (converged, within 1e-6 of the manual
@@ -328,6 +331,12 @@ def device_ms(fn, reps: int = 30):
     return start.elapsed_time(end) / reps if ahead else None
 
 
+def fmt_ms(ms) -> str:
+    """A device time from device_ms for a line of text ("not measured"
+    where the host did not get ahead)."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def device_ms_once(fn):
     """The device time of one call of fn, the host's launch cost taken out
     as in device_ms; None when the host did not get ahead."""
@@ -379,7 +388,8 @@ def device_records(fn) -> int:
 
 def entry_name(mangled: str) -> str:
     """`name<args>` of a mangled kernel name: the last component of its
-    nested name and its integer template arguments."""
+    nested name and its template arguments (integers, bools, float and
+    double), so that each instantiation keeps a name of its own."""
     import re
     if not mangled.startswith("_ZN"):
         return mangled
@@ -391,7 +401,10 @@ def entry_name(mangled: str) -> str:
     rest = mangled[at:]
     if not rest.startswith("I"):
         return name
-    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', rest.split('EEv', 1)[0]))}>"
+    args = re.findall(r"Li(-?\d+)E|Lb([01])E|([fd])(?=[fdL]|E|$)", rest.split("EEv", 1)[0][1:])
+    words = [i or ("true" if b == "1" else "false") if i or b else
+             {"f": "float", "d": "double"}[t] for i, b, t in args]
+    return f"{name}<{', '.join(words)}>"
 
 
 def traced_dims(fn, kernel: str, tries: int = 3):
@@ -2503,9 +2516,22 @@ def schur_path(graph, pgo, group):
                 f"(library: torch.linalg.solve_ex of it, no error check), backward error "
                 f"{bwd_chain:.3e}; float32 {err32:.3e} from its twin")
     del Hc
+    P = dpgo.thomas_partitions(n)
+    ctas = min(16, P)
+    m_int = -(-n // P) - 1
+    depth = 2 * m_int + 2 * P
+    f32_ms = device_ms(lambda: dpgo.block_tridiag_solve(d32, o32, b32))
     rows["pgo_block_thomas"].update(max_abs_err=err_abs, compared_err=err, float32_err=err32,
                                     float32_from_float64=f32_from_f64, dense_rel=vs_dense,
-                                    backward_error=bwd_chain)
+                                    backward_error=bwd_chain, float32_device_ms=f32_ms,
+                                    partitions=P, dependent_rows=depth)
+    check_one_launch(rows, "pgo_block_thomas", "schur", "block_thomas_kernel",
+                     [lambda: dpgo.block_tridiag_solve(dd, oo, bb),
+                      lambda: dpgo.block_tridiag_solve(d32, o32, b32)],
+                     note=f"one cluster of {ctas} CTAs x {32 * -(-P // ctas)} threads, a warp a "
+                          f"partition: {P} partitions of up to {m_int} interior rows, dependent "
+                          f"depth {depth} rows (2 x {m_int} interior, 2 x {P} separators; "
+                          f"sequential: {2 * n}); float32 {fmt_ms(f32_ms)} on the device")
 
     # ---- K12b on the packed interiors of the whole system ----
     packed = [torch.from_numpy(a).to(DEVICE) for a in dpgo.pack_interiors(diag, off, b, seps)]
@@ -2529,9 +2555,23 @@ def schur_path(graph, pgo, group):
            ops_per_s=FP64_OPS_PER_S,
            note=f"{D} partitions x {max_m} rows, {n_rows} valid; S, r, F, G, g; err relative; "
                 f"no one PyTorch call computes a partition's Schur blocks and factors")
+    packed32 = [t.float() if t.is_floating_point() else t for t in packed]
+    errs32 = [rel(a, c)[0] for a, c in zip(dpgo.eliminate_interior_lu(*packed32),
+                                           dpgo.eliminate_interior_lu_plain(*packed32))]
+    if not max(errs32) <= 1e-5:
+        fail(f"pgo_eliminate_lu float32 differs from its twin by {max(errs32)} (> 1e-5)")
+    f32_ms = device_ms(lambda: dpgo.eliminate_interior_lu(*packed32))
     rows["pgo_eliminate_lu"].update(max_abs_err=max(e[1] for e in errs),
-                                    compared_err=max(e[0] for e in errs))
-    del packed, el_k, el_p
+                                    compared_err=max(e[0] for e in errs),
+                                    float32_err=max(errs32), float32_device_ms=f32_ms,
+                                    dependent_rows=2 * max_m)
+    check_one_launch(rows, "pgo_eliminate_lu", "schur", "eliminate_lu_kernel",
+                     [lambda: dpgo.eliminate_interior_lu(*packed),
+                      lambda: dpgo.eliminate_interior_lu(*packed32)],
+                     note=f"{D} CTAs of one warp, a warp a partition: dependent depth "
+                          f"{2 * max_m} rows (2 x max_m); float32 {max(errs32):.1e} from its "
+                          f"twin, {fmt_ms(f32_ms)} on the device")
+    del packed, packed32, el_k, el_p
 
     # ---- the path ----
     sg = mesh.make_group(4, device=DEVICE, group=group)

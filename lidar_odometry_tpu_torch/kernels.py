@@ -301,10 +301,10 @@ KERNELS = {k.name: k for k in [
            [_P] * 8 + [_I] * 3 + [_D] + [_P] * 2,
            REF + "/parallel/distributed_pgo.py:649"),
     Kernel("pgo_block_thomas", "schur",
-           [_P] * 3 + [_I] * 2 + [_P] * 3,
+           [_P] * 3 + [_I] * 3 + [_P] * 2,
            REF + "/parallel/distributed_pgo.py:74"),
     Kernel("pgo_eliminate_lu", "schur",
-           [_P] * 7 + [_I] * 3 + [_P] * 5,
+           [_P] * 7 + [_I] * 3 + [_P] * 6,
            REF + "/parallel/distributed_pgo.py:104"),
     Kernel("shard_own", "shard",
            [_P, _P, _I, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P],

@@ -188,9 +188,10 @@ def iris_encode_plain(resp):
     b = resp.shape[0]
     z = torch.view_as_real(resp) * float(COLS)
     re, im = z[..., 0], z[..., 1]
-    mag = torch.sqrt(re * re + im * im)
     T = torch.cat([re > 0, im > 0], 1).reshape(b, STACK_ROWS, COLS)
-    m = mag < 1e-4
+    # |z| < 1e-4 with a correctly rounded square root, as the squared compare
+    # (torch's CPU square root is not always correctly rounded)
+    m = re * re + im * im < MAG_SQ_THRESHOLD
     M = torch.cat([m, m], 1).reshape(b, STACK_ROWS, COLS)
     return _pack_rows(T), _pack_rows(M)
 

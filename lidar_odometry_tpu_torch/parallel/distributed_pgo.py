@@ -37,8 +37,11 @@ Non-convergence is failure: gn_optimize_device returns ok = converged.
 The host solvers (the JAX host Gauss-Newton iteration's and the mesh dry
 runs') compute in their input's dtype, float32 or float64, with two
 kernels (csrc/schur.cu) and their plain twins:
-  K12a pgo_block_thomas — the block-Thomas solve of a chain system (JAX
-      block_tridiag_solve);
+  K12a pgo_block_thomas — the solve of a chain system (JAX
+      block_tridiag_solve), partitioned: the chain cut into P ~ sqrt(2n)
+      partitions (thomas_partitions), each interior eliminated onto its
+      two separators, the separators' block-tridiagonal system solved by
+      block-Thomas, the interiors formed from it;
   K12b pgo_eliminate_lu — every partition's interior chain eliminated by
       LU (JAX _eliminate_interior under vmap), over the host packing of
       schur_partitioned_solve, which solves the reduced separator system
@@ -64,6 +67,7 @@ __all__ = ["plan_partition", "dense_solve", "make_plan", "pack_graph", "upload",
            "backsub_retract", "BACKSUB_SHAPE",
            "backsub_retract_plain", "gn_iterations", "LIN_KEYS", "PLAN_KEYS",
            "RED_KEYS", "BACK_KEYS", "block_tridiag_solve", "block_tridiag_solve_plain",
+           "thomas_partitions", "THOMAS_MAX_PARTITIONS",
            "pack_interiors", "eliminate_interior_lu", "eliminate_interior_lu_plain",
            "schur_partitioned_solve"]
 
@@ -854,35 +858,95 @@ def gn_optimize_device(poses: np.ndarray, priors, betweens, n_blocks: int = 8,
 _FLOATS = (torch.float32, torch.float64)
 
 
+THOMAS_MAX_PARTITIONS = 128   # K12a: a warp a partition, at most 8 warps x 16 CTAs
+# K12b keeps a partition's factors (rows of 80 values) in its CTA's shared
+# memory up to this many bytes (the H100 gives a CTA 227 KB), else in a
+# global scratch
+SCHUR_SMEM_BUDGET = 225280
+
+
+def thomas_partitions(n: int) -> int:
+    """K12a's partition count for a chain of n rows: ~sqrt(2n) (the
+    interiors' n/P rows and the separators' P rows balanced), at least 1,
+    at most n and THOMAS_MAX_PARTITIONS. Partition k ends at its separator
+    (k + 1) n // P - 1."""
+    return max(1, min(n, THOMAS_MAX_PARTITIONS, int(math.sqrt(2.0 * n) + 0.5)))
+
+
 def block_tridiag_solve_plain(diag, off, b):
-    """The block-Thomas solve of the block-tridiagonal system diag (n,6,6),
-    off (n-1,6,6) (off[i] = H[i, i+1]), b (n,6) -> x (n,6), a loop over the
-    rows with LU 6x6 solves (JAX block_tridiag_solve)."""
-    n = diag.shape[0]
-    z66 = torch.zeros((6, 6), dtype=diag.dtype, device=diag.device)
-    C_prev, d_prev = z66, torch.zeros((6,), dtype=diag.dtype, device=diag.device)
+    """The solve of the block-tridiagonal system diag (n,6,6), off
+    (n-1,6,6) (off[i] = H[i, i+1]), b (n,6) -> x (n,6) as K12a computes
+    it, partitioned: P = thomas_partitions(n) separators s_k = (k+1) n // P
+    - 1; every partition's interior (front-padded as pack_interiors packs
+    it) eliminated onto its separators by LU, a loop over its rows batched
+    over partitions (_interior_chain); the separators' block-tridiagonal
+    system (diagonal diag[s_k] + S_rr(k) + S_ll(k+1), upper S_lr(k+1) +
+    the chain's coupling where the interior between is empty, lower the
+    upper transposed, as the system is symmetric) by block-Thomas with LU
+    6x6 solves; then x_i = g_i - F_i x_l - G_i x_r. The same x as JAX
+    block_tridiag_solve up to rounding."""
+    n, dt, dev = diag.shape[0], diag.dtype, diag.device
+    if n == 0:
+        return torch.zeros_like(b)
+    P = thomas_partitions(n)
+    seps = torch.tensor([(k + 1) * n // P - 1 for k in range(P)], device=dev)
+    prev = torch.cat([seps.new_full((1,), -1), seps[:-1]])
+    mk = seps - prev - 1
+    max_m = max(int(mk.max()), 1)
+    off_p = torch.cat([off, torch.zeros((1, 6, 6), dtype=dt, device=dev)])   # off_p[n-1] = 0
+    z = lambda t: torch.zeros_like(t)
+
+    # ---- the interiors, front-padded
+    r = torch.arange(max_m, device=dev)
+    start = max_m - mk
+    valid = r[None, :] >= start[:, None]
+    rows = (prev[:, None] + 1 + r[None, :] - start[:, None]).clamp(0, n - 1)
+    Dint = torch.where(valid[..., None, None], diag[rows], torch.eye(6, dtype=dt, device=dev))
+    Oint = torch.where(valid[:, :-1, None, None], off_p[rows[:, :-1]], 0.0)
+    Bint = torch.where(valid[..., None], b[rows], 0.0)
+    has_left = ((prev >= 0) & (mk > 0))[:, None, None]
+    Lleft = torch.where(has_left, off_p[prev.clamp(min=0)].mT, 0.0)
+    Lsep = torch.where((r[None, :] == start[:, None])[..., None, None], Lleft[:, None], 0.0)
+    Uright = torch.where((mk > 0)[:, None, None], off_p[(seps - 1).clamp(min=0)], 0.0)
+    S, rr, F, G, g = _interior_chain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid,
+                                     torch.linalg.solve)
+
+    # ---- the separators' system
+    S_ll, S_lr, _, S_rr = S.unbind(1)
+    r_l, r_r = rr.unbind(1)
+    nxt = lambda t: torch.cat([t[1:], z(t[:1])])
+    empty = mk == 0
+    A = (diag[seps] + S_rr) + nxt(S_ll)
+    Up = nxt(S_lr + torch.where(empty[:, None, None], off_p[prev.clamp(min=0)], 0.0))
+    Low = torch.cat([z(Up[:1]), Up[:-1].mT])
+    rhs = (b[seps] + r_r) + nxt(r_l)
+    C_prev, d_prev = z(A[0]), z(rhs[0])
     Cs, ds = [], []
-    for i in range(n):
-        L_i = off[i - 1].mT if i > 0 else z66
-        U_i = off[i] if i < n - 1 else z66
-        Dt = diag[i] - L_i @ C_prev
-        bt = b[i] - (L_i @ d_prev[:, None])[:, 0]
-        sol = torch.linalg.solve(Dt, torch.cat([U_i, bt[:, None]], 1))
+    for k in range(P):
+        Dt = A[k] - Low[k] @ C_prev
+        bt = rhs[k] - (Low[k] @ d_prev[:, None])[:, 0]
+        sol = torch.linalg.solve(Dt, torch.cat([Up[k], bt[:, None]], 1))
         C_prev, d_prev = sol[:, :6], sol[:, 6]
         Cs.append(C_prev)
         ds.append(d_prev)
-    x = torch.zeros((6,), dtype=diag.dtype, device=diag.device)
-    xs = [None] * n
-    for i in range(n - 1, -1, -1):
-        x = ds[i] - (Cs[i] @ x[:, None])[:, 0]
-        xs[i] = x
-    return torch.stack(xs) if n else torch.zeros_like(b)
+    xs = [ds[-1]] * P
+    for k in range(P - 2, -1, -1):
+        xs[k] = ds[k] - (Cs[k] @ xs[k + 1][:, None])[:, 0]
+    xs = torch.stack(xs)
+
+    # ---- the interiors' x
+    xl = torch.cat([z(xs[:1]), xs[:-1]])
+    xi = (g - (F @ xl[:, None, :, None])[..., 0]) - (G @ xs[:, None, :, None])[..., 0]
+    x = torch.empty_like(b)
+    x[seps] = xs
+    x[rows[valid]] = xi[valid]
+    return x
 
 
 def block_tridiag_solve(diag, off, b):
     """K12a's wrapper: x (n,6) of block_tridiag_solve_plain, in the inputs'
-    dtype (float32 or float64); one thread block walks the chain on a
-    card."""
+    dtype (float32 or float64); on a card one launch, a cluster of up to
+    16 CTAs, a warp a partition."""
     if not diag.is_cuda:
         return block_tridiag_solve_plain(diag, off, b)
     n, dt = diag.shape[0], diag.dtype
@@ -895,11 +959,11 @@ def block_tridiag_solve(diag, off, b):
     x = torch.empty((n, 6), dtype=dt, device=dev)
     if n == 0:
         return x
-    C = torch.empty((n, 6, 6), dtype=dt, device=dev)
-    d = torch.empty((n, 6), dtype=dt, device=dev)
+    P = thomas_partitions(n)
+    scratch = torch.empty((P * 164 + n * 80,), dtype=dt, device=dev)
     kernels.KERNELS["pgo_block_thomas"].launch(
-        diag.data_ptr(), off.data_ptr(), b.data_ptr(), n, int(dt == _F64), C.data_ptr(),
-        d.data_ptr(), x.data_ptr())
+        diag.data_ptr(), off.data_ptr(), b.data_ptr(), n, P, int(dt == _F64),
+        scratch.data_ptr(), x.data_ptr())
     return x
 
 
@@ -951,8 +1015,8 @@ def eliminate_interior_lu_plain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid):
 
 def eliminate_interior_lu(Dint, Oint, Bint, Lsep, Lleft, Uright, valid):
     """K12b's wrapper: (S, r, F, G, g) of eliminate_interior_lu_plain in the
-    inputs' dtype (float32 or float64; valid bool), one thread block a
-    partition on a card."""
+    inputs' dtype (float32 or float64; valid bool), a warp a partition on a
+    card."""
     if not Dint.is_cuda:
         return eliminate_interior_lu_plain(Dint, Oint, Bint, Lsep, Lleft, Uright, valid)
     D, m, dt = Dint.shape[0], Dint.shape[1], Dint.dtype
@@ -971,11 +1035,14 @@ def eliminate_interior_lu(Dint, Oint, Bint, Lsep, Lleft, Uright, valid):
     F = torch.empty((D, m, 6, 6), dtype=dt, device=dev)
     G = torch.empty((D, m, 6, 6), dtype=dt, device=dev)
     g = torch.empty((D, m, 6), dtype=dt, device=dev)
+    scratch = (torch.empty((D * m * 80,), dtype=dt, device=dev)
+               if m * 80 * Dint.element_size() > SCHUR_SMEM_BUDGET else None)
     if D:
         kernels.KERNELS["pgo_eliminate_lu"].launch(
             Dint.data_ptr(), Oint.data_ptr(), Bint.data_ptr(), Lsep.data_ptr(),
             Lleft.data_ptr(), Uright.data_ptr(), valid.data_ptr(), D, m, int(dt == _F64),
-            S.data_ptr(), r.data_ptr(), F.data_ptr(), G.data_ptr(), g.data_ptr())
+            None if scratch is None else scratch.data_ptr(), S.data_ptr(), r.data_ptr(),
+            F.data_ptr(), G.data_ptr(), g.data_ptr())
     return S, r, F, G, g
 
 

@@ -141,8 +141,8 @@ def test_magnitude_threshold_is_exact():
     """K8b tests |z| < 1e-4 as re^2 + im^2 < MAG_SQ_THRESHOLD: x0 is the
     least float32 whose square root is >= 1e-4, and on responses whose
     squared magnitudes sit on and beside x0 (with NaN, +-inf and +-0) the
-    twin's square-root test gives exactly the M words of the squared
-    compare."""
+    twin's M words are exactly those of s < x0, s the squared magnitudes
+    rounded in float32, and its T words those of the signs."""
     x0 = np.float32(iris.MAG_SQ_THRESHOLD)
     t = np.float32(1e-4)
     assert float(x0) == iris.MAG_SQ_THRESHOLD

@@ -906,6 +906,54 @@ def test_schur_solve_on_the_card_matches_the_cpu(dev):
     np.testing.assert_array_equal(xg, x)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_schur_kernel_edges(dev, dtype):
+    """K12a and K12b against their plain twins at the tolerances of
+    test_schur_kernels, at the edges of their launch shapes. K12a: n = 1, 2
+    and 5 (more partitions than n / 2, empty interiors), n = 7 P - 1 and
+    7 P + 1 (97, 99: 14 partitions of uneven size), 43 P - 1 and 43 P + 1
+    (3697, 3699: 86 partitions, not a multiple of a CTA's 6 warps) and
+    16000 (the 128-partition cap, and factors past a CTA's shared memory,
+    in the global scratch). K12b: D = 5 partitions, three of them all
+    padding; max_m = 800 (a partition's factors past its shared memory, in
+    a global scratch); and D = 8 launched as four quarters, bit-equal
+    to one launch over all D. Every call bit-equal to a second one."""
+    from lidar_odometry_tpu_torch.parallel import distributed_pgo as dpgo
+    dt = getattr(torch, dtype)
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    for n in (1, 2, 5, 97, 99, 3697, 3699, 16000):
+        args = [to(a) for a in _chain_system(n, n)]
+        xk = dpgo.block_tridiag_solve(*args)
+        xp = dpgo.block_tridiag_solve_plain(*args)
+        assert _rel(xk, xp) <= tol, (n, _rel(xk, xp))
+        assert torch.equal(xk, dpgo.block_tridiag_solve(*args)), n
+    assert dpgo.thomas_partitions(16000) == dpgo.THOMAS_MAX_PARTITIONS
+
+    def packed(n, seps):
+        d_, o_, b_ = _chain_system(n, n)
+        pk = dpgo.pack_interiors(d_, o_, b_, seps)
+        return [to(a) for a in pk[:-1]] + [torch.from_numpy(pk[-1]).to(dev)]
+
+    cases = [packed(40, [0, 1, 10, 11, 39]), packed(1602, [800, 1601])]
+    assert int((~cases[0][-1].any(1)).sum()) == 3 and cases[1][0].shape[1] == 800
+    for args in cases:
+        outs = dpgo.eliminate_interior_lu(*args)
+        for name, a, c in zip(("S", "r", "F", "G", "g"), outs,
+                              dpgo.eliminate_interior_lu_plain(*args)):
+            assert a.shape == c.shape and _rel(a, c) <= tol, (name, _rel(a, c))
+        for a, c in zip(outs, dpgo.eliminate_interior_lu(*args)):
+            assert torch.equal(a, c)
+    seps = dpgo.plan_partition(100, 8, [])
+    assert len(seps) == 8
+    args = packed(100, seps)
+    whole = dpgo.eliminate_interior_lu(*args)
+    parts = [dpgo.eliminate_interior_lu(*[a[q:q + 2].contiguous() for a in args])
+             for q in range(0, 8, 2)]
+    for i, a in enumerate(whole):
+        assert torch.equal(a, torch.cat([p[i] for p in parts]))
+
+
 @pytest.mark.parametrize("n_shards", [1, 4, 8])
 def test_shard_kernels(scene, n_shards):
     """K11a-d against their plain twins on the card, on a map of the

@@ -1,5 +1,6 @@
 """The host solvers of the port's "distributed" pose-graph backend
-(parallel/distributed_pgo.py: block_tridiag_solve, K12a's twin;
+(parallel/distributed_pgo.py: block_tridiag_solve, K12a's twin, which
+solves the chain in partitions;
 eliminate_interior_lu, K12b's twin; schur_partitioned_solve around it)
 against the JAX package's on the same numpy inputs (CPU).
 
@@ -31,9 +32,14 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("n", [1, 2, 12, 32])
+# n = 1, 2 and 5: more partitions than n / 2 (empty interiors); 97 and 300:
+# several partitions of uneven size (14 of 6-7 rows, 24 of 12-13)
+@pytest.mark.parametrize("n", [1, 2, 5, 12, 32, 97, 300])
 def test_block_tridiag_solve_matches_jax(n):
     diag, off, b = _random_chain(n, np.random.default_rng(n))
+    P = T.thomas_partitions(n)
+    sizes = np.diff([-1] + [(k + 1) * n // P - 1 for k in range(P)])
+    assert (P > n / 2) == (n <= 5) and (n not in (97, 300) or len(set(sizes)) > 1)
     with jax.enable_x64():
         ref = np.asarray(J.block_tridiag_solve(*map(jnp.asarray, (diag, off, b))))
     x = T.block_tridiag_solve(*_t(diag, off, b))

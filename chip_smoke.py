@@ -50,7 +50,12 @@ Phases, each of which exits nonzero on failure:
          window: the binary-search path) and at r = 2, W = 16 on the
          0.5 m table, neighbours and flags equal to the twin's in every
          slot, distances within 1e-5; K5b also at the loop shape (K6b's
-         coarse k = 5 output, 8192 rows, ungated), K7 bev_raster, K7c
+         coarse k = 5 output, 8192 rows, ungated), K7 bev_raster (the
+         prealign's complex64 images, every cell bit-equal to the twin's,
+         one device record a call where the parent's raster and its casts
+         were four, one cluster of 16 x 512 as built and as traced; the
+         device records and time of a whole bev_translation_offset, the
+         loop query's prealigned T_init), K7c
          cross_power (the Iris query's forward and flipped spectra as two
          tensors at 32 candidates and the loops path's K = 1, 2 and 4, and
          the prealign's; bit-equal to the twin; a phase_shifts call
@@ -111,6 +116,17 @@ Phases, each of which exits nonzero on failure:
      below 0.5 m; then the same scans with pgo_backend "distributed" (the
      same loops and rehashes, no loop error, ATE within 1 mm of the manual
      run's; pgo_solve ms of both), then loops off, for scans/s and ATE;
+  6b. the KITTI player: the loops path's 220 scans (NaN rows dropped, a
+     zero intensity column) written as sequences/00/velodyne/%06d.bin
+     with a camera-frame 00.txt under build/kitti_smoke/, through
+     KittiPlayer (config/kitti.yaml, sync_loop) in chunks of 20: all 220
+     frames, none failed, finite poses, ATE below 0.5 m and within 0.02 m
+     of the loops path's, a KITTI trajectory of 220 rows of 12 values, a
+     statistics file, and the native loader in use (the numpy path fails
+     the phase); then its first 40 frames frame by frame through the
+     native Prefetcher, none failed; each run's launches are counted on
+     their own, as the paths "kitti" (the loops path's kernels) and
+     "kitti_frames" (the front door's: its 40 frames reach no loop query);
   7. the PGO path: gn_optimize_device on the KITTI-00-sized graph: it must
      converge, come within 1e-6 of the manual backend and 1e-9 of the plain
      twins, give bit-equal poses in two calls and sync the host at most
@@ -171,7 +187,8 @@ and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
 loops path the surfel path's kernels, K5b and every loop-closure kernel
 (and with the distributed backend K10a-K10d too, which the manual run must
-not launch), the PGO path K10a-K10d, the Schur path K12a and K12b and no
+not launch), the KITTI path (both of its runs) the manual loops path's
+kernels, the PGO path K10a-K10d, the Schur path K12a and K12b and no
 K10 kernel, the blocked path the surfel path's
 kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
 the loops path's kernels, K10a-d and K11a, K11b, K11d, the step path
@@ -180,7 +197,8 @@ many launches as K11d's), one launch for every lane and shard, and K11c's
 sample inside K11b's launch once an ICP iteration and never launched alone
 (its runs there are counted in its `fused` count, and the kernels line
 adds them to its launches: fused_launches_by_path). `--profile` also profiles
-20 frames of the sharded path and of the step path; a window's device busy
+20 frames of the sharded path and of the step path, and a 40-frame run of
+the KITTI player; a window's device busy
 time is the sum of its device activity records (kernels, memcpy, memset),
 each counted once (the first window also prints the op table's sum, which
 counts an op's kernels twice). Lanes 1-3's scans
@@ -246,6 +264,7 @@ LOOP_KERNELS = ("point_grid", "point_knn", "point_nn1", "bev_raster", "cross_pow
                 "iris_image", "gabor_product", "iris_encode", "iris_hamming", "map_bulk_index",
                 "map_bulk_merge")
 LOOPS_PATH_KERNELS = SURFEL_KERNELS + ("plane_fit_5nn",) + LOOP_KERNELS
+KITTI_PER_FRAME = 40      # frames of the KITTI player's per-frame run
 # the blocked path: B lanes over one shared map, the JAX bench's blocked
 # mode (bench.py:153-200) cut to 60 frames a lane; lane 0's scans are the
 # surfel path's first 60
@@ -444,7 +463,8 @@ def check_one_launch(rows, name, src, kernel, fns, shape=None, note="", stack=0,
     torch op that launches device work beside it but the zero fill `fill`
     names (the ops of the wrapper's torch.zeros, where its design keeps
     one), all kept in rows[name]. A one-cluster kernel gives `expect`, its
-    CTAs a cluster and threads a CTA: its shape is then read from the
+    CTAs a cluster and threads a CTA ({} where the build's export is the
+    only statement of them): its shape is then read from the
     build (Kernel.launch_shape) and the grid and block the profiler traced
     on each call (a call the profiler did not record shows []), and the
     run fails unless they agree; a kernel of a cluster per work item (K8c's
@@ -1186,18 +1206,42 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     T_a = bev_align._yaw_corrected(q_pose, m_pose, torch.tensor(0.0, device=dev))
     T_a16 = T_a.reshape(16).contiguous()
     center = m_pose[:3, 3].contiguous()
-    ik = bev_align.bev_raster(q_pts, q_mask, T_a16, m_world, m_mask, center)
-    ip = bev_align.bev_raster_plain(q_pts, q_mask, T_a16, m_world, m_mask, center)
-    occ = int(ip.sum())
-    row("bev_raster", float((ik != ip).sum()), max(2, occ // 1000),
-        lambda: bev_align.bev_raster(q_pts, q_mask, T_a16, m_world, m_mask, center),
+    k7_call = lambda: bev_align.bev_raster(q_pts, q_mask, T_a16, m_world, m_mask, center)
+    ik, ip = k7_call(), bev_align.bev_raster_plain(q_pts, q_mask, T_a16, m_world, m_mask, center)
+    as_bits = lambda t: torch.view_as_real(t).view(torch.int32)
+    n_diff = int((as_bits(ik) != as_bits(ip)).any(-1).sum())
+    occ = int(ip.real.sum())
+    # bytes: what the kernel loads, each once (a query point's x, y, z and
+    # mask, a matched point's x, y and mask, T_a's first two rows, the
+    # centre's x and y), both complex64 images written; the query's
+    # transform 12 operations a point, the cell 6 a point of either cloud
+    row("bev_raster", float(n_diff), 0, k7_call,
         time_ms(lambda: bev_align.bev_raster_plain(q_pts, q_mask, T_a16, m_world, m_mask,
                                                    center)),
-        n_q * 13 + n_m * 13 + 64 + 12 + 2 * 128 * 128 * 4, n_q * 20 + n_m * 6,
-        note=f"{occ} occupied cells of 2 x 128 x 128; err = differing cells (points on a "
-             f"cell edge)")
+        n_q * 13 + n_m * 9 + 32 + 8 + 2 * 128 * 128 * 8, n_q * 18 + n_m * 6,
+        note=f"{occ} occupied cells of 2 x 128 x 128; err = cells not bit-equal to the twin's "
+             f"(complex64, imaginary parts 0)")
+    check_one_launch(rows, "bev_raster", "bev_align", "bev_raster_kernel", [k7_call],
+                     expect={},
+                     note="the images' bitmaps in shared memory, merged over the cluster, "
+                          "every complex cell written: no fill, no cast")
+    # the raster as the parent issued it was a memset, K7 and two casts to
+    # complex64: this tree's one record is the comparable device time
+    k7_records = device_records(k7_call)
+    off_call = lambda: bev_align.bev_translation_offset(q_pts, q_mask, m_world, m_mask, center,
+                                                        T_a=T_a)
+    off_ms, off_records = device_ms(off_call), device_records(off_call)
+    print(f"  bev_raster with its casts (the images as the FFT takes them): {k7_records} device "
+          f"record(s), {fmt_ms(rows['bev_raster']['device_ms'])} on the device; the whole "
+          f"bev_translation_offset: {off_records} device records, {fmt_ms(off_ms)} on the "
+          f"device", flush=True)
+    if k7_records != 1:
+        fail(f"bev_raster: {k7_records} device records a call, expected 1")
+    rows["bev_raster"].update(device_records=k7_records, offset_device_ms=off_ms,
+                              offset_device_records=off_records)
     T_init = icp.loop_prealign(q_pose, m_pose, torch.tensor(0.0, device=dev), q_pts, q_mask,
                                m_pts, m_mask)
+    print(f"  loop query's prealigned T_init: {T_init[:3].flatten().tolist()}", flush=True)
 
     # ---- K6a point_grid (the coarse 2 m and fine 0.5 m tables of the matched keyframe) ----
     grid_calls = []
@@ -1463,7 +1507,6 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
     imgf = img8.float()
     qf = torch.fft.fft2(imgf[0].to(torch.complex64)).reshape(-1)
     k7c_calls = []
-    as_bits = lambda t: torch.view_as_real(t).view(torch.int32)
 
     def k7c(rows_to, name, x, y, x2, note):
         """K7c on x (and x2) against y, bit for bit against its twin."""
@@ -1496,8 +1539,8 @@ def check_loop_kernels(scans, gt, cfg, surfel_map, rows_in):
         fd, fdx = iris_spectra((torch.arange(k, device=dev, dtype=torch.int32) + 1) % 16)
         k7c(one, "cross_power", fd, qf, fdx, note=f"K = {k}, a K of the loops path")
         rows["cross_power"][f"k{k}"] = one["cross_power"]
-    fa = torch.fft.fft2(ip[0].to(torch.complex64)).reshape(-1)
-    fb = torch.fft.fft2(ip[1].to(torch.complex64)).reshape(1, -1)
+    f_bev = torch.fft.fft2(ip)
+    fa, fb = f_bev[0].reshape(-1), f_bev[1].reshape(1, -1)
     sub = {}
     k7c(sub, "cross_power", fb, fa, None, note="the prealign's 128 x 128 BEV spectra")
     rows["cross_power"]["prealign"] = sub["cross_power"]
@@ -2296,7 +2339,7 @@ def loops_path(scans, gt, cfg):
     print("loops path summary: " + json.dumps(dict(
         loops, scans_per_s_loops_off=n / wall_off, ate_m_loops_off=ate_off,
         distributed=dist)), flush=True)
-    return launches, launches_d, traj_d
+    return launches, launches_d, traj_d, ate
 
 
 def profile_loop(est) -> None:
@@ -2320,6 +2363,106 @@ def profile_loop(est) -> None:
     solve_and_rehash()
     profile_window(solve_and_rehash, f"the loop solve {int(pair[1])} <-> {int(pair[0])} and a "
                    f"rehash of the map", "loops_")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the KITTI player
+# ---------------------------------------------------------------------------
+
+def write_kitti_sequence(scans, gt, root: Path) -> None:
+    """The scans (NaN rows dropped, a zero intensity column) as
+    root/sequences/00/velodyne/%06d.bin, and gt as root/gt/00.txt in the
+    camera frame."""
+    import numpy as np
+    from lidar_odometry_tpu_torch.io.kitti import pose_to_kitti_string
+    velo = root / "sequences" / "00" / "velodyne"
+    velo.mkdir(parents=True)
+    for i, s in enumerate(scans):
+        s = s[np.isfinite(s).all(1)]
+        rows = np.zeros((len(s), 4), np.float32)
+        rows[:, :3] = s
+        rows.tofile(velo / f"{i:06d}.bin")
+    (root / "gt").mkdir()
+    (root / "gt" / "00.txt").write_text("".join(pose_to_kitti_string(p) + "\n" for p in gt))
+
+
+def kitti_path(scans, gt, cfg, loops_ate: float):
+    """The loops path's circuit written as a KITTI sequence through
+    KittiPlayer: chunks of LOOP_CHUNK with loops on and sync_loop, then
+    the first KITTI_PER_FRAME frames frame by frame (the native
+    Prefetcher). Each run's launches are counted on their own: the
+    chunked run's and the per-frame run's."""
+    import numpy as np
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.eval import ate_rmse
+    from lidar_odometry_tpu_torch.io.kitti import KittiPlayer
+    from lidar_odometry_tpu_torch.runtime import native_io
+
+    root = ROOT / "build" / "kitti_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_kitti_sequence(scans, gt, root)
+    kcfg = cfg.replace(data_directory=str(root), ground_truth_directory=str(root / "gt"),
+                       output_directory=str(root / "out"), seq="00")
+    loader = native_io.loader_name()
+    print(f"kitti path: {len(scans)} .bin files and 00.txt written in "
+          f"{time.perf_counter() - t0:.1f} s; loader {loader} ({native_io.library_path()})",
+          flush=True)
+    if loader != "native":
+        fail("kitti path: the native loader did not build or load (the numpy path is in use)")
+    sync()
+    kernels.reset_counts()
+    player = KittiPlayer(kcfg, device=DEVICE)
+    res = player.run(sync_loop=True, chunk_frames=LOOP_CHUNK)
+    launches = kernels.counts()
+    est = player.estimator
+    traj = est.trajectory()
+    n = len(scans)
+    if (res.frames_processed != n or res.frames_failed or traj.shape != (n, 4, 4)
+            or not np.all(np.isfinite(traj))):
+        fail(f"kitti path: {res.frames_processed} frames ({res.frames_failed} failed), poses "
+             f"of shape {traj.shape}")
+    ate = ate_rmse(traj, gt)
+    rows = np.loadtxt(res.trajectory_path)
+    s = res.error_stats
+    print(f"kitti path: {n} frames in chunks of {LOOP_CHUNK}, sync_loop; {res.fps:.1f} scans/s "
+          f"({res.total_time_s:.3f} s, steady {res.steady_fps:.1f}); ATE {ate:.4f} m (the loops "
+          f"path's {loops_ate:.4f} m; the evaluator's camera-frame ATE {s.ate_rmse:.4f} m, scale "
+          f"{s.scale_factor:.6f}); keyframes {est.get_keyframe_count()}; loop constraints "
+          f"{est.get_loop_closure_count()}, rehashes {est.rehash_count}, loop errors "
+          f"{est.loop_errors}; trajectory {rows.shape}; statistics {res.statistics_path}",
+          flush=True)
+    if rows.shape != (n, 12):
+        fail(f"kitti path: the KITTI trajectory file has shape {rows.shape}")
+    if not Path(res.statistics_path).is_file():
+        fail("kitti path: no statistics file")
+    if not ate < 0.5 or not abs(ate - loops_ate) <= 0.02:
+        fail(f"kitti path: ATE {ate:.4f} m, the loops path's {loops_ate:.4f} m")
+    if est.loop_errors:
+        fail(f"kitti path: {est.loop_errors} loop errors")
+    del est, player
+    check_launches("kitti", launches, LOOPS_PATH_KERNELS, ("grid_knn",) + PGO_KERNELS)
+    sync()
+    kernels.reset_counts()
+    res = KittiPlayer(kcfg, device=DEVICE).run(sync_loop=True, chunk_frames=0,
+                                               end=KITTI_PER_FRAME)
+    frame_launches = kernels.counts()
+    print(f"kitti path, frame by frame (the native Prefetcher): {res.frames_processed} frames "
+          f"({res.frames_failed} failed), {res.fps:.1f} scans/s; ATE of the camera-frame "
+          f"evaluator {res.error_stats.ate_rmse:.4f} m", flush=True)
+    if res.frames_processed != KITTI_PER_FRAME or res.frames_failed:
+        fail(f"kitti path, frame by frame: {res.frames_processed} frames "
+             f"({res.frames_failed} failed)")
+    # its 40 frames make 20 keyframes, and a keyframe's loop query waits
+    # for kitti.yaml's min_keyframe_gap of 50: the front door's kernels
+    check_launches("kitti_frames", frame_launches, SURFEL_KERNELS, ("grid_knn",) + PGO_KERNELS)
+    if PROFILE:
+        profile_window(lambda: KittiPlayer(kcfg, device=DEVICE).run(
+            sync_loop=True, chunk_frames=LOOP_CHUNK, end=2 * LOOP_CHUNK),
+            f"the KITTI player over {2 * LOOP_CHUNK} frames in chunks of {LOOP_CHUNK}, set-up "
+            f"and its loop programs' warm-up included", "kitti_")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, frame_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3537,8 +3680,12 @@ def main() -> None:
         profile_mid360(indoor, sysc)
 
     # ---- phase 6: the loops path, manual then distributed pose graph ----
-    by_path["loops"], by_path["loops_distributed"], traj_dist = loops_path(loop_scans, loop_gt,
-                                                                             kitti)
+    by_path["loops"], by_path["loops_distributed"], traj_dist, loops_ate = loops_path(
+        loop_scans, loop_gt, kitti)
+
+    # ---- phase 6b: the KITTI player ----
+    by_path["kitti"], by_path["kitti_frames"] = kitti_path(loop_scans, loop_gt, kitti,
+                                                          loops_ate)
 
     # ---- phase 7: the PGO path ----
     by_path["pgo"], pgo = pgo_path(pgo_graph)

@@ -6,10 +6,12 @@ prealign_pose).
 Both keyframe clouds are rasterised into (G, G) occupancy images around
 the matched keyframe's position; the offset is the argmax of the
 normalised cross-power spectrum (the first maximum in row-major order, as
-jnp.argmax and torch.argmax both take it). The FFTs are torch.fft.
+jnp.argmax and torch.argmax both take it). The FFTs are torch.fft, the two
+forward ones in one batched call.
 
 Kernels (csrc/bev_align.cu), each with its plain twin below:
-  K7 bev_raster — the query cloud's transform and both occupancy images;
+  K7 bev_raster — the query cloud's transform and both occupancy images,
+      written as the complex64 pair that one batched FFT takes;
   K7c cross_power — the normalised cross-power spectrum between the FFTs
       (also the Iris shift estimate's, ops/iris.py).
 """
@@ -28,10 +30,16 @@ __all__ = ["bev_raster", "bev_raster_plain", "cross_power", "cross_power_plain",
            "bev_translation_offset", "prealign_pose_t", "prealign_pose"]
 
 
+# the kernel's bitmap of both images fits 48 KB of shared memory
+MAX_RASTER_CELLS = 12288 * 32
+
+
 def bev_raster(pts_a, mask_a, T_a, pts_b, mask_b, center, *, grid: int = 128,
                bin_size: float = 1.0):
-    """K7's wrapper: (2, G, G) f32 occupancy images of cloud A moved by
-    T_a (16,) f32 row-major and of world cloud B, centred at center (3,)."""
+    """K7's wrapper: the (2, G, G) complex64 occupancy images (real part 0
+    or 1, imaginary part 0: what the FFTs take) of cloud A moved by T_a
+    (16,) f32 row-major and of world cloud B, centred at center (3,). The
+    kernel writes every cell: no fill before it, no cast after it."""
     if not pts_a.is_cuda:
         return bev_raster_plain(pts_a, mask_a, T_a, pts_b, mask_b, center, grid=grid,
                                 bin_size=bin_size)
@@ -42,28 +50,43 @@ def bev_raster(pts_a, mask_a, T_a, pts_b, mask_b, center, *, grid: int = 128,
     kernels.check(pts_b, "pts_b", torch.float32, (nb, 3))
     kernels.check(mask_b, "mask_b", torch.bool, (nb,))
     kernels.check(center, "center", torch.float32, (3,))
-    img = torch.zeros((2, grid, grid), dtype=torch.float32, device=pts_a.device)
+    if 2 * grid * grid > MAX_RASTER_CELLS:
+        raise kernels.KernelInputError(f"grid {grid}: the bitmap of two {grid} x {grid} "
+                                       f"images does not fit the kernel's shared memory")
+    img = torch.empty((2, grid, grid), dtype=torch.complex64, device=pts_a.device)
     kernels.KERNELS["bev_raster"].launch(
         pts_a.data_ptr(), mask_a.data_ptr(), na, T_a.data_ptr(), pts_b.data_ptr(),
         mask_b.data_ptr(), nb, center.data_ptr(), grid, K.f32(bin_size), img.data_ptr())
     return img
 
 
-def _occupancy(p, m, center, grid: int, bin_size: float):
+def _occupancy(x, y, m, center, grid: int, bin_size: float):
+    """(G, G) f32 occupancy of points (x, y): the cell floor((x - c) / bin)
+    + G / 2 by IEEE division (by a tensor: torch multiplies by the
+    reciprocal of a Python float)."""
     half = grid // 2
-    ij = torch.floor((p[:, :2] - center[None, :2]) / K.f32(bin_size)).to(torch.int32) + half
+    b = torch.full((), K.f32(bin_size), dtype=torch.float32, device=x.device)
+    ij = torch.stack([torch.floor((x - center[0]) / b), torch.floor((y - center[1]) / b)], 1)
+    ij = ij.to(torch.int32) + half
     ok = m & torch.all((ij >= 0) & (ij < grid), 1)
     flat = torch.where(ok, ij[:, 0] * grid + ij[:, 1], grid * grid).to(torch.int64)
-    occ = torch.zeros((grid * grid + 1,), dtype=torch.float32, device=p.device)
+    occ = torch.zeros((grid * grid + 1,), dtype=torch.float32, device=x.device)
     occ[flat] = 1.0
     return occ[:-1].view(grid, grid)
 
 
 def bev_raster_plain(pts_a, mask_a, T_a, pts_b, mask_b, center, *, grid: int = 128,
                      bin_size: float = 1.0):
-    a_world = lie.transform_points(T_a.view(4, 4), pts_a)
-    return torch.stack([_occupancy(a_world, mask_a, center, grid, bin_size),
-                        _occupancy(pts_b, mask_b, center, grid, bin_size)])
+    """K7's twin: cloud A moved by T_a in the kernel's order (each product
+    and sum rounded on its own, left to right), both occupancy images,
+    complex64."""
+    T = T_a.reshape(16)
+    px, py, pz = pts_a.unbind(1)
+    xa = ((T[0] * px + T[1] * py) + T[2] * pz) + T[3]
+    ya = ((T[4] * px + T[5] * py) + T[6] * pz) + T[7]
+    occ = torch.stack([_occupancy(xa, ya, mask_a, center, grid, bin_size),
+                       _occupancy(pts_b[:, 0], pts_b[:, 1], mask_b, center, grid, bin_size)])
+    return torch.complex(occ, torch.zeros_like(occ))
 
 
 def cross_power(x, y, x2=None):
@@ -106,9 +129,10 @@ def cross_power_plain(x, y, x2=None):
 
 
 def _offset_from_images(img, grid: int, bin_size: float):
-    fa = torch.fft.fft2(img[0].to(torch.complex64))
-    fb = torch.fft.fft2(img[1].to(torch.complex64))
-    cross = cross_power(fb.reshape(1, -1), fa.reshape(-1)).view(grid, grid)
+    """The offset from bev_raster's (2, G, G) complex64 images: one batched
+    FFT of both, K7c, the inverse FFT and its first maximum."""
+    f = torch.fft.fft2(img)
+    cross = cross_power(f[1].reshape(1, -1), f[0].reshape(-1)).view(grid, grid)
     corr = torch.real(torch.fft.ifft2(cross))
     flat = torch.argmax(corr.reshape(-1))
     half = grid // 2

@@ -50,6 +50,8 @@ def test_occupancy_images(scene):
     img = bev_align.bev_raster(torch.as_tensor(scene["query"]), torch.as_tensor(scene["q_mask"]),
                                T, torch.as_tensor(pts), torch.as_tensor(scene["m_mask"]),
                                torch.as_tensor(center)).numpy()
+    assert img.dtype == np.complex64 and not img.imag.any()
+    img = img.real
     for k, p in enumerate((scene["query"], pts)):
         rel = p[:, :2].astype(np.float64) - center[:2]
         ij = np.floor(rel).astype(int) + 64

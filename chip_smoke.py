@@ -116,6 +116,18 @@ Phases, each of which exits nonzero on failure:
      below 0.5 m; then the same scans with pgo_backend "distributed" (the
      same loops and rehashes, no loop error, ATE within 1 mm of the manual
      run's; pgo_solve ms of both), then loops off, for scans/s and ATE;
+  6c. checkpoint and viewer: the loops path's run again in a fresh
+     Estimator, saved (checkpoint.save) at the last chunk boundary before
+     the frame whose keyframe closes the loops path's loop, restored
+     (checkpoint.restore) into a fresh Estimator on the card and run to the
+     end with finalize_loops: it must accept the same loop and rehash, and
+     stay within 1e-3 m of the loops path's manual run on every frame; the
+     largest gap, the save and restore ms and the archive's MB are
+     printed; then LiveViewer.update on the restored estimator (state.json
+     fetched over 127.0.0.1, its n_map equal to map_points()'s length),
+     export_state into build/viewer_smoke/ and save_map_to_ply (a snapshot
+     PNG only where matplotlib is installed); its launches are the path
+     "checkpoint";
   6b. the KITTI player: the loops path's 220 scans (NaN rows dropped, a
      zero intensity column) written as sequences/00/velodyne/%06d.bin
      with a camera-frame 00.txt under build/kitti_smoke/, through
@@ -187,8 +199,9 @@ and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
 loops path the surfel path's kernels, K5b and every loop-closure kernel
 (and with the distributed backend K10a-K10d too, which the manual run must
-not launch), the KITTI path (both of its runs) the manual loops path's
-kernels, the PGO path K10a-K10d, the Schur path K12a and K12b and no
+not launch), the checkpoint path (its run before the save and after the
+restore, and the viewer) and the KITTI path (both of its runs) the manual
+loops path's kernels, the PGO path K10a-K10d, the Schur path K12a and K12b and no
 K10 kernel, the blocked path the surfel path's
 kernels (K4b once a block) and no KD-tree or loop kernel, the sharded path
 the loops path's kernels, K10a-d and K11a, K11b, K11d, the step path
@@ -393,16 +406,24 @@ def launches_of(fn, kernel: str):
     return kernels.KERNELS[kernel].launches - n0, ops
 
 
-def device_records(fn) -> int:
+def device_records(fn, tries: int = 3) -> int:
     """The device activity records (kernels, memcpy, memset) of one call
-    of fn, from torch.profiler (device_busy_us)."""
+    of fn, from torch.profiler (device_busy_us). The call is profiled up
+    to `tries` times, as in traced_dims: a window in which CUPTI delivered
+    no device record at all (seen once for K9b in a full run of this
+    script) is a window the profiler missed, not a call that ran nothing
+    on the device; 0 comes back only where every window was empty."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
         fn()
         sync()
-    return device_busy_us(prof)[1]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        n = device_busy_us(prof)[1]
+        if n:
+            return n
+    return 0
 
 
 def entry_name(mangled: str) -> str:
@@ -2297,6 +2318,7 @@ def loops_path(scans, gt, cfg):
         fail(f"loops path ATE {ate:.4f} m > 0.5 m")
     loops = dict(scans_per_s=n / wall, ate_m=ate, loops=est.get_loop_closure_count(),
                  rehashes=est.rehash_count, stages_ms=stages)
+    manual = dict(traj=traj, loop=loop_of(est))
     if PROFILE:
         profile_loop(est)
     del est
@@ -2339,7 +2361,18 @@ def loops_path(scans, gt, cfg):
     print("loops path summary: " + json.dumps(dict(
         loops, scans_per_s_loops_off=n / wall_off, ate_m_loops_off=ate_off,
         distributed=dist)), flush=True)
-    return launches, launches_d, traj_d, ate
+    return launches, launches_d, traj_d, ate, manual
+
+
+def loop_of(est):
+    """(matched keyframe id, query keyframe id, the query keyframe's frame)
+    of the estimator's first loop factor, or None."""
+    keys = est.pose_graph.export_factors()["between_keys"]
+    pairs = keys[keys[:, 1] - keys[:, 0] != 1]
+    if not len(pairs):
+        return None
+    m_kf, q_kf = est.keyframes[int(pairs[0][0])], est.keyframes[int(pairs[0][1])]
+    return m_kf.kf_id, q_kf.kf_id, q_kf.frame_index
 
 
 def profile_loop(est) -> None:
@@ -2363,6 +2396,100 @@ def profile_loop(est) -> None:
     solve_and_rehash()
     profile_window(solve_and_rehash, f"the loop solve {int(pair[1])} <-> {int(pair[0])} and a "
                    f"rehash of the map", "loops_")
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: checkpoint and resume, then the viewer
+# ---------------------------------------------------------------------------
+
+def checkpoint_path(scans, cfg, manual):
+    """The loops path's run again, saved at the last chunk boundary before
+    the frame whose keyframe closes the loop, restored into a fresh
+    Estimator on the card and run to the end with finalize_loops: the same
+    loop, a rehash, and the uninterrupted run's poses within 1e-3 m on
+    every frame. Then LiveViewer.update (its JSON fetched over 127.0.0.1),
+    export_state and save_map_to_ply on the restored estimator."""
+    import urllib.request
+    import numpy as np
+    from lidar_odometry_tpu_torch import checkpoint, kernels, viewer
+    from lidar_odometry_tpu_torch.models.estimator import Estimator
+
+    if manual["loop"] is None:
+        fail("checkpoint path: the loops path accepted no loop to resume before")
+    m_id, q_id, q_frame = manual["loop"]
+    cut = (q_frame // LOOP_CHUNK) * LOOP_CHUNK
+    out = ROOT / "build" / "viewer_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    archive = out / "checkpoint.npz"
+    sync()
+    kernels.reset_counts()
+    est = Estimator(cfg, sync_loop=True, device=DEVICE)
+    for c in range(0, cut, LOOP_CHUNK):
+        est.process_chunk(scans[c:c + LOOP_CHUNK])
+    if est.get_loop_closure_count():
+        fail(f"checkpoint path: a loop was accepted before frame {cut}")
+    sync()
+    t0 = time.perf_counter()
+    checkpoint.save(str(archive), est)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    n_kf = est.get_keyframe_count()
+    del est
+    t0 = time.perf_counter()
+    est = checkpoint.restore(str(archive), cfg, sync_loop=True, device=DEVICE)
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    for c in range(cut, len(scans), LOOP_CHUNK):
+        est.process_chunk(scans[c:c + LOOP_CHUNK])
+    est.finalize_loops()
+    traj = est.trajectory()
+    launches = kernels.counts()
+    gap = float(np.abs(traj[:, :3, 3] - manual["traj"][:, :3, 3]).max())
+    loop = loop_of(est)
+    mb = archive.stat().st_size / 2**20
+    print(f"checkpoint path: saved after frame {cut} ({n_kf} keyframes; the loops path closes "
+          f"{q_id} <-> {m_id} at frame {q_frame}) in {save_ms:.1f} ms, {mb:.2f} MB; restored "
+          f"on {DEVICE} in {restore_ms:.1f} ms; resumed to frame {len(traj)}: loop constraints "
+          f"{est.get_loop_closure_count()} ({loop[1] if loop else None} <-> "
+          f"{loop[0] if loop else None}), rehashes {est.rehash_count}, loop errors "
+          f"{est.loop_errors}; largest position gap to the uninterrupted run {gap:.3e} m",
+          flush=True)
+    if traj.shape != manual["traj"].shape or not np.all(np.isfinite(traj)):
+        fail(f"checkpoint path: poses of shape {traj.shape} not all finite")
+    if loop is None or loop[:2] != (m_id, q_id) or est.rehash_count < 1 or est.loop_errors:
+        fail(f"checkpoint path: loop {loop}, {est.rehash_count} rehashes, {est.loop_errors} "
+             f"loop errors after the restore (the loops path: {manual['loop']})")
+    if not gap <= 1e-3:
+        fail(f"checkpoint path: the resumed run is {gap:.3e} m from the uninterrupted run")
+
+    lv = viewer.LiveViewer(port=0)
+    try:
+        t0 = time.perf_counter()
+        lv.update(est)
+        update_ms = (time.perf_counter() - t0) * 1e3
+        state = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{lv.port}/state.json",
+                                                  timeout=30).read())
+    finally:
+        lv.close()
+    n_map = len(est.map_points())
+    if state["n_map"] != n_map or state["frame"] != len(scans) or state["loops"] != 1:
+        fail(f"checkpoint path: the viewer's state.json has n_map {state['n_map']} (the map "
+             f"{n_map}), frame {state['frame']}, loops {state['loops']}")
+    t0 = time.perf_counter()
+    viewer.export_state(str(out), est)
+    if not est.save_map_to_ply(str(out / "map_acc.ply")):
+        fail("checkpoint path: save_map_to_ply wrote nothing")
+    export_ms = (time.perf_counter() - t0) * 1e3
+    files = sorted(p.name for p in out.iterdir())
+    need = {"map.ply", "trajectory_xyz.csv", "keyframes_xyz.csv", "surfels.csv", "map_acc.ply"}
+    if not need <= set(files):
+        fail(f"checkpoint path: export_state wrote {files}")
+    snapshot = "written" if "snapshot.png" in files else "skipped: no matplotlib"
+    print(f"checkpoint path: viewer update {update_ms:.1f} ms (n_map {state['n_map']}, "
+          f"{len(state['surfels'])} surfels); export_state and save_map_to_ply {export_ms:.1f} "
+          f"ms: {files} (snapshot.png {snapshot})", flush=True)
+    check_launches("checkpoint", launches, LOOPS_PATH_KERNELS, ("grid_knn",) + PGO_KERNELS)
+    del est
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3680,8 +3807,11 @@ def main() -> None:
         profile_mid360(indoor, sysc)
 
     # ---- phase 6: the loops path, manual then distributed pose graph ----
-    by_path["loops"], by_path["loops_distributed"], traj_dist, loops_ate = loops_path(
+    by_path["loops"], by_path["loops_distributed"], traj_dist, loops_ate, manual = loops_path(
         loop_scans, loop_gt, kitti)
+
+    # ---- phase 6c: checkpoint and resume, then the viewer, on the card ----
+    by_path["checkpoint"] = checkpoint_path(loop_scans, kitti, manual)
 
     # ---- phase 6b: the KITTI player ----
     by_path["kitti"], by_path["kitti_frames"] = kitti_path(loop_scans, loop_gt, kitti,

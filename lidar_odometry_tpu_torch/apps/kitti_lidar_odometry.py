@@ -1,9 +1,10 @@
 """KITTI odometry CLI (counterpart of the repository's
-apps/kitti_lidar_odometry.py, without the live viewer):
+apps/kitti_lidar_odometry.py):
 
     python -m lidar_odometry_tpu_torch.apps.kitti_lidar_odometry <config.yaml>
         [--start N] [--end N] [--skip N] [--sync-loop] [--save-map FILE]
         [--shards N] [--chunk N] [--prestage] [--device cuda|cpu]
+        [--live-viewer [PORT]] [--step] [--no-viewer]
 
 over data_directory/sequences/<seq>/velodyne/*.bin, with the ground truth
 ground_truth_directory/<seq>.txt where it exists. --sync-loop runs each
@@ -11,7 +12,9 @@ loop query inline at its keyframe (deterministic); --shards N holds the
 map sharded over N shards of this process (frame by frame, the
 distributed pose graph); --chunk N runs N frames a process_chunk call (0:
 frame by frame; default the config's chunk_frames); --prestage uploads
-every chunk before the timed loop.
+every chunk before the timed loop; --live-viewer serves the run's live
+view and its auto/step/finish controls on 127.0.0.1 (viewer.LiveViewer),
+in step mode with --step; --no-viewer serves none.
 """
 import argparse
 import sys
@@ -19,6 +22,14 @@ import sys
 from lidar_odometry_tpu_torch.config import load_config
 from lidar_odometry_tpu_torch.io.kitti import KittiPlayer
 from lidar_odometry_tpu_torch.utils import logging_util as log
+
+
+def live_viewer(args):
+    """The LiveViewer that --live-viewer, --step and --no-viewer ask for, or None."""
+    if args.live_viewer is None or args.no_viewer:
+        return None
+    from lidar_odometry_tpu_torch.viewer import LiveViewer
+    return LiveViewer(port=args.live_viewer, step_mode=args.step)
 
 
 def main(argv=None) -> int:
@@ -37,6 +48,12 @@ def main(argv=None) -> int:
     ap.add_argument("--prestage", action="store_true",
                     help="upload every chunk before the timed loop")
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("--live-viewer", type=int, nargs="?", const=8123, default=None,
+                    metavar="PORT", help="serve a live 3D view with auto/step/finish controls "
+                    "on 127.0.0.1:PORT (default 8123)")
+    ap.add_argument("--step", action="store_true",
+                    help="start the live viewer in step mode (a frame or chunk a step)")
+    ap.add_argument("--no-viewer", action="store_true", help="serve no live viewer")
     args = ap.parse_args(argv)
 
     print("=" * 60)
@@ -44,9 +61,16 @@ def main(argv=None) -> int:
     print("=" * 60)
     cfg = load_config(args.config)
     player = KittiPlayer(cfg, device=args.device)
-    result = player.run(start=args.start, end=args.end, skip=args.skip,
-                        sync_loop=args.sync_loop, shards=args.shards,
-                        chunk_frames=args.chunk, prestage=args.prestage)
+    lv = live_viewer(args)
+    try:
+        result = player.run(start=args.start, end=args.end, skip=args.skip,
+                            sync_loop=args.sync_loop, shards=args.shards,
+                            chunk_frames=args.chunk, prestage=args.prestage, live_viewer=lv)
+        if lv is not None and player.estimator is not None:
+            lv.update(player.estimator)
+    finally:
+        if lv is not None:
+            lv.close()
     if result.frames_processed == 0:
         return 1
     if args.save_map and player.estimator is not None:

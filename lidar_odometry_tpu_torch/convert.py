@@ -24,14 +24,15 @@ from .ops.voxel_map import VoxelMapState
 __all__ = ["pko_constants_from_numpy", "map_state_from_numpy",
            "map_state_to_numpy", "sharded_map_from_numpy", "sharded_map_to_numpy",
            "carry_from_numpy", "loop_detector_from_numpy", "pose_graph_from_numpy",
-           "MAP_FIELDS", "POSE_GRAPH_FIELDS"]
+           "MAP_FIELDS", "TABLES", "POSE_GRAPH_FIELDS"]
 
 POSE_GRAPH_FIELDS = ("keyframe_ids", "poses", "prior_keys", "prior_measured",
                      "prior_sqrt_info", "between_keys", "between_measured",
                      "between_sqrt_info", "counts")
 
 MAP_FIELDS = VoxelMapState._fields
-_TABLES = ("l0_data", "l1_index", "l1_meta", "l1_last", "l1_surfel", "l1_free")
+# the fields with one row a slot, to which the port adds its sink row
+TABLES = ("l0_data", "l1_index", "l1_meta", "l1_last", "l1_surfel", "l1_free")
 
 
 def pko_constants_from_numpy(arrays: dict, kernel_type: str = "huber",
@@ -57,7 +58,7 @@ def map_state_from_numpy(arrays: dict, device="cuda") -> VoxelMapState:
     out = {}
     for name in MAP_FIELDS:
         a = np.asarray(arrays[name])
-        if name in _TABLES:
+        if name in TABLES:
             a = np.concatenate([a, _sink_row(name, a)])
         out[name] = torch.tensor(a, device=device)
     return VoxelMapState(**out)
@@ -68,7 +69,7 @@ def map_state_to_numpy(state: VoxelMapState) -> dict:
     out = {}
     for name in MAP_FIELDS:
         a = getattr(state, name).detach().cpu().numpy()
-        out[name] = a[:-1] if name in _TABLES else a
+        out[name] = a[:-1] if name in TABLES else a
     return out
 
 
@@ -83,7 +84,7 @@ def sharded_map_from_numpy(arrays: dict, n_shards: int, device="cuda",
     out = {}
     for name in MAP_FIELDS:
         a = np.asarray(arrays[name])
-        if name in _TABLES:
+        if name in TABLES:
             per = a.reshape((n_shards, a.shape[0] // n_shards) + a.shape[1:])
             a = np.concatenate([np.concatenate([per[s], _sink_row(name, per[s])])
                                 for s in shards])
@@ -100,7 +101,7 @@ def sharded_map_to_numpy(state: VoxelMapState) -> dict:
     out = {}
     for name in MAP_FIELDS:
         a = getattr(state, name).detach().cpu().numpy().copy()
-        if name in _TABLES:
+        if name in TABLES:
             per = a.reshape((n, a.shape[0] // n) + a.shape[1:])
             a = per[:, :-1].reshape((-1,) + a.shape[1:])
         out[name] = a

@@ -6,8 +6,9 @@ A fill thread decodes the files of the next chunk, assembles them into a
 NaN-padded (F, N, 3) batch in pinned host memory, and starts its copy to
 the device on a side stream, so that the upload of chunk c+1 overlaps the
 device work of chunk c; the consumer's stream waits for the copy before
-it reads the batch. A bounded queue of 2 chunks throttles the reader to
-the consumer's speed.
+it reads the batch. A bounded queue (`lookahead`, 2 chunks by default)
+throttles the reader to the consumer's speed; `prestage` lifts the bound,
+so that every chunk uploads as fast as the reader goes.
 
 .bin files are read with numpy (KITTI layout: float32 x, y, z, intensity).
 """
@@ -106,11 +107,23 @@ class ChunkFeeder:
 
     def __init__(self, paths: List[str], chunk_frames: int,
                  loader: Optional[Callable[[str], np.ndarray]] = None,
-                 device="cuda", point_stride: int = 1):
+                 device="cuda", point_stride: int = 1, lookahead: int = 2,
+                 prestage: bool = False, stage_device: bool = True):
         """`point_stride` > 1 applies the pipeline's stride-skip at decode
         time instead of on the device: the same points (it is the voxel
         filter's first step) and a smaller upload. The consumer's voxel
-        filter must then run with stride 1."""
+        filter must then run with stride 1. `lookahead` chunks are
+        assembled ahead of the consumer; `prestage` assembles (and
+        uploads) all of them as fast as the reader goes.
+
+        `stage_device` is accepted as True only: on a CUDA device each
+        chunk is always staged on the card by the fill thread's stream,
+        because a host batch would make the consumer's upload a blocking
+        copy on its own stream, in series with the chunk's device work;
+        device="cpu" yields numpy batches."""
+        if not stage_device:
+            raise ValueError("ChunkFeeder stages every chunk on its device; stage_device=False "
+                             "is not supported (pass device='cpu' for host batches)")
         n_full = (len(paths) // chunk_frames) * chunk_frames
         self.paths = list(paths[:n_full])
         self.tail = list(paths[n_full:])
@@ -120,7 +133,8 @@ class ChunkFeeder:
         self.device = torch.device(device)
         self.n_chunks = len(self.paths) // chunk_frames
         self._loader = loader or load_bin
-        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._q: queue.Queue = queue.Queue(maxsize=self.n_chunks + 1 if prestage
+                                           else max(int(lookahead), 1))
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._fill, daemon=True)
         self._thread.start()

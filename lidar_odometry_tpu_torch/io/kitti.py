@@ -1,5 +1,5 @@
 """KITTI dataset player and trajectory writers (counterpart of the JAX
-package's io/kitti.py, without the live viewer).
+package's io/kitti.py).
 
 Drives the Estimator over a sequence of KITTI velodyne .bin files
 (data_directory/sequences/<seq>/velodyne, or the bare directory), saves
@@ -202,7 +202,8 @@ class KittiPlayer:
 
     def run(self, start: int = 0, end: Optional[int] = None, skip: int = 1,
             sync_loop: bool = False, prefetch: bool = True, shards: int = 0,
-            chunk_frames: Optional[int] = None, prestage: bool = False) -> KittiPlayerResult:
+            chunk_frames: Optional[int] = None, prestage: bool = False,
+            live_viewer=None) -> KittiPlayerResult:
         """`shards` > 0 holds the map sharded over that many shards of this
         process (ShardedMapBackend over mesh.make_group, the distributed
         pose graph), frame by frame. `chunk_frames` (None: the config's)
@@ -210,7 +211,12 @@ class KittiPlayer:
         then moves to decode time and the estimator filters with stride 1
         (the same points, io/feeder.py). `prestage` uploads every chunk to
         the device before the timed loop (the feeder streams two chunks
-        ahead otherwise). `sync_loop` runs each loop query inline."""
+        ahead otherwise). `sync_loop` runs each loop query inline.
+        `live_viewer` (a viewer.LiveViewer) gates the loop by its
+        auto/step/finish controls, before each chunk and each frame, and
+        takes a snapshot after each chunk, and after every 5th frame or
+        each frame in step mode; the chunks' host bookkeeping is then not
+        deferred, so that each snapshot sees its chunk."""
         result = KittiPlayerResult()
         files = self.bin_files()
         if not files:
@@ -236,9 +242,9 @@ class KittiPlayer:
         self.estimator = Estimator(est_cfg, sync_loop=sync_loop, device=self.device,
                                    map_backend=backend)
         if use_chunked:
-            self._run_chunked(files, int(chunk_frames), result, prestage)
+            self._run_chunked(files, int(chunk_frames), result, prestage, live_viewer)
         else:
-            self._run_frames(files, prefetch, result)
+            self._run_frames(files, prefetch, result, live_viewer)
         self.estimator.finalize_loops()
 
         traj = self.estimator.trajectory()
@@ -285,12 +291,22 @@ class KittiPlayer:
             result.frames_failed += 1
         result.per_frame_ms.append((time.perf_counter() - t0) * 1e3)
 
-    def _run_frames(self, files, prefetch: bool, result: KittiPlayerResult) -> None:
+    def _gate(self, live_viewer) -> bool:
+        """False once the viewer's finish was pressed (step mode waits)."""
+        if live_viewer is None or live_viewer.wait_if_stepping():
+            return True
+        log.info("[KittiPlayer] finish requested by viewer")
+        return False
+
+    def _run_frames(self, files, prefetch: bool, result: KittiPlayerResult,
+                    live_viewer=None) -> None:
         """Every scan through process_frame, read ahead by the Prefetcher."""
         loader = native_io.Prefetcher(files) if prefetch else None
         t_run = time.perf_counter()
         try:
             for i, path in enumerate(files):
+                if not self._gate(live_viewer):
+                    break
                 if loader is not None:
                     cloud = loader.next()
                 else:
@@ -299,6 +315,8 @@ class KittiPlayer:
                     except OSError:
                         cloud = None
                 self._frame(i, cloud, result, path)
+                if live_viewer is not None and (i % 5 == 0 or live_viewer.mode == "step"):
+                    live_viewer.update(self.estimator)
         finally:
             if loader is not None:
                 loader.close()
@@ -308,18 +326,19 @@ class KittiPlayer:
         result.fps = result.frames_processed / max(result.total_time_s, 1e-9)
 
     def _run_chunked(self, files, chunk_frames: int, result: KittiPlayerResult,
-                     prestage: bool) -> None:
+                     prestage: bool, live_viewer=None) -> None:
         """Full chunks through process_chunk, assembled and staged by the
         ChunkFeeder; the frames left over through process_frame. With
-        loops off the host bookkeeping of chunks 2 on is deferred: they
-        run back to back with no host read, and their results are drained
-        every 16 chunks on a background thread (one drain after another,
-        so the bookkeeping stays in order) and at the end."""
+        loops off and no viewer the host bookkeeping of chunks 2 on is
+        deferred: they run back to back with no host read, and their
+        results are drained every 16 chunks on a background thread (one
+        drain after another, so the bookkeeping stays in order) and at
+        the end. A viewer's controls act a chunk at a time."""
         from .feeder import ChunkFeeder
         if self.cfg.enable_loop_detection:
             self.estimator.warm_loop_programs()
         feeder = ChunkFeeder(files, chunk_frames, loader=load_kitti_binary, device=self.device,
-                             point_stride=self.cfg.point_stride)
+                             point_stride=self.cfg.point_stride, prestage=prestage)
         log.info("[KittiPlayer] chunked mode: {} chunks of {} frames, raw capacity {}",
                  feeder.n_chunks, chunk_frames, feeder.capacity)
         source = feeder
@@ -328,7 +347,7 @@ class KittiPlayer:
             source = list(feeder)
             self._sync()
             log.info("[KittiPlayer] prestaged {} chunks on the device", len(source))
-        defer = not self.cfg.enable_loop_detection
+        defer = not self.cfg.enable_loop_detection and live_viewer is None
         frames_done = 0
         drain_thread: Optional[threading.Thread] = None
 
@@ -343,6 +362,8 @@ class KittiPlayer:
         t_steady = None
         try:
             for c, chunk in enumerate(source):
+                if not self._gate(live_viewer):     # the tail's gate stops too
+                    break
                 t0 = time.perf_counter()
                 # chunks 0 (stage-sampled: its first frame runs per-frame)
                 # and 1 fetch their results at once
@@ -355,6 +376,8 @@ class KittiPlayer:
                 per_frame = (time.perf_counter() - t0) * 1e3 / chunk_frames
                 result.per_frame_ms.extend([per_frame] * chunk_frames)
                 frames_done += chunk_frames
+                if live_viewer is not None:
+                    live_viewer.update(self.estimator)
             if drain_thread is not None:
                 drain_thread.join()
             if defer:
@@ -367,11 +390,15 @@ class KittiPlayer:
                                  / max(time.perf_counter() - t_steady, 1e-9))
         stride = max(self.cfg.point_stride, 1)
         for path in feeder.tail:
+            if not self._gate(live_viewer):
+                break
             try:
                 cloud = load_kitti_binary(path)[::stride]
             except OSError:
                 cloud = None
             self._frame(frames_done, cloud, result, path)
+            if live_viewer is not None and (frames_done % 5 == 0 or live_viewer.mode == "step"):
+                live_viewer.update(self.estimator)
             frames_done += 1
         self._sync()
         result.total_time_s = time.perf_counter() - t_run

@@ -137,9 +137,13 @@ class PLYPlayer:
         return sorted(files, key=frame_number)
 
     def run(self, start: int = 0, end: Optional[int] = None, skip: int = 1,
-            chunk_frames: Optional[int] = None, sync_loop: bool = False) -> PlyPlayerResult:
+            chunk_frames: Optional[int] = None, sync_loop: bool = False,
+            live_viewer=None) -> PlyPlayerResult:
         """`sync_loop` runs each loop query inline at its keyframe instead
-        of on the loop worker thread."""
+        of on the loop worker thread. `live_viewer` (a viewer.LiveViewer) gates
+        the loop by its auto/step/finish controls, before each chunk and
+        each frame, and takes a snapshot after each chunk, and after every
+        5th frame or each frame in step mode."""
         from .feeder import ChunkFeeder, ReadAhead
         result = PlyPlayerResult()
         files = self.ply_files()[start:end:skip]
@@ -165,8 +169,13 @@ class PLYPlayer:
                                  point_stride=self.cfg.point_stride)
             try:
                 for c, chunk in enumerate(feeder):
+                    # a finish stops the frame loop below at its first gate too
+                    if live_viewer is not None and not live_viewer.wait_if_stepping():
+                        break
                     self.estimator.process_chunk(chunk, sample_stages=(c % 8 == 0))
                     frames_done += int(chunk_frames)
+                    if live_viewer is not None:
+                        live_viewer.update(self.estimator)
             finally:
                 feeder.close()
             rest = feeder.tail
@@ -174,7 +183,10 @@ class PLYPlayer:
         tail_load = (lambda p: load_ply(p)[::stride]) if stride > 1 else load_ply
         clouds = ReadAhead(rest, tail_load)
         try:
-            for cloud in clouds:
+            for i, cloud in enumerate(clouds):
+                if live_viewer is not None and not live_viewer.wait_if_stepping():
+                    log.info("[PLYPlayer] finish requested by viewer")
+                    break
                 try:
                     if cloud is not None:
                         self.estimator.process_frame(cloud)
@@ -184,6 +196,8 @@ class PLYPlayer:
                     log.error("[PLYPlayer] frame {} failed: {}", frames_done, repr(e))
                     result.frames_failed += 1
                 frames_done += 1
+                if live_viewer is not None and (i % 5 == 0 or live_viewer.mode == "step"):
+                    live_viewer.update(self.estimator)
         finally:
             clouds.close()
         self.estimator.finalize_loops()

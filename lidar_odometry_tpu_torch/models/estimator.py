@@ -236,6 +236,10 @@ class Estimator:
             self._loop_stage_ms: Dict[str, float] = {}
         self._chunk_carry = None        # the device-resident odometry carry
         self._deferred_chunks = []      # packed results awaiting bookkeeping
+        # the last per-frame-path frame's feature cloud, its mask and its
+        # pre-ICP pose, as device tensors: the viewer's scan and debug
+        # clouds, fetched when it draws
+        self._last_feat = self._last_mask = self._last_icp_guess = None
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -275,6 +279,7 @@ class Estimator:
         T_dev, _success, _n_corr = self.backend.icp_optimize(
             self.map_state, feat, mask, guess, self.pko_consts, self.icp_cfg)
         T_new = _host(T_dev)
+        self._last_icp_guess = guess
         timing.icp_ms = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()
@@ -290,6 +295,7 @@ class Estimator:
         timing.map_update_ms = (time.perf_counter() - t0) * 1e3
 
         self._prev_pose = self.T_current
+        self._last_feat, self._last_mask = feat, mask
         # the host pose state moved on outside the chunk path: the
         # device-resident chunk carry no longer matches it
         self._chunk_carry = None
@@ -317,6 +323,7 @@ class Estimator:
         self.frames.append(frame)
         self._create_keyframe(feat, mask, frame)
         self._prev_pose = self.T_current
+        self._last_feat, self._last_mask = feat, mask
         self.initialized = True
 
     def _should_create_keyframe(self, pose: np.ndarray) -> bool:
@@ -617,6 +624,19 @@ class Estimator:
             np.add.at(counts, inv, 1)
             acc = (sums / counts[:, None]).astype(np.float32)
         return acc
+
+    def save_map_to_ply(self, output_path: str, voxel_size: Optional[float] = None) -> bool:
+        """The accumulated keyframe map, voxel-downsampled (default the
+        scan voxel size), as a binary PLY; False when there is no
+        keyframe."""
+        from ..io.ply import save_ply
+        pts = self.accumulated_map(self.cfg.voxel_size if voxel_size is None else voxel_size)
+        if len(pts) == 0:
+            log.warn("[Estimator] No keyframes to save")
+            return False
+        save_ply(output_path, pts)
+        log.info("[Estimator] Saved final map to {} ({} points)", output_path, len(pts))
+        return True
 
     def get_current_pose(self) -> np.ndarray:
         return self.T_current.copy()

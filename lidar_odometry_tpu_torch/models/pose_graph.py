@@ -33,8 +33,10 @@ from typing import Dict, List
 import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
+import torch
 
 from ..parallel import distributed_pgo as dpgo
+from ..utils import lie
 
 _EPS = 1e-10  # reference kEpsLie (PoseGraphOptimizer.cpp:31)
 
@@ -45,48 +47,33 @@ def _skew(v):
     return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]], dtype=np.float64)
 
 
+def _f64(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float64))
+
+
 def so3_log(R):
-    tr = np.trace(R)
-    theta = np.arccos(np.clip((tr - 1.0) / 2.0, -1.0, 1.0))
-    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
-    if theta < _EPS:
-        return w / 2.0
-    return w * (theta / (2.0 * np.sin(theta)))
+    """(3, 3) -> axis-angle w (utils/lie.so3_log in float64)."""
+    return lie.so3_log(_f64(R)).numpy()
 
 
 def so3_exp(w):
-    theta = np.linalg.norm(w)
-    if theta < _EPS:
-        return np.eye(3) + _skew(w)
-    W = _skew(w / theta)
-    return np.eye(3) + np.sin(theta) * W + (1.0 - np.cos(theta)) * W @ W
+    """Axis-angle w -> (3, 3) (utils/lie.so3_exp in float64)."""
+    return lie.so3_exp(_f64(w)).numpy()
 
 
 def se3_log(R, t):
-    """(R, t) -> [w, u] (GTSAM order, reference SE3_Logmap :81-96)."""
-    w = so3_log(R)
-    theta = np.linalg.norm(w)
-    if theta < _EPS:
-        return np.concatenate([w, t])
-    W = _skew(w / theta)
-    tan_half = np.tan(0.5 * theta)
-    Wt = W @ t
-    u = t - (0.5 * theta) * Wt + (1.0 - theta / (2.0 * tan_half)) * (W @ Wt)
-    return np.concatenate([w, u])
+    """(R, t) -> [w, u] (GTSAM order): utils/lie.se3_log's [u, w] in
+    float64, swapped (reference SE3_Logmap :81-96)."""
+    xi = lie.se3_log(lie.se3_matrix(_f64(R), _f64(t))).numpy()
+    return np.concatenate([xi[3:], xi[:3]])
 
 
 def se3_exp(xi):
-    """[w, u] -> (R, t) (reference SE3_Expmap :98-118)."""
-    w, u = xi[:3], xi[3:]
-    R = so3_exp(w)
-    theta = np.linalg.norm(w)
-    if theta < _EPS:
-        return R, u.copy()
-    W = _skew(w)
-    t2 = theta * theta
-    V = (np.eye(3) + (1.0 - np.cos(theta)) / t2 * W
-         + (theta - np.sin(theta)) / (t2 * theta) * W @ W)
-    return R, V @ u
+    """[w, u] -> (R, t) (GTSAM order): utils/lie.se3_exp of [u, w] in
+    float64 (reference SE3_Expmap :98-118)."""
+    xi = np.asarray(xi, np.float64)
+    R, t = lie.se3_rt(lie.se3_exp(_f64(np.concatenate([xi[3:], xi[:3]]))))
+    return R.numpy(), t.numpy()
 
 
 def adjoint(R, t):
@@ -142,7 +129,7 @@ def between_error(T_from, T_to, measured):
 def prior_error(T, measured):
     R, t = T[:3, :3], T[:3, 3]
     R_m, t_m = measured[:3, :3], measured[:3, 3]
-    err = se3_log(R_m.T @ R, R_m.T @ (t - t_m))
+    err = _se3_log_batch((R_m.T @ R)[None], (R_m.T @ (t - t_m))[None])[0]
     return err, np.eye(6)
 
 

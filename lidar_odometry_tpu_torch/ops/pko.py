@@ -34,7 +34,8 @@ import torch
 from .. import kernels
 
 __all__ = ["PKOConstants", "make_pko_constants", "pko_alpha_index",
-           "pko_alpha_index_plain", "stratified_sample", "fit_gmm",
+           "pko_alpha_index_plain", "pko_scale_factor", "pko_alpha_from_samples",
+           "kernel_weight", "stratified_sample", "fit_gmm",
            "alpha_index_from_samples", "norm_scale_from", "STRATA_U",
            "KMEANS_PICK", "SHARD_COUNTS", "shard_quota", "shard_draws"]
 
@@ -201,6 +202,24 @@ def _kernel_weight_np(r, delta, kernel_type):
     return delta**2 / (delta**2 + r**2)  # default: cauchy
 
 
+def kernel_weight(r: torch.Tensor, delta, kernel_type: str) -> torch.Tensor:
+    """Robust kernel weights of residuals r at scale delta (the table of
+    _kernel_weight_np, in torch)."""
+    r = torch.abs(r)
+    if kernel_type == "huber":
+        return torch.where(r <= delta, 1.0, delta / torch.clamp(r, min=1e-30))
+    if kernel_type == "tukey":
+        x = r / delta
+        return torch.where(x < 1.0, (1 - x**2) ** 2, 0.0)
+    if kernel_type == "welsch":
+        return torch.exp(-(r**2) / (delta**2) / 2.0)
+    if kernel_type == "gemanMcClure":
+        return r * delta**2 / (delta**2 + r**2) ** 2
+    if kernel_type == "pseudoHuber":
+        return delta**2 / (delta**2 + r**2) ** 1.5
+    return delta**2 / (delta**2 + r**2)  # cauchy, and the default
+
+
 @dataclass(frozen=True)
 class PKOConstants:
     alphas: torch.Tensor     # (A,) candidate scales (index 0 = min, skipped)
@@ -357,6 +376,28 @@ def alpha_index_from_samples(samples: torch.Tensor, consts: PKOConstants,
     cost = torch.mean(jsd, dim=1)
     cost[0] = math.inf
     return _first_argmin(cost)
+
+
+def pko_alpha_from_samples(samples: torch.Tensor, consts: PKOConstants,
+                           pick: torch.Tensor = None) -> torch.Tensor:
+    """The JS-argmin kernel scale alpha (a () tensor) of the GMM fitted to
+    an already drawn sample of normalised residuals."""
+    return consts.alphas[alpha_index_from_samples(samples, consts, pick).to(torch.int64)]
+
+
+def pko_scale_factor(residuals: torch.Tensor, valid: torch.Tensor,
+                     consts: PKOConstants) -> torch.Tensor:
+    """The kernel scale alpha (a () tensor) of normalised residual
+    magnitudes |r| / scale (N,) f32 under the (N,) bool mask: the
+    stratified sample, the GMM fit and the JS argmin of one K3 launch
+    (scale 1, so the kernel's normalisation leaves the values as they
+    are)."""
+    dev = residuals.device
+    aux, _ = pko_alpha_index(
+        residuals.to(torch.float32).contiguous(), valid.to(torch.bool).contiguous(),
+        torch.zeros((3,), dtype=torch.int32, device=dev),
+        torch.ones((1,), dtype=torch.float32, device=dev), False, consts)
+    return consts.alphas[aux[1].to(torch.int64)]
 
 
 def pko_alpha_index_plain(resid, valid, scale, compute_scale: bool,

@@ -70,7 +70,7 @@ __all__ = ["VoxelMapState", "empty_map", "update_map", "lookup_surfels", "parent
            "grid_knn_neighbors_plain", "l0_points", "MIN_OCCUPIED_CHILDREN",
            "transform_and_rehash", "bulk_build", "bulk_plan", "bulk_parents", "rehash_records",
            "map_bulk_index", "map_bulk_index_plain", "map_bulk_merge", "map_bulk_merge_plain",
-           "BULK_INDEX_SHAPE"]
+           "BULK_INDEX_SHAPE", "voxel_occupied"]
 
 MIN_OCCUPIED_CHILDREN = 5
 BUCKET = 8
@@ -661,6 +661,16 @@ def lookup_surfels(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float
     slot, hit, _, _ = bucket_find(state.l1_index, qhi, qlo)
     row = state.l1_surfel[torch.clamp(slot, 0, state.c1 - 1)]
     return row[:, 0:3], row[:, 3:6], hit & (row[:, 7] > 0.5)
+
+
+def voxel_occupied(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float,
+                   hierarchy_factor: int = 3) -> torch.Tensor:
+    """Whether each point's L0 voxel is live (a diagnostic query)."""
+    coords = K.voxel_coords(pts, 1.0 / voxel_size)
+    slot, hit, _, _ = bucket_find(state.l1_index, *K.pack_key(
+        torch.div(coords, hierarchy_factor, rounding_mode="floor")))
+    addr = torch.clamp(slot, 0, state.c1 - 1) * NCH + _child_offset_of(coords)
+    return hit & (state.l0_data[addr, 0] > 0.0)
 
 
 def grid_knn_neighbors(state: VoxelMapState, pts: torch.Tensor, *, voxel_size: float,

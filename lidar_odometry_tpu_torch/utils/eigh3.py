@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["eigh3", "plane_from_points"]
+__all__ = ["eigh3", "smallest_eigenvector", "plane_from_points"]
 
 _TWO_PI_3 = 2.0 * math.pi / 3.0
 
@@ -62,6 +62,11 @@ def eigh3(A: torch.Tensor):
     """(eigenvalues ascending (..., 3), smallest-eigenvalue eigenvector (..., 3))."""
     lam = _eigvals3(A)
     return lam, _eigvec_for(A, lam[..., 0])
+
+
+def smallest_eigenvector(A: torch.Tensor) -> torch.Tensor:
+    """The unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)."""
+    return _eigvec_for(A, _eigvals3(A)[..., 0])
 
 
 def plane_from_points(pts: torch.Tensor, mask: torch.Tensor):

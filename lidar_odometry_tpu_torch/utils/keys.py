@@ -7,6 +7,10 @@ JAX map state converts by copy), as int64 tensors that hold uint32
 values, and sorts by one signed int64 `sort_key(hi, lo)` that orders
 exactly like the lexicographic (hi, lo) pair.
 
+`searchsorted2` is the lower-bound search of a sorted (hi, lo) table, and
+`morton_np` the host-side 63-bit Morton code of the JAX package (its +2^20
+bias and 21-bit clamp).
+
 Two key layouts:
   * the map key `pack_key`: hi = iz + 2^31, lo = (ix+32768)<<16 | (iy+32768)
     (z-major order);
@@ -23,7 +27,8 @@ import torch
 
 __all__ = ["INVALID_U32", "INVALID_SORT_KEY", "COMPACT_BITS", "COMPACT_HALF",
            "voxel_coords", "f32", "pack_key", "unpack_key", "sort_key",
-           "compact_key", "segment_starts", "to_i32", "from_i32", "split_sort_key"]
+           "compact_key", "segment_starts", "to_i32", "from_i32", "split_sort_key",
+           "parent_coords", "key_lt", "key_eq", "sort_by_key", "searchsorted2", "morton_np"]
 
 INVALID_U32 = 0xFFFFFFFF
 INVALID_SORT_KEY = (1 << 63) - 1          # sort_key(INVALID_U32, INVALID_U32)
@@ -103,3 +108,54 @@ def to_i32(u: torch.Tensor) -> torch.Tensor:
 def from_i32(i: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> the uint32 value, held in int64."""
     return i.to(torch.int64) & 0xFFFFFFFF
+
+
+def parent_coords(coords: torch.Tensor, factor: int) -> torch.Tensor:
+    """Floor-division parent coords of (..., 3) int32 voxel coords."""
+    return torch.div(coords, factor, rounding_mode="floor").to(coords.dtype)
+
+
+def key_lt(ahi, alo, bhi, blo) -> torch.Tensor:
+    """(ahi, alo) < (bhi, blo), lexicographically."""
+    return (ahi < bhi) | ((ahi == bhi) & (alo < blo))
+
+
+def key_eq(ahi, alo, bhi, blo) -> torch.Tensor:
+    return (ahi == bhi) & (alo == blo)
+
+
+def sort_by_key(hi: torch.Tensor, lo: torch.Tensor, *payload: torch.Tensor):
+    """(hi, lo) sorted lexicographically (uint32 values held in int64), the
+    payload tensors permuted along their first axis."""
+    order = torch.sort(sort_key(hi.to(torch.int64), lo.to(torch.int64)), stable=True).indices
+    return (hi[order], lo[order]) + tuple(p[order] for p in payload)
+
+
+def searchsorted2(table_hi: torch.Tensor, table_lo: torch.Tensor,
+                  qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """Lower-bound insertion indices in [0, C] of the (qhi, qlo) keys in a
+    lexicographically sorted (hi, lo) table (uint32 values held in int64;
+    padding slots hold (INVALID_U32, INVALID_U32) and sort last), int32."""
+    table = sort_key(table_hi.to(torch.int64), table_lo.to(torch.int64))
+    q = sort_key(qhi.to(torch.int64), qlo.to(torch.int64))
+    return torch.searchsorted(table, q, right=False).to(torch.int32)
+
+
+def _expand_bits_np(v: np.ndarray) -> np.ndarray:
+    v = v.astype(np.uint64) & np.uint64(0x1FFFFF)
+    v = (v | (v << np.uint64(32))) & np.uint64(0x1F00000000FFFF)
+    v = (v | (v << np.uint64(16))) & np.uint64(0x1F0000FF0000FF)
+    v = (v | (v << np.uint64(8))) & np.uint64(0x100F00F00F00F00F)
+    v = (v | (v << np.uint64(4))) & np.uint64(0x10C30C30C30C30C3)
+    v = (v | (v << np.uint64(2))) & np.uint64(0x1249249249249249)
+    return v
+
+
+def morton_np(coords: np.ndarray) -> np.ndarray:
+    """63-bit Morton code (uint64) of (..., 3) int coords: each axis biased
+    by 2^20 and clamped to 21 bits, x in bit 0 of each triple."""
+    c = coords.astype(np.int64) + (1 << 20)
+    c = np.clip(c, 0, (1 << 21) - 1).astype(np.uint64)
+    return (_expand_bits_np(c[..., 0])
+            | (_expand_bits_np(c[..., 1]) << np.uint64(1))
+            | (_expand_bits_np(c[..., 2]) << np.uint64(2)))

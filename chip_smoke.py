@@ -101,9 +101,19 @@ Phases, each of which exits nonzero on failure:
          2 lanes x 4 shards) bit-equal to its per-instance launches; times
          at 4 shards, K11a's device times at every S and at the step
          path's 2 lanes x 4 shards (with and without the lanes' poses);
-  4. the surfel path: make_chunk_runner over chunks of 20 frames; scans/s
-     after the first chunk, ATE against the synthetic ground truth (must
-     stay below 0.5 m), keyframes, map size;
+  4. the surfel path: make_chunk_runner over chunks of 20 frames, run
+     twice from an empty map: eagerly (graph=False) and as captured CUDA
+     graphs (the default: a warm-up chunk, a capture, replays); the
+     captured run must be bit-equal to the eager one (poses, is_kf,
+     n_corr and every carry tensor, the map's ten included) and launch
+     every kernel as often; scans/s after the first chunk, ATE against the
+     synthetic ground truth (must stay below 0.5 m), keyframes, map size;
+     the device ms of one map update at these shapes for a keyframe (with
+     and without the eviction scan) and for a non-keyframe's predicated
+     update; then one more chunk each way: wall, device busy ms and busy
+     share (torch.profiler), host kernel and graph launches, host syncs
+     (none allowed in a captured chunk) and each graph's nodes
+     (libcuda's cuGraphGetNodes);
   5. the mid360 path: config/mid360.yaml (loop closure off, chunks of 20)
      through the PLY player over indoor-corridor ring scans written as PLY
      files: process_chunk with its sampled per-frame first frame, then the
@@ -117,8 +127,9 @@ Phases, each of which exits nonzero on failure:
      same loops and rehashes, no loop error, ATE within 1 mm of the manual
      run's; pgo_solve ms of both), then loops off, for scans/s and ATE;
   6c. checkpoint and viewer: the loops path's run again in a fresh
-     Estimator, saved (checkpoint.save) at the last chunk boundary before
-     the frame whose keyframe closes the loops path's loop, restored
+     Estimator, saved (checkpoint.save) at the chunk boundary before the
+     last one before the frame whose keyframe closes the loops path's loop
+     (the restored run's second chunk, a captured one, closes it), restored
      (checkpoint.restore) into a fresh Estimator on the card and run to the
      end with finalize_loops: it must accept the same loop and rehash, and
      stay within 1e-3 m of the loops path's manual run on every frame; the
@@ -163,10 +174,13 @@ Phases, each of which exits nonzero on failure:
      (bench.py:153-200: lane b the bench's world and drive with seed
      11 + b, 131072-point scans strided by 8, scan capacity 14336), a boot
      chunk of 20 frames at block=1, then two chunks of 20 at block=4, 60
-     frames a lane; aggregate scans/s after the boot chunk beside the
-     surfel path's, ATE per lane (each below 0.5 m), keyframes per lane
-     (lane 0 within 1 of the surfel path's over the same 60 frames), map
-     size, and the host syncs of one block=4 chunk (at most 1);
+     frames a lane, eagerly and captured (the block=4 chunks), the
+     captured run bit-equal to the eager one with equal launches;
+     aggregate scans/s after the boot chunk beside the surfel path's, ATE
+     per lane (each below 0.5 m), keyframes per lane (lane 0 within 1 of
+     the surfel path's over the same 60 frames), map size, and one more
+     block=4 chunk each way as in phase 4 (no host sync in a captured
+     one);
   9. the sharded path and the data x map step, over the one-rank NCCL
      process group with 4 shards on the card: config/kitti.yaml with the
      distributed pose graph through Estimator(sync_loop=True,
@@ -194,6 +208,10 @@ K11c's device and as-issued times at every S (K11b alone and with the
 sample), K6b's at each of its shapes, K5b's at the loop shape, K5a's at
 r = 1 and with the row mask, K8a's at b = 1 and K9a's at the sharded
 path's per-shard c1.
+The Estimator's chunks (phases 5, 6, 6c and 6b's chunked run) run as
+captured CUDA graphs: each of those runs must have replayed one. A
+replay adds its graph's captured launches to the counts, so they count
+kernel executions either way.
 Each path is run with every kernel's launch count set to 0 just before it
 and read just after: the surfel path must launch its seven kernels, the
 mid360 path K1, K3, K2b, K4a, K4b, K5a and K5b, and never K2a or K4c, the
@@ -656,6 +674,16 @@ def check_launches(path: str, launches: dict, must, never=()) -> None:
     extra = [k for k in never if launches[k] != 0]
     if extra:
         fail(f"the {path} path launched {extra}, which it must not")
+
+
+def check_captured(path: str, est) -> None:
+    """The Estimator's chunks went through captured CUDA graphs (its
+    GraphedChunk): at least one graph and one replay."""
+    run = est._chunk_runner
+    graphs, replays = (0, 0) if run is None else (len(run.graphs), run.replays)
+    print(f"{path} path: {graphs} captured chunk graph(s), {replays} replays", flush=True)
+    if not replays:
+        fail(f"{path} path: no chunk ran as a captured CUDA graph")
 
 
 def check_sample_in_k11b(path: str, launches: dict, fused: dict) -> None:
@@ -2158,52 +2186,231 @@ def check_lane_kernels(lanes_np, cfg, consts, kw, rows):
 # phase 4: the surfel path
 # ---------------------------------------------------------------------------
 
+def drive_chunks(run, carry, chunks, dim: int = 0):
+    """The chunks through `run` from `carry`: the last carry, the outputs
+    (poses, is_kf, n_corr) concatenated along the frame axis `dim`, and
+    the wall seconds of the first chunk and of the rest."""
+    import torch
+    sync()
+    t0 = time.perf_counter()
+    carry, out = run(carry, chunks[0])
+    outs = [out]
+    sync()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ch in chunks[1:]:
+        carry, out = run(carry, ch)
+        outs.append(out)
+    sync()
+    return carry, [torch.cat(col, dim) for col in zip(*outs)], first, time.perf_counter() - t0
+
+
+def check_same_run(path: str, eager, captured) -> None:
+    """Fail unless the captured run (carry, outputs) is bit-equal to the
+    eager one: poses, is_kf, n_corr and every carry tensor, the map's ten
+    included."""
+    import torch
+    from lidar_odometry_tpu_torch.ops import voxel_map as vm
+    (ce, oe), (cg, og) = eager, captured
+    names = (["poses", "is_kf", "n_corr"] + list(vm.VoxelMapState._fields)
+             + ["T_prev", "velocity", "last_kf_pose", "initialized", "kf_count"])
+    pairs = zip(names, list(oe) + list(ce.map_state) + list(ce[1:]),
+                list(og) + list(cg.map_state) + list(cg[1:]))
+    bad = [n for n, a, b in pairs if a.shape != b.shape or not torch.equal(a, b)]
+    print(f"{path} path: the captured run against graph=False: "
+          f"{'bit-equal' if not bad else 'differs in ' + ', '.join(bad)} (poses, is_kf, n_corr "
+          f"and the carry, the map's ten tensors included)", flush=True)
+    if bad:
+        fail(f"{path} path: the captured chunks differ from the eager ones in {bad}")
+
+
+def graph_nodes(runner) -> list:
+    """Each captured chunk of a GraphedChunk: frames a chunk, the CUDA
+    graph's nodes and its kernel, memcpy and memset nodes (libcuda's
+    cuGraphGetNodes and cuGraphNodeGetType), and the port's kernel
+    launches captured in it."""
+    import ctypes
+    from collections import Counter
+    cu = ctypes.CDLL("libcuda.so.1")
+    out = []
+    for key, cap in runner.graphs.items():
+        g = ctypes.c_void_p(cap.graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+            fail("cuGraphGetNodes failed on a captured chunk")
+        nodes = (ctypes.c_void_p * n.value)()
+        cu.cuGraphGetNodes(g, nodes, ctypes.byref(n))
+        kinds, t = Counter(), ctypes.c_int()
+        for node in nodes:
+            cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+            kinds[t.value] += 1
+        out.append(dict(frames=key[1][-3], nodes=n.value, kernel_nodes=kinds[0],
+                        memcpy_nodes=kinds[1], memset_nodes=kinds[2],
+                        port_launches=sum(cap.capture.launches.values())))
+    return out
+
+
+def chunk_windows(path: str, eager_fn, captured_fn, runner) -> dict:
+    """One more chunk each way on the runs' last carries (bit-equal, so
+    both do the same work): wall ms (the median of 3 synchronised calls),
+    device busy ms, busy share and host launches from a torch.profiler
+    window, host syncs, and the captured graphs' nodes. Fails on a host
+    sync in a captured chunk."""
+    out = {}
+    for way, fn in (("eager", eager_fn), ("captured", captured_fn)):
+        walls = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        st = profile_stats(fn)
+        out[way] = dict(wall_ms=sorted(walls)[1], busy_ms=st["busy_ms"], records=st["records"],
+                        busy_share=st["busy_share"], profiled_wall_ms=st["wall_ms"],
+                        kernel_launches=st["kernel_launches"],
+                        graph_launches=st["graph_launches"],
+                        host_syncs=count_syncs(fn, where=f"{path} path, one {way} chunk"))
+    out["captured"]["graphs"] = graph_nodes(runner)
+    for way in ("eager", "captured"):
+        o = out[way]
+        share = ("not measured (no device record in 3 windows)" if o["busy_ms"] is None
+                 else f"{o['busy_ms']:.3f} ms busy ({100 * o['busy_share']:.1f} % of the "
+                      f"profiled window's {o['profiled_wall_ms']:.3f} ms, "
+                      f"{100 * o['busy_ms'] / o['wall_ms']:.1f} % of the unprofiled wall; "
+                      f"{o['records']} records)")
+        print(f"{path} path, one {way} chunk: wall {o['wall_ms']:.3f} ms; {share}; "
+              f"{o['kernel_launches']} kernel and {o['graph_launches']} graph launches from the "
+              f"host; {o['host_syncs']} host syncs", flush=True)
+    print(f"{path} path, captured: graphs {json.dumps(out['captured']['graphs'])}", flush=True)
+    if out["captured"]["host_syncs"]:
+        fail(f"{path} path: {out['captured']['host_syncs']} host syncs in a captured chunk")
+    return out
+
+
+def update_costs(carry, scan, cfg, kw, reps: int = 5) -> dict:
+    """Device ms of one map update at the surfel shapes, on copies of the
+    surfel path's last map, the frame's features from `scan`: a keyframe
+    with the eviction scan, one without, and a non-keyframe's predicated
+    update (no inserts, no eviction scan), which the frame step runs since
+    the branch moved onto the device. CUDA events around each of `reps`
+    updates behind a spin (device_ms_once), each on its own copy of the
+    map, as issued from the host and as one captured CUDA graph; the
+    medians."""
+    import torch
+    from lidar_odometry_tpu_torch import kernels
+    from lidar_odometry_tpu_torch.ops import voxel_filter as vf
+    from lidar_odometry_tpu_torch.ops import voxel_map as vm
+    from lidar_odometry_tpu_torch.utils import lie
+    raw = torch.as_tensor(scan, device=DEVICE)
+    feat, mask, _ = vf.voxel_filter(raw, raw.shape[0], voxel_size=kw["scan_voxel_size"],
+                                    stride=1, out_capacity=SCAN_CAP, compact_keys=True)
+    T = carry.T_prev
+    world = lie.transform_points(T, feat)
+    copy = lambda: vm.VoxelMapState(*(t.clone() for t in carry.map_state))
+    out = {}
+    for name, kf, ev in (("keyframe, eviction scan", True, True),
+                         ("keyframe, no eviction scan", True, False),
+                         ("non-keyframe (predicated)", False, False)):
+        flag = torch.full((), kf, dtype=torch.bool, device=DEVICE)
+        evict = torch.full((), ev, dtype=torch.bool, device=DEVICE) & flag
+        upd = lambda st: vm.update_map(st, world, mask & flag, T[:3, 3], kw["max_distance"],
+                                       voxel_size=cfg.voxel_size,
+                                       planarity_threshold=kw["planarity_threshold"],
+                                       hierarchy_factor=cfg.hierarchy_factor,
+                                       evict_enabled=evict)
+        upd(copy())
+        times = []
+        for _ in range(reps):
+            st = copy()
+            times.append(device_ms_once(lambda: upd(st)))
+        times = sorted(t for t in times if t is not None)
+        out[name] = times[len(times) // 2] if times else None
+        # the same update captured, as the frame step runs inside a chunk's
+        # graph: a replay on a fresh copy of the map each time
+        st, cur, side = copy(), torch.cuda.current_stream(), torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            upd(copy())
+        cur.wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with kernels.capturing():
+            with torch.cuda.graph(g, stream=side, capture_error_mode="thread_local"):
+                upd(st)
+        times = []
+        for _ in range(reps):
+            for dst, src in zip(st, carry.map_state):
+                dst.copy_(src)
+            times.append(device_ms_once(g.replay))
+        times = sorted(t for t in times if t is not None)
+        out[name + ", captured"] = times[len(times) // 2] if times else None
+        del g, st
+    print(f"map update at the surfel shapes (c1 {carry.map_state.c1}, {int(mask.sum())} "
+          f"features; device ms, CUDA events, each on its own copy of the map): "
+          + "; ".join(f"{k} {fmt_ms(v)}" for k, v in out.items()), flush=True)
+    return out
+
+
 def main_path(scans_np, gt, cfg, consts, kw):
+    """make_chunk_runner over chunks of CHUNK frames, eagerly (graph=False)
+    and captured (the default): the captured run must be bit-equal to the
+    eager one and launch each kernel as often; its launches are the
+    path's."""
     import numpy as np
     import torch
     from lidar_odometry_tpu_torch import kernels
     from lidar_odometry_tpu_torch.eval import ate_rmse
     from lidar_odometry_tpu_torch.models import fast_pipeline as fp
 
-    runner = fp.make_chunk_runner(cfg, consts, **kw)
     chunks = [torch.as_tensor(scans_np[c:c + CHUNK], device=DEVICE)
               for c in range(0, len(scans_np), CHUNK)]
-    carry = fp.init_carry(0, C1, device=DEVICE)
-    sync()
+    eager = fp.make_chunk_runner(cfg, consts, graph=False, **kw)
     kernels.reset_counts()
-    t0 = time.perf_counter()
-    carry, out = runner(carry, chunks[0])
-    poses, kfs = [out[0]], [out[1]]
-    sync()
-    warm = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for ch in chunks[1:]:
-        carry, out = runner(carry, ch)
-        poses.append(out[0])
-        kfs.append(out[1])
-    sync()
-    elapsed = time.perf_counter() - t0
+    e_carry, e_out, e_first, e_rest = drive_chunks(
+        eager, fp.init_carry(0, C1, device=DEVICE), chunks)
+    eager_launches = kernels.counts()
+    runner = fp.make_chunk_runner(cfg, consts, **kw)
+    kernels.reset_counts()
+    carry, out, warm, elapsed = drive_chunks(runner, fp.init_carry(0, C1, device=DEVICE), chunks)
     launches = kernels.counts()
-    syncs = count_syncs(lambda: runner(carry, chunks[-1]))
-    print(f"host syncs: {syncs} in one chunk of {chunks[-1].shape[0]} frames", flush=True)
-    if PROFILE:
-        profile_window(lambda: runner(carry, chunks[-1]),
-                       f"the surfel path, one chunk of {chunks[-1].shape[0]} frames")
-    est = torch.cat(poses).cpu().numpy()
+    check_same_run("surfel", (e_carry, e_out), (carry, out))
+    if launches != eager_launches:
+        fail(f"surfel path: captured launches {launches} differ from the eager run's "
+             f"{eager_launches}")
+    print(f"surfel path: {len(runner.graphs)} captured chunk graph(s), {runner.replays} "
+          f"replays; launches equal to the eager run's", flush=True)
+    est = out[0].cpu().numpy()
     if not np.all(np.isfinite(est)) or est.shape != (len(scans_np), 4, 4):
         fail(f"surfel path: poses of shape {est.shape} not all finite")
     ate = ate_rmse(est, gt)
     fps = (len(scans_np) - CHUNK) / elapsed
-    print(f"surfel path: {len(scans_np)} frames in chunks of {CHUNK}; first chunk {warm:.3f} s; "
-          f"{fps:.1f} scans/s after it; ATE {ate:.4f} m; keyframes {int(carry.kf_count)}; "
+    print(f"surfel path: {len(scans_np)} frames in chunks of {CHUNK}; captured: first chunk "
+          f"{warm:.3f} s, {fps:.1f} scans/s after it (the capture in the second chunk); eager: "
+          f"first chunk {e_first:.3f} s, {(len(scans_np) - CHUNK) / e_rest:.1f} scans/s after "
+          f"it; ATE {ate:.4f} m; keyframes {int(carry.kf_count)}; "
           f"n_l0 {int(carry.map_state.n_l0)}; n_l1 {int(carry.map_state.n_l1)}; "
           f"n_dropped {int(carry.map_state.n_dropped)}", flush=True)
     check_launches("surfel", launches, SURFEL_KERNELS, ("grid_knn", "plane_fit_5nn"))
     if not ate < 0.5:
         fail(f"surfel path ATE {ate:.4f} m >= 0.5 m")
+    costs = update_costs(carry, scans_np[-1], cfg, kw)
+    windows = chunk_windows("surfel", lambda: eager(e_carry, chunks[-1]),
+                            lambda: runner(carry, chunks[-1]), runner)
+    busy = windows["captured"]["busy_ms"]
+    noop = costs["non-keyframe (predicated), captured"]
+    n_kf = int(out[1].sum())
+    if busy is not None and noop is not None:
+        share = noop * (len(scans_np) - n_kf) / (len(chunks) * busy)
+        print(f"surfel path: the non-keyframe updates of a chunk ({len(scans_np) - n_kf} of "
+              f"{len(scans_np)} frames are non-keyframes) take {100 * share:.1f} % of a "
+              f"captured chunk's device time ({noop:.4f} ms each as captured, {busy:.3f} ms "
+              f"busy a chunk)", flush=True)
+    if PROFILE:
+        profile_window(lambda: runner(carry, chunks[-1]),
+                       f"the surfel path, one captured chunk of {chunks[-1].shape[0]} frames")
     return launches, dict(scans_per_s=fps, ate_m=ate, frames=len(scans_np),
                           keyframes=int(carry.kf_count),
-                          keyframes_lane_frames=int(torch.cat(kfs)[:LANE_FRAMES].sum()))
+                          keyframes_lane_frames=int(out[1][:LANE_FRAMES].sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -2248,6 +2455,7 @@ def mid360_path(scans, gt, sysc):
           f"n_l0 {int(ms.n_l0)}; n_l1 {int(ms.n_l1)}; n_dropped {int(ms.n_dropped)}",
           flush=True)
     check_launches("mid360", launches, MID_KERNELS, MID_NEVER)
+    check_captured("mid360", est)
     if not ate < 0.5:
         fail(f"mid360 path ATE {ate:.4f} m >= 0.5 m")
     shutil.rmtree(data, ignore_errors=True)
@@ -2308,6 +2516,7 @@ def loops_path(scans, gt, cfg):
     print("loop stages (ms, cumulative): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
     check_launches("loops", launches, LOOPS_PATH_KERNELS, ("grid_knn",) + PGO_KERNELS)
+    check_captured("loops", est)
     if est.get_loop_closure_count() < 1:
         fail("the loops path accepted no loop")
     if est.rehash_count < 1:
@@ -2344,6 +2553,7 @@ def loops_path(scans, gt, cfg):
           f"the manual backend's {stages.get('pgo_solve', 0.0):.3f} ms", flush=True)
     check_launches("loops (distributed)", launches_d, LOOPS_PATH_KERNELS + PGO_KERNELS,
                    ("grid_knn",))
+    check_captured("loops (distributed)", est)
     if (dist["loops"], dist["rehashes"]) != (loops["loops"], loops["rehashes"]):
         fail(f"loops path (distributed): {dist['loops']} loops and {dist['rehashes']} rehashes "
              f"against the manual backend's {loops['loops']} and {loops['rehashes']}")
@@ -2403,11 +2613,12 @@ def profile_loop(est) -> None:
 # ---------------------------------------------------------------------------
 
 def checkpoint_path(scans, cfg, manual):
-    """The loops path's run again, saved at the last chunk boundary before
-    the frame whose keyframe closes the loop, restored into a fresh
-    Estimator on the card and run to the end with finalize_loops: the same
-    loop, a rehash, and the uninterrupted run's poses within 1e-3 m on
-    every frame. Then LiveViewer.update (its JSON fetched over 127.0.0.1),
+    """The loops path's run again, saved at the chunk boundary before the
+    last one before the frame whose keyframe closes the loop (so that the
+    restored run's second chunk, which closes it, replays a captured
+    graph), restored into a fresh Estimator on the card and run to the end
+    with finalize_loops: the same loop, a rehash, and the uninterrupted
+    run's poses within 1e-3 m on every frame; both runs' chunks captured. Then LiveViewer.update (its JSON fetched over 127.0.0.1),
     export_state and save_map_to_ply on the restored estimator."""
     import urllib.request
     import numpy as np
@@ -2417,7 +2628,7 @@ def checkpoint_path(scans, cfg, manual):
     if manual["loop"] is None:
         fail("checkpoint path: the loops path accepted no loop to resume before")
     m_id, q_id, q_frame = manual["loop"]
-    cut = (q_frame // LOOP_CHUNK) * LOOP_CHUNK
+    cut = (q_frame // LOOP_CHUNK - 1) * LOOP_CHUNK
     out = ROOT / "build" / "viewer_smoke"
     shutil.rmtree(out, ignore_errors=True)
     archive = out / "checkpoint.npz"
@@ -2428,6 +2639,7 @@ def checkpoint_path(scans, cfg, manual):
         est.process_chunk(scans[c:c + LOOP_CHUNK])
     if est.get_loop_closure_count():
         fail(f"checkpoint path: a loop was accepted before frame {cut}")
+    check_captured("checkpoint (before the save)", est)
     sync()
     t0 = time.perf_counter()
     checkpoint.save(str(archive), est)
@@ -2443,6 +2655,7 @@ def checkpoint_path(scans, cfg, manual):
     est.finalize_loops()
     traj = est.trajectory()
     launches = kernels.counts()
+    check_captured("checkpoint (restored)", est)
     gap = float(np.abs(traj[:, :3, 3] - manual["traj"][:, :3, 3]).max())
     loop = loop_of(est)
     mb = archive.stat().st_size / 2**20
@@ -2567,6 +2780,7 @@ def kitti_path(scans, gt, cfg, loops_ate: float):
         fail(f"kitti path: ATE {ate:.4f} m, the loops path's {loops_ate:.4f} m")
     if est.loop_errors:
         fail(f"kitti path: {est.loop_errors} loop errors")
+    check_captured("kitti", est)
     del est, player
     check_launches("kitti", launches, LOOPS_PATH_KERNELS, ("grid_knn",) + PGO_KERNELS)
     sync()
@@ -2941,39 +3155,44 @@ def blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel):
     from lidar_odometry_tpu_torch.eval import ate_rmse
     from lidar_odometry_tpu_torch.models import fast_pipeline as fp
 
-    boot = fp.make_blocked_runner(cfg, consts, batch=LANES, block=1, **kw)
-    blocked = fp.make_blocked_runner(cfg, consts, batch=LANES, block=LANE_BLOCK, **kw)
     chunks = [torch.as_tensor(lanes_np[:, c:c + LANE_CHUNK], device=DEVICE)
               for c in range(0, LANE_FRAMES, LANE_CHUNK)]
-    carry = fp.init_blocked_carry(LANES, 0, C1 * LANES, device=DEVICE)
-    sync()
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    carry, out = boot(carry, chunks[0])
-    poses, kfs = [out[0]], [out[1]]
-    sync()
-    warm = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for ch in chunks[1:]:
-        carry, out = blocked(carry, ch)
-        poses.append(out[0])
-        kfs.append(out[1])
-    sync()
-    elapsed = time.perf_counter() - t0
-    launches = kernels.counts()
-    est = torch.cat(poses, 1).cpu().numpy()
-    kf = torch.cat(kfs, 1).sum(1).tolist()
+    runs = {}
+    for graph in (False, True):
+        boot = fp.make_blocked_runner(cfg, consts, batch=LANES, block=1, graph=graph, **kw)
+        blocked = fp.make_blocked_runner(cfg, consts, batch=LANES, block=LANE_BLOCK,
+                                         graph=graph, **kw)
+        both = lambda carry, ch, boot=boot, blocked=blocked: (
+            boot if ch is chunks[0] else blocked)(carry, ch)
+        kernels.reset_counts()
+        carry, out, warm, elapsed = drive_chunks(
+            both, fp.init_blocked_carry(LANES, 0, C1 * LANES, device=DEVICE), chunks, dim=1)
+        runs[graph] = (carry, out, warm, elapsed, kernels.counts(), blocked)
+    e_carry, e_out, _, e_elapsed, eager_launches, eager_blocked = runs[False]
+    carry, out, warm, elapsed, launches, blocked = runs[True]
+    check_same_run("blocked", (e_carry, e_out), (carry, out))
+    if launches != eager_launches:
+        fail(f"blocked path: captured launches {launches} differ from the eager run's "
+             f"{eager_launches}")
+    print(f"blocked path: {len(blocked.graphs)} captured chunk graph(s) at block="
+          f"{LANE_BLOCK}, {blocked.replays} replays (the boot chunk runs once, eagerly); "
+          f"launches equal to the eager run's; eager {LANES * (LANE_FRAMES - LANE_CHUNK) / e_elapsed:.1f} "
+          f"scans/s aggregate after the boot chunk", flush=True)
+    est = out[0].cpu().numpy()
+    kf = out[1].sum(1).tolist()
     ms = carry.map_state
     n_l0, n_l1, n_dropped = int(ms.n_l0), int(ms.n_l1), int(ms.n_dropped)
     if est.shape != (LANES, LANE_FRAMES, 4, 4) or not np.all(np.isfinite(est)):
         fail(f"blocked path: poses of shape {est.shape} not all finite")
     ates = [ate_rmse(est[b], lane_gt[b]) for b in range(LANES)]
     thr = LANES * (LANE_FRAMES - LANE_CHUNK) / elapsed
-    syncs = count_syncs(lambda: blocked(carry, chunks[-1]))
+    windows = chunk_windows("blocked", lambda: eager_blocked(e_carry, chunks[-1]),
+                            lambda: blocked(carry, chunks[-1]), blocked)
+    syncs = windows["captured"]["host_syncs"]
     if PROFILE:
         profile_window(lambda: blocked(carry, chunks[-1]),
-                       f"the blocked path, one chunk of {LANE_CHUNK} frames x {LANES} lanes",
-                       "blocked_")
+                       f"the blocked path, one captured chunk of {LANE_CHUNK} frames x {LANES} "
+                       f"lanes", "blocked_")
     n_blocks = LANE_CHUNK + (LANE_FRAMES - LANE_CHUNK) // LANE_BLOCK
     print(f"blocked path: {LANES} lanes x {LANE_FRAMES} frames over one map of {C1 * LANES} "
           f"parents; boot chunk of {LANE_CHUNK} at block=1 {warm:.3f} s, then chunks of "
@@ -2996,8 +3215,8 @@ def blocked_path(lanes_np, lane_gt, cfg, consts, kw, surfel):
     if abs(kf[0] - surfel["keyframes_lane_frames"]) > 1:
         fail(f"blocked path: lane 0 made {kf[0]} keyframes, the surfel path "
              f"{surfel['keyframes_lane_frames']} over the same frames")
-    if syncs > 1:
-        fail(f"blocked path: {syncs} host syncs in one block={LANE_BLOCK} chunk (at most 1)")
+    if syncs:
+        fail(f"blocked path: {syncs} host syncs in one captured block={LANE_BLOCK} chunk")
     print("blocked path summary: " + json.dumps(dict(
         scans_per_s_aggregate=thr, scans_per_s_surfel_single=surfel["scans_per_s"],
         ate_m=ates, keyframes=kf, n_l0=n_l0, n_l1=n_l1, n_dropped=n_dropped,
@@ -3641,20 +3860,35 @@ def check_one_k2a_an_iteration(path: str, launches: dict) -> None:
         fail(f"{path} path: {k2a} K2a launches for {k11d} ICP iterations (one each expected)")
 
 
-def count_syncs(fn) -> int:
+def count_syncs(fn, where: str = "") -> int:
     """Synchronising CUDA calls the host makes in fn(), as torch.cuda's sync
-    debug mode reports them (one warning each)."""
+    debug mode reports them (one warning each); with `where`, each one's
+    innermost Python frames are printed."""
+    import traceback
     import warnings
     import torch
     sync()
-    with warnings.catch_warnings(record=True) as caught:
+    caught = []
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = lambda message, *a, **k: caught.append(
+            (str(message), [f for f in traceback.extract_stack()
+                            if Path(f.filename).name != "warnings.py"][:-1]))
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # only the sync warning itself: the first switch to "warn" in a process
+    # also warns once that the mode is a prototype ("... synchronizing
+    # operations"), which is no sync
+    found = [st for msg, st in caught if "called a synchronizing CUDA operation" in msg]
+    if where:
+        for st in found:
+            frames = " <- ".join(f"{Path(f.filename).parent.name}/{Path(f.filename).name}:"
+                                 f"{f.lineno}" for f in reversed(st[-4:]))
+            print(f"{where}: a host sync at {frames}", flush=True)
+    return len(found)
 
 
 def device_busy_us(prof):
@@ -3668,33 +3902,56 @@ def device_busy_us(prof):
     return sum(e.time_range.elapsed_us() for e in recs), len(recs)
 
 
-def profile_window(fn, label: str, prefix: str = "") -> None:
-    """One call of fn under torch.profiler: device busy share, time by
-    kernel, and the Chrome trace, written to PROFILE_DIR (file names start
-    with `prefix`)."""
+HOST_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                        "cudaLaunchKernelExC")
+HOST_GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def profile_stats(fn, tries: int = 3) -> dict:
+    """One call of fn under torch.profiler: its wall ms, device busy ms
+    (device_busy_us), records, busy share, and the kernel and graph
+    launches the host made. A window with no device record is one CUPTI
+    missed (as in device_records): up to `tries` windows; busy_ms and
+    busy_share are None where all were empty."""
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_us, n_records = device_busy_us(prof)
+        if n_records:
+            break
+    events = prof.key_averages()
+    launched = lambda names: sum(e.count for e in events if e.key in names)
+    busy = dev_us / 1e3 if n_records else None
+    return dict(prof=prof, events=events, wall_ms=wall, busy_ms=busy, records=n_records,
+                busy_share=None if busy is None else busy / wall,
+                kernel_launches=launched(HOST_KERNEL_LAUNCHES),
+                graph_launches=launched(HOST_GRAPH_LAUNCHES))
+
+
+def profile_window(fn, label: str, prefix: str = "") -> None:
+    """One call of fn under torch.profiler (profile_stats): device busy
+    share, time by kernel, and the Chrome trace, written to PROFILE_DIR
+    (file names start with `prefix`)."""
     out = ROOT / PROFILE_DIR
     out.mkdir(parents=True, exist_ok=True)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_us, n_records = device_busy_us(prof)
-    launched = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cuLaunchKernelEx",
-                                                         "cudaLaunchKernelExC"))
-    print(f"profile: {label}, wall {wall * 1e3:.3f} ms, "
-          f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f} %; "
-          f"{n_records} kernel, memcpy and memset records), "
-          f"{launched} kernel launches", flush=True)
+    st = profile_stats(fn)
+    events = st["events"]
+    busy = ("no device record" if st["busy_ms"] is None else
+            f"{st['busy_ms']:.3f} ms ({100 * st['busy_share']:.1f} %; {st['records']} kernel, "
+            f"memcpy and memset records)")
+    print(f"profile: {label}, wall {st['wall_ms']:.3f} ms, device busy {busy}, "
+          f"{st['kernel_launches']} kernel launches, {st['graph_launches']} graph launches",
+          flush=True)
     table = events.table(sort_by="self_device_time_total", row_limit=30)
     (out / f"{prefix}profile_device.txt").write_text(table)
     (out / f"{prefix}profile_host.txt").write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=40))
-    prof.export_chrome_trace(str(out / f"{prefix}profile_trace.json"))
+    st["prof"].export_chrome_trace(str(out / f"{prefix}profile_trace.json"))
     for line in table.splitlines()[:24]:
         print("  " + line[:180], flush=True)
 

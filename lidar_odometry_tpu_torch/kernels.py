@@ -31,6 +31,19 @@ between calls (`zeroed_scratch`): one zeroed buffer per kernel, device and
 stream, which each launch leaves zeroed, so no fill is launched before it;
 the others allocate theirs per call (K2b, K11b and K10d, whose sums meet
 in a thread-block cluster's shared memory, need none).
+
+CUDA graphs (the chunk runners of models/fast_pipeline.py capture a chunk
+with torch.cuda.graph): a launch made while the calling thread captures
+(`capturing()`) runs nothing, so it adds to that capture's counts, not to
+`Kernel.launches`; each replay of the graph adds the captured counts once
+(`add_replay`), so `counts()` and `fused_counts()` still count kernel
+executions. The loop worker's launches from its own thread count as
+before. Kept scratch is allocated before capture, by an eager run of the
+same work on the capture stream: under capture `zeroed_scratch` only hands
+out a buffer it already holds (else KernelError) and the capture keeps a
+reference to it, so a later, larger request on that stream cannot free
+memory that the graph's kernels still use. The graph's launches leave the
+buffer zeroed as eager ones do, so each replay finds it zeroed.
 """
 from __future__ import annotations
 
@@ -42,13 +55,15 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
 
 __all__ = ["Kernel", "KernelError", "KernelInputError", "KERNELS", "build", "library",
            "ptxas_info", "ptxas_entries", "reset_counts", "counts", "fused_counts", "check",
-           "check_aligned", "zeroed_scratch", "BUILD_DIR"]
+           "check_aligned", "zeroed_scratch", "Capture", "capturing", "add_replay", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -68,6 +83,7 @@ _P, _I, _F, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lo
 _libs: dict = {}
 _lock = threading.RLock()
 _scratch: dict = {}
+_tls = threading.local()     # .capture: the calling thread's Capture, if any
 
 
 class KernelError(RuntimeError):
@@ -221,6 +237,11 @@ class Kernel:
         if err != 0:
             raise KernelError(f"CUDA kernel {self.name} failed to launch "
                                f"(cudaError {err})")
+        cap = getattr(_tls, "capture", None)
+        if cap is not None:
+            cap.launches[self.name] += 1
+            cap.fused.update(fused)
+            return
         with _lock:
             self.launches += 1
             for name in fused:
@@ -328,6 +349,37 @@ def reset_counts() -> None:
             k.fused = 0
 
 
+class Capture:
+    """The kernel launches of one CUDA graph capture, by kernel name
+    (`launches`, `fused`), and the kept scratch its kernels use."""
+
+    def __init__(self):
+        self.launches = Counter()
+        self.fused = Counter()
+        self.scratch = []
+
+
+@contextmanager
+def capturing():
+    """Count the calling thread's launches into a new Capture (yielded)
+    instead of `Kernel.launches`: wrap a graph's capture in it."""
+    cap, prev = Capture(), getattr(_tls, "capture", None)
+    _tls.capture = cap
+    try:
+        yield cap
+    finally:
+        _tls.capture = prev
+
+
+def add_replay(cap: Capture) -> None:
+    """Count one replay of a graph whose capture counted `cap`."""
+    with _lock:
+        for name, n in cap.launches.items():
+            KERNELS[name].launches += n
+        for name, n in cap.fused.items():
+            KERNELS[name].fused += n
+
+
 def counts() -> dict:
     with _lock:
         return {name: k.launches for name, k in KERNELS.items()}
@@ -366,11 +418,19 @@ def zeroed_scratch(name: str, device, words: int) -> torch.Tensor:
     calling thread's current stream of `device`, kept between calls: its
     kernel leaves it zeroed when it ends. A stream runs its launches in
     order, so they share one buffer; a larger request replaces it with a
-    new zeroed one (the only fill, at a first or larger call)."""
+    new zeroed one (the only fill, at a first or larger call). Under
+    `capturing()` it only hands out a buffer it holds, and the capture
+    keeps it (module docstring)."""
     key = (name, torch.device(device).index, torch.cuda.current_stream().cuda_stream)
+    cap = getattr(_tls, "capture", None)
     with _lock:
         buf = _scratch.get(key)
         if buf is None or buf.numel() < words:
+            if cap is not None:
+                raise KernelError(f"{name}: no kept scratch of {words} words on the capture "
+                                  f"stream; run the captured work once on that stream first")
             buf = torch.zeros((max(words, 256),), dtype=torch.int64, device=device)
             _scratch[key] = buf
+        if cap is not None:
+            cap.scratch.append(buf)
         return buf

@@ -5,9 +5,15 @@ models/estimator.py).
 the map with a constant-velocity guess -> velocity update -> keyframe
 decision -> keyframe record, pose-graph odometry factor, map update and
 loop query. `process_chunk` runs a chunk of scans through the fused chunk
-runner (models/fast_pipeline.py) and does the same host bookkeeping
+runner (models/fast_pipeline.py; on the card one captured CUDA graph a
+chunk length, GraphedChunk) and does the same host bookkeeping
 afterwards, optionally deferred (loops off) so that consecutive chunks run
-with no host round trip. Poses, keyframe records and the pose graph live
+with no host round trip. The runner copies in a carry that is not its
+graph's buffers (the first chunk, a restore, the map rehashed after a
+pose-graph optimisation, a carry rebuilt after process_frame) and hands
+back clones of the outputs, so deferred feature clouds outlive the next
+replay; a player's sampled chunks (one frame shorter) get a graph of
+their own. Poses, keyframe records and the pose graph live
 on the host; the map, the chunk carry and the Iris DB stay on the device.
 
 Loop closure: a keyframe's loop query runs Iris detection

@@ -4,12 +4,13 @@ frame step; init_blocked_carry and make_blocked_runner).
 
 Per frame: voxel filter (K1), ICP with PKO (surfel mode: K2a, K3, K2b per
 iteration; KD-tree mode: K5a, K5b, K3, K2b), re-orthonormalisation, the constant-velocity model and the
-keyframe decision (small torch ops on the device), and on keyframes the
-map update (K4a-c; K4a-b without surfels). The JAX runner is one lax.scan with the keyframe
-branch as a lax.cond; here the chunk is a Python loop over frames that
-reads the keyframe flag to the host once per frame to take the branch.
-That read is the slice's one host sync per frame; everything else stays
-on the device.
+keyframe decision (small torch ops on the device), and the map update
+(K4a-c; K4a-b without surfels). The JAX runner is one lax.scan with the
+keyframe branch as a lax.cond; here the branch is predicated on the
+device: the update runs every frame, its inserts masked by the keyframe
+flag and its eviction scan enabled on every 4th keyframe only, so a
+non-keyframe's update leaves the map bit-equal to no update and the
+frame step reads nothing on the host.
 
 The blocked runner (multi-sequence serving) runs B independent sequences
 over ONE shared map, lane b's world shifted by b * lane_spacing_m in x.
@@ -18,8 +19,13 @@ step) runs all lanes at once: one K1 launch, one K2a, K3 and K2b per ICP
 iteration, each with one block row per lane. Frames go in blocks of
 `block`; each block ends in ONE unconditional map update that inserts
 every lane's keyframe features (masked per lane-frame, compacted to 1.5
-keyframes per lane) with the B lane sensors for the eviction. There is no
-keyframe branch, so a chunk needs no host read.
+keyframes per lane) with the B lane sensors for the eviction.
+
+On the card both runners run a chunk as one captured CUDA graph, the
+counterpart of the jitted lax.scan with its carry donated
+(`GraphedChunk`): the first call of a shape runs the chunk eagerly as
+the warm-up, the second captures it, and every later call of that shape
+copies the scans in and replays. CPU tensors run the chunk eagerly.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..ops import icp as icp_ops
 from ..ops import pko as pko_ops
 from ..ops import voxel_filter as vf
@@ -35,7 +42,7 @@ from ..utils import keys as K
 from ..utils import lie
 
 __all__ = ["OdomCarry", "init_carry", "make_chunk_runner", "init_blocked_carry",
-           "make_blocked_runner"]
+           "make_blocked_runner", "GraphedChunk"]
 
 
 class OdomCarry(NamedTuple):
@@ -112,14 +119,15 @@ def make_chunk_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConstan
                       scan_capacity: int, keyframe_distance: float,
                       keyframe_rotation: float, max_distance: float,
                       planarity_threshold: float, compute_surfels: bool = True,
-                      return_features: bool = False):
+                      return_features: bool = False, graph: bool = True):
     """Build chunk(carry, scans (F, N, 3)) -> (carry, (poses (F, 4, 4),
     is_kf (F,), n_corr (F,))) — plus (feats (F, cap, 3), masks (F, cap))
     with return_features=True. Scans are raw padded clouds whose pad rows
     are non-finite. compute_surfels=False keeps no surfels in the map, as
     KD-tree-mode ICP (icp_cfg.use_surfel_correspondence=False) needs none.
     The carry's buffers are updated in place: treat the carry passed in
-    as consumed."""
+    as consumed. graph=True runs CUDA chunks through `GraphedChunk`;
+    graph=False runs them eagerly (to compare against)."""
     pre = _make_pre(icp_cfg, pko_consts, scan_voxel_size=scan_voxel_size,
                     point_stride=point_stride, scan_capacity=scan_capacity,
                     keyframe_distance=keyframe_distance, keyframe_rotation=keyframe_rotation)
@@ -127,16 +135,16 @@ def make_chunk_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConstan
     def frame_step(carry: OdomCarry, raw_scan: torch.Tensor):
         dev = raw_scan.device
         T, velocity, is_kf, n_corr, feat, mask = pre(carry, raw_scan)
-        map_state = carry.map_state
-        if bool(is_kf):   # the slice's one host read per frame
-            world = lie.transform_points(T, feat)
-            map_state = vm.update_map(
-                map_state, world, mask, T[:3, 3], max_distance,
-                voxel_size=icp_cfg.voxel_size,
-                planarity_threshold=planarity_threshold,
-                hierarchy_factor=icp_cfg.hierarchy_factor,
-                compute_surfels=compute_surfels,
-                evict_enabled=(carry.kf_count % 4 == 0))
+        # the JAX runner's keyframe cond, predicated: a non-keyframe inserts
+        # nothing and scans nothing for eviction, which leaves every map
+        # tensor as it was; the radius-eviction scan runs on every 4th
+        # keyframe
+        map_state = vm.update_map(
+            carry.map_state, lie.transform_points(T, feat), mask & is_kf, T[:3, 3],
+            max_distance, voxel_size=icp_cfg.voxel_size,
+            planarity_threshold=planarity_threshold,
+            hierarchy_factor=icp_cfg.hierarchy_factor, compute_surfels=compute_surfels,
+            evict_enabled=is_kf & (carry.kf_count % 4 == 0))
         new_carry = OdomCarry(
             map_state=map_state, T_prev=T, velocity=velocity,
             last_kf_pose=torch.where(is_kf, T, carry.last_kf_pose),
@@ -152,7 +160,7 @@ def make_chunk_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConstan
         cols = [torch.stack(c) for c in zip(*outs)]
         return carry, tuple(cols if return_features else cols[:3])
 
-    return chunk
+    return GraphedChunk(chunk) if graph else chunk
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +194,8 @@ def make_blocked_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConst
                         batch: int, block: int = 4, lane_spacing_m: float = 1024.0,
                         scan_voxel_size: float, point_stride: int, scan_capacity: int,
                         keyframe_distance: float, keyframe_rotation: float,
-                        max_distance: float, planarity_threshold: float):
+                        max_distance: float, planarity_threshold: float,
+                        graph: bool = True):
     """B independent sequences over ONE shared map at disjoint x offsets
     (lane b at b * lane_spacing_m, far beyond the eviction radius, so lanes
     never interact; eviction takes the min distance over the B lane
@@ -200,7 +209,8 @@ def make_blocked_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConst
     is_kf (B, F), n_corr (B, F))). F must be a multiple of `block`. The
     eviction scan runs on the blocks whose index, counted from 0 in each
     chunk call, is a multiple of 4. The carry's buffers are updated in
-    place: treat the carry passed in as consumed."""
+    place: treat the carry passed in as consumed. graph=True runs CUDA
+    chunks through `GraphedChunk`; graph=False runs them eagerly."""
     pre = _make_pre(icp_cfg, pko_consts, scan_voxel_size=scan_voxel_size,
                     point_stride=point_stride, scan_capacity=scan_capacity,
                     keyframe_distance=keyframe_distance, keyframe_rotation=keyframe_rotation)
@@ -255,4 +265,107 @@ def make_blocked_runner(icp_cfg: icp_ops.ICPConfig, pko_consts: pko_ops.PKOConst
             carry = carry._replace(map_state=map_state)
         return carry, (torch.stack(poses, 1), torch.stack(kfs, 1), torch.stack(ncs, 1))
 
-    return chunk
+    return GraphedChunk(chunk) if graph else chunk
+
+
+# ---------------------------------------------------------------------------
+# a chunk as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+def _leaves(carry: OdomCarry) -> list:
+    return list(carry.map_state) + list(carry[1:])
+
+
+def _from_leaves(leaves: list) -> OdomCarry:
+    n = len(vm.VoxelMapState._fields)
+    return OdomCarry(vm.VoxelMapState(*leaves[:n]), *leaves[n:])
+
+
+class CapturedChunk(NamedTuple):
+    """One captured chunk: the graph, its static scans and outputs, and
+    what its capture launched (`kernels.Capture`)."""
+    graph: torch.cuda.CUDAGraph
+    scans: torch.Tensor
+    outs: tuple
+    capture: kernels.Capture
+
+
+class GraphedChunk:
+    """chunk(carry, scans) run as one CUDA graph per shape on the card.
+
+    Keyed by the carry's and the scans' shapes (a map of another capacity
+    is another key), the first call of a key runs the chunk eagerly on the
+    runner's capture stream: the warm-up that builds the kernels, makes
+    the libraries' state and allocates the kept scratch (never a frame run
+    twice: the carry is updated in place). The second call captures the
+    chunk on that stream, in thread_local mode so that the loop worker's
+    thread neither breaks the capture nor lands in it, with the carry in
+    static buffers shared by every graph of that carry shape. Each call
+    from then on copies in any carry tensor that is not already its buffer
+    (the first call, a restored or rehashed map, a carry rebuilt from
+    host state), copies the scans in, replays, adds the captured kernel
+    launches to `kernels.counts()` (and one to `replays`), and returns the
+    carry buffers and clones of the outputs, which outlive the next
+    replay. A failed capture
+    or replay raises; nothing falls back to the eager chunk. CPU tensors
+    run the chunk eagerly."""
+
+    def __init__(self, chunk):
+        self.eager = chunk
+        self.graphs: dict = {}      # key -> CapturedChunk
+        self.replays = 0
+        self._warm: set = set()
+        self._carries: dict = {}    # carry shapes -> static carry leaves
+        self._stream = None
+
+    def __call__(self, carry: OdomCarry, scans: torch.Tensor):
+        if not scans.is_cuda:
+            return self.eager(carry, scans)
+        leaves = _leaves(carry)
+        ckey = tuple((tuple(t.shape), t.dtype) for t in leaves)
+        key = (ckey, tuple(scans.shape))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=scans.device)
+        cap = self.graphs.get(key)
+        if cap is None:
+            if key not in self._warm:
+                self._warm.add(key)
+                return self._warm_up(carry, scans)
+            cap = self.graphs[key] = self._capture(ckey, leaves, scans)
+        static = self._carries[ckey]
+        for dst, src in zip(static, leaves):
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+        cap.scans.copy_(scans)
+        cap.graph.replay()
+        self.replays += 1
+        kernels.add_replay(cap.capture)
+        return _from_leaves(static), tuple(o.clone() for o in cap.outs)
+
+    def _warm_up(self, carry, scans):
+        cur = torch.cuda.current_stream(scans.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            out = self.eager(carry, scans)
+        cur.wait_stream(self._stream)
+        return out
+
+    def _capture(self, ckey, leaves, scans) -> CapturedChunk:
+        static = self._carries.get(ckey)
+        if static is None:
+            static = self._carries[ckey] = [torch.empty_like(t) for t in leaves]
+        static_scans = torch.empty_like(scans)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with kernels.capturing() as capture:
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                carry, outs = self.eager(_from_leaves(static), static_scans)
+                for dst, src in zip(static, _leaves(carry)):
+                    if (src.shape, src.dtype) != (dst.shape, dst.dtype):
+                        raise ValueError(f"the chunk turned a carry tensor of {dst.dtype} "
+                                         f"{tuple(dst.shape)} into {src.dtype} "
+                                         f"{tuple(src.shape)}: it cannot be captured")
+                    if src.data_ptr() != dst.data_ptr():
+                        dst.copy_(src)
+        graph.instantiate()
+        return CapturedChunk(graph, static_scans, outs, capture)

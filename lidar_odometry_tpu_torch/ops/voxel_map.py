@@ -551,7 +551,9 @@ def update_map(state: VoxelMapState, new_pts, new_mask, sensor_pos,
         # no surfels: free the cells that eviction emptied, clear has
         l1_top = _free_cells(l1_index, l1_meta, l1_free, l1_top, aff_ok & (cnt == 0),
                              aff_slot)
-        l1_surfel[wslot, torch.full_like(wslot, 7)] = 0.0
+        # index_fill_ takes its value as a kernel argument: assigning a
+        # Python scalar through indexing would copy it from the host
+        l1_surfel[:, 7].index_fill_(0, wslot, 0.0)
         return _finish(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free, l1_top,
                        n_l0, n_dropped)
     prev_has = aff_ok & (l1_surfel[aff_c, 7] > 0.5)
@@ -626,7 +628,7 @@ def _finish(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free, l1_top, n_l
     _clear_sinks(l0_data, l1_index, l1_meta, l1_last, l1_surfel, l1_free)
     return VoxelMapState(
         l0_data=l0_data, l1_index=l1_index, l1_meta=l1_meta, l1_last=l1_last,
-        l1_surfel=l1_surfel, l1_free=l1_free, l1_free_top=l1_top, n_l0=n_l0,
+        l1_surfel=l1_surfel, l1_free=l1_free, l1_free_top=l1_top.to(torch.int32), n_l0=n_l0,
         n_l1=(l1_meta.shape[0] - 1 - l1_top).to(torch.int32), n_dropped=n_dropped)
 
 

@@ -99,6 +99,10 @@ def main() -> None:
         return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
     pko.pko_alpha_index = checked
+    # the check runs in Python at every call: the chunks run eagerly, the
+    # Estimator's too (a captured chunk would replay K3 without it)
+    make_runner = fp.make_chunk_runner
+    fp.make_chunk_runner = lambda *a, **k: make_runner(*a, **k, graph=False)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
 
